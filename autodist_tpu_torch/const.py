@@ -1,0 +1,547 @@
+"""Constants and environment-flag system.
+
+TPU-native re-design of the reference's ``autodist/const.py``
+(const.py:32-89), copied into the PyTorch port: working directories, name-scope
+prefixes, the port range used by the multi-process launcher, and a typed
+``ENV`` enum of environment flags that are explicitly propagated to worker
+processes by the coordinator.
+"""
+import os
+import tempfile
+from enum import Enum
+
+# Working directories ------------------------------------------------------
+# Hyphenated on purpose: an importable name here would shadow the package
+# as a namespace package for any process whose cwd is the temp dir. The
+# port roots it at the process's temp dir (TMPDIR is honoured).
+DEFAULT_WORKING_DIR = os.path.join(tempfile.gettempdir(), 'autodist-tpu-torch')
+DEFAULT_SERIALIZATION_DIR = os.path.join(DEFAULT_WORKING_DIR, 'strategies')
+DEFAULT_LOG_DIR = os.path.join(DEFAULT_WORKING_DIR, 'logs')
+DEFAULT_TRACE_DIR = os.path.join(DEFAULT_WORKING_DIR, 'traces')
+DEFAULT_GRAPH_DUMP_DIR = os.path.join(DEFAULT_WORKING_DIR, 'graphs')
+DEFAULT_CHECKPOINT_DIR = os.path.join(DEFAULT_WORKING_DIR, 'checkpoints')
+
+# Port range for the coordination service / distributed runtime
+# (reference uses 15000-16000 for tf.Server grpc ports, const.py:38).
+DEFAULT_PORT_RANGE = iter(range(15000, 16000))
+# jax.distributed coordinator and the native coord service are distinct
+# endpoints; keep their default ports distinct too.
+DEFAULT_JAX_COORD_PORT = 14999
+DEFAULT_COORD_PORT = 14998
+
+# Mesh axis names used by the strategy compiler. The reference only has a
+# replica ("data") dimension; the TPU rebuild exposes the full set.
+AXIS_DATA = 'data'
+AXIS_MODEL = 'model'
+AXIS_PIPELINE = 'pipe'
+AXIS_SEQUENCE = 'seq'
+AXIS_EXPERT = 'expert'
+ALL_AXES = (AXIS_DATA, AXIS_MODEL, AXIS_PIPELINE, AXIS_SEQUENCE, AXIS_EXPERT)
+
+# Name-scope prefixes (parity with const.py:41-51).
+AUTODIST_PREFIX = 'AutoDist-'
+AUTODIST_REPLICA_PREFIX = AUTODIST_PREFIX + 'Replica-'
+AUTODIST_TO_DELETE_SCOPE = 'to-delete'
+
+MAX_INT32 = 2 ** 31 - 1
+
+# Gradient-bucketing defaults. A merged AllReduce group is packed into
+# byte-capped buckets (parallel/plan.py pack_buckets) so the first
+# bucket's collective issues while earlier layers' backward compute is
+# still producing gradients, instead of one model-sized concat that
+# serializes behind the whole backward pass. The cap derives from the
+# strategy's ``chunk_size`` (tensors per merged group, the reference
+# AllReduce knob) at BUCKET_BYTES_PER_CHUNK each — the default
+# 128 * 256 KiB = 32 MiB sits in the band where TPU ICI is
+# bandwidth-bound rather than latency-bound. ``AUTODIST_BUCKET_BYTES``
+# overrides the cap directly.
+DEFAULT_CHUNK_SIZE = 128
+BUCKET_BYTES_PER_CHUNK = 256 << 10
+
+
+def _positive_float(name, raw, default):
+    """Validated env parse: a strictly positive float."""
+    if not raw:
+        return default
+    val = float(raw)
+    if val <= 0:
+        raise ValueError('%s must be > 0; got %r' % (name, raw))
+    return val
+
+
+def _min_int(name, raw, default, lo):
+    """Validated env parse: an integer >= ``lo``."""
+    if not raw:
+        return default
+    val = int(raw)
+    if val < lo:
+        raise ValueError('%s must be >= %d; got %r' % (name, lo, raw))
+    return val
+
+
+def _frac(name, raw, default):
+    """Validated env parse: a float in [0, 1]."""
+    if raw is None or raw == '':
+        return default
+    val = float(raw)
+    if not 0.0 <= val <= 1.0:
+        raise ValueError('%s must be in [0, 1]; got %r' % (name, raw))
+    return val
+
+
+def _max_workers(name, raw):
+    """Validated env parse for the elastic scale-up ceiling: an integer
+    >= the live ``AUTODIST_MIN_WORKERS`` floor (the two bounds must
+    describe a non-empty membership band). The default stays above any
+    explicitly raised floor."""
+    lo = ENV.AUTODIST_MIN_WORKERS.val
+    if not raw:
+        return max(64, lo)
+    val = int(raw)
+    if val < lo:
+        raise ValueError(
+            '%s must be >= AUTODIST_MIN_WORKERS (%d); got %r'
+            % (name, lo, raw))
+    return val
+
+
+def _roofline_peaks(name, raw):
+    """Validated env parse for the roofline peak-table override:
+    ``flops=<FLOP/s>[,hbm_gbps=<GB/s>]`` (either key alone is fine).
+    Returns ``{}`` when unset, else a dict with the given keys as
+    positive finite floats — a malformed override must fail at parse
+    time naming the field, not mid-bench as a nonsense MFU."""
+    import math
+    if not raw:
+        return {}
+    out = {}
+    for part in raw.split(','):
+        part = part.strip()
+        if not part:
+            continue
+        key, sep, val = part.partition('=')
+        key = key.strip()
+        if not sep or key not in ('flops', 'hbm_gbps'):
+            raise ValueError(
+                "%s entries must be flops=<FLOP/s> or hbm_gbps=<GB/s>; "
+                'got %r' % (name, part))
+        try:
+            fval = float(val)
+        except ValueError:
+            raise ValueError('%s.%s must be a number; got %r'
+                             % (name, key, val)) from None
+        if not math.isfinite(fval) or fval <= 0:
+            raise ValueError('%s.%s must be a positive finite number; '
+                             'got %r' % (name, key, val))
+        out[key] = fval
+    return out
+
+
+def _choice(name, raw, default, allowed):
+    """Validated env parse: one of a closed set of strings."""
+    if not raw:
+        return default
+    if raw not in allowed:
+        raise ValueError('%s must be one of %s; got %r'
+                         % (name, '|'.join(allowed), raw))
+    return raw
+
+
+class ENV(Enum):
+    """Typed environment flags, each with a default-producing lambda.
+
+    Mirrors reference const.py:55-89. ``val`` parses the raw env var into a
+    typed value. Flags are explicitly forwarded to launched worker
+    processes by :mod:`autodist_tpu.runtime.coordinator`.
+    """
+
+    AUTODIST_WORKER = (lambda v: v if v else '',)                    # worker address; empty => chief
+    AUTODIST_STRATEGY_ID = (lambda v: v if v else '',)               # strategy id to load on workers
+    AUTODIST_MIN_LOG_LEVEL = (lambda v: v if v else 'INFO',)
+    AUTODIST_IS_TESTING = (lambda v: (v == 'True' or v == '1'),)
+    AUTODIST_DEBUG_REMOTE = (lambda v: (v == 'True' or v == '1'),)
+    SYS_DATA_PATH = (lambda v: v if v else '',)
+    SYS_RESOURCE_PATH = (lambda v: v if v else '',)
+    # TPU-native additions:
+    AUTODIST_PROCESS_ID = (lambda v: int(v) if v else 0,)            # jax.distributed process index
+    AUTODIST_NUM_PROCESSES = (lambda v: int(v) if v else 1,)
+    AUTODIST_COORDINATOR_ADDR = (lambda v: v if v else '',)          # host:port for jax.distributed
+    AUTODIST_COORD_SERVICE_ADDR = (lambda v: v if v else '',)        # host:port for native coord service
+    AUTODIST_RUN_ID = (lambda v: v if v else '',)                    # launcher-issued run nonce (namespaces coord keys)
+    AUTODIST_DUMP_GRAPHS = (lambda v: (v == 'True' or v == '1'),)    # dump jaxpr/HLO per phase
+    # loose-mode failure detection: a peer whose heartbeat is older than
+    # this many seconds is declared dead while we wait on the staleness
+    # gate (0 disables). Keep it longer than the slowest expected step.
+    AUTODIST_HEARTBEAT_TIMEOUT = (lambda v: float(v) if v else 60.0,)
+    # loose-mode PS data plane: comma-separated host:port list of PS
+    # endpoints (one coord-service instance each). Unset = single
+    # endpoint on the coord service itself. Variables land on the
+    # endpoint their strategy reduction_destination maps to — the
+    # multi-server placement the reference gets from one tf.Server per
+    # node (utils/server_starter.py:48-75).
+    AUTODIST_PS_ENDPOINTS = (lambda v: v if v else '',)
+    # wire dtype for PS tensor frames: f32 (default), bf16 (half the
+    # bytes; values rounded to bf16 on the wire, kept f32 at rest) or
+    # i8 (block-quantized ~quarter bytes, PUSH direction only — pulls
+    # and stores ride f32, and the session carries an error-feedback
+    # residual per pushed delta; docs/design/quantized-wire.md).
+    AUTODIST_PS_WIRE_DTYPE = (lambda v: v if v else 'f32',)
+    # PS frame chunking: tensors above this many wire bytes move as
+    # ranged chunks (all B* updates are elementwise, so chunked
+    # application is exact). 0 disables chunking.
+    AUTODIST_PS_CHUNK_BYTES = (lambda v: int(v) if v else 64 << 20,)
+    # Row-sparse PS pushes (runtime/session.py _push_ps_deltas): a
+    # sparse-flagged variable's delta ships as indices+rows (BSADD)
+    # when its touched-row fraction is at or below this threshold —
+    # lossless, because the dropped rows' delta is exactly zero. Above
+    # it (or at 0.0, which disables the sparse plane) the dense BADD
+    # path is used. 0.5 default: beyond half the rows the index
+    # overhead outweighs the dense saving.
+    AUTODIST_SPARSE_PUSH_MAX_FRAC = \
+        (lambda v: _frac('AUTODIST_SPARSE_PUSH_MAX_FRAC', v, 0.5),)
+    # Row-sparse proxy refresh: after a sparse push, the local proxy
+    # cache refreshes only the pushed rows (BGETROWS); every Nth
+    # refresh of a variable falls back to a FULL fetch so rows other
+    # workers touched converge. 0 = never full-refresh (single-worker
+    # runs, where nobody else writes).
+    AUTODIST_SPARSE_FULL_REFRESH_EVERY = \
+        (lambda v: _min_int('AUTODIST_SPARSE_FULL_REFRESH_EVERY', v,
+                            64, lo=0),)
+    # shared secret for the coord-service handshake: when set, the
+    # service challenges every connection with a nonce and requires
+    # HMAC-SHA256(token, nonce) before any command. Empty = open
+    # (loopback-only deployments). Forwarded to workers like the other
+    # flags; never passed on argv.
+    AUTODIST_COORD_TOKEN = (lambda v: v if v else '',)
+    # alternative token transport: path to a file holding the secret.
+    # The ssh coordinator ships the token this way (a mode-0600 file
+    # copied like the strategy) because env assignments ride the remote
+    # command line, which is world-readable in `ps` on the worker host.
+    AUTODIST_COORD_TOKEN_FILE = (lambda v: v if v else '',)
+    # opt-in space-to-depth stem transform for narrow-channel stride-2
+    # stem convs (measured neutral on v5e — BASELINE.md round-5; kept
+    # for TPU generations where stems bind). Forwarded to launched
+    # workers (coordinator _FORWARDED_FLAGS) so every traced host
+    # agrees — divergent HLO across SPMD hosts deadlocks.
+    AUTODIST_S2D_STEM = (lambda v: (v == 'True' or v == '1'),)
+    # byte cap for fused gradient all-reduce buckets (0 = derive from
+    # the strategy's chunk_size; see const.BUCKET_BYTES_PER_CHUNK).
+    AUTODIST_BUCKET_BYTES = (lambda v: int(v) if v else 0,)
+    # XLA overlap flags (latency-hiding scheduler + async collectives,
+    # runtime/session.py setup) are enabled when gradient bucketing is
+    # active; '0'/'False' opts out.
+    AUTODIST_XLA_OVERLAP = (lambda v: not (v == '0' or v == 'False'),)
+    # PS data plane torn-read retry budget (coord_client.vget): attempt
+    # cap and base backoff for reads raced by concurrent pushes.
+    AUTODIST_PS_TORN_RETRIES = (lambda v: int(v) if v else 100,)
+    AUTODIST_PS_TORN_BACKOFF_S = (lambda v: float(v) if v else 0.01,)
+    # torn-read stall window (coord_client.vget/vmget): how long a pull
+    # waits for an in-flight chunked write whose version has stopped
+    # advancing before declaring the writer dead. Must cover one full
+    # chunk frame's encode+wire time; tests shrink it.
+    AUTODIST_PS_STALL_TIMEOUT_S = \
+        (lambda v: _positive_float('AUTODIST_PS_STALL_TIMEOUT_S', v,
+                                   10.0),)
+    # loose-mode PS pipeline depth (runtime/session.py): 1 = the serial
+    # pull -> step -> push data plane (bit-exact legacy semantics);
+    # 2 = one step of overlap — step N's delta push + publish and step
+    # N+1's variable pull run on a background pipeline thread, hidden
+    # behind N's host tail. Values > 2 clamp to 2 (a pull must follow
+    # the previous push of the same variable, so at most one step can
+    # be in flight without breaking read-your-writes).
+    AUTODIST_PS_PIPELINE_DEPTH = \
+        (lambda v: _min_int('AUTODIST_PS_PIPELINE_DEPTH', v, 1, lo=1),)
+    # loose-mode peer-failure policy (runtime/session.py): what a
+    # surviving worker does when a peer misses heartbeats past
+    # AUTODIST_HEARTBEAT_TIMEOUT while it waits on the staleness gate.
+    #   fail    - raise (the pre-recovery fail-fast behavior; default)
+    #   exclude - fence the dead peer's writer generation, drop it from
+    #             the gate membership (epoch bump) and keep training,
+    #             bounded below by AUTODIST_MIN_WORKERS
+    #   restart - keep waiting while the Coordinator supervises a
+    #             capped-backoff restart of the dead worker; raise only
+    #             once the supervisor marks it permanently failed
+    AUTODIST_PEER_FAILURE_POLICY = \
+        (lambda v: _choice('AUTODIST_PEER_FAILURE_POLICY', v, 'fail',
+                           ('fail', 'exclude', 'restart')),)
+    # floor for policy=exclude: a membership that would drop below this
+    # many live workers fails instead of shrinking further.
+    AUTODIST_MIN_WORKERS = \
+        (lambda v: _min_int('AUTODIST_MIN_WORKERS', v, 1, lo=1),)
+    # ceiling for elastic scale-UP: a live JOIN (or an autoscale
+    # decision) that would grow the membership past this many workers
+    # is refused. Validated >= AUTODIST_MIN_WORKERS at parse time; the
+    # launch quorum itself is not bounded by it (it caps joins only).
+    AUTODIST_MAX_WORKERS = \
+        (lambda v: _max_workers('AUTODIST_MAX_WORKERS', v),)
+    # marks a process as a live JOINer into an already-running loose-
+    # mode namespace: the session skips the launch-cohort rendezvous,
+    # claims a fresh worker slot at the control plane (the admit
+    # handshake — runtime/session.py admit_worker), pulls current
+    # params from the PS and adopts the published step floor. Set by
+    # Coordinator.scale_up on the processes it launches; never set on
+    # the launch cohort.
+    AUTODIST_ELASTIC_JOIN = (lambda v: (v == 'True' or v == '1'),)
+    # policy=restart: how many supervised restarts one worker gets
+    # (capped exponential backoff between attempts) before the
+    # coordinator marks it permanently failed and aborts the run.
+    AUTODIST_MAX_WORKER_RESTARTS = \
+        (lambda v: _min_int('AUTODIST_MAX_WORKER_RESTARTS', v, 3, lo=0),)
+    # policy=restart: how long survivors wait at the staleness gate for
+    # ONE dead peer's supervised replacement to start beating again
+    # before giving up. The gate's own window re-arms while a restart
+    # is pending (respawn + rejoin + recompile can legitimately exceed
+    # it); this is the backstop against a silently dead supervisor —
+    # the normal abort path is the supervisor's failed marker. Covers
+    # the full restart budget: every backoff plus a cold XLA compile.
+    AUTODIST_RESTART_WAIT_S = \
+        (lambda v: _positive_float('AUTODIST_RESTART_WAIT_S', v,
+                                   1800.0),)
+    # chief-side auto-checkpoint backstop for loose-mode recovery: save
+    # the chief's variable state every N train steps through
+    # checkpoint.CheckpointManager (async, off the critical path).
+    # 0 disables (default).
+    AUTODIST_AUTO_CHECKPOINT_EVERY = \
+        (lambda v: _min_int('AUTODIST_AUTO_CHECKPOINT_EVERY', v, 0,
+                            lo=0),)
+    # deterministic fault-injection plan (utils/faultline.py): inline
+    # JSON, or @/path/to/plan.json. Empty = no faults. Only honored
+    # when the process explicitly installs a FaultLine (chaos tests,
+    # bench recovery A/B) — production sessions never read it.
+    AUTODIST_FAULT_PLAN = (lambda v: v if v else '',)
+    # Block size (elements) for block-quantized int8 wire formats: the
+    # Int8RingCompressor's bucket/ring quantization and the PS data
+    # plane's 'i8' wire dtype both carry ONE f32 scale per block of
+    # this many int8 values (EQuARX-style; per-block scales bound an
+    # outlier's damage to its own block instead of the whole bucket).
+    # Forwarded to launched workers (coordinator _FORWARDED_FLAGS):
+    # every traced host must agree on the block layout — divergent HLO
+    # across SPMD hosts deadlocks, and a PS frame encoded with one
+    # block size decodes with the size carried in its own header.
+    AUTODIST_QUANT_BLOCK = \
+        (lambda v: _min_int('AUTODIST_QUANT_BLOCK', v, 256, lo=8),)
+    # Topology-aware hierarchical collectives: the number of node
+    # groups the data axis is split into for two-level schedules
+    # (intra-node reduce-scatter -> inter-node all-reduce -> intra-node
+    # all-gather, parallel/plan.py). 0 (default) = infer node groups
+    # from the mesh devices (process/slice index); >= 2 forces that
+    # many CONTIGUOUS equal groups — the CPU-mesh test/bench override.
+    # Forwarded to launched workers (coordinator _FORWARDED_FLAGS):
+    # the group layout is part of the traced program, and divergent
+    # HLO across SPMD hosts deadlocks.
+    AUTODIST_HIERARCHY_NODES = \
+        (lambda v: _min_int('AUTODIST_HIERARCHY_NODES', v, 0, lo=0),)
+    # Cross-replica weight-update sharding override (parallel/plan.py,
+    # arXiv:2004.13336): '' (default) defers to each strategy's
+    # AllReduceSynchronizer.weight_update_sharding knob; 'auto',
+    # 'always' or 'never' overrides it globally — 'always' forces the
+    # reduce-scatter + shard-local fused update + bucketed param
+    # all-gather schedule wherever it is lowerable (uncompressed-wire
+    # AR buckets on an n>1 mesh), 'never' forces the legacy replicated
+    # update, 'auto' defers to the shared cost-model decision
+    # (simulator.cost_model.choose_update_sharding: freed opt-slot HBM
+    # vs exposed all-gather time). Forwarded to launched workers
+    # (coordinator _FORWARDED_FLAGS): the schedule AND the optimizer-
+    # slot layout are part of the traced program — divergent HLO
+    # across SPMD hosts deadlocks.
+    AUTODIST_WEIGHT_UPDATE_SHARDING = \
+        (lambda v: _choice('AUTODIST_WEIGHT_UPDATE_SHARDING', v, '',
+                           ('auto', 'always', 'never')),)
+    # Execute chief re-plans (elastic scale-up re-ranks) instead of
+    # only recording them: the session migrates its live state to the
+    # re-ranked strategy through the device-side resharding path
+    # (parallel/reshard.py) at the next step boundary. Default off —
+    # the PR 6 predicted-vs-kept audit trail is unchanged unless the
+    # operator opts in.
+    AUTODIST_EXECUTE_REPLAN = (lambda v: (v == 'True' or v == '1'),)
+    # Epoch-swap handshake bounds (runtime/swap_keys.py, docs/design/
+    # epoch-swap.md): how long the chief waits for the peer ack quorum
+    # on a staged plan before cancelling the stage, how long it backs
+    # off before re-staging, and how many cancel-and-retry rounds it
+    # attempts before degrading to an audit-only re-plan entry.
+    # Forwarded to launched workers (coordinator _FORWARDED_FLAGS):
+    # peers bound their ready-marker wait with the same ack timeout,
+    # and a cohort split on the bound would strand slow members at the
+    # swap boundary.
+    AUTODIST_SWAP_ACK_TIMEOUT_S = \
+        (lambda v: _positive_float('AUTODIST_SWAP_ACK_TIMEOUT_S', v,
+                                   60.0),)
+    AUTODIST_SWAP_RETRY_BACKOFF_S = \
+        (lambda v: _positive_float('AUTODIST_SWAP_RETRY_BACKOFF_S', v,
+                                   5.0),)
+    AUTODIST_SWAP_MAX_RETRIES = \
+        (lambda v: _min_int('AUTODIST_SWAP_MAX_RETRIES', v, 3, lo=0),)
+    # opt-in DenseNet dense-block form: preallocated buffer +
+    # dynamic-update-slice instead of per-layer concat (O(L) vs O(L^2)
+    # copy traffic; exactness tested, on-chip A/B pending — see
+    # BASELINE.md). Forwarded like the other tracing flags: divergent
+    # HLO across SPMD hosts deadlocks.
+    AUTODIST_DENSENET_DUS = (lambda v: (v == 'True' or v == '1'),)
+    # opt-in fused conv+BN Pallas kernel (models/vision.py; measured
+    # neutral-to-negative on v5e, BASELINE.md round-6 — kept for TPU
+    # generations where the BN passes bind) and its row-count ceiling
+    # (huge early-stage activations pay more in layout-conversion
+    # copies than the fused kernel saves). Forwarded like the other
+    # tracing flags: the kernel choice is part of the traced program,
+    # and divergent HLO across SPMD hosts deadlocks.
+    AUTODIST_FUSED_CONV = (lambda v: (v == 'True' or v == '1'),)
+    # row ceiling for the fused kernel; 0 = no limit (validated >= 0)
+    AUTODIST_FUSED_CONV_MAX_ROWS = \
+        (lambda v: _min_int('AUTODIST_FUSED_CONV_MAX_ROWS', v, 120000,
+                            lo=0),)
+    # pipeline-parallel 1F1B variant='auto' threshold (parallel/
+    # pipeline.py): stash (keep boundary activations) when the stash
+    # fits under this many MiB, else remat. The variant is part of the
+    # traced program, so every pipeline host must agree — forwarded
+    # like the other tracing flags.
+    AUTODIST_PP_STASH_LIMIT_MB = \
+        (lambda v: _positive_float('AUTODIST_PP_STASH_LIMIT_MB', v,
+                                   2048.0),)
+    # Unified telemetry plane (telemetry/, docs/design/
+    # observability.md): '1'/'True' enables the span/metrics registry
+    # — step/gate/pull/push spans in the session, per-RPC spans in the
+    # coord client, bucket-emission tags in the plan — and the
+    # cross-worker batch push to the PS telemetry namespace. Disabled
+    # (default) the API is zero-cost no-ops. Forwarded: a cohort
+    # timeline needs every worker emitting, not just the chief.
+    AUTODIST_TELEMETRY = (lambda v: (v == 'True' or v == '1'),)
+    # Where flight-recorder dumps and Chrome trace exports land
+    # (telemetry.flight.telemetry_dir; empty = <working dir>/telemetry).
+    AUTODIST_TELEMETRY_DIR = (lambda v: v if v else '',)
+    # Bound on every telemetry buffer (span/event rings, numeric
+    # series): telemetry must never grow without bound on a long run.
+    AUTODIST_TELEMETRY_MAX_SPANS = \
+        (lambda v: _min_int('AUTODIST_TELEMETRY_MAX_SPANS', v, 4096,
+                            lo=64),)
+    # How often (train steps) a loose-mode worker batch-pushes its
+    # drained span records to the <ns>/telemetry/ namespace; 0 = only
+    # at close. The push rides the background pipeline cadence, one
+    # vset per batch.
+    AUTODIST_TELEMETRY_PUSH_EVERY = \
+        (lambda v: _min_int('AUTODIST_TELEMETRY_PUSH_EVERY', v, 8,
+                            lo=0),)
+    # Ring capacity of the always-on crash flight recorder
+    # (telemetry/flight.py): the last N control-plane events (fence
+    # binds, epoch bumps, step publishes, exclusions, admit phases,
+    # replan stage/swap, slowdown/recovered verdicts) dumped to disk
+    # on failure triggers.
+    AUTODIST_FLIGHT_RECORDER_EVENTS = \
+        (lambda v: _min_int('AUTODIST_FLIGHT_RECORDER_EVENTS', v, 512,
+                            lo=16),)
+    # Online performance sentry (telemetry/monitor.py): what the
+    # chief's CohortMonitor does with straggler verdicts.
+    #   off    - no monitor at all (statistics included)
+    #   warn   - verdicts logged + slowdown/recovered events recorded
+    #            in the flight recorder ring (default)
+    #   advise - additionally marks non-victim culprits as
+    #            exclude_candidate in health_report's perf section.
+    # Detection is observability, NEVER actuation: the PR 4 peer-
+    # failure policy machinery stays the sole actuator — this knob
+    # deliberately stops at 'advise'.
+    AUTODIST_STRAGGLER_POLICY = \
+        (lambda v: _choice('AUTODIST_STRAGGLER_POLICY', v, 'warn',
+                           ('off', 'warn', 'advise')),)
+    # Rolling-window sample bound (train steps) of the monitor's
+    # per-worker robust statistics (median/MAD of step wall and the
+    # per-phase splits). Detection itself reads a short recent-median
+    # inside this window so a straggler surfaces within a few steps of
+    # onset, not half a window later.
+    AUTODIST_MONITOR_WINDOW = \
+        (lambda v: _min_int('AUTODIST_MONITOR_WINDOW', v, 32, lo=4),)
+    # Continuous cost-model recalibration cadence (train steps): every
+    # N steps the chief refits the link alpha-beta constants from live
+    # telemetry (data-plane RPC spans as point-to-point samples) and
+    # hands the measured constants to _replan_for_world's re-rank.
+    # 0 disables (default) — re-ranks then price with analytic
+    # constants, exactly the pre-monitor behavior.
+    AUTODIST_RECALIBRATE_EVERY = \
+        (lambda v: _min_int('AUTODIST_RECALIBRATE_EVERY', v, 0, lo=0),)
+    # Device-plane roofline observatory (telemetry/roofline.py):
+    # '1'/'True' turns on per-step MFU/regime accounting in the session
+    # — FLOPs + bytes-accessed pulled once per compiled step
+    # (cost_analysis() on the lowered program, cached per compilation),
+    # divided by the measured step wall and the topology's peak table,
+    # emitted as the 'mfu' / roofline telemetry series plus
+    # mfu_regression flight events. Off (default) = zero per-step cost.
+    # Forwarded: a cohort roofline needs every worker accounting, and
+    # divergent sampling cadence would skew cross-worker comparison.
+    AUTODIST_ROOFLINE = (lambda v: (v == 'True' or v == '1'),)
+    # Sampling cadence (train steps) of the per-step roofline
+    # accounting — the wall-clock divide and series append run every
+    # Nth executed train step (the cost-analysis pull is once per
+    # compilation regardless).
+    AUTODIST_ROOFLINE_EVERY = \
+        (lambda v: _min_int('AUTODIST_ROOFLINE_EVERY', v, 1, lo=1),)
+    # Peak-table override: 'flops=<FLOP/s>,hbm_gbps=<GB/s>' (either key
+    # alone works) replaces the resolved Topology peaks — for device
+    # kinds the table lags, or derated-clock deployments. Validated at
+    # parse time; forwarded so every worker grades MFU against the
+    # same denominator.
+    AUTODIST_ROOFLINE_PEAKS = \
+        (lambda v: _roofline_peaks('AUTODIST_ROOFLINE_PEAKS', v),)
+    # Local-SGD window length H (runtime/session.py, docs/design/
+    # local-sgd.md): 0 (default) defers to the strategy's per-var
+    # PSSynchronizer.local_steps; >= 1 overrides it globally — workers
+    # take H local optimizer steps between PS sync rounds, pushing the
+    # window's averaged parameter delta once per round. H=1 is today's
+    # every-step loose push, bit-identical. Forwarded to launched
+    # workers (coordinator _FORWARDED_FLAGS): the staleness gate counts
+    # sync ROUNDS under H>1, so every loose worker must agree on the
+    # window length or the gates deadlock against each other.
+    AUTODIST_LOCAL_STEPS = \
+        (lambda v: _min_int('AUTODIST_LOCAL_STEPS', v, 0, lo=0),)
+    # Local-SGD window merge rule: on (default) scales each worker's
+    # window delta by 1/num_workers before the push so the sum-based
+    # PS delta wire lands on the MEAN of the workers' windows ("average"
+    # in the FedAvg sense). '0'/'False' pushes the raw window sum —
+    # the pinned divergence counterexample in analysis/data_plane_model
+    # (W workers overshoot the mean by ~W x); exposed only for A/B and
+    # the model checker, never recommended. Forwarded with
+    # AUTODIST_LOCAL_STEPS: all workers must agree on the merge rule or
+    # the merged state is a mix of scaled and unscaled deltas.
+    AUTODIST_LOCAL_SGD_AVERAGE = \
+        (lambda v: not (v == '0' or v == 'False'),)
+    # Read-only serving tier (serving/, docs/design/serving.md).
+    # Publish-step poll cadence of a ServingReplica: how often the
+    # refresh loop re-reads the cohort's published floor to decide
+    # whether a fresh dense snapshot is worth pulling. Seconds.
+    AUTODIST_SERVE_POLL_S = \
+        (lambda v: _positive_float('AUTODIST_SERVE_POLL_S', v, 0.5),)
+    # Staleness bound a replica ADVERTISES (steps): a served snapshot
+    # whose pinned step trails the current published floor by more than
+    # this counts as a staleness violation in serve_stats — the serving
+    # tier never blocks training to enforce it, it only grades itself.
+    AUTODIST_SERVE_STALENESS_BOUND = \
+        (lambda v: _min_int('AUTODIST_SERVE_STALENESS_BOUND', v, 8,
+                            lo=0),)
+    # Sparse row cache capacity (rows, across all embedding tables a
+    # replica serves). LRU eviction past this.
+    AUTODIST_SERVE_ROW_CACHE_ROWS = \
+        (lambda v: _min_int('AUTODIST_SERVE_ROW_CACHE_ROWS', v, 65536,
+                            lo=1),)
+    # Sparse row cache TTL (seconds): a cached row older than this is
+    # re-fetched on its next lookup — the freshness knob for hot rows
+    # that training keeps pushing (a snapshot version bump flushes the
+    # cache wholesale regardless of TTL).
+    AUTODIST_SERVE_ROW_TTL_S = \
+        (lambda v: _positive_float('AUTODIST_SERVE_ROW_TTL_S', v, 5.0),)
+    # Epoch-consistent snapshot retry budget: how many seqlock rounds
+    # (pin -> pull -> validate) a replica attempts before keeping its
+    # previous snapshot for this poll cycle. Each retry means a writer
+    # raced the pull; the old snapshot stays servable throughout.
+    AUTODIST_SERVE_SNAPSHOT_RETRIES = \
+        (lambda v: _min_int('AUTODIST_SERVE_SNAPSHOT_RETRIES', v, 8,
+                            lo=1),)
+    # Serving pull wire dtype override: '' (default) rides the run's
+    # AUTODIST_PS_WIRE_DTYPE; 'f32' | 'bf16' force a pull dtype for the
+    # replica fleet alone (readers fanning out over DCN may want bf16
+    # snapshots while trainers stay f32); 'i8' is accepted but pulls
+    # ride f32 — the blockscale wire is push-only (quantized-wire.md).
+    AUTODIST_SERVE_WIRE = \
+        (lambda v: _choice('AUTODIST_SERVE_WIRE', v, '',
+                           ('f32', 'bf16', 'i8')),)
+
+    @property
+    def val(self):
+        """Return the typed value of this environment flag."""
+        return self.value[0](os.environ.get(self.name))

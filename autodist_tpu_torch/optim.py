@@ -1,0 +1,20 @@
+"""Optimizers of the port, with optax's numerics.
+
+The JAX package takes optax transformations; the port takes a factory
+``params -> torch.optim.Optimizer`` whose update matches the optax one.
+``torch.optim``'s defaults differ from optax's (``AdamW`` decays by 1e-2,
+``optax.adamw`` by 1e-4), so every hyperparameter is stated here.
+SGD with momentum and Adam, which ``bench.py`` also uses, are not ported
+yet.
+"""
+import functools
+
+import torch
+
+
+def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4):
+    """``optax.adamw``: decoupled weight decay on every leaf,
+    p -= lr * (m_hat / (sqrt(v_hat) + eps) + weight_decay * p)."""
+    return functools.partial(torch.optim.AdamW, lr=learning_rate,
+                             betas=(b1, b2), eps=eps,
+                             weight_decay=weight_decay)

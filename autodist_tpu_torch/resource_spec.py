@@ -1,0 +1,481 @@
+"""Cluster resource specification.
+
+TPU-native re-design of reference ``autodist/resource_spec.py:45-331``.
+Parses the same YAML format (nodes with address / cpus / gpus / chief /
+ssh_config / network_bandwidth, plus an ``ssh:`` config map) and extends it
+with a first-class ``tpus`` device type and ICI/DCN topology hints used by
+the mesh builder.
+
+Device strings keep the reference's ``<address>:<TYPE>:<index>`` format
+(resolver.py:47-67) so strategy protos remain human-readable.
+"""
+import os
+from enum import Enum
+
+from autodist_tpu_torch.utils import logging
+
+DEFAULT_NETWORK_BANDWIDTH = 1  # GBE, reference resource_spec.py:210-215
+
+
+class DeviceType(Enum):
+    """Device categories; the rebuild adds TPU as a first-class type."""
+    CPU = 0
+    GPU = 1
+    TPU = 2
+
+
+#: Device kinds a ``topology.device_kind`` hint may name. Matching is by
+#: substring, like bench.py's peak-FLOPs table ('v5e' matches 'tpu v5e').
+#: First match wins, so the more specific v5p/v5e come before v5.
+KNOWN_DEVICE_KINDS = ('v6', 'v5p', 'v5e', 'v5', 'v4', 'v3', 'v2',
+                      'gpu', 'cpu')
+
+#: Per-device-KIND ICI defaults (bandwidth GB/s, latency us): coarse
+#: per-device effective ring bandwidth from public figures, refining
+#: the per-TYPE default below when ``topology.device_kind`` names a
+#: generation but no explicit bandwidth is given.
+_ICI_BY_KIND = {
+    'v6': (220.0, 1.0),
+    'v5p': (180.0, 1.0),
+    'v5e': (80.0, 1.0),
+    'v5': (80.0, 1.0),
+    'v4': (100.0, 1.0),
+    'v3': (70.0, 1.0),
+    'v2': (50.0, 1.0),
+    'gpu': (60.0, 3.0),
+    'cpu': (10.0, 5.0),
+}
+
+#: Per-device-type link defaults (bandwidth GB/s, latency us) used when a
+#: spec carries no explicit ``topology:`` hints. ICI numbers are
+#: per-device effective ring bandwidth (conservative public figures);
+#: the CPU "ici" is host-memory traffic between virtual devices.
+_ICI_DEFAULTS = {
+    DeviceType.TPU: (100.0, 1.0),
+    DeviceType.GPU: (60.0, 3.0),
+    DeviceType.CPU: (10.0, 5.0),
+}
+_DCN_DEFAULT_LATENCY_US = 30.0
+
+#: Per-device-KIND roofline peaks: (dense bf16 peak FLOP/s, peak HBM
+#: bandwidth GB/s) from public spec sheets — the denominator of the
+#: device-plane MFU/roofline accounting (telemetry/roofline.py).
+#: Matching follows KNOWN_DEVICE_KINDS (substring, first match wins).
+#: ``None`` entries mean "no meaningful peak": a CPU host's virtual
+#: devices have no spec-sheet FLOPs ceiling, so MFU degrades to an
+#: explicit null instead of a number against a made-up denominator.
+#: bench.py's headline-MFU table reads the same entries.
+PEAKS_BY_KIND = {
+    'v6': (918e12, 1640.0),
+    'v5p': (459e12, 2765.0),
+    'v5e': (197e12, 819.0),
+    'v5': (197e12, 819.0),
+    'v4': (275e12, 1228.0),
+    'v3': (123e12, 900.0),
+    'v2': (46e12, 700.0),
+    'gpu': (125e12, 900.0),
+    'cpu': (None, None),
+}
+
+
+class Topology:
+    """Validated ICI/DCN link model for the strategy simulator.
+
+    Built from a spec's optional top-level ``topology:`` block::
+
+        topology:
+          ici_bandwidth_gbps: 100   # GB/s per device, intra-slice
+          ici_latency_us: 1
+          dcn_bandwidth_gbps: 12.5  # GB/s per device, cross-slice/node
+          dcn_latency_us: 30
+          device_kind: v5e          # optional, one of KNOWN_DEVICE_KINDS
+          peak_flops: 1.97e14       # optional, dense bf16 FLOP/s/chip
+          peak_hbm_gbps: 819        # optional, HBM GB/s/chip
+
+    Missing fields default from the spec's device types (ICI) and the
+    per-node ``network_bandwidth`` (DCN: GBE is gigaBITs, so /8); the
+    roofline peaks default from the ``device_kind`` row of
+    :data:`PEAKS_BY_KIND` and may resolve to None (CPU hosts have no
+    meaningful peak — MFU reports an explicit null, never a number
+    against an invented denominator). All fields are validated at
+    parse time — the simulator and the roofline observatory consume
+    them blindly.
+    """
+
+    _NUMERIC_FIELDS = ('ici_bandwidth_gbps', 'ici_latency_us',
+                       'dcn_bandwidth_gbps', 'dcn_latency_us')
+    _PEAK_FIELDS = ('peak_flops', 'peak_hbm_gbps')
+
+    def __init__(self, info, accel_type, min_net_bandwidth_gbe,
+                 multi_node):
+        info = dict(info or {})
+        for field in self._NUMERIC_FIELDS + self._PEAK_FIELDS:
+            val = info.get(field)
+            if val is None:
+                continue
+            if not isinstance(val, (int, float)) or \
+                    isinstance(val, bool) or val <= 0:
+                raise ValueError(
+                    'topology.%s must be a positive number, got %r'
+                    % (field, val))
+        kind = info.get('device_kind')
+        matched_kind = None
+        if kind is not None:
+            k = str(kind).lower()
+            matched_kind = next((known for known in KNOWN_DEVICE_KINDS
+                                 if known in k), None)
+            if matched_kind is None:
+                raise ValueError(
+                    'topology.device_kind %r is not a known device type '
+                    '(known: %s)' % (kind, ', '.join(KNOWN_DEVICE_KINDS)))
+        unknown = set(info) - set(self._NUMERIC_FIELDS) \
+            - set(self._PEAK_FIELDS) - {'device_kind'}
+        if unknown:
+            raise ValueError(
+                'Unknown topology field(s) %s (known: %s, %s, '
+                'device_kind)'
+                % (sorted(unknown), ', '.join(self._NUMERIC_FIELDS),
+                   ', '.join(self._PEAK_FIELDS)))
+        # device_kind refines the ICI defaults by TPU generation
+        if matched_kind is not None:
+            ici_bw, ici_lat = _ICI_BY_KIND[matched_kind]
+        else:
+            ici_bw, ici_lat = _ICI_DEFAULTS[accel_type]
+        self.device_kind = str(kind).lower() if kind is not None else ''
+        self.ici_bandwidth_gbps = float(
+            info.get('ici_bandwidth_gbps', ici_bw))
+        self.ici_latency_us = float(info.get('ici_latency_us', ici_lat))
+        self.dcn_bandwidth_gbps = float(
+            info.get('dcn_bandwidth_gbps',
+                     max(min_net_bandwidth_gbe, 0.001) / 8.0))
+        self.dcn_latency_us = float(
+            info.get('dcn_latency_us', _DCN_DEFAULT_LATENCY_US))
+        # roofline peaks: explicit fields override the per-kind table;
+        # with no matched kind the type default is 'gpu' / 'cpu' class
+        if matched_kind is not None:
+            peak_flops, peak_hbm = PEAKS_BY_KIND[matched_kind]
+        elif accel_type is DeviceType.TPU:
+            peak_flops, peak_hbm = PEAKS_BY_KIND['v5e']
+        elif accel_type is DeviceType.GPU:
+            peak_flops, peak_hbm = PEAKS_BY_KIND['gpu']
+        else:
+            peak_flops, peak_hbm = PEAKS_BY_KIND['cpu']
+        pf = info.get('peak_flops', peak_flops)
+        ph = info.get('peak_hbm_gbps', peak_hbm)
+        self.peak_flops = float(pf) if pf is not None else None
+        self.peak_hbm_gbps = float(ph) if ph is not None else None
+        self.multi_node = bool(multi_node)
+        # Re-validate the RESOLVED link constants, not just the raw
+        # fields: the simulator divides by link() bandwidth with no
+        # guard (CostModelParams.from_topology), and the per-field
+        # check above admits NaN (NaN <= 0 is False) while defaulted
+        # values come from arithmetic on per-node bandwidths. Fail at
+        # parse time with the field named, like the hint validation.
+        import math
+        for field in self._NUMERIC_FIELDS:
+            val = getattr(self, field)
+            if not math.isfinite(val) or val <= 0:
+                raise ValueError(
+                    'topology.%s must resolve to a positive finite '
+                    'number, got %r' % (field, val))
+        # roofline peaks get the same resolved check, except that None
+        # (no meaningful peak for this device kind — CPU hosts) is a
+        # legitimate resolution the MFU accounting degrades on
+        for field in self._PEAK_FIELDS:
+            val = getattr(self, field)
+            if val is not None and (not math.isfinite(val) or val <= 0):
+                raise ValueError(
+                    'topology.%s must resolve to a positive finite '
+                    'number (or be omitted), got %r' % (field, val))
+
+    def peaks(self):
+        """(peak FLOP/s, peak HBM bytes/s) — either may be None when
+        the device kind has no meaningful spec-sheet peak (MFU then
+        reports an explicit null). The ``AUTODIST_ROOFLINE_PEAKS`` env
+        override (validated at parse time in const.py) takes precedence
+        over both the explicit fields and the per-kind defaults, like
+        the other traced-program overrides."""
+        from autodist_tpu_torch.const import ENV
+        forced = ENV.AUTODIST_ROOFLINE_PEAKS.val
+        pf, ph = self.peak_flops, self.peak_hbm_gbps
+        if forced:
+            pf = forced.get('flops', pf)
+            ph = forced.get('hbm_gbps', ph)
+        return pf, (ph * 1e9 if ph is not None else None)
+
+    def link(self, cross_node=False):
+        """(bytes/s, seconds) for one link class.
+
+        ``cross_node=True`` prices the DCN (cross-slice / cross-host)
+        path; else the intra-slice ICI path.
+        """
+        if cross_node:
+            return (self.dcn_bandwidth_gbps * 1e9,
+                    self.dcn_latency_us * 1e-6)
+        return (self.ici_bandwidth_gbps * 1e9,
+                self.ici_latency_us * 1e-6)
+
+    def __repr__(self):
+        return ('<Topology ici=%.1fGB/s,%.1fus dcn=%.2fGB/s,%.1fus%s>'
+                % (self.ici_bandwidth_gbps, self.ici_latency_us,
+                   self.dcn_bandwidth_gbps, self.dcn_latency_us,
+                   ' multi-node' if self.multi_node else ''))
+
+
+class DeviceSpec:
+    """One addressable device: ``<host>:<TYPE>:<index>``."""
+
+    def __init__(self, host_address, device_index=0,
+                 device_type=DeviceType.CPU):
+        self.host_address = host_address
+        self.device_index = int(device_index)
+        self.device_type = device_type
+
+    @property
+    def name_string(self):
+        return '%s:%s:%d' % (self.host_address, self.device_type.name,
+                             self.device_index)
+
+    def __repr__(self):
+        return '<DeviceSpec %s>' % self.name_string
+
+    def __eq__(self, other):
+        return isinstance(other, DeviceSpec) and \
+            self.name_string == other.name_string
+
+    def __hash__(self):
+        return hash(self.name_string)
+
+    @classmethod
+    def from_string(cls, name_string):
+        """Parse ``host:TYPE:index`` back into a DeviceSpec."""
+        host, type_name, index = name_string.rsplit(':', 2)
+        return cls(host, int(index), DeviceType[type_name])
+
+
+class SSHConfig:
+    """SSH connection info for one config-map entry.
+
+    Parity with reference resource_spec.py:280-318 (username, port,
+    key_file, python_venv, shared environment variables).
+    """
+
+    def __init__(self, info):
+        self.username = info.get('username', '')
+        self.port = info.get('port', 22)
+        self.key_file = info.get('key_file')
+        self.python_venv = info.get('python_venv', '')
+        self.env = dict(info.get('shared_envs', {}))
+
+
+class SSHConfigMap(dict):
+    """Named SSH configs: ``{conf_name: SSHConfig}``."""
+
+    def __init__(self, info):
+        super().__init__({name: SSHConfig(conf)
+                          for name, conf in (info or {}).items()})
+
+
+class ResourceSpec:
+    """Parsed cluster description.
+
+    Accepts the reference YAML schema plus:
+
+    - ``tpus: [i, ...]`` per node (TPU chips on that host), or
+      ``gpus: auto`` to discover the local CUDA devices at runtime;
+    - top-level ``mesh:`` hints (``{data: 4, model: 2, ...}``) consumed by
+      the strategy compiler when building the jax.sharding.Mesh;
+    - ``coordinator:`` address override for jax.distributed.
+    """
+
+    def __init__(self, resource_file=None, resource_info=None):
+        self.__devices = {}          # name_string -> DeviceSpec
+        self.__nodes = {}            # address -> node dict
+        self.__chief_address = None
+        self.__ssh_config_map = SSHConfigMap({})
+        self.__network_bandwidth = {}
+        self.mesh_hint = {}
+        self.coordinator_address = None
+        self.__topology = None
+        self.__topology_info = {}
+
+        if resource_file is not None:
+            if not os.path.isfile(resource_file):
+                raise FileNotFoundError(
+                    'Resource spec file not found: %s' % resource_file)
+            import yaml
+            with open(resource_file, 'r') as f:
+                resource_info = yaml.safe_load(f)
+        if resource_info is None:
+            raise ValueError('Must provide resource_file or resource_info')
+        self._parse(resource_info)
+
+    # -- parsing ----------------------------------------------------------
+    def _parse(self, info):
+        nodes = info.get('nodes')
+        if not nodes:
+            raise ValueError("Resource spec needs at least one node "
+                             "under 'nodes:'")
+        self.mesh_hint = dict(info.get('mesh', {}))
+        self.coordinator_address = info.get('coordinator')
+        self.__ssh_config_map = SSHConfigMap(info.get('ssh'))
+
+        for node in nodes:
+            address = str(node['address'])
+            if address in self.__nodes:
+                raise ValueError('Duplicate node address %s' % address)
+            self.__nodes[address] = node
+            if node.get('chief', False):
+                if self.__chief_address is not None:
+                    raise ValueError('Only one node may be chief')
+                self.__chief_address = address
+            host_cpu = DeviceSpec(address, 0, DeviceType.CPU)
+            self.__devices[host_cpu.name_string] = host_cpu
+            for i in node.get('cpus', []):
+                if int(i) == 0:
+                    continue
+                d = DeviceSpec(address, i, DeviceType.CPU)
+                self.__devices[d.name_string] = d
+            gpus = node.get('gpus', [])
+            if gpus == 'auto':
+                gpus = self._discover_local_gpus()
+            for i in gpus:
+                d = DeviceSpec(address, i, DeviceType.GPU)
+                self.__devices[d.name_string] = d
+            tpus = node.get('tpus', [])
+            if tpus == 'auto':
+                raise ValueError('tpus: auto has no devices to discover in '
+                                 'the PyTorch port; use gpus: auto')
+            for i in tpus:
+                d = DeviceSpec(address, i, DeviceType.TPU)
+                self.__devices[d.name_string] = d
+            bw = node.get('network_bandwidth')
+            if bw is None:
+                logging.warning(
+                    'Network bandwidth missing for node %s; defaulting to '
+                    '%d GBE', address, DEFAULT_NETWORK_BANDWIDTH)
+                bw = DEFAULT_NETWORK_BANDWIDTH
+            elif not isinstance(bw, (int, float)) or \
+                    isinstance(bw, bool) or bw <= 0:
+                raise ValueError(
+                    'nodes[%s].network_bandwidth must be a positive '
+                    'number, got %r' % (address, bw))
+            self.__network_bandwidth[address] = bw
+
+        if len(self.__nodes) == 1:
+            self.__chief_address = next(iter(self.__nodes))
+        if self.__chief_address is None:
+            raise ValueError('Must specify one chief node in a '
+                             'multi-node spec')
+        # topology hints are validated eagerly (parse time), not at
+        # first .topology access: the simulator consumes them blindly
+        self.__topology_info = dict(info.get('topology', {}) or {})
+        self.__topology = Topology(
+            self.__topology_info, self._accel_type(),
+            min(self.__network_bandwidth.values()),
+            multi_node=len(self.__nodes) > 1)
+
+    def _accel_type(self):
+        """Dominant accelerator DeviceType (for topology defaults)."""
+        types = {d.device_type for _, d in self.__devices.items()}
+        for t in (DeviceType.TPU, DeviceType.GPU):
+            if t in types:
+                return t
+        return DeviceType.CPU
+
+    @staticmethod
+    def _discover_local_gpus():
+        import torch
+        return list(range(torch.cuda.device_count()))
+
+    # -- accessors (parity with resource_spec.py:80-158) ------------------
+    @property
+    def chief(self):
+        """Chief node address."""
+        return self.__chief_address
+
+    @property
+    def nodes(self):
+        """Iterable of node addresses."""
+        return self.__nodes.keys()
+
+    @property
+    def devices(self):
+        """Iterable of (name_string, DeviceSpec) for all devices."""
+        return self.__devices.items()
+
+    def _filter(self, device_type):
+        return ((n, d) for n, d in self.__devices.items()
+                if d.device_type is device_type)
+
+    @property
+    def cpu_devices(self):
+        return self._filter(DeviceType.CPU)
+
+    @property
+    def gpu_devices(self):
+        return self._filter(DeviceType.GPU)
+
+    @property
+    def tpu_devices(self):
+        return self._filter(DeviceType.TPU)
+
+    @property
+    def accelerator_devices(self):
+        """GPU + TPU devices; what replicas are placed on."""
+        return ((n, d) for n, d in self.__devices.items()
+                if d.device_type is not DeviceType.CPU)
+
+    @property
+    def num_accelerators(self):
+        return sum(1 for _ in self.accelerator_devices)
+
+    def num_accelerators_on(self, address):
+        return sum(1 for _, d in self.accelerator_devices
+                   if d.host_address == address)
+
+    @property
+    def num_cpus(self):
+        return sum(1 for _ in self.cpu_devices)
+
+    @property
+    def network_bandwidth(self):
+        """Per-node bandwidth map (GBE)."""
+        return dict(self.__network_bandwidth)
+
+    @property
+    def topology(self):
+        """Validated :class:`Topology` (ICI/DCN bandwidth+latency hints).
+
+        Always present: explicit ``topology:`` fields override, the rest
+        defaults from the spec's device types and node bandwidths.
+        """
+        return self.__topology
+
+    @property
+    def ssh_config_map(self):
+        return self.__ssh_config_map
+
+    def ssh_config(self, address):
+        name = self.__nodes[address].get('ssh_config')
+        return self.__ssh_config_map.get(name)
+
+    @property
+    def node_cpu_devices(self):
+        """address -> [cpu name strings]."""
+        out = {}
+        for n, d in self.cpu_devices:
+            out.setdefault(d.host_address, []).append(n)
+        return out
+
+    @property
+    def node_accelerator_devices(self):
+        """address -> [accelerator name strings]."""
+        out = {}
+        for n, d in self.accelerator_devices:
+            out.setdefault(d.host_address, []).append(n)
+        return out
+
+    def __repr__(self):
+        return '<ResourceSpec chief=%s nodes=%d accelerators=%d>' % (
+            self.chief, len(self.__nodes), self.num_accelerators)

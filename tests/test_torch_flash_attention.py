@@ -1,0 +1,130 @@
+"""Port flash attention against the JAX package's Pallas kernels.
+
+The JAX kernels run in Pallas interpret mode on the CPU, as
+tests/test_flash_attention.py runs them; the port runs the plain
+versions of its CUDA kernels (a CPU tensor takes them). Inputs are made
+from a numpy seed and handed to both. Tolerances are those of
+tests/test_flash_attention.py: 2e-5 on the forward (f32, the online
+softmax rescales in another order than the materialized one) and 5e-4
+on gradients (three chained f32 products, summed in other orders).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from autodist_tpu.kernels import flash_attention as jfa
+from autodist_tpu_torch.kernels import build
+from autodist_tpu_torch.kernels import flash_attention as fa
+from autodist_tpu_torch.models.transformer import (TransformerConfig,
+                                                   TransformerLM)
+from autodist_tpu_torch.utils.device import resolve_device
+
+CASES = [((2, 3, 128, 64), None), ((1, 2, 96, 32), None),
+         ((1, 1, 40, 16), 0.5)]
+
+
+def _inputs(shape, seed, n=4):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32) for _ in range(n)]
+
+
+def _jax_blocks(s):
+    dq_blk, dk_blk = jfa._default_blocks(s)
+    return jfa._pick_block(s, dq_blk), jfa._pick_block(s, dk_blk)
+
+
+def _scale(shape, sm_scale):
+    return shape[-1] ** -0.5 if sm_scale is None else sm_scale
+
+
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('shape,sm_scale', CASES)
+def test_plain_fwd_matches_pallas(shape, sm_scale, causal):
+    q, k, v, _ = _inputs(shape, 0)
+    scale = _scale(shape, sm_scale)
+    bq, bk = _jax_blocks(shape[2])
+    o_j, lse_j = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal, scale, bq, bk, True)
+    o_t, lse_t = fa._fwd_plain(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal, scale)
+    assert lse_t.shape == lse_j.shape == shape[:3] + (1,)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('shape,sm_scale', CASES)
+def test_plain_bwd_matches_pallas(shape, sm_scale, causal):
+    """dQ and dK/dV from the same (o, lse, dO): the Pallas forward's
+    outputs feed both backward implementations."""
+    q, k, v, do = _inputs(shape, 1)
+    scale = _scale(shape, sm_scale)
+    bq, bk = _jax_blocks(shape[2])
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse = jfa._fwd(jq, jk, jv, causal, scale, bq, bk, True)
+    want = jfa._bwd(jq, jk, jv, o, lse, jdo, causal, scale, bq, bk, True)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    to, tlse = torch.from_numpy(np.array(o)), \
+        torch.from_numpy(np.array(lse))
+    delta = fa._delta(tdo, to)
+    dq = fa._dq_plain(tq, tk, tv, tdo, tlse, delta, causal, scale)
+    dk, dv = fa._dkv_plain(tq, tk, tv, tdo, tlse, delta, causal, scale)
+    for got, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w),
+                                   atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('shape,sm_scale', CASES)
+def test_autograd_matches_jax_grad(shape, sm_scale, causal):
+    """The autograd Function's gradients against jax.grad through the
+    Pallas custom VJP, for a random cotangent."""
+    q, k, v, w = _inputs(shape, 2)
+
+    def jloss(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        return jnp.sum(o * jnp.asarray(w))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = fa.flash_attention(tq, tk, tv, causal=causal, sm_scale=sm_scale)
+    (o * torch.from_numpy(w)).sum().backward()
+    for got, wg in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(wg),
+                                   atol=5e-4, rtol=5e-4)
+    assert fa.LAUNCHES == {'fwd': 0, 'dq': 0, 'dkv': 0}  # CPU: no kernel
+
+
+def test_dispatch_rule_matches_jax():
+    for s in range(1, 1101):
+        shape = (1, 1, s, 64)
+        assert fa.supports(shape) == jfa.supports(shape), s
+        assert fa.preferred(shape) == jfa.preferred(shape), s
+        assert fa._pick_block(s, 128) == jfa._pick_block(s, 128), s
+    assert fa.MIN_KERNEL_SEQ == jfa.MIN_KERNEL_SEQ == 512
+
+
+def test_unblockable_seq_raises_like_jax():
+    x = torch.zeros(1, 1, 13, 16)
+    with pytest.raises(ValueError, match='not blockable'):
+        fa.flash_attention(x, x, x)
+
+
+def test_cuda_request_without_gpu_raises(monkeypatch):
+    """Without a card, asking for CUDA raises; nothing carries on on the
+    CPU. The kernel build needs nvcc and says so."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        TransformerLM(TransformerConfig.tiny(dtype=torch.float32))
+    monkeypatch.setenv('PATH', '')
+    monkeypatch.delenv('CUDA_HOME', raising=False)
+    monkeypatch.setattr(build.os.path, 'isfile', lambda p: False)
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        build.nvcc_path()

@@ -1,0 +1,78 @@
+"""The port stands alone: no jax, no module of the JAX package.
+
+A subprocess in which ``jax`` and ``autodist_tpu`` cannot be imported
+imports the port and ``chip_smoke.py`` and trains one step on the CPU;
+an AST scan finds no import of either in any of the port's files. The
+scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
+name, never by prefix.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ('jax', 'jaxlib', 'autodist_tpu')
+
+_NO_JAX = r'''
+import sys
+for name in ('jax', 'jaxlib', 'autodist_tpu'):
+    sys.modules[name] = None      # any import of them now raises
+import torch
+import autodist_tpu_torch
+import chip_smoke
+from autodist_tpu_torch import optim
+from autodist_tpu_torch.models.transformer import (TransformerConfig,
+                                                   TransformerLM)
+from autodist_tpu_torch.strategy import AllReduce, trainer_from_strategy
+cfg = TransformerConfig.tiny(dtype=torch.float32)
+trainer = trainer_from_strategy(TransformerLM(cfg, device='cpu'),
+                                optim.adamw(1e-4), AllReduce())
+_, losses, _ = chip_smoke.train_steps(
+    trainer, chip_smoke.make_batch(cfg.vocab, 2, 16), 1)
+assert len(losses) == 1 and losses[0] == losses[0]
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in
+                ('jax', 'jaxlib', 'autodist_tpu') and sys.modules[m])
+assert not leaked, leaked
+print('OK')
+'''
+
+
+def test_port_runs_without_jax():
+    out = subprocess.run([sys.executable, '-c', _NO_JAX], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith('OK')
+
+
+def _port_files():
+    root = os.path.join(REPO, 'autodist_tpu_torch')
+    files = [os.path.join(REPO, 'chip_smoke.py')]
+    for dirpath, _, names in os.walk(root):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith('.py')]
+    return files
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                not node.level:
+            yield node.module
+
+
+def test_no_jax_or_jax_package_import_anywhere_in_the_port():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(os.path.relpath(p, REPO), m) for p in files
+           for m in _imported_modules(p) if m.split('.')[0] in FORBIDDEN]
+    assert not bad, bad
+    # the port's own imports are found, so the scan does see imports
+    assert any(m.split('.')[0] == 'autodist_tpu_torch'
+               for m in _imported_modules(files[0]))

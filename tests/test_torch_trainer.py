@@ -1,0 +1,167 @@
+"""Port Trainer against the JAX Trainer, and data parallelism over gloo.
+
+Tolerances (f32): losses 1e-5 relative. Params after adamw steps 2e-6
+absolute: each step moves a param by about lr = 1e-4 (Adam normalizes
+the gradient), so gradient differences at the 1e-6 relative level move
+params by far less than that.
+"""
+import dataclasses
+import os
+import socket
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from autodist_tpu.api import Trainer as JTrainer
+from autodist_tpu.models.transformer import TransformerConfig as JConfig
+from autodist_tpu.models.transformer import TransformerLM as JLM
+from autodist_tpu.parallel.axes import ParallelSpec as JSpec
+from autodist_tpu.resource_spec import ResourceSpec as JResourceSpec
+from autodist_tpu.strategy import builders as jbuilders
+from autodist_tpu.strategy.adapter import \
+    trainer_from_strategy as j_trainer_from_strategy
+from autodist_tpu_torch import optim
+from autodist_tpu_torch.api import Trainer
+from autodist_tpu_torch.models.transformer import (TransformerConfig,
+                                                   TransformerLM)
+from autodist_tpu_torch.models.weights import flatten_tree
+from autodist_tpu_torch.parallel.axes import ParallelSpec
+from autodist_tpu_torch.resource_spec import ResourceSpec
+from autodist_tpu_torch.strategy import builders
+from autodist_tpu_torch.strategy.adapter import trainer_from_strategy
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _batch(b=4, s=32, seed=0):
+    rng = np.random.RandomState(seed)
+    return {'tokens': rng.randint(0, 256, (b, s), dtype=np.int32),
+            'targets': rng.randint(0, 256, (b, s), dtype=np.int32)}
+
+
+def _port_run(steps, params=None, seed=0):
+    model = TransformerLM(TransformerConfig.tiny(dtype=torch.float32),
+                          device='cpu')
+    tr = Trainer(model, optim.adamw(1e-4))
+    state = tr.init(seed=seed, params=params)
+    losses = []
+    for _ in range(steps):
+        state, m = tr.step(state, _batch())
+        losses.append(float(m['loss']))
+    assert state.step == steps
+    return losses, tr.get_params(state)
+
+
+def test_adamw_steps_match_jax_trainer():
+    jm = JLM(JConfig.tiny(dtype=jnp.float32))
+    jtr = JTrainer(jm, optax.adamw(1e-4), spec=JSpec(dp=1))
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    state = jtr.init(jax.random.PRNGKey(0), params=jp)
+    want = []
+    for _ in range(3):
+        state, m = jtr.step(state, _batch())
+        want.append(float(m['loss']))
+    want_params = jtr.get_params(state)
+
+    losses, params = _port_run(3, params=jp)
+    np.testing.assert_allclose(losses, want, rtol=1e-5)
+    got, ref = dict(flatten_tree(params)), dict(flatten_tree(want_params))
+    assert got.keys() == ref.keys()
+    for path in ref:
+        np.testing.assert_allclose(got[path], ref[path], atol=2e-6,
+                                   rtol=0, err_msg='/'.join(path))
+
+
+_DP_WORKER = r'''
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group('gloo', init_method='tcp://127.0.0.1:' + port,
+                        world_size=2, rank=rank)
+from autodist_tpu_torch import optim
+from autodist_tpu_torch.api import Trainer
+from autodist_tpu_torch.models.transformer import (TransformerConfig,
+                                                   TransformerLM)
+from autodist_tpu_torch.models.weights import flatten_tree
+from autodist_tpu_torch.parallel.axes import ParallelSpec
+model = TransformerLM(TransformerConfig.tiny(dtype=torch.float32),
+                      device='cpu', seed=rank)   # rank 0's init wins
+tr = Trainer(model, optim.adamw(1e-4), spec=ParallelSpec(dp=2))
+state = tr.init(seed=0)
+rng = np.random.RandomState(0)
+batch = {'tokens': rng.randint(0, 256, (4, 32), dtype=np.int32),
+         'targets': rng.randint(0, 256, (4, 32), dtype=np.int32)}
+assert tr.shard_batch(batch)['tokens'].shape == (2, 32)
+losses = [float(tr.step(state, batch)[1]['loss']) for _ in range(3)]
+flat = {'/'.join(p): v for p, v in flatten_tree(tr.get_params(state))}
+np.savez(out % rank, losses=np.asarray(losses), **flat)
+dist.destroy_process_group()
+'''
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def test_gloo_dp2_equals_single_process(tmp_path):
+    out = str(tmp_path / 'rank%d.npz')
+    port = str(_free_port())
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, '-c', _DP_WORKER, str(r),
+                               port, out], env=env, cwd=str(tmp_path))
+             for r in range(2)]
+    for p in procs:
+        assert p.wait(timeout=120) == 0
+    losses, params = _port_run(3)
+    ranks = [np.load(out % r) for r in range(2)]
+    for r in ranks:
+        np.testing.assert_allclose(r['losses'], losses, rtol=1e-5)
+        for path, v in flatten_tree(params):
+            np.testing.assert_allclose(r['/'.join(path)], v, atol=2e-6,
+                                       rtol=0, err_msg='/'.join(path))
+
+
+_RESOURCES = {'nodes': [{'address': 'localhost', 'chief': True,
+                         'cpus': [0], 'gpus': [0], 'network_bandwidth': 100}]}
+
+
+@pytest.mark.parametrize('builder', ['AllReduce', 'PartitionedPS',
+                                     'Parallax'])
+def test_strategy_node_config_matches_jax(builder):
+    """Same model, same resources: the same node_config (strategy id
+    aside). A partitioned placement is a no-op at dp = 1 in both."""
+    jtr = j_trainer_from_strategy(
+        JLM(JConfig.tiny(dtype=jnp.float32)), optax.adamw(1e-4),
+        getattr(jbuilders, builder)(),
+        resource_spec=JResourceSpec(resource_info=_RESOURCES))
+    tr = trainer_from_strategy(
+        TransformerLM(TransformerConfig.tiny(dtype=torch.float32),
+                      device='cpu'),
+        optim.adamw(1e-4), getattr(builders, builder)(),
+        resource_spec=ResourceSpec(resource_info=_RESOURCES))
+    got = [dataclasses.asdict(n) for n in tr.strategy.node_config]
+    want = [dataclasses.asdict(n) for n in jtr.strategy.node_config]
+    assert got == want
+    assert tr.strategy.graph_config.replicas == \
+        jtr.strategy.graph_config.replicas
+    assert tr.strategy.id != ''
+
+
+def test_spec_beyond_dp_raises():
+    for kw in (dict(tp=2), dict(pp=2), dict(sp=2), dict(ep=2), dict(zero=2)):
+        with pytest.raises(NotImplementedError):
+            ParallelSpec(**kw)
+    with pytest.raises(ValueError):
+        ParallelSpec(dp=2).resolve_dp(1)
+    assert ParallelSpec().resolve_dp(3) == 3
