@@ -19,6 +19,14 @@ PyTorch runs eagerly, so ``compile_step`` compiles nothing: it returns
 the step callable for an already-sharded batch. The port updates the
 model's parameters and the optimizer state in place; ``TrainState``
 holds references to both.
+
+A model with state (BatchNorm running statistics, as buffers) runs its
+loss under ``model_mode(training=True)``; the updates it records are
+written into the buffers after the optimizer step, as the JAX package
+folds them into the params tree. The step hands the data-parallel group
+to the model on that collector, so BatchNorm reduces its moments over
+the whole global batch: in the JAX package data parallelism is GSPMD's,
+and a mean over the batch axis is a mean over the global batch.
 """
 from dataclasses import dataclass
 from typing import Any
@@ -28,6 +36,8 @@ import torch
 import torch.distributed as dist
 
 from autodist_tpu_torch.models import weights
+from autodist_tpu_torch.models.core import (apply_tree_updates,
+                                            assign_state_paths, model_mode)
 from autodist_tpu_torch.parallel.axes import ParallelSpec
 from autodist_tpu_torch.utils import logging
 
@@ -69,6 +79,9 @@ class Trainer:
             self.world, self.rank = 1, 0
         self.dp = self.spec.resolve_dp(self.world)
         self.device = next(model.parameters()).device
+        self._has_state = model.has_state()
+        if self._has_state:
+            assign_state_paths(model)
         logging.info('Trainer: dp=%d on %s', self.dp, self.device)
 
     # -- init --------------------------------------------------------------
@@ -81,7 +94,8 @@ class Trainer:
         else:
             weights.load_params(self.model, params)
         if self.world > 1:
-            for p in self.model.parameters():
+            for p in list(self.model.parameters()) + \
+                    list(self.model.buffers()):
                 dist.broadcast(p.data, dist.get_global_rank(self.group, 0)
                                if self.group is not None else 0,
                                group=self.group)
@@ -114,7 +128,13 @@ class Trainer:
     def _step(self, state, batch):
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
-        loss = self.loss_for(self.model.params(), batch)
+        params = self.model.params()
+        if self._has_state:
+            with model_mode(training=True, group=self.group,
+                            world=self.world) as mm:
+                loss = self.loss_for(params, batch)
+        else:
+            loss = self.loss_for(params, batch)
         loss.backward()
         loss = loss.detach()
         if self.world > 1:
@@ -124,6 +144,8 @@ class Trainer:
             dist.all_reduce(loss, group=self.group)
             loss /= self.world
         opt.step()
+        if self._has_state:
+            apply_tree_updates(params, mm.updates)
         state.step += 1
         return state, {'loss': loss}
 

@@ -15,13 +15,22 @@ another, see :mod:`autodist_tpu_torch.utils.device`) and initialize from
 a ``torch.Generator`` (:meth:`Module.reset_parameters`): the port's
 random numbers are its own, and parity tests carry the JAX package's
 params across with :mod:`autodist_tpu_torch.models.weights`.
+
+A ``ParamDef(trainable=False)`` leaf (BatchNorm's running statistics) is
+a registered *buffer*, not a parameter: the optimizer never sees it, yet
+``params()`` and ``state_dict`` carry it under its JAX path, as the JAX
+``init`` carries it in the params tree. It advances through the state
+channel below (:func:`record_state_update`), as in the JAX package.
 """
 import math
+import threading
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.nn.functional import all_reduce
 
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -32,14 +41,19 @@ class ParamDef:
     axes: tuple            # logical axis names, len == len(shape)
     init: str = 'normal'   # normal | zeros | ones | fan_in
     scale: float = 0.02
+    # False = a STATE leaf (BatchNorm running stats): a buffer the
+    # optimizer never touches; it advances via record_state_update.
+    trainable: bool = True
 
 
 class Module(nn.Module):
     """Base: parameters declared by ``param_defs()``.
 
-    Subclasses create their submodules as attributes named as in
-    ``param_defs()``, then call :meth:`_register` to allocate their own
-    leaf parameters with the leading ``stack`` axes."""
+    Subclasses create their submodules, then call :meth:`_register` to
+    allocate their own leaves with the leading ``stack`` axes and to
+    register every submodule under its ``param_defs()`` name (submodules
+    held in lists need it; attributes named as in ``param_defs()`` are
+    registered by ``nn.Module`` already)."""
 
     def __init__(self, stack=()):
         super().__init__()
@@ -55,17 +69,35 @@ class Module(nn.Module):
         return self.apply(self.params(), *args, **kwargs)
 
     def _register(self, device):
+        """Allocate this module's own leaves (parameters, or buffers for
+        state leaves) and register its submodules under their
+        ``param_defs`` names, which are their JAX paths."""
         for name, d in self.param_defs().items():
-            if isinstance(d, ParamDef):
-                self.register_parameter(name, nn.Parameter(torch.empty(
-                    self.stack + tuple(d.shape), dtype=torch.float32,
-                    device=device)))
+            if isinstance(d, Module):
+                self.add_module(name, d)
+                continue
+            t = torch.empty(self.stack + tuple(d.shape),
+                            dtype=torch.float32, device=device)
+            if d.trainable:
+                self.register_parameter(name, nn.Parameter(t))
+            else:
+                self.register_buffer(name, t)
 
     def params(self):
-        """Nested dict of this module's parameters, by JAX path."""
+        """Nested dict of this module's parameters and state buffers, by
+        JAX path."""
         return {name: d.params() if isinstance(d, Module)
                 else getattr(self, name)
                 for name, d in sorted(self.param_defs().items())}
+
+    def trainable_mask(self):
+        """Bool tree mirroring ``params()``: False at state leaves."""
+        return {name: (d.trainable_mask() if isinstance(d, Module)
+                       else d.trainable)
+                for name, d in sorted(self.param_defs().items())}
+
+    def has_state(self):
+        return not all(_leaves(self.trainable_mask()))
 
     def axes(self):
         """Logical axes of every parameter; stacked ones lead with
@@ -98,6 +130,132 @@ class Module(nn.Module):
                                               if len(d.shape) > 1
                                               else d.shape[0], 1))
                 p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+# ---------------------------------------------------------------------------
+# Model state (BatchNorm running stats)
+#
+# As in the JAX package: during the loss forward a collector is active,
+# stateful modules call ``record_state_update(module, name, value)``, and
+# the trainer writes the recorded values into the state buffers after the
+# optimizer step. Paths are stamped on module instances once per trainer
+# (``assign_state_paths``). The collector also carries the data-parallel
+# process group of the step, so BatchNorm can reduce its moments over the
+# whole data-parallel batch (``reduce_over_batch``).
+# ---------------------------------------------------------------------------
+_MODEL_CTX = threading.local()
+
+
+class _StateCollector:
+    def __init__(self, training, group, world):
+        self.training = training
+        self.group = group
+        self.world = world
+        self.updates = {}    # path tuple -> new value (detached)
+
+
+class model_mode:
+    """Context: set training/eval mode and collect state updates during a
+    forward. ``group``/``world`` name the data-parallel group whose ranks
+    each hold a slice of the batch (``world`` 1: no collective)."""
+
+    def __init__(self, training=True, group=None, world=1):
+        self._col = _StateCollector(training, group, world)
+
+    @property
+    def updates(self):
+        return self._col.updates
+
+    def __enter__(self):
+        stack = getattr(_MODEL_CTX, 'stack', None)
+        if stack is None:
+            stack = _MODEL_CTX.stack = []
+        stack.append(self._col)
+        return self
+
+    def __exit__(self, *exc):
+        _MODEL_CTX.stack.pop()
+
+
+def _collector():
+    stack = getattr(_MODEL_CTX, 'stack', None)
+    return stack[-1] if stack else None
+
+
+def is_training():
+    """True outside any model_mode context (benchmark semantics)."""
+    col = _collector()
+    return True if col is None else col.training
+
+
+def reduce_over_batch(t):
+    """Sum ``t`` over the data-parallel group of the active step, with a
+    differentiable all-reduce (its backward sums the cotangents over the
+    ranks); ``t`` itself outside a step or with one rank. This is what
+    makes a per-rank BatchNorm compute the JAX package's global-batch
+    statistics."""
+    col = _collector()
+    if col is None or col.world <= 1:
+        return t
+    return all_reduce(t, group=col.group or dist.group.WORLD)
+
+
+def record_state_update(module, name, value):
+    """Record a new value for state leaf ``name`` of ``module`` (no-op
+    when no collector is active, e.g. plain benchmark forwards). The
+    value is detached: state takes no gradient."""
+    col = _collector()
+    if col is None:
+        return
+    path = getattr(module, '_state_path', None)
+    if path is None:
+        raise ValueError(
+            '%s has state but no assigned path — build it through a '
+            'Trainer (assign_state_paths) to track running statistics'
+            % type(module).__name__)
+    col.updates[path + (name,)] = value.detach()
+
+
+def assign_state_paths(module, prefix=(), _seen=None):
+    """Walk the module tree once, stamping each submodule with its param
+    path so state updates can be written back by position. A stateful
+    instance may occupy only one tree position (one stamped path cannot
+    name two); stateless instances may be shared."""
+    if _seen is None:
+        _seen = set()
+    if id(module) in _seen and module.has_state():
+        raise ValueError(
+            'stateful module %s appears at multiple tree positions '
+            '(%s and %s); give each position its own instance so its '
+            'running statistics have a unique home'
+            % (type(module).__name__, module._state_path, prefix))
+    _seen.add(id(module))
+    module._state_path = prefix
+    for name, d in module.param_defs().items():
+        if isinstance(d, Module):
+            assign_state_paths(d, prefix + (name,), _seen)
+
+
+@torch.no_grad()
+def apply_tree_updates(tree, updates):
+    """Write ``{path tuple: value}`` into the leaves of ``tree`` (a
+    ``params()`` tree), IN PLACE: the leaves are the model's own state
+    buffers, so the model advances without a copy of its tree (the JAX
+    package returns a new tree instead). Returns ``tree``."""
+    for path, value in updates.items():
+        node = tree
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]].copy_(value)
+    return tree
 
 
 class Dense(Module):

@@ -5,6 +5,11 @@ for ``/`` (``blocks/attn/qkv/kernel``, stacked ``[L, dim, 3 * dim]``, is
 ``blocks.attn.qkv.kernel``), so the mapping is by name, and
 ``PytreeGraphItem`` names variables identically in both packages. Trees
 are nested dicts of numpy arrays; no JAX type crosses over.
+
+State leaves (BatchNorm's ``ema_mean``/``ema_var``) are buffers in the
+port and cross over with the parameters: ``state_dict`` and ``params()``
+hold both. Conv kernels keep the JAX HWIO shape as the port's parameter,
+so the map stays by name with no transpose.
 """
 import numpy as np
 import torch
@@ -32,7 +37,8 @@ def params_from_jax(tree):
 
 
 def params_to_jax(module):
-    """The port module's params -> JAX-layout nested dict of numpy."""
+    """The port module's params and state buffers -> JAX-layout nested
+    dict of numpy."""
     return tree_to_numpy(module.params())
 
 
@@ -44,6 +50,7 @@ def tree_to_numpy(tree):
 
 
 def load_params(module, tree):
-    """Copy JAX-layout params into ``module``, in place, on its device.
-    Every parameter must be present and match in shape."""
+    """Copy JAX-layout params (state leaves included) into ``module``, in
+    place, on its device. Every parameter and buffer must be present and
+    match in shape."""
     module.load_state_dict(params_from_jax(tree), strict=True)

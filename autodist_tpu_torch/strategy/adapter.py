@@ -40,6 +40,9 @@ class _VarLike:
 class PytreeGraphItem:
     """GraphItem facade over a port model's parameters.
 
+    State leaves (BatchNorm's running statistics, buffers in the port)
+    are variables too, as they are leaves of the JAX params tree, so a
+    model with BatchNorm gets the JAX builders' ``node_config``.
     A variable whose logical axes include ``vocab`` is flagged sparse
     (embedding tables get gather-style gradients), which is what
     Parallax keys its dense/sparse split on."""

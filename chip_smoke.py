@@ -5,24 +5,40 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA
-   versions), then the build of the flash-attention kernels from
-   ``autodist_tpu_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``;
-2. each kernel (fwd, dQ, dK/dV) held against its plain PyTorch version on
-   the card, causal and not, f32 (TF32 off) and bf16, at gpt_small's
-   attention shape (B4 H12 S4096 D64, causal) and bert_large's
-   (B8 H16 S512 D64, full), with times: the kernel, its plain version,
-   PyTorch's fused attention as a yardstick (never used by the port) and
-   the least time the card could take (the bound);
-3. a small model through the kernels on the card against the same model
-   on the CPU (the plain versions), as the reference on a small input;
-4. gpt_small at full width through ``Trainer`` at bench_longctx's
+   versions), then the build of the kernels from
+   ``autodist_tpu_torch/kernels/csrc`` (flash attention and the fused
+   conv + BatchNorm), one ``nvcc`` each, all at once, for ``sm_90a``;
+2. each flash kernel (fwd, dQ, dK/dV) held against its plain PyTorch
+   version on the card, causal and not, f32 (TF32 off) and bf16, at
+   gpt_small's attention shape (B4 H12 S4096 D64, causal) and
+   bert_large's (B8 H16 S512 D64, full), with times: the kernel, its
+   plain version, PyTorch's fused attention as a yardstick (never used by
+   the port) and the least time the card could take (the bound);
+3. the fused conv + BatchNorm kernel (K4) held against its plain version
+   at each of ResNet-101's main-path shapes (batch 256) in bf16, and in
+   f32 at two of them and at a stage-1 shape (802,816 rows), with times:
+   the kernel, its plain version, ``torch.matmul`` of the same operands
+   ("product only": no prologue, no stats; never used by the port) and
+   the bound;
+4. small models through the kernels on the card against the same models
+   on the CPU (the plain versions), as the reference on a small input: a
+   Transformer at S = 512 and ``ResNet((1, 1))`` with
+   ``AUTODIST_FUSED_CONV=1`` (loss, every gradient, every EMA update);
+5. gpt_small at full width through ``Trainer`` at bench_longctx's
    configuration (seq 4096, batch 4, bf16, remat), 3 adamw steps; the
    launch counts must read 24 fwd (12 blocks plus 12 remat recomputes),
    12 dQ and 12 dK/dV per step;
-5. bert_large at full width, seq 128, batch 32, 2 steps through
+6. bert_large at full width, seq 128, batch 32, 2 steps through
    ``trainer_from_strategy(..., AllReduce())``: the plain-attention arm,
    so every launch count stays 0;
-6. the card's line, the ``kernels`` line, and last
+7. ResNet-101 at full width (bf16, batch 256, 224 px, sgd 0.1 momentum
+   0.9) through ``trainer_from_strategy(..., AllReduce())``, 3 steps with
+   ``AUTODIST_FUSED_CONV=1`` (53 K4 launches per step) and 3 with the
+   gate off (none), each from the same init; the first losses of the two
+   runs must agree; then the two arms' step times in turns;
+8. DenseNet-121 and InceptionV3 (299 px), which launch K4 under the
+   gate, and VGG16, one step each at full width, batch 16;
+9. the card's line, the ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` adds one profiled step after each
@@ -33,6 +49,7 @@ fails before printing any result.
 """
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -45,7 +62,9 @@ import torch.nn.functional as F
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.api import Trainer
 from autodist_tpu_torch.kernels import build
+from autodist_tpu_torch.kernels import conv_bn as cb
 from autodist_tpu_torch.kernels import flash_attention as fa
+from autodist_tpu_torch.models import core, vision
 from autodist_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 from autodist_tpu_torch.parallel.axes import ParallelSpec
@@ -56,6 +75,8 @@ from autodist_tpu_torch.strategy import AllReduce, trainer_from_strategy
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 SOURCE = 'autodist_tpu_torch/kernels/csrc/flash_attention.cu'
+CB_SOURCE = 'autodist_tpu_torch/kernels/csrc/conv_bn.cu'
+CB_REPLACES = 'autodist_tpu/kernels/conv_bn.py:70'
 REPLACES = {'fwd': 'autodist_tpu/kernels/flash_attention.py:99',
             'dq': 'autodist_tpu/kernels/flash_attention.py:183',
             'dkv': 'autodist_tpu/kernels/flash_attention.py:224'}
@@ -70,6 +91,41 @@ TOL = {torch.float32: {'o': (1e-4, 1e-4), 'lse': (1e-4, 1e-5),
                        'grad': (1e-4, 1e-4)},
        torch.bfloat16: {'o': (2e-2, 2e-2), 'lse': (1e-4, 1e-5),
                         'grad': (1e-2, 2e-2)}}
+
+# K4 on ResNet-101's main path (batch 256, 224 px, AUTODIST_FUSED_CONV=1):
+# (x rows after the stride subsample, Cin, Cout, prologue ReLU, calls
+# per forward, the conv's NHWC input and stride). 53 calls per forward,
+# as a shape trace of the JAX model gives
+# (tests/test_torch_vision.py::test_resnet101_fused_calls_per_forward).
+RESNET_BATCH = 256
+RESNET_K4 = [(50176, 512, 1024, False, 1, (256, 28, 28, 512), 2),
+             (50176, 256, 1024, False, 1, (256, 14, 14, 256), 1),
+             (50176, 1024, 256, False, 22, (256, 14, 14, 1024), 1),
+             (50176, 256, 1024, True, 22, (256, 14, 14, 256), 1),
+             (50176, 1024, 512, False, 1, (256, 14, 14, 1024), 1),
+             (12544, 512, 2048, True, 3, (256, 7, 7, 512), 1),
+             (12544, 1024, 2048, False, 1, (256, 14, 14, 1024), 2),
+             (12544, 2048, 512, False, 2, (256, 7, 7, 2048), 1)]
+RESNET_K4_PER_STEP = sum(shape[4] for shape in RESNET_K4)
+# f32 (TF32 off) at two main-path shapes and at stage 1's conv-c (x
+# 256x56x56x64 -> 256 with bn2's prologue), which the row ceiling keeps
+# off the main path
+K4_F32 = [RESNET_K4[2], RESNET_K4[5], (802816, 64, 256, True, 0,
+                                       (256, 56, 56, 64), 1)]
+# |kernel - plain| <= rel * max|plain|, per output. y: f32 sums in
+# another order (f32); in bf16 one bf16 ulp of y, rounded from such sums.
+# s1, s2: f32 sums of the same f32 products over the rows in another
+# order, in both dtypes.
+K4_TOL = {torch.float32: {'y': 1e-5, 's': 1e-5},
+          torch.bfloat16: {'y': 1e-2, 's': 1e-5}}
+# ResNet-101's training FLOP per image (bench.py's figure for the JAX
+# model: forward + backward at 224 px)
+RESNET_FLOP_PER_IMAGE = 46.8e9
+# the first losses of the fused and unfused runs (same weights, same
+# batch) in bf16: 100 BatchNorm'd layers rounded to bf16 at other points
+# (the fused arm keeps conv outputs raw and folds the normalize into the
+# next op) move the loss by well under 1 %
+FIRST_LOSS_REL = 1e-2
 
 
 def emit(**obj):
@@ -114,16 +170,37 @@ def bound(kernel, shape, dtype, causal):
         'operations' if t_ops >= t_bytes else 'bytes'
 
 
+def bound_conv_bn(n, c_in, c_out, dtype, prologue, want_stats=True):
+    """(ms, 'bytes' | 'operations'): the least time the card could take
+    for one K4 call: 2 N Cin Cout FLOP at the dtype's peak; bytes of x,
+    W and y once each, plus a and b (f32 [Cin]) with a prologue and s1,
+    s2 (f32 [Cout]) with stats."""
+    el = torch.tensor([], dtype=dtype).element_size()
+    flops = 2 * n * c_in * c_out
+    nbytes = (n * c_in + c_in * c_out + n * c_out) * el + \
+        (2 * c_in * 4 if prologue else 0) + (2 * c_out * 4 if want_stats
+                                             else 0)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        'operations' if t_ops >= t_bytes else 'bytes'
+
+
 def ptxas_summary(log):
     """{kernel<dtype, D>: 'R regs, S B spilled'} from nvcc's -Xptxas -v
-    report."""
+    report (flash attention's kernels and K4's)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"entry function '\w*?\d+((?:fwd|dq|dkv)(?:_mma)?_kernel)"
                       r"I(f)?Li(\d+)E", line)
+        c = re.search(r"entry function '\w*?\d+(cb_\w+?_kernel)"
+                      r"(?:I(13__nv_bfloat16|f)E)?", line)
         if m:
             name = '%s<%s,%s>' % (m.group(1), 'f32' if m.group(2) else 'bf16',
                                   m.group(3))
+            spill = 0
+        elif c:
+            name = c.group(1) + ('' if not c.group(2) else '<out %s>' % (
+                'f32' if c.group(2) == 'f' else 'bf16'))
             spill = 0
         m = re.search(r'(\d+) bytes spill stores', line)
         if m and name:
@@ -143,7 +220,7 @@ def max_err(got, want, tol):
         bool((diff <= atol + rtol * want.float().abs()).all())
 
 
-def check_kernels(shape, causal, dtype, timed):
+def check_kernels(shape, causal, dtype, timed, smi):
     """Phase 2 for one (shape, mask, dtype): errors, and times if
     ``timed``. Returns {kernel: record}."""
     gen = torch.Generator(device='cuda').manual_seed(1)
@@ -183,7 +260,7 @@ def check_kernels(shape, causal, dtype, timed):
         rec['bound_ms'], rec['bound_by'] = bound(name, shape, dtype, causal)
         emit(phase='kernel_check', kernel=name, shape=list(shape),
              dtype=str(dtype).replace('torch.', ''), causal=causal, ok=ok,
-             tol={k: list(v) for k, v in tol.items()}, **rec)
+             tol={k: list(v) for k, v in tol.items()}, card=smi, **rec)
         require(ok, '%s kernel disagrees with its plain version at %s %s '
                 'causal=%s' % (name, shape, dtype, causal))
         out[name] = rec
@@ -211,6 +288,179 @@ def _times(name, kernel, plain, q, k, v, do, causal, scale):
     return rec
 
 
+def check_conv_bn(shape, dtype, smi):
+    """Phase 3 for one K4 shape: the kernel (through its wrapper) against
+    its plain version on the same inputs, then times: kernel, plain,
+    product only, and the bound. Returns the record."""
+    n, c_in, c_out, relu, calls, x_shape, stride = shape
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    x = torch.randn((n, c_in), generator=gen, device='cuda').to(dtype)
+    w = torch.randn((c_in, c_out), generator=gen, device='cuda') * \
+        c_in ** -0.5
+    a = b = None
+    if relu:
+        a = torch.rand(c_in, generator=gen, device='cuda') + 0.5
+        b = torch.randn(c_in, generator=gen, device='cuda')
+    args = (x, w, a, b, relu, True, dtype)
+    y, s1, s2 = cb._fwd_cuda(*args)
+    py, p1, p2 = cb._fwd_plain(*args)
+    torch.cuda.synchronize()
+    tol = K4_TOL[dtype]
+    errs, ok = [], True
+    for got, want, rel in ((y, py, tol['y']), (s1, p1, tol['s']),
+                           (s2, p2, tol['s'])):
+        diff = float((got.float() - want.float()).abs().max())
+        errs.append(diff)
+        ok = ok and diff <= rel * float(want.float().abs().max())
+    del y, s1, s2, py, p1, p2
+    wc = w.to(dtype)
+    rec = {'max_abs_err': errs[0], 'max_abs_err_s1': errs[1],
+           'max_abs_err_s2': errs[2],
+           'ms': cuda_ms(lambda: cb._fwd_cuda(*args), 10),
+           'plain_ms': cuda_ms(lambda: cb._fwd_plain(*args), 3),
+           'product_only_ms': cuda_ms(lambda: torch.matmul(x, wc), 10),
+           'library_ms': None}
+    rec['bound_ms'], rec['bound_by'] = bound_conv_bn(n, c_in, c_out, dtype,
+                                                     relu)
+    emit(phase='conv_bn_check', rows=n, c_in=c_in, c_out=c_out,
+         prologue_relu=relu, calls_per_step=calls, x=list(x_shape),
+         stride=stride, dtype=str(dtype).replace('torch.', ''), ok=ok,
+         tol=tol, card=smi, **rec)
+    require(ok, 'conv_bn kernel disagrees with its plain version at %d x %d '
+            '-> %d %s' % (n, c_in, c_out, dtype))
+    return rec
+
+
+def make_images(batch, hw, classes, seed=0):
+    rng = np.random.RandomState(seed)
+    return {'images': rng.randn(batch, hw, hw, 3).astype(np.float32),
+            'labels': rng.randint(0, classes, (batch,)).astype(np.int32)}
+
+
+def small_resnet_reference():
+    """K4 on the card against its plain version on the CPU, inside
+    ``ResNet((1, 1))`` at 32 px, batch 4, f32, with the gate on: loss,
+    every gradient and every EMA update of one training forward."""
+    set_fused_gate(True)
+    batch = make_images(4, 32, 10, seed=2)
+    out = {}
+    for device in ('cuda', 'cpu'):
+        model = vision.ResNet((1, 1), num_classes=10, device=device, seed=0)
+        core.assign_state_paths(model)
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        cb.reset_launches()
+        with core.model_mode(training=True) as mm:
+            loss = model.loss(model.params(), tb)
+        loss.backward()
+        out[device] = (float(loss.detach()),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()},
+                       {k: v.cpu() for k, v in mm.updates.items()},
+                       cb.LAUNCHES['conv_bn'])
+    (l_gpu, g_gpu, u_gpu, launches), (l_cpu, g_cpu, u_cpu, _) = \
+        out['cuda'], out['cpu']
+    # f32, TF32 off on both sides: sums in other orders; as in the CPU
+    # parity tests, a gradient is held to 2e-5 of its own largest entry
+    # plus 1e-6 of the model's largest (BatchNorm scales that feed another
+    # batch-statistics BatchNorm have gradients that nearly cancel)
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    grad_ok = all(float((g_gpu[n] - g).abs().max()) <=
+                  2e-5 * float(g.abs().max()) + 1e-6 * top
+                  for n, g in g_cpu.items())
+    grad_err = max(float((g_gpu[n] - g).abs().max())
+                   for n, g in g_cpu.items())
+    upd_err = max(float((u_gpu[k] - v).abs().max()) for k, v in u_cpu.items())
+    ok = abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu) and grad_ok and \
+        upd_err <= 1e-5 and len(u_gpu) == len(u_cpu) and launches == 5
+    emit(phase='small_resnet_reference', loss_cuda=l_gpu, loss_cpu=l_cpu,
+         max_grad_err=grad_err, max_ema_update_err=upd_err,
+         ema_updates=len(u_gpu), launches=launches, ok=ok)
+    require(ok, 'the small ResNet on the card disagrees with the CPU '
+            'reference')
+
+
+def set_fused_gate(fused):
+    os.environ['AUTODIST_FUSED_CONV'] = '1' if fused else '0'
+
+
+def resnet101_run(trainer, batch, fused, smi, profiling):
+    """3 sgd steps of ResNet-101 from a fresh init (seed 0) with the
+    fused gate on or off. Returns (state, first loss, K4 launches)."""
+    set_fused_gate(fused)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cb.reset_launches()
+    state, losses, seconds = train_steps(trainer, batch, 3)
+    launches = cb.LAUNCHES['conv_bn']
+    img_s = RESNET_BATCH / float(np.median(seconds[1:]))
+    emit(phase='resnet101', fused_conv=fused, batch=RESNET_BATCH, px=224,
+         steps=3, losses=losses, step_seconds=seconds, images_per_s=img_s,
+         bf16_peak_share=img_s * RESNET_FLOP_PER_IMAGE /
+         PEAK_FLOPS[torch.bfloat16],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         k4_launches=launches, k4_launches_per_step=launches / 3,
+         strategy_nodes=len(trainer.strategy.node_config), card=smi)
+    require(all(math.isfinite(x) for x in losses),
+            'ResNet-101 loss not finite')
+    want = 3 * RESNET_K4_PER_STEP if fused else 0
+    require(launches == want, 'ResNet-101 (fused=%s) launched K4 %d times '
+            'in 3 steps, expected %d' % (fused, launches, want))
+    if profiling:
+        state, top = profile_step('resnet101_%s' % ('fused' if fused else
+                                                    'unfused'),
+                                  trainer, state, batch, smi)
+        layout = [k for k in top if 'nchwToNhwc' in k or
+                  'nhwcToNchw' in k]
+        require(not layout, 'layout-conversion kernels among the top '
+                'kernels: %s' % layout)
+    return state, losses[0], launches
+
+
+def resnet101_ab(trainer, state, batch, smi, steps=4):
+    """Step time of the two arms on one trainer, in turns (unfused,
+    fused, fused, unfused; ``steps`` fenced steps each): a host-bound
+    step on a shared host varies from call to call, so the arms are
+    compared only inside one call and interleaved."""
+    step = trainer.compile_step(state, batch)
+    local = trainer.shard_batch(batch)
+    seconds = {False: [], True: []}
+    for fused in (False, True, True, False):
+        set_fused_gate(fused)
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, local)
+            float(metrics['loss'])
+            seconds[fused].append(time.perf_counter() - t0)
+    med = {fused: float(np.median(v)) for fused, v in seconds.items()}
+    emit(phase='resnet101_ab', order='unfused fused fused unfused',
+         steps_each=steps, unfused_step_seconds=seconds[False],
+         fused_step_seconds=seconds[True], unfused_median_s=med[False],
+         fused_median_s=med[True],
+         unfused_images_per_s=RESNET_BATCH / med[False],
+         fused_images_per_s=RESNET_BATCH / med[True],
+         fused_over_unfused=med[True] / med[False], card=smi)
+
+
+def family_step(name, model, hw, launches_expected, smi):
+    """One training step of a vision model at full width, batch 16, with
+    the fused gate on: K4 must launch iff ``launches_expected`` (the
+    gate admits DenseNet's conv1s and transitions and InceptionV3's
+    1x1 convs with 128 or 384 outputs; VGG has no BatchNorm)."""
+    trainer = trainer_from_strategy(model, optim.sgd(0.1, momentum=0.9),
+                                    AllReduce())
+    cb.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    _, losses, seconds = train_steps(trainer, make_images(16, hw, 1000), 1)
+    launches = cb.LAUNCHES['conv_bn']
+    emit(phase='family', model=name, px=hw, batch=16, loss=losses[0],
+         step_seconds=seconds[0], k4_launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+    require(math.isfinite(losses[0]), '%s loss not finite' % name)
+    require((launches > 0) == launches_expected,
+            '%s launched K4 %d times' % (name, launches))
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def make_batch(vocab, batch, seq, seed=0):
     rng = np.random.RandomState(seed)
     return {'tokens': rng.randint(0, vocab, (batch, seq), dtype=np.int32),
@@ -232,11 +482,35 @@ def train_steps(trainer, batch, steps):
     return state, losses, seconds
 
 
-def profile_step(name, trainer, state, batch):
+# device time by class of kernel, first match wins (cuDNN spreads the
+# convolutions over many kernel names, so no single one reaches the top)
+KERNEL_CLASSES = (
+    ('k4_conv_bn', ('::cb_mma_kernel', '::cb_f32_kernel',
+                    '::cb_stats_kernel')),
+    ('flash_attention', ('::fwd_mma_kernel', '::dq_mma_kernel',
+                         '::dkv_mma_kernel', '::fwd_kernel', '::dq_kernel',
+                         '::dkv_kernel')),
+    ('cudnn_conv', ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
+                    'implicit')),
+    ('gemm', ('gemm', 'nvjet', 'cutlass')),
+    ('reductions', ('reduce_kernel',)),
+    ('copies_and_casts', ('copy',)),
+    ('elementwise', ('elementwise',)))
+
+
+def kernel_class(name):
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return 'other'
+
+
+def profile_step(name, trainer, state, batch, smi):
     """One more step under torch.profiler: host seconds, device-busy
     seconds (kernel time summed), idle share, and the kernels that take
     the most device time. The profiler's own cost inflates the host
-    time, so the idle share here is an upper bound."""
+    time, so the idle share here is an upper bound. Returns (state, the
+    top kernels' names)."""
     from torch.profiler import ProfilerActivity, profile
     step = trainer.compile_step(state, batch)
     local = trainer.shard_batch(batch)
@@ -255,11 +529,16 @@ def profile_step(name, trainer, state, batch):
                 e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    by_class = {}
+    for n, ms in by_name.items():
+        by_class[kernel_class(n)] = by_class.get(kernel_class(n), 0.0) + ms
     emit(phase='profile', model=name, host_s=wall, device_busy_s=busy,
          idle_share=1 - busy / wall,
-         top_kernels_ms={n[:90]: ms for n, ms in top})
+         device_ms_by_class=dict(sorted(by_class.items(),
+                                        key=lambda kv: -kv[1])),
+         top_kernels_ms={n[:120]: ms for n, ms in top}, card=smi)
     require(busy > 0, 'the profiler saw no device time')
-    return state
+    return state, [n for n, _ in top]
 
 
 def small_reference():
@@ -308,23 +587,32 @@ def main(argv):
          cuda=torch.version.cuda, allow_tf32=False)
 
     t0 = time.time()
-    build.build_all([fa.SOURCE])
+    build.build_all([fa.SOURCE, cb.SOURCE])
     fa.load_library()
-    emit(phase='build', source=SOURCE, seconds=time.time() - t0,
-         ptxas=ptxas_summary(build.build_log(fa.SOURCE)))
+    cb.load_library()
+    emit(phase='build', sources=[SOURCE, CB_SOURCE],
+         seconds=time.time() - t0,
+         ptxas=dict(ptxas_summary(build.build_log(fa.SOURCE)),
+                    **ptxas_summary(build.build_log(cb.SOURCE))))
 
     results = {}
     for shape, causal in ((GPT_SHAPE, True), (BERT_SHAPE, False)):
         for dtype in (torch.float32, torch.bfloat16):
-            rec = check_kernels(shape, causal, dtype, timed=dtype ==
-                                torch.bfloat16)
+            rec = check_kernels(shape, causal, dtype, dtype == torch.bfloat16,
+                                smi)
             results[(shape, causal, dtype)] = rec
             torch.cuda.empty_cache()
     for shape, causal in ((GPT_SHAPE, False), (BERT_SHAPE, True)):
-        check_kernels(shape, causal, torch.bfloat16, timed=False)
+        check_kernels(shape, causal, torch.bfloat16, False, smi)
         torch.cuda.empty_cache()
 
+    k4 = [check_conv_bn(shape, torch.bfloat16, smi) for shape in RESNET_K4]
+    for shape in K4_F32:
+        check_conv_bn(shape, torch.float32, smi)
+    torch.cuda.empty_cache()
+
     small_reference()
+    small_resnet_reference()
 
     # gpt_small at bench_longctx's configuration: the kernel arm
     cfg = TransformerConfig.gpt_small(dtype=torch.bfloat16, remat=True,
@@ -340,7 +628,7 @@ def main(argv):
     emit(phase='gpt_small', seq=4096, batch=4, steps=3, losses=losses,
          step_seconds=seconds, tokens_per_s=4 * 4096 / step_s,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches)
+         launches=launches, card=smi)
     require(all(math.isfinite(x) for x in losses), 'gpt_small loss not finite')
     require(abs(losses[0] - math.log(cfg.vocab)) < 0.5,
             'gpt_small initial loss %.4f is not near ln(vocab)' % losses[0])
@@ -350,7 +638,7 @@ def main(argv):
             'gpt_small launch counts %s, expected %s per step'
             % (launches, per_step))
     if profiling:
-        profile_step('gpt_small', trainer, state, batch)
+        profile_step('gpt_small', trainer, state, batch, smi)
     del trainer, state
     torch.cuda.empty_cache()
 
@@ -365,12 +653,41 @@ def main(argv):
     emit(phase='bert_large', seq=128, batch=32, steps=2, losses=losses,
          step_seconds=seconds, tokens_per_s=32 * 128 / seconds[-1],
          strategy_nodes=len(trainer.strategy.node_config),
-         launches=bert_launches)
+         launches=bert_launches, card=smi)
     require(all(math.isfinite(x) for x in losses), 'bert_large loss not finite')
     require(all(n == 0 for n in bert_launches.values()),
             'bert_large at seq 128 launched a flash kernel')
     if profiling:
-        profile_step('bert_large', trainer, state, batch)
+        profile_step('bert_large', trainer, state, batch, smi)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # ResNet-101 at full width, the slice's main path: fused, then not
+    trainer = trainer_from_strategy(
+        vision.ResNet.resnet101(dtype=torch.bfloat16, seed=0),
+        optim.sgd(0.1, momentum=0.9), AllReduce())
+    batch = make_images(RESNET_BATCH, 224, 1000, seed=4)
+    _, first_fused, k4_launches = resnet101_run(trainer, batch, True, smi,
+                                                profiling)
+    state, first_plain, _ = resnet101_run(trainer, batch, False, smi,
+                                          profiling)
+    resnet101_ab(trainer, state, batch, smi)
+    del trainer, state
+    torch.cuda.empty_cache()
+    rel = abs(first_fused - first_plain) / abs(first_plain)
+    emit(phase='resnet101_first_loss', fused=first_fused,
+         unfused=first_plain, rel_diff=rel, tol=FIRST_LOSS_REL)
+    require(rel <= FIRST_LOSS_REL, 'ResNet-101 first loss fused %.5f vs '
+            'unfused %.5f' % (first_fused, first_plain))
+
+    set_fused_gate(True)
+    family_step('densenet121', vision.DenseNet.densenet121(
+        dtype=torch.bfloat16), 224, True, smi)
+    family_step('inception_v3', vision.InceptionV3(dtype=torch.bfloat16),
+                299, True, smi)
+    family_step('vgg16', vision.VGG.vgg16(dtype=torch.bfloat16), 224, False,
+                smi)
+    set_fused_gate(False)
 
     main_path = results[(GPT_SHAPE, True, torch.bfloat16)]
     kernels = []
@@ -384,6 +701,24 @@ def main(argv):
             'bound_ms': rec['bound_ms'], 'bound_by': rec['bound_by'],
             'library_ms': rec['library_ms'], 'library': rec['library'],
             'shape': list(GPT_SHAPE), 'dtype': 'bfloat16', 'causal': True})
+    # K4: launch-weighted means over ResNet-101's main-path shapes
+    weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]
+
+    def mean(key):
+        return sum(wt * rec[key] for wt, rec in zip(weights, k4))
+    kernels.append({
+        'name': 'conv_bn', 'route': 'cuda', 'source': CB_SOURCE,
+        'replaces': CB_REPLACES, 'launches': k4_launches,
+        'max_abs_err': max(rec['max_abs_err'] for rec in k4),
+        'ms': mean('ms'), 'plain_ms': mean('plain_ms'),
+        'bound_ms': mean('bound_ms'),
+        'bound_by': max(('bytes', 'operations'), key=lambda by: sum(
+            wt for wt, rec in zip(weights, k4) if rec['bound_by'] == by)),
+        'library_ms': None, 'product_only_ms': mean('product_only_ms'),
+        'shape': 'launch-weighted mean per launch over the %d ResNet-101 '
+                 'main-path shapes (batch %d)' % (len(RESNET_K4),
+                                                  RESNET_BATCH),
+        'dtype': 'bfloat16'})
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

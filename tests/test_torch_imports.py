@@ -1,7 +1,9 @@
 """The port stands alone: no jax, no module of the JAX package.
 
 A subprocess in which ``jax`` and ``autodist_tpu`` cannot be imported
-imports the port and ``chip_smoke.py`` and trains one step on the CPU;
+imports the port and ``chip_smoke.py`` and trains one step of a
+Transformer and one of a small ResNet through the fused conv + BatchNorm
+kernel's module on the CPU;
 an AST scan finds no import of either in any of the port's files. The
 scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
 name, never by prefix.
@@ -21,7 +23,10 @@ for name in ('jax', 'jaxlib', 'autodist_tpu'):
 import torch
 import autodist_tpu_torch
 import chip_smoke
+import os
 from autodist_tpu_torch import optim
+from autodist_tpu_torch.kernels import conv_bn
+from autodist_tpu_torch.models import vision
 from autodist_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 from autodist_tpu_torch.strategy import AllReduce, trainer_from_strategy
@@ -30,6 +35,13 @@ trainer = trainer_from_strategy(TransformerLM(cfg, device='cpu'),
                                 optim.adamw(1e-4), AllReduce())
 _, losses, _ = chip_smoke.train_steps(
     trainer, chip_smoke.make_batch(cfg.vocab, 2, 16), 1)
+assert len(losses) == 1 and losses[0] == losses[0]
+os.environ['AUTODIST_FUSED_CONV'] = '1'
+trainer = trainer_from_strategy(
+    vision.ResNet((1, 1), num_classes=10, device='cpu'),
+    optim.sgd(0.1, momentum=0.9), AllReduce())
+_, losses, _ = chip_smoke.train_steps(
+    trainer, chip_smoke.make_images(2, 32, 10), 1)
 assert len(losses) == 1 and losses[0] == losses[0]
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                 ('jax', 'jaxlib', 'autodist_tpu') and sys.modules[m])

@@ -5,14 +5,18 @@ one. The file imports no jax, so it runs on the machine with the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-(``--noconftest``: ``tests/conftest.py`` sets up JAX.) Shapes include
-ragged tile edges (S = 40, 96, 200 against 64-row tiles) and every head
-dim the kernels take.
+(``--noconftest``: ``tests/conftest.py`` sets up JAX.) Flash attention:
+shapes include ragged tile edges (S = 40, 96, 200 against 64-row tiles)
+and every head dim the kernels take. The fused conv + BatchNorm kernel:
+row counts that are multiples of 8 but not of its 128-row tile, Cin = 8,
+24 and 2048 (a Cin tail short of its 32-wide step), stride 2, each
+prologue, bf16 and f32.
 """
 import numpy as np
 import pytest
 import torch
 
+from autodist_tpu_torch.kernels import conv_bn as cb
 from autodist_tpu_torch.kernels import flash_attention as fa
 
 
@@ -52,3 +56,91 @@ def test_kernels_match_plain_on_card(shape, causal, dtype):
     torch.testing.assert_close(lse, lse2, atol=t_lse, rtol=t_lse)
     for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
         torch.testing.assert_close(a.float(), b.float(), atol=t_g, rtol=t_g)
+
+
+def _conv_inputs(shape, c_out, seed):
+    rng = np.random.RandomState(seed)
+    c_in = shape[-1]
+    return (rng.randn(*shape).astype(np.float32),
+            (rng.randn(c_in, c_out) / np.sqrt(c_in)).astype(np.float32),
+            (rng.rand(c_in) + 0.5).astype(np.float32),
+            rng.randn(c_in).astype(np.float32))
+
+
+def _close_to_max(got, want, rel):
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=0,
+                               atol=rel * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('prologue', [None, 'affine', 'relu'])
+@pytest.mark.parametrize('shape,c_out,stride', [
+    ((1, 5, 8, 8), 128, 1),          # 40 rows, Cin 8
+    ((2, 10, 10, 24), 256, 1),       # 200 rows, Cin 24
+    ((2, 14, 14, 2048), 512, 1),     # 392 rows, Cin 2048
+    ((4, 14, 14, 64), 128, 2),       # stride 2: 196 rows
+    ((8, 28, 28, 256), 1024, 1)])    # 6272 rows
+def test_conv_bn_kernel_matches_plain_on_card(shape, c_out, stride,
+                                              prologue, dtype):
+    """y, s1 and s2 of the kernel against its plain version on the card.
+    Tolerance: f32 (TF32 off) sums in another order, 1e-5 of the largest
+    |y|; bf16 y is rounded from f32 sums taken in another order, so one
+    bf16 ulp (1e-2); s1/s2 come from the f32 accumulator in both, 1e-5 of
+    the largest |s|."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    x, w, a, b = (torch.from_numpy(t).cuda()
+                  for t in _conv_inputs(shape, c_out, 5))
+    x = x.to(dt)[:, ::stride, ::stride].reshape(-1, shape[-1])
+    if prologue is None:
+        a = b = None
+    relu = prologue == 'relu'
+    y, s1, s2 = cb._fwd_cuda(x, w, a, b, relu, True, dt)
+    y2, t1, t2 = cb._fwd_plain(x, w, a, b, relu, True, dt)
+    torch.cuda.synchronize()
+    _close_to_max(y, y2, 1e-5 if dtype == 'float32' else 1e-2)
+    _close_to_max(s1, t1, 1e-5)
+    _close_to_max(s2, t2, 1e-5)
+    y3, z1, z2 = cb._fwd_cuda(x, w, a, b, relu, False, dt)
+    assert not z1.any() and not z2.any()
+    torch.testing.assert_close(y3, y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_conv_bn_backward_on_card_matches_cpu(dtype):
+    """The autograd Function on the card (the kernel forward, cuBLAS
+    products with f32 sums) against the same Function on the CPU (the
+    plain version): gradients of x, W, scale and bias through y, s1 and
+    s2. Tolerance: 1e-5 of the largest |gradient| in f32 (TF32 off);
+    bf16 rounds dY and xn to bf16 on both sides from sums taken in
+    another order, 2e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    x, w, a, b = _conv_inputs((2, 8, 8, 64), 128, 6)
+    rng = np.random.RandomState(7)
+    cy = rng.randn(2, 4, 4, 128).astype(np.float32)
+    c1, c2 = rng.randn(128).astype(np.float32), \
+        (rng.randn(128) * 0.01).astype(np.float32)
+    grads = {}
+    for dev in ('cuda', 'cpu'):
+        ts = [torch.from_numpy(t).to(dev) for t in (x, w, a, b)]
+        ts[0] = ts[0].to(dt)
+        for t in ts:
+            t.requires_grad_()
+        y, s1, s2 = cb.fused_pointwise(*ts, prologue_relu=True, stride=2)
+        loss = ((y.float() * torch.from_numpy(cy).to(dev)).sum() +
+                (s1 * torch.from_numpy(c1).to(dev)).sum() +
+                (s2 * torch.from_numpy(c2).to(dev)).sum())
+        loss.backward()
+        grads[dev] = [t.grad.cpu() for t in ts]
+    tol = 1e-5 if dtype == 'float32' else 2e-2
+    for g, want in zip(grads['cuda'], grads['cpu']):
+        assert g.dtype == want.dtype
+        _close_to_max(g, want, tol)

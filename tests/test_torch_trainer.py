@@ -3,7 +3,10 @@
 Tolerances (f32): losses 1e-5 relative. Params after adamw steps 2e-6
 absolute: each step moves a param by about lr = 1e-4 (Adam normalizes
 the gradient), so gradient differences at the 1e-6 relative level move
-params by far less than that.
+params by far less than that. The small ResNet under sgd(0.1, momentum
+0.9): params and EMA buffers after 3 steps 2e-5 absolute; a step moves a
+param by lr times its gradient, and the gradients agree to about 1e-5
+of their size (tests/test_torch_vision.py), carried over 3 steps.
 """
 import dataclasses
 import os
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from autodist_tpu.api import Trainer as JTrainer
+from autodist_tpu.models import vision as jv
 from autodist_tpu.models.transformer import TransformerConfig as JConfig
 from autodist_tpu.models.transformer import TransformerLM as JLM
 from autodist_tpu.parallel.axes import ParallelSpec as JSpec
@@ -28,6 +32,7 @@ from autodist_tpu.strategy.adapter import \
     trainer_from_strategy as j_trainer_from_strategy
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.api import Trainer
+from autodist_tpu_torch.models import vision as tv
 from autodist_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 from autodist_tpu_torch.models.weights import flatten_tree
@@ -89,6 +94,7 @@ dist.init_process_group('gloo', init_method='tcp://127.0.0.1:' + port,
                         world_size=2, rank=rank)
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.api import Trainer
+from autodist_tpu_torch.models import vision as tv
 from autodist_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 from autodist_tpu_torch.models.weights import flatten_tree
@@ -132,23 +138,142 @@ def test_gloo_dp2_equals_single_process(tmp_path):
                                        rtol=0, err_msg='/'.join(path))
 
 
+def _images_batch(b=4, seed=0):
+    rng = np.random.RandomState(seed)
+    return {'images': rng.randn(b, 32, 32, 3).astype(np.float32),
+            'labels': rng.randint(0, 10, (b,)).astype(np.int32)}
+
+
+def _jax_resnet_run(dp, steps=3):
+    """The JAX Trainer on ResNet((1, 1)) at ``dp`` (GSPMD over the CPU
+    mesh: its BatchNorm statistics are over the global batch)."""
+    jm = jv.ResNet((1, 1), num_classes=10)
+    jtr = JTrainer(jm, optax.sgd(0.1, momentum=0.9), spec=JSpec(dp=dp))
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    state = jtr.init(jax.random.PRNGKey(0), params=jp)
+    losses = []
+    for _ in range(steps):
+        state, m = jtr.step(state, _images_batch())
+        losses.append(float(m['loss']))
+    return jp, losses, jtr.get_params(state)
+
+
+def _assert_params_close(got, want, atol):
+    got, want = dict(flatten_tree(got)), dict(flatten_tree(want))
+    assert got.keys() == want.keys()
+    for path in want:
+        np.testing.assert_allclose(got[path], want[path], atol=atol, rtol=0,
+                                   err_msg='/'.join(path))
+
+
+@pytest.mark.parametrize('fused', ['0', '1'], ids=['unfused', 'fused'])
+def test_sgd_steps_small_resnet_match_jax_trainer(fused, monkeypatch):
+    """3 steps of sgd(0.1, momentum=0.9): losses, params and the EMA
+    buffers, which advance through the state channel."""
+    monkeypatch.setenv('AUTODIST_FUSED_CONV', fused)
+    jp, want, want_params = _jax_resnet_run(dp=1)
+    model = tv.ResNet((1, 1), num_classes=10, device='cpu')
+    tr = Trainer(model, optim.sgd(0.1, momentum=0.9))
+    state = tr.init(params=jp)
+    assert not any(b.requires_grad for b in model.buffers())
+    losses = [float(tr.step(state, _images_batch())[1]['loss'])
+              for _ in range(3)]
+    np.testing.assert_allclose(losses, want, rtol=1e-5)
+    got = tr.get_params(state)
+    assert not np.allclose(
+        got['block_000']['a']['bn']['ema_var'],
+        jp['block_000']['a']['bn']['ema_var'])   # the EMAs did move
+    _assert_params_close(got, want_params, 2e-5)
+
+
+_RESNET_DP_WORKER = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+rank, port, params, out = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                           sys.argv[4])
+dist.init_process_group('gloo', init_method='tcp://127.0.0.1:' + port,
+                        world_size=2, rank=rank)
+from autodist_tpu_torch import optim
+from autodist_tpu_torch.api import Trainer
+from autodist_tpu_torch.models import vision
+from autodist_tpu_torch.models.weights import flatten_tree
+from autodist_tpu_torch.parallel.axes import ParallelSpec
+flat = np.load(params)
+tree = {}
+for name in flat.files:
+    node = tree
+    *head, leaf = name.split('/')
+    for k in head:
+        node = node.setdefault(k, {})
+    node[leaf] = flat[name]
+model = vision.ResNet((1, 1), num_classes=10, device='cpu', seed=rank)
+tr = Trainer(model, optim.sgd(0.1, momentum=0.9), spec=ParallelSpec(dp=2))
+state = tr.init(params=tree if rank == 0 else None)   # rank 0's params win
+rng = np.random.RandomState(0)
+batch = {'images': rng.randn(4, 32, 32, 3).astype(np.float32),
+         'labels': rng.randint(0, 10, (4,)).astype(np.int32)}
+losses = [float(tr.step(state, batch)[1]['loss']) for _ in range(3)]
+flat = {'/'.join(p): v for p, v in flatten_tree(tr.get_params(state))}
+np.savez(out % rank, losses=np.asarray(losses), **flat)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize('fused', ['0', '1'], ids=['unfused', 'fused'])
+def test_gloo_dp2_small_resnet_matches_jax_trainer_dp2(fused, tmp_path):
+    """Two gloo ranks, each on half of the batch, against the JAX Trainer
+    at dp = 2. The JAX BatchNorm normalizes over the global batch, so
+    this holds only if the port sums its moments over the group (both
+    arms: the reduction's and the fused kernel's)."""
+    jp, want, want_params = _jax_resnet_run(dp=2)
+    params = str(tmp_path / 'init.npz')
+    np.savez(params, **{'/'.join(p): v for p, v in flatten_tree(jp)})
+    out = str(tmp_path / 'rank%d.npz')
+    port = str(_free_port())
+    env = dict(os.environ, PYTHONPATH=REPO, AUTODIST_FUSED_CONV=fused)
+    procs = [subprocess.Popen([sys.executable, '-c', _RESNET_DP_WORKER,
+                               str(r), port, params, out], env=env,
+                              cwd=str(tmp_path)) for r in range(2)]
+    for p in procs:
+        assert p.wait(timeout=120) == 0
+    for r in range(2):
+        got = np.load(out % r)
+        np.testing.assert_allclose(got['losses'], want, rtol=1e-5)
+        for path, v in flatten_tree(want_params):
+            np.testing.assert_allclose(got['/'.join(path)], v, atol=2e-5,
+                                       rtol=0, err_msg='/'.join(path))
+
+
 _RESOURCES = {'nodes': [{'address': 'localhost', 'chief': True,
                          'cpus': [0], 'gpus': [0], 'network_bandwidth': 100}]}
 
 
-@pytest.mark.parametrize('builder', ['AllReduce', 'PartitionedPS',
-                                     'Parallax'])
-def test_strategy_node_config_matches_jax(builder):
+_MODELS = {
+    'lm': (lambda: JLM(JConfig.tiny(dtype=jnp.float32)),
+           lambda: TransformerLM(TransformerConfig.tiny(dtype=torch.float32),
+                                 device='cpu')),
+    'resnet': (lambda: jv.ResNet((1, 1), num_classes=10),
+               lambda: tv.ResNet((1, 1), num_classes=10, device='cpu')),
+}
+
+
+@pytest.mark.parametrize('builder,model', [
+    pytest.param(b, m, id=b if m == 'lm' else '%s-%s' % (b, m))
+    for m in ('lm', 'resnet')
+    for b in ('AllReduce', 'PartitionedPS', 'Parallax')])
+def test_strategy_node_config_matches_jax(builder, model):
     """Same model, same resources: the same node_config (strategy id
-    aside). A partitioned placement is a no-op at dp = 1 in both."""
+    aside). A partitioned placement is a no-op at dp = 1 in both. The
+    small ResNet's BatchNorm running statistics are variables in both."""
+    make_jax, make_port = _MODELS[model]
     jtr = j_trainer_from_strategy(
-        JLM(JConfig.tiny(dtype=jnp.float32)), optax.adamw(1e-4),
-        getattr(jbuilders, builder)(),
+        make_jax(), optax.adamw(1e-4), getattr(jbuilders, builder)(),
         resource_spec=JResourceSpec(resource_info=_RESOURCES))
     tr = trainer_from_strategy(
-        TransformerLM(TransformerConfig.tiny(dtype=torch.float32),
-                      device='cpu'),
-        optim.adamw(1e-4), getattr(builders, builder)(),
+        make_port(), optim.adamw(1e-4), getattr(builders, builder)(),
         resource_spec=ResourceSpec(resource_info=_RESOURCES))
     got = [dataclasses.asdict(n) for n in tr.strategy.node_config]
     want = [dataclasses.asdict(n) for n in jtr.strategy.node_config]
