@@ -5,8 +5,9 @@ The counterpart of ``autodist_tpu/native_build.py``: sources live in
 wheels ship them), and each is compiled at first use with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface,
 loaded with ``ctypes``. Libraries are cached under ``kernels/_build/
-<hash>/``, keyed by the source bytes and the compile command, so a
-checkout builds once and rebuilds only when either changes. The
+<hash>/``, keyed by the source bytes, the bytes of every header in
+``csrc/`` and the compile command, so a checkout builds once and
+rebuilds only when one of them changes. The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills per
 kernel) is kept beside each library as ``build.log``.
 """
@@ -46,10 +47,16 @@ def _command(source_name, out):
 
 
 def library_path(source_name):
-    """Where ``csrc/<source_name>`` builds to (not necessarily built)."""
+    """Where ``csrc/<source_name>`` builds to (not necessarily built):
+    keyed by the source, every header in ``csrc/`` (any source may
+    include one), and the whole compile-and-link command."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC_DIR, source_name), 'rb') as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR)
+                     if f.endswith(('.cuh', '.h')))
+    for name in [source_name] + headers:
+        h.update(name.encode() + b'\x00')
+        with open(os.path.join(CSRC_DIR, name), 'rb') as f:
+            h.update(f.read())
     h.update('\x00'.join(_command(source_name, '')[1:]).encode())
     stem = os.path.splitext(source_name)[0]
     return os.path.join(BUILD_DIR, h.hexdigest()[:16], 'lib%s.so' % stem)

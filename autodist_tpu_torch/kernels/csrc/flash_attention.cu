@@ -1,13 +1,18 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
 // Replaces the three Pallas TPU kernels of autodist_tpu/kernels/flash_attention.py:
-//   fwd_kernel  <- _fwd_kernel  (launched by _fwd)
-//   dq_kernel   <- _dq_kernel   (launched by _bwd)
-//   dkv_kernel  <- _dkv_kernel  (launched by _bwd)
+//   fwd_wgmma_kernel (bf16, D 64/128), fwd_mma_kernel (bf16, D 16/32),
+//   fwd_kernel (f32)                                  <- _fwd_kernel
+//   dq_mma_kernel (bf16), dq_kernel (f32)             <- _dq_kernel
+//   dkv_wgmma_kernel (bf16, D 64/128), dkv_mma_kernel (bf16, D 16/32),
+//   dkv_kernel (f32)                                  <- _dkv_kernel
 // and computes what they compute, with the same constants (mask value -1e30,
 // l floored at 1e-30) and the same cast points: P is rounded to v's dtype
 // before P.V, dS to k's dtype before dS.K and to q's dtype before dS^T.Q, and
-// P to dO's dtype before P^T.dO. All sums are f32.
+// P to dO's dtype before P^T.dO. All sums are f32. Which kernel runs is a
+// rule of dtype and shape, fixed before the launch (run_fwd / run_dq /
+// run_dkv): bf16 at D = 64 or 128 takes the wgmma kernels (S a multiple of
+// 8, as supports() admits), other bf16 the mma.sync ones.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are contiguous [B*H, S, D]; lse and delta
 // are f32 [B*H, S]. Causal masking is by global position (q_pos >= k_pos
@@ -18,19 +23,20 @@
 // it is bound by operations (0.10 ms at 989 TFLOP/s on the tensor cores
 // against 0.03 ms for the bytes); dQ does 1.5x and dK/dV 2x the forward's
 // operations. What the design does about that:
-//   * bf16 runs on the tensor cores (mma.sync m16n8k16, f32 sums), with the
-//     scores kept in registers between the two products of each step;
-//   * the [S, S] score matrix never touches device memory: a CTA owns one
-//     64-row tile and loops over the other operand's tiles, as the TPU grid's
+//   * bf16 runs on the tensor cores with f32 sums; the forward and dK/dV as
+//     Hopper's warpgroup products (wgmma) fed by TMA through an mbarrier
+//     ring, so copies overlap the products and no operand is transposed in
+//     software (wgmma reads a tile MN-major through its descriptor);
+//   * the [S, S] score matrix never touches device memory: a CTA owns an
+//     output tile and loops over the other operand's tiles, as the TPU grid's
 //     sequential axis did, keeping its running sums in registers;
 //   * causal tiles above the diagonal are skipped (the loop ends, or starts,
-//     at the diagonal), which halves the work at long S;
+//     at the diagonal), which halves the work at long S, and the CTAs with
+//     the most causal work are scheduled first;
 //   * each CTA owns its output tile outright, so no atomics and no second
-//     pass: results are deterministic.
-// It is still a simple design: tiles are staged through shared memory with
-// plain loads and no overlap of copy and compute, so a CTA stalls on every
-// tile. wgmma, TMA staging and pipelining are the next steps toward the bound;
-// they change no arithmetic contract above.
+//     pass: results are deterministic, bit for bit.
+// dQ is still the simpler mma.sync design: tiles staged through shared memory
+// with plain loads, no overlap of copy and compute.
 //
 // f32 runs on the CUDA cores (scalar FMA; the tensor cores would round to
 // TF32): 64 query rows x 64 key rows per step, 256 threads as a 16 x 16 grid.
@@ -46,6 +52,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -789,6 +797,375 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   store_rows<D>(dv, accv, r_lo, S, t);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 64 and 128: warp-specialised wgmma kernels (K1 forward, K3
+// dK/dV). 384 threads: warpgroups 0 and 1 consume, each owning 64 rows of
+// the CTA's 128-row output tile; warpgroup 2 produces: one thread issues
+// every TMA copy, and the warpgroup hands its registers to the consumers
+// (setmaxnreg 24 / 240). The CTA's own 128 rows are loaded once; the other
+// operand streams through a ring of STAGES shared-memory stages, each with a
+// "full" mbarrier (TMA transaction bytes) and an "empty" one (all 256
+// consumer threads arrive when their products have read the stage).
+//
+// Tensor maps are 3-D over [B*H, S, D] with 64 x 64 boxes in TMA's 128-byte
+// swizzle (sm90.cuh), so rows past S arrive as zeros and never as the next
+// head's; a ragged edge is still masked, since a zero row scores 0, not
+// -inf. Outputs leave through shared memory and a TMA store, which writes no
+// row past S. Scores are kept in the log2 domain: exp2f of s * scale *
+// log2(e) minus the running max, LSE converted back to natural log.
+// ---------------------------------------------------------------------------
+constexpr int WG = 128;                    // threads of a warpgroup
+constexpr int HT = 3 * WG;                 // two consumer warpgroups + the producer
+constexpr uint32_t BOX_BYTES = 64 * 128;   // one 64-row x 128-byte TMA box
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (sm90::smem_u32(p) & 1023u)) & 1023u);
+}
+
+// Byte offset of element (r, c) in a swizzled [ROWS][D] bf16 tile.
+template <int ROWS>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 6) * ROWS * 128 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// TMA rows [row0, row0 + ROWS) of head bh into a swizzled [ROWS][D] tile.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int row0, int bh) {
+#pragma unroll
+  for (int s = 0; s < D / 64; ++s)
+#pragma unroll
+    for (int rb = 0; rb < ROWS / 64; ++rb)
+      sm90::tma_load_3d(dst + (s * (ROWS / 64) + rb) * BOX_BYTES, map, bar, s * 64, row0 + rb * 64,
+                        bh);
+}
+
+// A warpgroup's 64 x D accumulator, row-scaled and rounded to bf16, into its
+// rows [64 wg, 64 wg + 64) of a swizzled [128][D] tile; then TMA to rows
+// [row0, row0 + 64) of head bh. All 128 threads of the warpgroup call it.
+template <int D>
+__device__ __forceinline__ void store_tile(unsigned char* tile, const float (&acc)[D / 2],
+                                           const CUtensorMap* map, int wg, int row0, int bh,
+                                           float s_lo = 1.f, float s_hi = 1.f) {
+  const int tid = threadIdx.x % WG, t = tid & 3;
+  const int r_lo = wg * 64 + (tid / 32) * 16 + ((tid & 31) >> 2);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float s = i ? s_hi : s_lo;
+      *reinterpret_cast<uint32_t*>(tile + swz<128>(r_lo + 8 * i, 8 * j + 2 * t)) =
+          pack_bf16(acc[4 * j + 2 * i] * s, acc[4 * j + 2 * i + 1] * s);
+    }
+  sm90::fence_async_smem();
+  sm90::named_barrier(1 + wg, WG);
+  if (tid == 0) {
+    const uint32_t base = sm90::smem_u32(tile) + wg * BOX_BYTES;
+#pragma unroll
+    for (int s = 0; s < D / 64; ++s) sm90::tma_store_3d(map, base + s * 128 * 128, s * 64, row0, bh);
+    sm90::tma_store_wait();
+  }
+}
+
+// f32 accumulator fragments of a 64 x N tile (wgmma's layout, which per warp
+// is mma.sync's C layout) rounded to bf16 A fragments of the next product.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void ss_product(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 64) sm90::wgmma_ss_n64(d, da, db, acc);
+  else sm90::wgmma_ss_n128(d, da, db, acc);
+}
+template <int N>
+__device__ __forceinline__ void rs_product(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) sm90::wgmma_rs_n64(d, a, db, 1);
+  else sm90::wgmma_rs_n128(d, a, db, 1);
+}
+
+// d (64 x N) = A . B^T over D: A the warpgroup's 64 rows of a swizzled
+// [AR][D] tile at a, B a swizzled [N][D] tile at b, both K-major.
+template <int D, int N, int AR>
+__device__ __forceinline__ void product_k(float (&d)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t da = a + (kk / 4) * AR * 128 + (kk % 4) * 32;
+    const uint32_t db = b + (kk / 4) * N * 128 + (kk % 4) * 32;
+    ss_product<N>(d, sm90::desc_k(da), sm90::desc_k(db), kk > 0);
+  }
+}
+
+// d (64 x D) += A . B over K rows: A bf16 fragments in registers, B a
+// swizzled [K][D] tile at b read MN-major.
+template <int D, int K>
+__device__ __forceinline__ void product_mn(float (&d)[D / 2], const uint32_t (&a)[K / 16][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) rs_product<D>(d, a[kk], sm90::desc_mn(b + kk * 2048, K * 128));
+}
+
+// One tile of the forward's online softmax, in the log2 domain, for the
+// two rows (row_lo, row_lo + 8) a lane holds: mask (only a tile that
+// reaches past S or past the warpgroup's first row w0), update the running
+// max m and sum l, turn the scores s into P (f32; sums from f32 P), and
+// return the factor alpha that rescales what O holds so far.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int row_lo, int k0, int w0,
+                                               int S, int causal, int t, float scale_log2) {
+  if (k0 + BK > S || (causal && k0 + BK - 1 > w0)) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!live(row_lo + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), S, causal))
+          s[4 * j + e] = NEG_INF;
+  }
+  float mx[2] = {NEG_INF, NEG_INF}, rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float mn = fmaxf(m[i], quad_max(mx[i]) * scale_log2);
+    alpha[i] = exp2f(m[i] - mn);
+    m[i] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));
+      s[4 * j + e] = p;
+      rs[e >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + quad_sum(rs[i]);
+}
+
+// K1: one CTA per (b*h, 128-row q tile), the q tiles in reverse order so the
+// longest causal rows are scheduled first; K and V tiles of BK rows stream
+// through the ring up to the diagonal.
+template <int D, int BK, int STAGES>
+__global__ void __launch_bounds__(HT, 1)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                 float* __restrict__ lse, int S, float scale_log2, int causal) {
+  constexpr uint32_t Q_BYTES = 128 * D * 2, KV_BYTES = BK * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sq = sm90::smem_u32(smem), sk = sq + Q_BYTES, sv = sk + STAGES * KV_BYTES;
+  const uint32_t q_bar = sv + STAGES * KV_BYTES;   // then full[STAGES], empty[STAGES]
+  auto full = [&](int st) { return q_bar + 8 * (1 + st); };
+  auto empty = [&](int st) { return q_bar + 8 * (1 + STAGES + st); };
+
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  const int kv_end = causal ? min(S, q0 + 128) : S;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(full(st), 1);
+      sm90::mbar_init(empty(st), 2 * WG);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role is warp-uniform to the compiler: setmaxnreg is warpgroup-collective
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (wg == 2) {   // producer
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(q_bar, Q_BYTES);
+      load_tile<D, 128>(sq, &tq, q_bar, q0, bh);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % STAGES;
+        sm90::mbar_wait(empty(st), ((it / STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(full(st), 2 * KV_BYTES);
+        load_tile<D, BK>(sk + st * KV_BYTES, &tk, full(st), it * BK, bh);
+        load_tile<D, BK>(sv + st * KV_BYTES, &tv, full(st), it * BK, bh);
+      }
+    }
+  } else {   // consumers
+    sm90::reg_alloc<240>();
+    const int tid = threadIdx.x % WG, t = tid & 3;
+    const int row_lo = q0 + wg * 64 + (tid / 32) * 16 + ((tid & 31) >> 2);   // and row_lo + 8
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+    sm90::mbar_wait(q_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      float s[BK / 2];
+      float alpha[2];
+      sm90::wgmma_fence();
+      product_k<D, BK, 128>(s, sq + wg * BOX_BYTES, sk + st * KV_BYTES);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(s);
+      online_softmax<BK>(s, m, l, alpha, row_lo, it * BK, q0 + wg * 64, S, causal, t, scale_log2);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      uint32_t pa[BK / 16][4];
+      acc_to_a<BK>(pa, s);   // P rounded to v's dtype
+      sm90::fence_operand(o);
+      sm90::wgmma_fence();
+      product_mn<D, BK>(o, pa, sv + st * KV_BYTES);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(o);
+      sm90::mbar_arrive(empty(st));
+    }
+
+    const float l_lo = fmaxf(l[0], 1e-30f), l_hi = fmaxf(l[1], 1e-30f);
+    if (t == 0) {
+      float* out = lse + (size_t)bh * S;
+      if (row_lo < S) out[row_lo] = m[0] * LN2 + logf(l_lo);
+      if (row_lo + 8 < S) out[row_lo + 8] = m[1] * LN2 + logf(l_hi);
+    }
+    // the warpgroup's Q rows are read by no one else: O goes out through them
+    store_tile<D>(smem, o, &to, wg, q0 + wg * 64, bh, 1.f / l_lo, 1.f / l_hi);
+  }
+}
+
+// K3: one CTA per (b*h, 128-row kv tile), kv tile 0 (the most causal work)
+// first; q tiles of 64 rows with their lse and delta stream through the
+// ring from the diagonal. S^T = K.Q^T and dP^T = V.dO^T read Q and dO
+// K-major; dV += P^T.dO and dK += dS^T.Q read the same tiles MN-major.
+template <int D, int STAGES>
+__global__ void __launch_bounds__(HT, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                 const __grid_constant__ CUtensorMap tlse,
+                 const __grid_constant__ CUtensorMap tdelta, int S, float scale, int causal) {
+  constexpr uint32_t KV_BYTES = 128 * D * 2, T_BYTES = 64 * D * 2, R_BYTES = 64 * 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sk = sm90::smem_u32(smem), sv = sk + KV_BYTES;
+  const uint32_t ring = sv + KV_BYTES;                    // (Q, dO) per stage
+  const uint32_t rows = ring + STAGES * 2 * T_BYTES;      // lse[STAGES][64], delta[STAGES][64]
+  const uint32_t kv_bar = rows + STAGES * 2 * R_BYTES;    // then full[STAGES], empty[STAGES]
+  auto sq = [&](int st) { return ring + st * 2 * T_BYTES; };
+  auto sdo = [&](int st) { return ring + st * 2 * T_BYTES + T_BYTES; };
+  auto full = [&](int st) { return kv_bar + 8 * (1 + st); };
+  auto empty = [&](int st) { return kv_bar + 8 * (1 + STAGES + st); };
+  const float* lse_s = reinterpret_cast<const float*>(smem + (rows - sk));
+  const float* delta_s = lse_s + STAGES * 64;
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * 128;
+  const int q_start = causal ? k0 : 0;
+  const int n_tiles = (S - q_start + 63) / 64;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(full(st), 1);
+      sm90::mbar_init(empty(st), 2 * WG);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role is warp-uniform to the compiler: setmaxnreg is warpgroup-collective
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (wg == 2) {   // producer
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(kv_bar, 2 * KV_BYTES);
+      load_tile<D, 128>(sk, &tk, kv_bar, k0, bh);
+      load_tile<D, 128>(sv, &tv, kv_bar, k0, bh);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % STAGES, q0 = q_start + it * 64;
+        sm90::mbar_wait(empty(st), ((it / STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(full(st), 2 * T_BYTES + 2 * R_BYTES);
+        load_tile<D, 64>(sq(st), &tq, full(st), q0, bh);
+        load_tile<D, 64>(sdo(st), &tdo, full(st), q0, bh);
+        sm90::tma_load_2d(rows + st * R_BYTES, &tlse, full(st), q0, bh);
+        sm90::tma_load_2d(rows + (STAGES + st) * R_BYTES, &tdelta, full(st), q0, bh);
+      }
+    }
+  } else {   // consumers
+    sm90::reg_alloc<240>();
+    const int tid = threadIdx.x % WG, t = tid & 3;
+    const int kw = k0 + wg * 64;                                 // the warpgroup's first kv row
+    const int kv_lo = kw + (tid / 32) * 16 + ((tid & 31) >> 2);  // and kv_lo + 8
+    const float scale_log2 = scale * LOG2E;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    sm90::mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES, q0 = q_start + it * 64;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      if (!(causal && q0 + 63 < kw)) {   // else every (q, kv) pair is masked
+        float s[32], dp[32];   // S^T and dP^T: kv rows x q columns
+        sm90::wgmma_fence();
+        product_k<D, 64, 128>(s, sk + wg * BOX_BYTES, sq(st));
+        product_k<D, 64, 128>(dp, sv + wg * BOX_BYTES, sdo(st));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_operand(s);
+        sm90::fence_operand(dp);
+        const bool edge = (causal && q0 < kw + 64) || q0 + 64 > S || kw + 64 > S;
+        const float* ls = lse_s + st * 64;
+        const float* ds = delta_s + st * 64;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 lv = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+          const float2 dl = *reinterpret_cast<const float2*>(ds + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[4 * j + e];
+            if (edge && !live(q0 + 8 * j + 2 * t + (e & 1), kv_lo + 8 * (e >> 1), S, causal))
+              x = NEG_INF;
+            const float p = exp2f(fmaf(x, scale_log2, -((e & 1) ? lv.y : lv.x) * LOG2E));
+            s[4 * j + e] = p;
+            dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+          }
+        }
+        uint32_t pa[4][4], dsa[4][4];
+        acc_to_a<64>(pa, s);    // P rounded to dO's dtype
+        acc_to_a<64>(dsa, dp);  // dS rounded to q's dtype
+        sm90::fence_operand(dv);
+        sm90::fence_operand(dk);
+        sm90::wgmma_fence();
+        product_mn<D, 64>(dv, pa, sdo(st));
+        product_mn<D, 64>(dk, dsa, sq(st));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_operand(dv);
+        sm90::fence_operand(dk);
+      }
+      sm90::mbar_arrive(empty(st));
+    }
+    // the warpgroup's K and V rows are read by no one else: dK, dV go out
+    // through them
+    store_tile<D>(smem, dk, &tdk, wg, kw, bh);
+    store_tile<D>(smem + KV_BYTES, dv, &tdv, wg, kw, bh);
+  }
+}
+
 // Shared-memory bytes of each kernel.
 constexpr size_t fwd_smem(int d) { return 4u * ((size_t)(BQ + 2 * BK) * (d + 1) + BQ * PP); }
 constexpr size_t dq_smem(int d) {
@@ -810,12 +1187,121 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStrea
   return cudaGetLastError();
 }
 
+// ---- host side of the wgmma kernels: tensor maps and launch ----------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// bf16 [bh, s, d] in 64 x 64 boxes, 128-byte swizzle, zeros past the edges.
+bool tile_map(CUtensorMap* map, const void* ptr, int bh, int s, int d) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {64, 64, 1}, step[3] = {1, 1, 1};
+  return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                          strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// f32 [bh, s] (lse, delta) in boxes of 64 entries, zeros past S.
+bool row_map(CUtensorMap* map, const void* ptr, int bh, int s) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t dims[2] = {(cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[1] = {(cuuint64_t)s * 4};
+  const cuuint32_t box[2] = {64, 1}, step[2] = {1, 1};
+  return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
+                          strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The warpgroups' register hand-over (24 + 2 x 240 a thread) draws on the
+// registers the CTA was launched with; a kernel built with fewer than 168 a
+// thread would wait for them forever, so it is refused instead.
+template <typename Kernel>
+cudaError_t check_registers(Kernel kernel) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return attr.numRegs * HT >= WG * (24 + 2 * 240) ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// Dynamic shared-memory bytes of the wgmma kernels (1024 for alignment).
+constexpr size_t fwd_wgmma_smem(int d, int bk, int stages) {
+  return 1024 + 2u * 128 * d + 2 * stages * 2u * bk * d + 8 * (1 + 2 * stages);
+}
+constexpr size_t dkv_wgmma_smem(int d, int stages) {
+  return 1024 + 2 * 2u * 128 * d + stages * (2 * 2u * 64 * d + 2 * 4u * 64) + 8 * (1 + 2 * stages);
+}
+constexpr int FWD_BK = 128;
+constexpr int fwd_stages(int d) { return d == 64 ? 3 : 2; }
+constexpr int DKV_STAGES = 3;
+
+template <int D>
+cudaError_t run_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                          int s, float scale, int causal, cudaStream_t st) {
+  constexpr int STAGES = fwd_stages(D);
+  CUtensorMap tq, tk, tv, to;
+  if (s % 8 != 0 || !tile_map(&tq, q, bh, s, D) || !tile_map(&tk, k, bh, s, D) || !tile_map(&tv, v, bh, s, D) ||
+      !tile_map(&to, o, bh, s, D))
+    return cudaErrorInvalidValue;
+  auto kernel = fwd_wgmma_kernel<D, FWD_BK, STAGES>;
+  const cudaError_t err = check_registers(kernel);
+  if (err != cudaSuccess) return err;
+  return launch(kernel, dim3(bh, (s + 127) / 128), HT, fwd_wgmma_smem(D, FWD_BK, STAGES), st, tq,
+                tk, tv, to, (float*)lse, s, scale * LOG2E, causal);
+}
+
+template <int D>
+cudaError_t run_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
+                          float scale, int causal, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv, tlse, tdelta;
+  if (s % 8 != 0 || !tile_map(&tq, q, bh, s, D) || !tile_map(&tk, k, bh, s, D) || !tile_map(&tv, v, bh, s, D) ||
+      !tile_map(&tdo, dout, bh, s, D) || !tile_map(&tdk, dk, bh, s, D) ||
+      !tile_map(&tdv, dv, bh, s, D) || !row_map(&tlse, lse, bh, s) ||
+      !row_map(&tdelta, delta, bh, s))
+    return cudaErrorInvalidValue;
+  auto kernel = dkv_wgmma_kernel<D, DKV_STAGES>;
+  const cudaError_t err = check_registers(kernel);
+  if (err != cudaSuccess) return err;
+  return launch(kernel, dim3(bh, (s + 127) / 128), HT, dkv_wgmma_smem(D, DKV_STAGES), st, tq, tk,
+                tv, tdo, tdk, tdv, tlse, tdelta, s, scale, causal);
+}
+
+// bf16 at D = 64 and 128 takes the wgmma kernels, D = 16 and 32 the
+// mma.sync ones. The wgmma kernels need S % 8 == 0 (TMA's 16-byte row
+// strides of lse and delta), which every S that supports() admits meets.
+constexpr bool wgmma_dim(int d) { return d == 64 || d == 128; }
+
 // f32 runs the CUDA-core kernels, bf16 the tensor-core ones.
 template <typename T, int D>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                     int s, float scale, int causal, cudaStream_t st) {
   const dim3 grid((s + 63) / 64, bh);
-  if constexpr (std::is_same<T, bf16>::value)
+  if constexpr (std::is_same<T, bf16>::value && wgmma_dim(D))
+    return run_fwd_wgmma<D>(q, k, v, o, lse, bh, s, scale, causal, st);
+  else if constexpr (std::is_same<T, bf16>::value)
     return launch(fwd_mma_kernel<D>, grid, MT, rows_bytes(D) + cols_bytes(D), st,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, s,
                   scale, causal);
@@ -844,7 +1330,9 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
                     const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
                     float scale, int causal, cudaStream_t st) {
   const dim3 grid((s + 63) / 64, bh);
-  if constexpr (std::is_same<T, bf16>::value)
+  if constexpr (std::is_same<T, bf16>::value && wgmma_dim(D))
+    return run_dkv_wgmma<D>(q, k, v, dout, lse, delta, dk, dv, bh, s, scale, causal, st);
+  else if constexpr (std::is_same<T, bf16>::value)
     return launch(dkv_mma_kernel<D>, grid, MT,
                   2 * rows_bytes(D) + 2 * cols_bytes(D) + 2 * 64 * sizeof(float), st,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
@@ -900,6 +1388,13 @@ int fa_dkv(int dtype, int d, const void* q, const void* k, const void* v, const 
            const void* lse, const void* delta, void* dk, void* dv, int bh, int s, float scale,
            int causal, void* stream) {
   FA_DISPATCH(run_dkv, q, k, v, dout, lse, delta, dk, dv, bh, s, scale, causal);
+}
+
+// Dynamic shared-memory bytes of the bf16 wgmma kernel (0: forward, 1: dK/dV)
+// at head dim d, or 0 where d takes the mma.sync kernels.
+int fa_wgmma_smem(int kernel, int d) {
+  if (!wgmma_dim(d)) return 0;
+  return (int)(kernel == 0 ? fwd_wgmma_smem(d, FWD_BK, fwd_stages(d)) : dkv_wgmma_smem(d, DKV_STAGES));
 }
 
 }  // extern "C"

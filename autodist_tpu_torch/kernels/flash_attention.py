@@ -13,8 +13,10 @@ Layout: q/k/v are [batch, heads, seq, head_dim]; LSE is f32
 [batch, heads, seq, 1], as in the JAX package. ``supports``,
 ``preferred``, ``_pick_block`` and ``MIN_KERNEL_SEQ`` keep the JAX rule
 exactly, so the same shapes take the same branch in both packages. The
-CUDA tiles (64 x 64) are the kernels' own and are documented in the
-source; the TPU's ``_default_blocks`` tiling has no counterpart here.
+CUDA tiles are the kernels' own and are documented in the source: bf16
+at head dim 64 or 128 runs the forward and dK/dV as TMA-fed wgmma
+kernels on 128-row tiles, every other case 64-row tiles; the TPU's
+``_default_blocks`` tiling has no counterpart here.
 
 Beside the kernels live their plain PyTorch versions (``_fwd_plain``,
 ``_dq_plain``, ``_dkv_plain``): they materialize the scores but keep the
@@ -31,6 +33,7 @@ from autodist_tpu_torch.kernels import build
 NEG_INF = -1e30   # same masking constant as parallel/ring_attention.py
 SOURCE = 'flash_attention.cu'
 HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)   # bf16 fwd and dK/dV: the TMA-fed wgmma kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last reset, by kernel: 'fwd', 'dq', 'dkv'.
@@ -122,6 +125,7 @@ _SIGNATURES = {
     'fa_fwd': [_I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     'fa_dq': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     'fa_dkv': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    'fa_wgmma_smem': [_I, _I],   # (0 fwd | 1 dK/dV, head dim) -> bytes
 }
 _lib = None
 
@@ -153,6 +157,11 @@ def _check(tensors, head_dim):
                 t.shape != ref.shape:
             raise ValueError('flash_attention: q/k/v (and dO) must share '
                              'device, dtype and shape')
+    if ref.dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and \
+            ref.shape[2] % 8:
+        raise ValueError('flash_attention: bf16 at head_dim %d takes seq '
+                         'a multiple of 8 (as supports() admits), got %d'
+                         % (head_dim, ref.shape[2]))
 
 
 def _launch(name, fn, *args):
@@ -164,7 +173,8 @@ def _launch(name, fn, *args):
 
 
 def _prep(t):
-    """Contiguous, 16-byte aligned (the kernels load bf16 pairs)."""
+    """Contiguous, 16-byte aligned (the kernels load bf16 pairs, and TMA
+    takes 16-byte aligned tensors)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -204,7 +214,7 @@ def _dq_cuda(q, k, v, do, lse, delta, causal, sm_scale):
     b, h, s, d = q.shape
     _check((q, k, v, do), d)
     _check_rows((lse, delta), q)
-    q, k, v, do = (_prep(t) for t in (q, k, v, do))
+    q, k, v, do, lse, delta = (_prep(t) for t in (q, k, v, do, lse, delta))
     dq = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):
@@ -218,7 +228,7 @@ def _dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale):
     b, h, s, d = q.shape
     _check((q, k, v, do), d)
     _check_rows((lse, delta), q)
-    q, k, v, do = (_prep(t) for t in (q, k, v, do))
+    q, k, v, do, lse, delta = (_prep(t) for t in (q, k, v, do, lse, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
     with torch.cuda.device(q.device):

@@ -13,7 +13,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    gpt_small's attention shape (B4 H12 S4096 D64, causal) and
    bert_large's (B8 H16 S512 D64, full), with times: the kernel, its
    plain version, PyTorch's fused attention as a yardstick (never used by
-   the port) and the least time the card could take (the bound);
+   the port) and the least time the card could take (the bound), with
+   TFLOP/s and the bound's share of the time; a second launch of each
+   kernel must give the same bits; dQ and dK/dV are also timed together
+   against the fused attention's backward, which computes both;
 3. the fused conv + BatchNorm kernel (K4) held against its plain version
    at each of ResNet-101's main-path shapes (batch 256) in bf16, and in
    f32 at two of them and at a stage-1 shape (802,816 rows), with times:
@@ -151,20 +154,27 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(kernel, shape, dtype, causal):
-    """(ms, 'bytes' | 'operations'): the least time the card could take
-    for this call, from the work these inputs need: each input read
-    once, each output written once; causal work counts only the kept
-    (q, k) pairs."""
+def attention_work(kernel, shape, dtype, causal):
+    """(FLOP, bytes) that this call needs: each input read once, each
+    output written once; causal work counts only the kept (q, k)
+    pairs."""
     b, h, s, d = shape
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    per_pair = {'fwd': 2, 'dq': 3, 'dkv': 4}[kernel]   # products of 2*D
-    flops = 2 * d * pairs * per_pair
+    # products of 2*D per pair; 'bwd' is dQ and dK/dV together
+    per_pair = {'fwd': 2, 'dq': 3, 'dkv': 4, 'bwd': 7}[kernel]
     el = torch.tensor([], dtype=dtype).element_size()
     tensors_in, rows_in, tensors_out, rows_out = {
-        'fwd': (3, 0, 1, 1), 'dq': (4, 2, 1, 0), 'dkv': (4, 2, 2, 0)}[kernel]
-    nbytes = (b * h * s * d * el * (tensors_in + tensors_out) +
-              b * h * s * 4 * (rows_in + rows_out))
+        'fwd': (3, 0, 1, 1), 'dq': (4, 2, 1, 0), 'dkv': (4, 2, 2, 0),
+        'bwd': (4, 2, 3, 0)}[kernel]
+    return (2 * d * pairs * per_pair,
+            b * h * s * d * el * (tensors_in + tensors_out) +
+            b * h * s * 4 * (rows_in + rows_out))
+
+
+def bound(kernel, shape, dtype, causal):
+    """(ms, 'bytes' | 'operations'): the least time the card could take
+    for this call (``attention_work`` at the card's peaks)."""
+    flops, nbytes = attention_work(kernel, shape, dtype, causal)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         'operations' if t_ops >= t_bytes else 'bytes'
@@ -190,7 +200,7 @@ def ptxas_summary(log):
     report (flash attention's kernels and K4's)."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"entry function '\w*?\d+((?:fwd|dq|dkv)(?:_mma)?_kernel)"
+        m = re.search(r"entry function '\w*?\d+((?:fwd|dq|dkv)(?:_(?:wg)?mma)?_kernel)"
                       r"I(f)?Li(\d+)E", line)
         c = re.search(r"entry function '\w*?\d+(cb_\w+?_kernel)"
                       r"(?:I(13__nv_bfloat16|f)E)?", line)
@@ -249,22 +259,54 @@ def check_kernels(shape, causal, dtype, timed, smi):
               'dkv': [max_err(dk, dk2, tol['grad']),
                       max_err(dv, dv2, tol['grad'])]}
     del o2, lse2, dq2, dk2, dv2
+    # each CTA owns its output tile (no atomics): a second launch on the
+    # same inputs must give the same bits
+    first = {'fwd': (o, lse), 'dq': (dq,), 'dkv': (dk, dv)}
+    again = {'fwd': runs['fwd'][0](), 'dq': (runs['dq'][0](),),
+             'dkv': runs['dkv'][0]()}
     out = {}
     for name, results in checks.items():
         err = max(e for e, _ in results)
         ok = all(p for _, p in results)
-        rec = {'max_abs_err': err}
+        repeat = all(bool(torch.equal(a, b))
+                     for a, b in zip(first[name], again[name]))
+        rec = {'max_abs_err': err, 'bitwise_repeat': repeat}
         if timed:
             rec.update(_times(name, *runs[name], q, k, v, do, causal,
                               scale))
         rec['bound_ms'], rec['bound_by'] = bound(name, shape, dtype, causal)
+        if timed:
+            rec.update(rates(name, shape, dtype, causal, rec['ms']))
         emit(phase='kernel_check', kernel=name, shape=list(shape),
              dtype=str(dtype).replace('torch.', ''), causal=causal, ok=ok,
              tol={k: list(v) for k, v in tol.items()}, card=smi, **rec)
         require(ok, '%s kernel disagrees with its plain version at %s %s '
                 'causal=%s' % (name, shape, dtype, causal))
+        require(repeat, '%s kernel: two launches on the same inputs differ '
+                'at %s %s causal=%s' % (name, shape, dtype, causal))
         out[name] = rec
+    if timed:
+        # dQ and dK/dV together against the one library call that computes
+        # all three gradients; 'with_delta_ms' adds the rowsum(dO * O) that
+        # the backward computes before them, as that call does inside
+        rec = {'ms': cuda_ms(lambda: (runs['dq'][0](), runs['dkv'][0]()), 10),
+               'with_delta_ms': cuda_ms(lambda: fa._bwd(
+                   q, k, v, o, lse, do, causal, scale), 10),
+               'library_ms': out['dkv']['library_ms'],
+               'library': out['dkv']['library']}
+        rec['bound_ms'], rec['bound_by'] = bound('bwd', shape, dtype, causal)
+        rec.update(rates('bwd', shape, dtype, causal, rec['ms']))
+        emit(phase='kernel_pair', kernels=['dq', 'dkv'], shape=list(shape),
+             dtype=str(dtype).replace('torch.', ''), causal=causal,
+             card=smi, **rec)
     return out
+
+
+def rates(name, shape, dtype, causal, ms):
+    """Achieved TFLOP/s and the share of the bound reached in ``ms``."""
+    flops, _ = attention_work(name, shape, dtype, causal)
+    return {'tflops': flops / ms / 1e9,
+            'bound_share': bound(name, shape, dtype, causal)[0] / ms}
 
 
 def _times(name, kernel, plain, q, k, v, do, causal, scale):
@@ -487,7 +529,8 @@ def train_steps(trainer, batch, steps):
 KERNEL_CLASSES = (
     ('k4_conv_bn', ('::cb_mma_kernel', '::cb_f32_kernel',
                     '::cb_stats_kernel')),
-    ('flash_attention', ('::fwd_mma_kernel', '::dq_mma_kernel',
+    ('flash_attention', ('::fwd_wgmma_kernel', '::dkv_wgmma_kernel',
+                         '::fwd_mma_kernel', '::dq_mma_kernel',
                          '::dkv_mma_kernel', '::fwd_kernel', '::dq_kernel',
                          '::dkv_kernel')),
     ('cudnn_conv', ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
@@ -588,12 +631,15 @@ def main(argv):
 
     t0 = time.time()
     build.build_all([fa.SOURCE, cb.SOURCE])
-    fa.load_library()
+    lib = fa.load_library()
     cb.load_library()
     emit(phase='build', sources=[SOURCE, CB_SOURCE],
          seconds=time.time() - t0,
          ptxas=dict(ptxas_summary(build.build_log(fa.SOURCE)),
-                    **ptxas_summary(build.build_log(cb.SOURCE))))
+                    **ptxas_summary(build.build_log(cb.SOURCE))),
+         dynamic_smem_bytes={
+             '%s_wgmma_kernel<bf16,%d>' % (name, d): lib.fa_wgmma_smem(i, d)
+             for i, name in enumerate(('fwd', 'dkv')) for d in (64, 128)})
 
     results = {}
     for shape, causal in ((GPT_SHAPE, True), (BERT_SHAPE, False)):
@@ -700,6 +746,7 @@ def main(argv):
             'ms': rec['ms'], 'plain_ms': rec['plain_ms'],
             'bound_ms': rec['bound_ms'], 'bound_by': rec['bound_by'],
             'library_ms': rec['library_ms'], 'library': rec['library'],
+            'tflops': rec['tflops'], 'bound_share': rec['bound_share'],
             'shape': list(GPT_SHAPE), 'dtype': 'bfloat16', 'causal': True})
     # K4: launch-weighted means over ResNet-101's main-path shapes
     weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]

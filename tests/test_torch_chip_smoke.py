@@ -1,0 +1,90 @@
+"""``chip_smoke.py``'s report helpers, on the CPU.
+
+The script runs only on the card, but how it reads the compiler's report
+and how it sorts the profiler's kernel names is plain Python: these hold
+both to sample inputs with the kernels' real (mangled and demangled)
+names, and check the work and bound arithmetic behind its rates.
+"""
+import pytest
+import torch
+
+import chip_smoke
+
+# nvcc -Xptxas -v, as it reports the flash-attention kernels (one of each
+# generation) and K4
+PTXAS_LOG = '''\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116fwd_wgmma_kernelILi64ELi128ELi3EEEv14CUtensorMap_stS1_S1_S1_Pfifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116fwd_wgmma_kernelILi64ELi128ELi3EEEv14CUtensorMap_stS1_S1_S1_Pfifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116dkv_wgmma_kernelILi128ELi3EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_S1_ifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116dkv_wgmma_kernelILi128ELi3EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_S1_ifi
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1408 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113dq_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_ifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113dq_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_ifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 24576 bytes smem, 412 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110fwd_kernelIfLi32EEEvPKT_S3_S3_PS1_Pfifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110fwd_kernelIfLi32EEEvPKT_S3_S3_PS1_Pfifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113cb_mma_kernelEPK13__nv_bfloat16S2_PKfS4_PS0_Pfiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113cb_mma_kernelEPK13__nv_bfloat16S2_PKfS4_PS0_Pfiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, used 1 barriers, 24576 bytes smem, 424 bytes cmem[0]
+'''
+
+
+def test_ptxas_summary_reads_every_generation_of_kernel():
+    got = chip_smoke.ptxas_summary(PTXAS_LOG)
+    assert got == {
+        'fwd_wgmma_kernel<bf16,64>': '168 regs, 0 B spilled',
+        'dkv_wgmma_kernel<bf16,128>': '168 regs, 8 B spilled',
+        'dq_mma_kernel<bf16,64>': '128 regs, 0 B spilled',
+        'fwd_kernel<f32,32>': '90 regs, 0 B spilled',
+        'cb_mma_kernel': '122 regs, 0 B spilled'}
+
+
+@pytest.mark.parametrize('name,cls', [
+    ('void (anonymous namespace)::fwd_wgmma_kernel<64, 128, 3>('
+     'CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, '
+     'float*, int, float, int)', 'flash_attention'),
+    ('void (anonymous namespace)::dkv_wgmma_kernel<128, 3>(CUtensorMap_st, '
+     'CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, '
+     'CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, int, float, int)',
+     'flash_attention'),
+    ('void (anonymous namespace)::dq_mma_kernel<64>(__nv_bfloat16 const*, '
+     '__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, '
+     'float const*, float const*, __nv_bfloat16*, int, float, int)',
+     'flash_attention'),
+    ('void (anonymous namespace)::cb_mma_kernel(__nv_bfloat16 const*, '
+     '__nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, '
+     'float*, int, int, int, int, int)', 'k4_conv_bn'),
+    ('void at::native::elementwise_kernel<128, 2>(int)', 'elementwise'),
+    ('nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN', 'gemm'),
+    ('some_unknown_kernel', 'other')])
+def test_kernel_class_sorts_the_kernels(name, cls):
+    assert chip_smoke.kernel_class(name) == cls
+
+
+def test_rates_follow_the_work_and_the_bound():
+    shape = (4, 12, 4096, 64)
+    flops, nbytes = chip_smoke.attention_work('fwd', shape, torch.bfloat16,
+                                              True)
+    # 2 products of 2*D per kept (q, k) pair: S (S + 1) / 2 pairs causal
+    assert flops == 2 * 64 * 2 * 48 * 4096 * 4097 // 2
+    assert nbytes == 48 * 4096 * 64 * 2 * 4 + 48 * 4096 * 4
+    ms, by = chip_smoke.bound('fwd', shape, torch.bfloat16, True)
+    assert by == 'operations'
+    assert ms == pytest.approx(1e3 * flops / 989e12)
+    r = chip_smoke.rates('fwd', shape, torch.bfloat16, True, 2 * ms)
+    assert r['bound_share'] == pytest.approx(0.5)
+    assert r['tflops'] == pytest.approx(989 / 2)
+    # dQ and dK/dV together: the work of both, the bytes of one backward
+    pair = chip_smoke.attention_work('bwd', shape, torch.bfloat16, True)
+    dq = chip_smoke.attention_work('dq', shape, torch.bfloat16, True)
+    dkv = chip_smoke.attention_work('dkv', shape, torch.bfloat16, True)
+    assert pair[0] == dq[0] + dkv[0]
+    assert pair[1] == dkv[1] + 48 * 4096 * 64 * 2

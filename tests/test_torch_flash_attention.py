@@ -128,3 +128,21 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(build.os.path, 'isfile', lambda p: False)
     with pytest.raises(RuntimeError, match='nvcc not found'):
         build.nvcc_path()
+
+
+@pytest.mark.parametrize('seq,head_dim,dtype,raises', [
+    (36, 64, torch.bfloat16, True), (36, 128, torch.bfloat16, True),
+    (36, 32, torch.bfloat16, False), (36, 64, torch.float32, False),
+    (40, 64, torch.bfloat16, False)])
+def test_wgmma_kernels_take_seq_a_multiple_of_8(seq, head_dim, dtype,
+                                                raises):
+    """bf16 at head dim 64/128 runs the TMA-fed kernels, whose lse/delta
+    rows need S % 8 == 0 (every S supports() admits): the wrapper says so
+    before any pointer reaches the card; other cases pass the check."""
+    x = torch.zeros(1, 1, seq, head_dim, dtype=dtype)
+    if raises:
+        with pytest.raises(ValueError, match='multiple of 8'):
+            fa._check((x, x, x), head_dim)
+    else:
+        fa._check((x, x, x), head_dim)
+    assert fa.supports((1, 1, seq, head_dim)) == (seq % 8 == 0)

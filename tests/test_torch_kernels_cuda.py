@@ -6,8 +6,9 @@ one. The file imports no jax, so it runs on the machine with the card:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX.) Flash attention:
-shapes include ragged tile edges (S = 40, 96, 200 against 64-row tiles)
-and every head dim the kernels take. The fused conv + BatchNorm kernel:
+shapes include ragged tile edges (S = 40, 96, 200 against 64- and
+128-row tiles), every head dim the kernels take, a long S that wraps the
+wgmma kernels' TMA ring many times, and a bitwise repeat of two launches. The fused conv + BatchNorm kernel:
 row counts that are multiples of 8 but not of its 128-row tile, Cin = 8,
 24 and 2048 (a Cin tail short of its 32-wide step), stride 2, each
 prologue, bf16 and f32.
@@ -29,13 +30,21 @@ def _inputs(shape, seed, n=4):
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('causal', [True, False])
 @pytest.mark.parametrize('shape', [(2, 3, 128, 64), (1, 2, 200, 128),
-                                   (1, 1, 40, 16), (2, 2, 96, 32)])
+                                   (1, 1, 40, 16), (2, 2, 96, 32),
+                                   (1, 2, 4096, 64), (1, 2, 1024, 128),
+                                   (2, 2, 200, 128)])
 def test_kernels_match_plain_on_card(shape, causal, dtype):
     """Each CUDA kernel against its plain version on the card (ragged
-    edges included). Tolerance: f32 with TF32 off sums in another order
-    (1e-5); bf16 rounds P before P.V at another running max in the
-    online softmax, so O may move by 2 bf16 ulps (2e-2); dQ/dK/dV see
-    the same P and dS roundings as the plain version (1e-2)."""
+    edges included). bf16 at D = 64 and 128 runs the wgmma kernels for
+    the forward and dK/dV: S = 4096 wraps their TMA ring many times and
+    runs the longest q tiles first; S = 200 at D = 128 reads the zero
+    rows TMA fills in past a ragged S. Tolerance: f32 with TF32 off sums
+    in another order (1e-5); bf16 rounds P before P.V at another running
+    max in the online softmax, so O may move by 2 bf16 ulps (2e-2); dQ/dK/
+    dV see the same P and dS roundings as the plain version (1e-2). The
+    wgmma kernels take P as exp2f of the score scaled by scale * log2(e),
+    where the plain version takes exp of the scaled score: that changes P
+    only in f32's last bits, far inside these tolerances."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -56,6 +65,27 @@ def test_kernels_match_plain_on_card(shape, causal, dtype):
     torch.testing.assert_close(lse, lse2, atol=t_lse, rtol=t_lse)
     for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
         torch.testing.assert_close(a.float(), b.float(), atol=t_g, rtol=t_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('shape', [(2, 3, 1024, 64), (1, 2, 200, 128)])
+def test_kernels_repeat_bitwise_on_card(shape, causal):
+    """Each CTA owns its output tile, with no atomics: two launches of
+    the forward and of dK/dV (bf16, the wgmma kernels) on the same inputs
+    give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    q, k, v, do = (torch.from_numpy(x).to('cuda', torch.bfloat16)
+                   for x in _inputs(shape, 4))
+    scale = shape[-1] ** -0.5
+    o, lse = fa._fwd_cuda(q, k, v, causal, scale)
+    o2, lse2 = fa._fwd_cuda(q, k, v, causal, scale)
+    delta = fa._delta(do, o)
+    dk, dv = fa._dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk2, dv2 = fa._dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
 
 
 def _conv_inputs(shape, c_out, seed):
