@@ -15,11 +15,13 @@ that product:
   ``want_stats=False``.
 
 Here that kernel is CUDA C++ in ``kernels/csrc/conv_bn.cu`` (built for
-``sm_90a`` at first use by :mod:`autodist_tpu_torch.kernels.build`): each
-CTA owns a 128 x 128 output tile and loops over Cin, so the stats come
+``sm_90a`` at first use by :mod:`autodist_tpu_torch.kernels.build`): bf16
+runs a TMA-fed, mbarrier-pipelined wgmma kernel, f32 a CUDA-core one.
+Each CTA owns a 128-row output tile and loops over Cin, so the stats come
 out per row tile and a second small pass sums them in a fixed order (no
-atomics; deterministic). The source says what bounds it and what the
-design does about that.
+atomics; deterministic). W goes in as it lies, [Cin, Cout], cast to x's
+dtype. The source says what bounds it and what the design does about
+that.
 
 ``supports``, ``_pick_block_n`` and ``_pick_block_cout`` keep the JAX
 rule exactly, so the same shapes take the fused branch in both packages;
@@ -38,8 +40,8 @@ import torch
 from autodist_tpu_torch.kernels import build
 
 SOURCE = 'conv_bn.cu'
-ROW_TILE = 128     # rows of the CUDA kernel's output tile (csrc BM)
-COUT_TILE = 128    # output channels of its tile (csrc BN)
+ROW_TILE = 128     # rows of the CUDA kernels' output tile (csrc BM)
+COUT_TILE = 128    # Cout must be a multiple of this (csrc BN)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last reset.
@@ -101,23 +103,30 @@ def _fwd_plain(x2d, w, a, b, relu, want_stats, out_dtype):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P]
+_SIGNATURES = {
+    'cb_fwd': [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+               _P],
+    'cb_block_n': [_I],      # Cout -> output channels of the bf16 tile
+    'cb_wgmma_smem': [_I],   # Cout -> bf16 kernel's dynamic shared bytes
+}
 _lib = None
 
 
 def load_library():
-    """Build (at first use) and bind the kernel's C entry."""
+    """Build (at first use) and bind the kernel's C entries."""
     global _lib
     if _lib is None:
         lib = build.load(SOURCE)
-        lib.cb_fwd.argtypes = _SIGNATURE
-        lib.cb_fwd.restype = ctypes.c_int
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def _prep(t):
-    """Contiguous, 16-byte aligned (the kernel loads 16-byte chunks)."""
+    """Contiguous, 16-byte aligned (TMA and the 16-byte loads need it)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -133,8 +142,9 @@ def _fwd_cuda(x2d, w, a, b, relu, want_stats, out_dtype):
         raise TypeError('conv_bn kernel takes float32 or bfloat16, got %s '
                         '-> %s' % (x2d.dtype, out_dtype))
     if c_in % 8 or c_out % COUT_TILE or w.shape[0] != c_in:
-        raise ValueError('conv_bn kernel takes Cin % 8 == 0 and Cout % %d '
-                         '== 0, got x %s and w %s'
+        raise ValueError('conv_bn kernel takes x [N, Cin] and w [Cin, Cout] '
+                         'with Cin %% 8 == 0 and Cout %% %d == 0, got x %s '
+                         'and w %s'
                          % (COUT_TILE, tuple(x2d.shape), tuple(w.shape)))
     for t in (w, a, b):
         if t is not None and t.device != x2d.device:
@@ -142,7 +152,7 @@ def _fwd_cuda(x2d, w, a, b, relu, want_stats, out_dtype):
                              % x2d.device)
     dev = x2d.device
     x2d = _prep(x2d)
-    wt = _prep(w.to(x2d.dtype).t())          # [Cout, Cin]
+    w = _prep(w.to(x2d.dtype))               # [Cin, Cout], as it lies
     if a is not None:
         a = _prep(a.reshape(c_in).float())
         b = _prep(b.reshape(c_in).float())
@@ -160,7 +170,7 @@ def _fwd_cuda(x2d, w, a, b, relu, want_stats, out_dtype):
     with torch.cuda.device(dev):
         err = lib.cb_fwd(
             _DTYPE_CODES[x2d.dtype], _DTYPE_CODES[out_dtype], _ptr(x2d),
-            _ptr(wt), _ptr(a), _ptr(b), int(a is not None), int(relu),
+            _ptr(w), _ptr(a), _ptr(b), int(a is not None), int(relu),
             int(want_stats), _ptr(y), _ptr(part), _ptr(s), n, c_in, c_out,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:

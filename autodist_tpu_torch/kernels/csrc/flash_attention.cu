@@ -3,7 +3,8 @@
 // Replaces the three Pallas TPU kernels of autodist_tpu/kernels/flash_attention.py:
 //   fwd_wgmma_kernel (bf16, D 64/128), fwd_mma_kernel (bf16, D 16/32),
 //   fwd_kernel (f32)                                  <- _fwd_kernel
-//   dq_mma_kernel (bf16), dq_kernel (f32)             <- _dq_kernel
+//   dq_wgmma_kernel (bf16, D 64/128), dq_mma_kernel (bf16, D 16/32),
+//   dq_kernel (f32)                                   <- _dq_kernel
 //   dkv_wgmma_kernel (bf16, D 64/128), dkv_mma_kernel (bf16, D 16/32),
 //   dkv_kernel (f32)                                  <- _dkv_kernel
 // and computes what they compute, with the same constants (mask value -1e30,
@@ -23,10 +24,11 @@
 // it is bound by operations (0.10 ms at 989 TFLOP/s on the tensor cores
 // against 0.03 ms for the bytes); dQ does 1.5x and dK/dV 2x the forward's
 // operations. What the design does about that:
-//   * bf16 runs on the tensor cores with f32 sums; the forward and dK/dV as
-//     Hopper's warpgroup products (wgmma) fed by TMA through an mbarrier
-//     ring, so copies overlap the products and no operand is transposed in
-//     software (wgmma reads a tile MN-major through its descriptor);
+//   * bf16 runs on the tensor cores with f32 sums; at D = 64 and 128 all
+//     three kernels as Hopper's warpgroup products (wgmma) fed by TMA
+//     through an mbarrier ring, so copies overlap the products and no
+//     operand is transposed in software (wgmma reads a tile MN-major
+//     through its descriptor);
 //   * the [S, S] score matrix never touches device memory: a CTA owns an
 //     output tile and loops over the other operand's tiles, as the TPU grid's
 //     sequential axis did, keeping its running sums in registers;
@@ -34,9 +36,8 @@
 //     at the diagonal), which halves the work at long S, and the CTAs with
 //     the most causal work are scheduled first;
 //   * each CTA owns its output tile outright, so no atomics and no second
-//     pass: results are deterministic, bit for bit.
-// dQ is still the simpler mma.sync design: tiles staged through shared memory
-// with plain loads, no overlap of copy and compute.
+//     pass: results are deterministic, bit for bit (dQ has its own kernel,
+//     not atomic adds from the dK/dV kernel as in FlashAttention-2/3).
 //
 // f32 runs on the CUDA cores (scalar FMA; the tensor cores would round to
 // TF32): 64 query rows x 64 key rows per step, 256 threads as a 16 x 16 grid.
@@ -798,8 +799,8 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 64 and 128: warp-specialised wgmma kernels (K1 forward, K3
-// dK/dV). 384 threads: warpgroups 0 and 1 consume, each owning 64 rows of
+// bf16 at D = 64 and 128: warp-specialised wgmma kernels (K1 forward, K2
+// dQ, K3 dK/dV). 384 threads: warpgroups 0 and 1 consume, each owning 64 rows of
 // the CTA's 128-row output tile; warpgroup 2 produces: one thread issues
 // every TMA copy, and the warpgroup hands its registers to the consumers
 // (setmaxnreg 24 / 240). The CTA's own 128 rows are loaded once; the other
@@ -814,21 +815,13 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
 // row past S. Scores are kept in the log2 domain: exp2f of s * scale *
 // log2(e) minus the running max, LSE converted back to natural log.
 // ---------------------------------------------------------------------------
-constexpr int WG = 128;                    // threads of a warpgroup
-constexpr int HT = 3 * WG;                 // two consumer warpgroups + the producer
+using sm90::align1024;
+using sm90::HT;
+using sm90::swz;
+using sm90::WG;
 constexpr uint32_t BOX_BYTES = 64 * 128;   // one 64-row x 128-byte TMA box
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (sm90::smem_u32(p) & 1023u)) & 1023u);
-}
-
-// Byte offset of element (r, c) in a swizzled [ROWS][D] bf16 tile.
-template <int ROWS>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (c >> 6) * ROWS * 128 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
-}
 
 // TMA rows [row0, row0 + ROWS) of head bh into a swizzled [ROWS][D] tile.
 template <int D, int ROWS>
@@ -1166,6 +1159,117 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
+// K2: one CTA per (b*h, 128-row q tile), the q tiles in reverse order so the
+// longest causal rows are scheduled first. The CTA's Q, dO, lse and delta
+// rows are loaded once; K and V tiles of 64 rows stream through the ring up
+// to the diagonal. S = Q.K^T and dP = dO.V^T read K and V K-major; dQ +=
+// dS.K reads the same K tile MN-major.
+template <int D, int STAGES>
+__global__ void __launch_bounds__(HT, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tdq, const __grid_constant__ CUtensorMap tlse,
+                const __grid_constant__ CUtensorMap tdelta, int S, float scale, int causal) {
+  constexpr uint32_t Q_BYTES = 128 * D * 2, T_BYTES = 64 * D * 2, R_BYTES = 128 * 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sq = sm90::smem_u32(smem), sdo = sq + Q_BYTES;
+  const uint32_t ring = sdo + Q_BYTES;                 // (K, V) per stage
+  const uint32_t rows = ring + STAGES * 2 * T_BYTES;   // lse[128], delta[128]
+  const uint32_t q_bar = rows + 2 * R_BYTES;           // then full[STAGES], empty[STAGES]
+  auto sk = [&](int st) { return ring + st * 2 * T_BYTES; };
+  auto sv = [&](int st) { return ring + st * 2 * T_BYTES + T_BYTES; };
+  auto full = [&](int st) { return q_bar + 8 * (1 + st); };
+  auto empty = [&](int st) { return q_bar + 8 * (1 + STAGES + st); };
+  const float* lse_s = reinterpret_cast<const float*>(smem + (rows - sq));
+  const float* delta_s = lse_s + 128;
+
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  const int kv_end = causal ? min(S, q0 + 128) : S;
+  const int n_tiles = (kv_end + 63) / 64;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(full(st), 1);
+      sm90::mbar_init(empty(st), 2 * WG);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role is warp-uniform to the compiler: setmaxnreg is warpgroup-collective
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (wg == 2) {   // producer
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(q_bar, 2 * Q_BYTES + 2 * R_BYTES);
+      load_tile<D, 128>(sq, &tq, q_bar, q0, bh);
+      load_tile<D, 128>(sdo, &tdo, q_bar, q0, bh);
+      for (int h = 0; h < 2; ++h) {
+        sm90::tma_load_2d(rows + h * 256, &tlse, q_bar, q0 + 64 * h, bh);
+        sm90::tma_load_2d(rows + R_BYTES + h * 256, &tdelta, q_bar, q0 + 64 * h, bh);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % STAGES;
+        sm90::mbar_wait(empty(st), ((it / STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(full(st), 2 * T_BYTES);
+        load_tile<D, 64>(sk(st), &tk, full(st), it * 64, bh);
+        load_tile<D, 64>(sv(st), &tv, full(st), it * 64, bh);
+      }
+    }
+  } else {   // consumers
+    sm90::reg_alloc<240>();
+    const int tid = threadIdx.x % WG, t = tid & 3;
+    const int qw = q0 + wg * 64;                                   // the warpgroup's first q row
+    const int lr = wg * 64 + (tid / 32) * 16 + ((tid & 31) >> 2);   // local row, and lr + 8
+    const int row_lo = q0 + lr;
+    const float scale_log2 = scale * LOG2E;
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    sm90::mbar_wait(q_bar, 0);
+    const float lse2[2] = {lse_s[lr] * LOG2E, lse_s[lr + 8] * LOG2E};
+    const float dl[2] = {delta_s[lr], delta_s[lr + 8]};
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES, k0 = it * 64;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      if (!(causal && k0 > qw + 63)) {   // else every (q, kv) pair is masked
+        float s[32], dp[32];
+        sm90::wgmma_fence();
+        product_k<D, 64, 128>(s, sq + wg * BOX_BYTES, sk(st));
+        product_k<D, 64, 128>(dp, sdo + wg * BOX_BYTES, sv(st));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_operand(s);
+        sm90::fence_operand(dp);
+        const bool edge = (causal && k0 + 63 > qw) || k0 + 64 > S || qw + 64 > S;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[4 * j + e];
+            if (edge && !live(row_lo + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), S, causal))
+              x = NEG_INF;
+            const float p = exp2f(fmaf(x, scale_log2, -lse2[e >> 1]));
+            dp[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]) * scale;
+          }
+        uint32_t dsa[4][4];
+        acc_to_a<64>(dsa, dp);   // dS rounded to k's dtype
+        sm90::fence_operand(dq);
+        sm90::wgmma_fence();
+        product_mn<D, 64>(dq, dsa, sk(st));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_operand(dq);
+      }
+      sm90::mbar_arrive(empty(st));
+    }
+    // the warpgroup's Q rows are read by no one else: dQ goes out through them
+    store_tile<D>(smem, dq, &tdq, wg, qw, bh);
+  }
+}
+
 // Shared-memory bytes of each kernel.
 constexpr size_t fwd_smem(int d) { return 4u * ((size_t)(BQ + 2 * BK) * (d + 1) + BQ * PP); }
 constexpr size_t dq_smem(int d) {
@@ -1189,31 +1293,9 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStrea
 
 // ---- host side of the wgmma kernels: tensor maps and launch ----------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
-  }();
-  return fn;
-}
-
 // bf16 [bh, s, d] in 64 x 64 boxes, 128-byte swizzle, zeros past the edges.
 bool tile_map(CUtensorMap* map, const void* ptr, int bh, int s, int d) {
-  const EncodeTiled encode = encode_tiled();
+  const sm90::EncodeTiled encode = sm90::encode_tiled();
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
   const cuuint32_t box[3] = {64, 64, 1}, step[3] = {1, 1, 1};
@@ -1225,26 +1307,10 @@ bool tile_map(CUtensorMap* map, const void* ptr, int bh, int s, int d) {
 
 // f32 [bh, s] (lse, delta) in boxes of 64 entries, zeros past S.
 bool row_map(CUtensorMap* map, const void* ptr, int bh, int s) {
-  const EncodeTiled encode = encode_tiled();
-  const cuuint64_t dims[2] = {(cuuint64_t)s, (cuuint64_t)bh};
-  const cuuint64_t strides[1] = {(cuuint64_t)s * 4};
-  const cuuint32_t box[2] = {64, 1}, step[2] = {1, 1};
-  return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
-                          strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return sm90::matrix_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, bh, s, 1, 64, false);
 }
 
-// The warpgroups' register hand-over (24 + 2 x 240 a thread) draws on the
-// registers the CTA was launched with; a kernel built with fewer than 168 a
-// thread would wait for them forever, so it is refused instead.
-template <typename Kernel>
-cudaError_t check_registers(Kernel kernel) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  return attr.numRegs * HT >= WG * (24 + 2 * 240) ? cudaSuccess : cudaErrorInvalidConfiguration;
-}
+using sm90::check_registers;
 
 // Dynamic shared-memory bytes of the wgmma kernels (1024 for alignment).
 constexpr size_t fwd_wgmma_smem(int d, int bk, int stages) {
@@ -1253,9 +1319,13 @@ constexpr size_t fwd_wgmma_smem(int d, int bk, int stages) {
 constexpr size_t dkv_wgmma_smem(int d, int stages) {
   return 1024 + 2 * 2u * 128 * d + stages * (2 * 2u * 64 * d + 2 * 4u * 64) + 8 * (1 + 2 * stages);
 }
+constexpr size_t dq_wgmma_smem(int d, int stages) {
+  return 1024 + 2 * 2u * 128 * d + stages * 2 * 2u * 64 * d + 2 * 4u * 128 + 8 * (1 + 2 * stages);
+}
 constexpr int FWD_BK = 128;
 constexpr int fwd_stages(int d) { return d == 64 ? 3 : 2; }
 constexpr int DKV_STAGES = 3;
+constexpr int DQ_STAGES = 3;
 
 template <int D>
 cudaError_t run_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
@@ -1289,6 +1359,23 @@ cudaError_t run_dkv_wgmma(const void* q, const void* k, const void* v, const voi
                 tv, tdo, tdk, tdv, tlse, tdelta, s, scale, causal);
 }
 
+template <int D>
+cudaError_t run_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dq, int bh, int s, float scale,
+                         int causal, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdq, tlse, tdelta;
+  if (s % 8 != 0 || !tile_map(&tq, q, bh, s, D) || !tile_map(&tk, k, bh, s, D) ||
+      !tile_map(&tv, v, bh, s, D) || !tile_map(&tdo, dout, bh, s, D) ||
+      !tile_map(&tdq, dq, bh, s, D) || !row_map(&tlse, lse, bh, s) ||
+      !row_map(&tdelta, delta, bh, s))
+    return cudaErrorInvalidValue;
+  auto kernel = dq_wgmma_kernel<D, DQ_STAGES>;
+  const cudaError_t err = check_registers(kernel);
+  if (err != cudaSuccess) return err;
+  return launch(kernel, dim3(bh, (s + 127) / 128), HT, dq_wgmma_smem(D, DQ_STAGES), st, tq, tk,
+                tv, tdo, tdq, tlse, tdelta, s, scale, causal);
+}
+
 // bf16 at D = 64 and 128 takes the wgmma kernels, D = 16 and 32 the
 // mma.sync ones. The wgmma kernels need S % 8 == 0 (TMA's 16-byte row
 // strides of lse and delta), which every S that supports() admits meets.
@@ -1315,7 +1402,9 @@ cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout
                    const void* lse, const void* delta, void* dq, int bh, int s, float scale,
                    int causal, cudaStream_t st) {
   const dim3 grid((s + 63) / 64, bh);
-  if constexpr (std::is_same<T, bf16>::value)
+  if constexpr (std::is_same<T, bf16>::value && wgmma_dim(D))
+    return run_dq_wgmma<D>(q, k, v, dout, lse, delta, dq, bh, s, scale, causal, st);
+  else if constexpr (std::is_same<T, bf16>::value)
     return launch(dq_mma_kernel<D>, grid, MT, 2 * rows_bytes(D) + cols_bytes(D), st,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
                   (const float*)lse, (const float*)delta, (bf16*)dq, s, scale, causal);
@@ -1390,11 +1479,16 @@ int fa_dkv(int dtype, int d, const void* q, const void* k, const void* v, const 
   FA_DISPATCH(run_dkv, q, k, v, dout, lse, delta, dk, dv, bh, s, scale, causal);
 }
 
-// Dynamic shared-memory bytes of the bf16 wgmma kernel (0: forward, 1: dK/dV)
-// at head dim d, or 0 where d takes the mma.sync kernels.
+// Dynamic shared-memory bytes of the bf16 wgmma kernel (0: forward, 1: dK/dV,
+// 2: dQ) at head dim d, or 0 where d takes the mma.sync kernels.
 int fa_wgmma_smem(int kernel, int d) {
   if (!wgmma_dim(d)) return 0;
-  return (int)(kernel == 0 ? fwd_wgmma_smem(d, FWD_BK, fwd_stages(d)) : dkv_wgmma_smem(d, DKV_STAGES));
+  switch (kernel) {
+    case 0: return (int)fwd_wgmma_smem(d, FWD_BK, fwd_stages(d));
+    case 1: return (int)dkv_wgmma_smem(d, DKV_STAGES);
+    case 2: return (int)dq_wgmma_smem(d, DQ_STAGES);
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -14,8 +14,8 @@ Layout: q/k/v are [batch, heads, seq, head_dim]; LSE is f32
 ``preferred``, ``_pick_block`` and ``MIN_KERNEL_SEQ`` keep the JAX rule
 exactly, so the same shapes take the same branch in both packages. The
 CUDA tiles are the kernels' own and are documented in the source: bf16
-at head dim 64 or 128 runs the forward and dK/dV as TMA-fed wgmma
-kernels on 128-row tiles, every other case 64-row tiles; the TPU's
+at head dim 64 or 128 runs all three as TMA-fed wgmma kernels on
+128-row output tiles, every other case on 64-row tiles; the TPU's
 ``_default_blocks`` tiling has no counterpart here.
 
 Beside the kernels live their plain PyTorch versions (``_fwd_plain``,
@@ -33,7 +33,7 @@ from autodist_tpu_torch.kernels import build
 NEG_INF = -1e30   # same masking constant as parallel/ring_attention.py
 SOURCE = 'flash_attention.cu'
 HEAD_DIMS = (16, 32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)   # bf16 fwd and dK/dV: the TMA-fed wgmma kernels
+WGMMA_HEAD_DIMS = (64, 128)   # bf16 at these: the TMA-fed wgmma kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last reset, by kernel: 'fwd', 'dq', 'dkv'.
@@ -125,7 +125,7 @@ _SIGNATURES = {
     'fa_fwd': [_I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     'fa_dq': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     'fa_dkv': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    'fa_wgmma_smem': [_I, _I],   # (0 fwd | 1 dK/dV, head dim) -> bytes
+    'fa_wgmma_smem': [_I, _I],   # (0 fwd | 1 dK/dV | 2 dQ, head dim) -> bytes
 }
 _lib = None
 

@@ -7,7 +7,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA
    versions), then the build of the kernels from
    ``autodist_tpu_torch/kernels/csrc`` (flash attention and the fused
-   conv + BatchNorm), one ``nvcc`` each, all at once, for ``sm_90a``;
+   conv + BatchNorm), one ``nvcc`` each, all at once, for ``sm_90a``,
+   with each kernel's registers and spills (``ptxas``) and the dynamic
+   shared memory of the warp-specialised ones;
 2. each flash kernel (fwd, dQ, dK/dV) held against its plain PyTorch
    version on the card, causal and not, f32 (TF32 off) and bf16, at
    gpt_small's attention shape (B4 H12 S4096 D64, causal) and
@@ -22,7 +24,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    f32 at two of them and at a stage-1 shape (802,816 rows), with times:
    the kernel, its plain version, ``torch.matmul`` of the same operands
    ("product only": no prologue, no stats; never used by the port) and
-   the bound;
+   the bound, with TFLOP/s and the bound's share of the time;
 4. small models through the kernels on the card against the same models
    on the CPU (the plain versions), as the reference on a small input: a
    Transformer at S = 512 and ``ResNet((1, 1))`` with
@@ -43,6 +45,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    gate, and VGG16, one step each at full width, batch 16;
 9. the card's line, the ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
+
+Kernel times are device time (CUDA events around back-to-back launches
+through the wrapper, queued while a spin kernel holds the device).
 
 ``python3 chip_smoke.py --profile`` adds one profiled step after each
 model's timed steps: device-busy time, idle share and the top kernels.
@@ -77,6 +82,10 @@ from autodist_tpu_torch.strategy import AllReduce, trainer_from_strategy
 # f32 outside them (the kernels' f32 path), and device memory.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# clock cycles of the spin that holds the device while the host queues
+# timed runs: about 25 ms at the H100's 1.98 GHz boost clock, longer than
+# the host takes to queue 20 wrapper calls
+SPIN_CYCLES = 50_000_000
 SOURCE = 'autodist_tpu_torch/kernels/csrc/flash_attention.cu'
 CB_SOURCE = 'autodist_tpu_torch/kernels/csrc/conv_bn.cu'
 CB_REPLACES = 'autodist_tpu/kernels/conv_bn.py:70'
@@ -141,11 +150,15 @@ def require(cond, what):
 
 
 def cuda_ms(fn, reps):
-    """Mean device ms of ``fn`` over ``reps`` runs, after one warm-up."""
+    """Mean device ms of ``fn`` over ``reps`` back-to-back runs, after one
+    warm-up. A spin kernel holds the device while the host queues the
+    runs, so a launch shorter than the wrapper's host work is timed by
+    the device's pace, not the host's."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -180,19 +193,48 @@ def bound(kernel, shape, dtype, causal):
         'operations' if t_ops >= t_bytes else 'bytes'
 
 
-def bound_conv_bn(n, c_in, c_out, dtype, prologue, want_stats=True):
-    """(ms, 'bytes' | 'operations'): the least time the card could take
-    for one K4 call: 2 N Cin Cout FLOP at the dtype's peak; bytes of x,
-    W and y once each, plus a and b (f32 [Cin]) with a prologue and s1,
-    s2 (f32 [Cout]) with stats."""
+def conv_bn_work(n, c_in, c_out, dtype, prologue, want_stats=True):
+    """(FLOP, bytes) of one K4 call: 2 N Cin Cout FLOP; bytes of x, W and
+    y once each, plus a and b (f32 [Cin]) with a prologue and s1, s2
+    (f32 [Cout]) with stats."""
     el = torch.tensor([], dtype=dtype).element_size()
-    flops = 2 * n * c_in * c_out
-    nbytes = (n * c_in + c_in * c_out + n * c_out) * el + \
+    return 2 * n * c_in * c_out, \
+        (n * c_in + c_in * c_out + n * c_out) * el + \
         (2 * c_in * 4 if prologue else 0) + (2 * c_out * 4 if want_stats
                                              else 0)
+
+
+def bound_conv_bn(n, c_in, c_out, dtype, prologue, want_stats=True):
+    """(ms, 'bytes' | 'operations'): the least time the card could take
+    for one K4 call (``conv_bn_work`` at the card's peaks)."""
+    flops, nbytes = conv_bn_work(n, c_in, c_out, dtype, prologue, want_stats)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def rates_conv_bn(n, c_in, c_out, dtype, prologue, ms):
+    """Achieved TFLOP/s and the share of the bound reached in ``ms``, for
+    one K4 call."""
+    flops, _ = conv_bn_work(n, c_in, c_out, dtype, prologue)
+    return {'tflops': flops / ms / 1e9,
+            'bound_share': bound_conv_bn(n, c_in, c_out, dtype,
+                                         prologue)[0] / ms}
+
+
+def _cb_name(kernel, args):
+    """K4's kernel name with its template arguments as ptxas mangles them
+    (``Li128E`` a tile width, ``13__nv_bfloat16`` or ``f`` the output
+    type, ``Lb1E`` the prologue)."""
+    if not args:
+        return kernel
+    parts = re.findall(r'Li(\d+)E', args)
+    out = re.sub(r'L[ib]\d+E', '', args)
+    parts.append('out ' + ('f32' if out == 'f' else 'bf16'))
+    pro = re.search(r'Lb([01])E', args)
+    if pro:
+        parts.append('prologue' if pro.group(1) == '1' else 'no prologue')
+    return '%s<%s>' % (kernel, ','.join(parts))
 
 
 def ptxas_summary(log):
@@ -203,14 +245,14 @@ def ptxas_summary(log):
         m = re.search(r"entry function '\w*?\d+((?:fwd|dq|dkv)(?:_(?:wg)?mma)?_kernel)"
                       r"I(f)?Li(\d+)E", line)
         c = re.search(r"entry function '\w*?\d+(cb_\w+?_kernel)"
-                      r"(?:I(13__nv_bfloat16|f)E)?", line)
+                      r"(?:I((?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+)E)?",
+                      line)
         if m:
             name = '%s<%s,%s>' % (m.group(1), 'f32' if m.group(2) else 'bf16',
                                   m.group(3))
             spill = 0
         elif c:
-            name = c.group(1) + ('' if not c.group(2) else '<out %s>' % (
-                'f32' if c.group(2) == 'f' else 'bf16'))
+            name = _cb_name(c.group(1), c.group(2))
             spill = 0
         m = re.search(r'(\d+) bytes spill stores', line)
         if m and name:
@@ -364,6 +406,9 @@ def check_conv_bn(shape, dtype, smi):
            'library_ms': None}
     rec['bound_ms'], rec['bound_by'] = bound_conv_bn(n, c_in, c_out, dtype,
                                                      relu)
+    rec.update(rates_conv_bn(n, c_in, c_out, dtype, relu, rec['ms']))
+    if dtype == torch.bfloat16:
+        rec['block_n'] = cb.load_library().cb_block_n(c_out)
     emit(phase='conv_bn_check', rows=n, c_in=c_in, c_out=c_out,
          prologue_relu=relu, calls_per_step=calls, x=list(x_shape),
          stride=stride, dtype=str(dtype).replace('torch.', ''), ok=ok,
@@ -527,12 +572,8 @@ def train_steps(trainer, batch, steps):
 # device time by class of kernel, first match wins (cuDNN spreads the
 # convolutions over many kernel names, so no single one reaches the top)
 KERNEL_CLASSES = (
-    ('k4_conv_bn', ('::cb_mma_kernel', '::cb_f32_kernel',
-                    '::cb_stats_kernel')),
-    ('flash_attention', ('::fwd_wgmma_kernel', '::dkv_wgmma_kernel',
-                         '::fwd_mma_kernel', '::dq_mma_kernel',
-                         '::dkv_mma_kernel', '::fwd_kernel', '::dq_kernel',
-                         '::dkv_kernel')),
+    ('k4_conv_bn', ('::cb_',)),
+    ('flash_attention', ('::fwd_', '::dq_', '::dkv_')),
     ('cudnn_conv', ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
                     'implicit')),
     ('gemm', ('gemm', 'nvjet', 'cutlass')),
@@ -632,14 +673,16 @@ def main(argv):
     t0 = time.time()
     build.build_all([fa.SOURCE, cb.SOURCE])
     lib = fa.load_library()
-    cb.load_library()
+    cblib = cb.load_library()
+    smem = {'%s_wgmma_kernel<bf16,%d>' % (name, d): lib.fa_wgmma_smem(i, d)
+            for i, name in enumerate(('fwd', 'dkv', 'dq')) for d in (64, 128)}
+    smem.update({'cb_wgmma_kernel<%d>' % cblib.cb_block_n(shape[2]):
+                 cblib.cb_wgmma_smem(shape[2]) for shape in RESNET_K4})
     emit(phase='build', sources=[SOURCE, CB_SOURCE],
          seconds=time.time() - t0,
          ptxas=dict(ptxas_summary(build.build_log(fa.SOURCE)),
                     **ptxas_summary(build.build_log(cb.SOURCE))),
-         dynamic_smem_bytes={
-             '%s_wgmma_kernel<bf16,%d>' % (name, d): lib.fa_wgmma_smem(i, d)
-             for i, name in enumerate(('fwd', 'dkv')) for d in (64, 128)})
+         dynamic_smem_bytes=smem)
 
     results = {}
     for shape, causal in ((GPT_SHAPE, True), (BERT_SHAPE, False)):
@@ -762,6 +805,7 @@ def main(argv):
         'bound_by': max(('bytes', 'operations'), key=lambda by: sum(
             wt for wt, rec in zip(weights, k4) if rec['bound_by'] == by)),
         'library_ms': None, 'product_only_ms': mean('product_only_ms'),
+        'tflops': mean('tflops'), 'bound_share': mean('bound_share'),
         'shape': 'launch-weighted mean per launch over the %d ResNet-101 '
                  'main-path shapes (batch %d)' % (len(RESNET_K4),
                                                   RESNET_BATCH),

@@ -11,7 +11,8 @@ import torch
 import chip_smoke
 
 # nvcc -Xptxas -v, as it reports the flash-attention kernels (one of each
-# generation) and K4
+# generation) and K4's (each generation, and the wgmma kernel's template
+# arguments: tile width, output type, prologue)
 PTXAS_LOG = '''\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116fwd_wgmma_kernelILi64ELi128ELi3EEEv14CUtensorMap_stS1_S1_S1_Pfifi' for 'sm_90a'
@@ -34,6 +35,26 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113cb_mma_kernelEPK13_
 ptxas info    : Function properties for _ZN12_GLOBAL__N_113cb_mma_kernelEPK13__nv_bfloat16S2_PKfS4_PS0_Pfiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 122 registers, used 1 barriers, 24576 bytes smem, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115dq_wgmma_kernelILi128ELi3EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_ifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115dq_wgmma_kernelILi128ELi3EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_ifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1280 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115cb_wgmma_kernelILi128E13__nv_bfloat16Lb1EEEv14CUtensorMap_stS2_S2_S2_S2_Pfiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115cb_wgmma_kernelILi128E13__nv_bfloat16Lb1EEEv14CUtensorMap_stS2_S2_S2_S2_Pfiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115cb_wgmma_kernelILi256EfLb0EEEv14CUtensorMap_stS1_S1_S1_S1_Pfiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115cb_wgmma_kernelILi256EfLb0EEEv14CUtensorMap_stS1_S1_S1_S1_Pfiiiii
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113cb_f32_kernelIfEEvPKfS2_S2_S2_iiPT_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113cb_f32_kernelIfEEvPKfS2_S2_S2_iiPT_Pfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 33280 bytes smem, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115cb_stats_kernelEPKfPfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115cb_stats_kernelEPKfPfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 16 registers, used 1 barriers, 1056 bytes smem, 376 bytes cmem[0]
 '''
 
 
@@ -44,7 +65,12 @@ def test_ptxas_summary_reads_every_generation_of_kernel():
         'dkv_wgmma_kernel<bf16,128>': '168 regs, 8 B spilled',
         'dq_mma_kernel<bf16,64>': '128 regs, 0 B spilled',
         'fwd_kernel<f32,32>': '90 regs, 0 B spilled',
-        'cb_mma_kernel': '122 regs, 0 B spilled'}
+        'cb_mma_kernel': '122 regs, 0 B spilled',
+        'dq_wgmma_kernel<bf16,128>': '168 regs, 0 B spilled',
+        'cb_wgmma_kernel<128,out bf16,prologue>': '168 regs, 0 B spilled',
+        'cb_wgmma_kernel<256,out f32,no prologue>': '168 regs, 4 B spilled',
+        'cb_f32_kernel<out f32>': '128 regs, 0 B spilled',
+        'cb_stats_kernel': '16 regs, 0 B spilled'}
 
 
 @pytest.mark.parametrize('name,cls', [
@@ -62,6 +88,14 @@ def test_ptxas_summary_reads_every_generation_of_kernel():
     ('void (anonymous namespace)::cb_mma_kernel(__nv_bfloat16 const*, '
      '__nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, '
      'float*, int, int, int, int, int)', 'k4_conv_bn'),
+    ('void (anonymous namespace)::dq_wgmma_kernel<64, 3>(CUtensorMap_st, '
+     'CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, '
+     'CUtensorMap_st, CUtensorMap_st, int, float, int)', 'flash_attention'),
+    ('void (anonymous namespace)::cb_wgmma_kernel<128, __nv_bfloat16, '
+     'true>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, '
+     'CUtensorMap_st, float*, int, int, int, int, int)', 'k4_conv_bn'),
+    ('void (anonymous namespace)::cb_stats_kernel(float const*, float*, '
+     'int, int)', 'k4_conv_bn'),
     ('void at::native::elementwise_kernel<128, 2>(int)', 'elementwise'),
     ('nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN', 'gemm'),
     ('some_unknown_kernel', 'other')])
@@ -88,3 +122,29 @@ def test_rates_follow_the_work_and_the_bound():
     dkv = chip_smoke.attention_work('dkv', shape, torch.bfloat16, True)
     assert pair[0] == dq[0] + dkv[0]
     assert pair[1] == dkv[1] + 48 * 4096 * 64 * 2
+
+
+@pytest.mark.parametrize('prologue,want_stats', [(False, True), (True, True),
+                                                 (True, False)])
+def test_conv_bn_rates_follow_the_work_and_the_bound(prologue, want_stats):
+    n, c_in, c_out = 50176, 1024, 256
+    flops, nbytes = chip_smoke.conv_bn_work(n, c_in, c_out, torch.bfloat16,
+                                            prologue, want_stats)
+    assert flops == 2 * n * c_in * c_out
+    # x, W and y once each in bf16; a, b (f32 [Cin]) with the prologue; s1,
+    # s2 (f32 [Cout]) with stats
+    assert nbytes == (n * c_in + c_in * c_out + n * c_out) * 2 + \
+        (8 * c_in if prologue else 0) + (8 * c_out if want_stats else 0)
+    ms, by = chip_smoke.bound_conv_bn(n, c_in, c_out, torch.bfloat16,
+                                      prologue, want_stats)
+    # this shape moves more bytes than the tensor cores need time for
+    assert by == 'bytes'
+    assert ms == pytest.approx(1e3 * nbytes / 3.35e12)
+    r = chip_smoke.rates_conv_bn(n, c_in, c_out, torch.bfloat16, prologue,
+                                 4 * ms)
+    if want_stats:
+        assert r['bound_share'] == pytest.approx(0.25)
+    assert r['tflops'] == pytest.approx(flops / (4 * ms) / 1e9)
+    # at Cin = Cout = 2048 the product outweighs the bytes
+    assert chip_smoke.bound_conv_bn(12544, 2048, 2048, torch.bfloat16,
+                                    prologue)[1] == 'operations'

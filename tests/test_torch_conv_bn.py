@@ -177,3 +177,32 @@ def test_other_devices_raise():
     x = torch.empty((1, 8, 8, 16), device='meta')
     with pytest.raises(ValueError, match='no path'):
         cb.fused_pointwise(x, torch.empty((16, 128), device='meta'))
+
+
+@pytest.mark.parametrize('case,error,match', [
+    ('x_dtype', TypeError, 'float32 or bfloat16'),
+    ('c_out', ValueError, 'Cout % 128'),
+    ('c_in', ValueError, 'Cin % 8'),
+    ('w_transposed', ValueError, 'Cin % 8'),
+    ('device', ValueError, 'every input must be on')])
+def test_kernel_wrapper_checks_its_arguments(case, error, match):
+    """The CUDA wrapper refuses what the kernel does not take before it
+    passes any pointer, so these raise here as on the card. W goes to the
+    kernel as it lies, [Cin, Cout]: a W given as [Cout, Cin] is refused,
+    not read transposed."""
+    x = torch.zeros((40, 16), dtype=torch.bfloat16)
+    w = torch.zeros((16, 128))
+    a = b = torch.zeros(16)
+    if case == 'x_dtype':
+        x = x.half()
+    elif case == 'c_out':
+        w = torch.zeros((16, 200))
+    elif case == 'c_in':
+        x, w, a, b = torch.zeros((40, 12), dtype=torch.bfloat16), \
+            torch.zeros((12, 128)), torch.zeros(12), torch.zeros(12)
+    elif case == 'w_transposed':
+        w = torch.zeros((128, 16))
+    else:
+        a = torch.zeros(16, device='meta')
+    with pytest.raises(error, match=match):
+        cb._fwd_cuda(x, w, a, b, True, True, torch.bfloat16)

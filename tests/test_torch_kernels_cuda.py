@@ -8,10 +8,11 @@ one. The file imports no jax, so it runs on the machine with the card:
 (``--noconftest``: ``tests/conftest.py`` sets up JAX.) Flash attention:
 shapes include ragged tile edges (S = 40, 96, 200 against 64- and
 128-row tiles), every head dim the kernels take, a long S that wraps the
-wgmma kernels' TMA ring many times, and a bitwise repeat of two launches. The fused conv + BatchNorm kernel:
-row counts that are multiples of 8 but not of its 128-row tile, Cin = 8,
-24 and 2048 (a Cin tail short of its 32-wide step), stride 2, each
-prologue, bf16 and f32.
+wgmma kernels' TMA ring many times, and a bitwise repeat of two launches.
+The fused conv + BatchNorm kernel: row counts that are multiples of 8 but
+not of its 128-row tile, Cin = 8, 24 and 2048 (a Cin tail short of its
+64-wide step), stride 2, each prologue, bf16 and f32, and a prologue that
+would leak relu(b) into the padding if the kernel did not zero it.
 """
 import numpy as np
 import pytest
@@ -32,13 +33,13 @@ def _inputs(shape, seed, n=4):
 @pytest.mark.parametrize('shape', [(2, 3, 128, 64), (1, 2, 200, 128),
                                    (1, 1, 40, 16), (2, 2, 96, 32),
                                    (1, 2, 4096, 64), (1, 2, 1024, 128),
-                                   (2, 2, 200, 128)])
+                                   (2, 2, 200, 128), (1, 2, 200, 64)])
 def test_kernels_match_plain_on_card(shape, causal, dtype):
     """Each CUDA kernel against its plain version on the card (ragged
     edges included). bf16 at D = 64 and 128 runs the wgmma kernels for
-    the forward and dK/dV: S = 4096 wraps their TMA ring many times and
-    runs the longest q tiles first; S = 200 at D = 128 reads the zero
-    rows TMA fills in past a ragged S. Tolerance: f32 with TF32 off sums
+    the forward, dQ and dK/dV: S = 4096 wraps their TMA ring many times
+    and runs the longest q tiles first; S = 200 at D = 64 and 128 reads
+    the zero rows TMA fills in past a ragged S. Tolerance: f32 with TF32 off sums
     in another order (1e-5); bf16 rounds P before P.V at another running
     max in the online softmax, so O may move by 2 bf16 ulps (2e-2); dQ/dK/
     dV see the same P and dS roundings as the plain version (1e-2). The
@@ -69,11 +70,12 @@ def test_kernels_match_plain_on_card(shape, causal, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('causal', [True, False])
-@pytest.mark.parametrize('shape', [(2, 3, 1024, 64), (1, 2, 200, 128)])
+@pytest.mark.parametrize('shape', [(2, 3, 1024, 64), (1, 2, 200, 128),
+                                   (1, 2, 200, 64)])
 def test_kernels_repeat_bitwise_on_card(shape, causal):
     """Each CTA owns its output tile, with no atomics: two launches of
-    the forward and of dK/dV (bf16, the wgmma kernels) on the same inputs
-    give the same bits."""
+    the forward, dQ and dK/dV (bf16, the wgmma kernels) on the same
+    inputs give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     q, k, v, do = (torch.from_numpy(x).to('cuda', torch.bfloat16)
@@ -82,9 +84,11 @@ def test_kernels_repeat_bitwise_on_card(shape, causal):
     o, lse = fa._fwd_cuda(q, k, v, causal, scale)
     o2, lse2 = fa._fwd_cuda(q, k, v, causal, scale)
     delta = fa._delta(do, o)
+    dq = fa._dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dq2 = fa._dq_cuda(q, k, v, do, lse, delta, causal, scale)
     dk, dv = fa._dkv_cuda(q, k, v, do, lse, delta, causal, scale)
     dk2, dv2 = fa._dkv_cuda(q, k, v, do, lse, delta, causal, scale)
-    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)
 
 
@@ -138,6 +142,28 @@ def test_conv_bn_kernel_matches_plain_on_card(shape, c_out, stride,
     y3, z1, z2 = cb._fwd_cuda(x, w, a, b, relu, False, dt)
     assert not z1.any() and not z2.any()
     torch.testing.assert_close(y3, y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_conv_bn_kernel_zeroes_the_padding_after_the_prologue():
+    """N = 40 rows and Cin = 24 fill a fraction of the kernel's 128-row,
+    64-Cin tile; TMA reads zeros there, and relu(0 * a + b) with b = +1
+    would be 1, not 0. s1 and s2 must be the f32 column sums of the plain
+    y (out_dtype f32: the accumulator itself) over the 40 real rows only,
+    within the tolerance above (1e-5 of the largest |s|), and y within
+    one bf16 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernel has no CPU mode')
+    x, w, a, _ = (torch.from_numpy(t).cuda()
+                  for t in _conv_inputs((40, 24), 256, 8))
+    x = x.to(torch.bfloat16)
+    b = torch.ones(24, device='cuda')
+    y, s1, s2 = cb._fwd_cuda(x, w, a, b, True, True, torch.bfloat16)
+    acc, _, _ = cb._fwd_plain(x, w, a, b, True, True, torch.float32)
+    torch.cuda.synchronize()
+    _close_to_max(y, acc.to(torch.bfloat16), 1e-2)
+    _close_to_max(s1, acc.sum(0), 1e-5)
+    _close_to_max(s2, (acc * acc).sum(0), 1e-5)
 
 
 @pytest.mark.cuda
