@@ -12,7 +12,7 @@ One-to-one with the reference's ``autodist/strategy/`` directory:
 - :class:`Parallax`             — parallax_strategy.py:38-70
 
 The cost-model-driven ``AutoStrategy`` selector waits for the port of
-the simulator and is not in this package yet.
+the simulator's search (ROADMAP.md Queue 1 item 10): it raises.
 
 Builders only *choose* per-variable synchronization/partitioning/placement;
 the lowering onto the data-parallel Trainer happens in
@@ -332,3 +332,12 @@ class Parallax(StrategyBuilder):
                         weight_update_sharding)))
                 dense_count += 1
         return s
+
+
+class AutoStrategy(StrategyBuilder):
+    """The simulator-driven selector: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            'AutoStrategy: the simulator search and calibration are not '
+            'ported yet (ROADMAP.md Queue 1 item 10)')

@@ -43,14 +43,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    runs must agree; then the two arms' step times in turns;
 8. DenseNet-121 and InceptionV3 (299 px), which launch K4 under the
    gate, and VGG16, one step each at full width, batch 16;
-9. the card's line, the ``kernels`` line, and last
+9. the reference DSL path (``AutoDist.scope()`` ->
+   ``create_distributed_session()`` -> ``sess.run``) in a one-process
+   NCCL group: the c0 linear regression of
+   ``tests/integration/test_linear_regression.py`` under its 13 builder
+   entries (b after one step within 1e-5 of 0.01 * 4.17503, 2e-3 on the
+   bfloat16 wires); NCF at ``bench.py:bench_sparse``'s full width
+   (138,493 users, 26,744 items, GMF 64, MLP 256-128-64, batch 4096,
+   Adam 1e-3) written in DSL ops, 20 steps under PSLoadBalancing and 20
+   under AllReduce: finite losses, the first within 0.05 of ln 2, the
+   sparse (ids, rows) path engaged on the four tables, step time,
+   examples/s and peak memory; and a small NCF on the card against the
+   CPU (first 3 losses within 1e-4). The path runs no kernel of its
+   own;
+10. the card's line, the ``kernels`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time (CUDA events around back-to-back launches
 through the wrapper, queued while a spin kernel holds the device).
 
 ``python3 chip_smoke.py --profile`` adds one profiled step after each
-model's timed steps: device-busy time, idle share and the top kernels.
+model's timed steps (NCF's included): device-busy time, idle share and
+the top kernels.
 
 Without a card, or without the rest of the repository beside it, it
 fails before printing any result.
@@ -59,6 +73,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -67,6 +82,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import autodist_tpu_torch as ad
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.api import Trainer
 from autodist_tpu_torch.kernels import build
@@ -589,21 +605,15 @@ def kernel_class(name):
     return 'other'
 
 
-def profile_step(name, trainer, state, batch, smi):
-    """One more step under torch.profiler: host seconds, device-busy
-    seconds (kernel time summed), idle share, and the kernels that take
-    the most device time. The profiler's own cost inflates the host
-    time, so the idle share here is an upper bound. Returns (state, the
-    top kernels' names)."""
+def _profiled(fn):
+    """Run ``fn`` once under torch.profiler: (host seconds, device ms by
+    kernel name)."""
     from torch.profiler import ProfilerActivity, profile
-    step = trainer.compile_step(state, batch)
-    local = trainer.shard_batch(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, metrics = step(state, local)
-        float(metrics['loss'])
+        out = fn()
         wall = time.perf_counter() - t0
     by_name = {}
     for e in prof.events():
@@ -611,6 +621,14 @@ def profile_step(name, trainer, state, batch, smi):
                 not getattr(e, 'is_user_annotation', False):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
+    return out, wall, by_name
+
+
+def emit_profile(name, wall, by_name, smi):
+    """The profile line: host seconds, device-busy seconds (kernel time
+    summed), idle share and the kernels that take the most device time.
+    The profiler's own cost inflates the host time, so the idle share
+    is an upper bound. Returns the top kernels' names."""
     busy = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     by_class = {}
@@ -622,7 +640,21 @@ def profile_step(name, trainer, state, batch, smi):
                                         key=lambda kv: -kv[1])),
          top_kernels_ms={n[:120]: ms for n, ms in top}, card=smi)
     require(busy > 0, 'the profiler saw no device time')
-    return state, [n for n, _ in top]
+    return [n for n, _ in top]
+
+
+def profile_step(name, trainer, state, batch, smi):
+    """One more training step under torch.profiler (see
+    :func:`emit_profile`). Returns (state, the top kernels' names)."""
+    step = trainer.compile_step(state, batch)
+    local = trainer.shard_batch(batch)
+
+    def run():
+        out = step(state, local)
+        float(out[1]['loss'])
+        return out
+    (state, _), wall, by_name = _profiled(run)
+    return state, emit_profile(name, wall, by_name, smi)
 
 
 def small_reference():
@@ -652,6 +684,263 @@ def small_reference():
     emit(phase='small_reference', loss_cuda=l_gpu, loss_cpu=l_cpu,
          max_grad_err=grad_err, launches=launches, ok=ok)
     require(ok, 'the model on the card disagrees with the CPU reference')
+
+
+# -- the reference DSL path --------------------------------------------------
+# tests/integration/test_linear_regression.py's c0 program and its 13
+# builder entries: np seed 123, lr 0.01, W=5, b=0; after ONE SGD step
+# b == 0.01 * 4.17503 (1e-5, 2e-3 on the bf16-wire entries)
+EXPECTED_B = 0.01 * 4.17503
+C0_STRATEGIES = [
+    ('AllReduce', lambda: ad.AllReduce(chunk_size=128)),
+    ('AllReduce_chunk1', lambda: ad.AllReduce(chunk_size=1)),
+    ('AllReduce_ring', lambda: ad.AllReduce(chunk_size=128,
+                                            all_reduce_spec='RING')),
+    ('AllReduce_hvd', lambda: ad.AllReduce(
+        chunk_size=128, compressor='HorovodCompressor')),
+    ('AllReduce_hvd_ef', lambda: ad.AllReduce(
+        chunk_size=128, compressor='HorovodCompressorEF')),
+    ('PS', lambda: ad.PS()),
+    ('PS_proxy', lambda: ad.PS(local_proxy_variable=True)),
+    ('PSLoadBalancing', lambda: ad.PSLoadBalancing()),
+    ('PartitionedPS', lambda: ad.PartitionedPS()),
+    ('UnevenPartitionedPS', lambda: ad.UnevenPartitionedPS()),
+    ('PartitionedAR', lambda: ad.PartitionedAR()),
+    ('RandomAxisPartitionAR', lambda: ad.RandomAxisPartitionAR(seed=1)),
+    ('Parallax', lambda: ad.Parallax()),
+]
+# NCF at bench.py:bench_sparse's configuration (autodist_tpu/models/ncf.py
+# at ml-20m scale): 138,493 users, 26,744 items, GMF width 64, MLP
+# 256 -> 128 -> 64 (each MLP embedding 128 wide), head 128 -> 1, batch
+# 4096, Adam(1e-3)
+NCF_FULL = {'users': 138493, 'items': 26744, 'mf_dim': 64,
+            'mlp': (256, 128, 64), 'batch': 4096}
+NCF_SMALL = {'users': 64, 'items': 48, 'mf_dim': 8, 'mlp': (16, 8, 4),
+             'batch': 32}
+NCF_STEPS = 20
+
+
+def c0_tol(name):
+    return 2e-3 if 'hvd' in name else 1e-5
+
+
+def local_slice(x, rank, world):
+    """This process's contiguous share of a global batch, as the JAX
+    package splits a feed over its replicas; the whole batch when it
+    does not divide (the JAX package then replicates the feed)."""
+    if world == 1 or len(x) % world:
+        return x
+    n = len(x) // world
+    return x[rank * n:(rank + 1) * n]
+
+
+def fresh_autodist(builder, device, n_gpus=1, **kw):
+    """An AutoDist over a one-node spec of ``n_gpus`` devices, this
+    process's earlier instance (one per process) released."""
+    from autodist_tpu_torch import autodist as ad_mod
+    ad_mod._DEFAULT_AUTODIST.clear()
+    return ad.AutoDist(resource_info={'nodes': [{
+        'address': 'localhost', 'gpus': list(range(n_gpus)), 'chief': True,
+        'network_bandwidth': 100}]}, strategy_builder=builder,
+        device=device, **kw)
+
+
+def run_linear_regression(autodist, rank=0, world=1):
+    """The c0 program (one SGD step), this process feeding its share of
+    the batch. Returns (loss, W, b) after the step."""
+    np.random.seed(123)
+    inputs = np.random.randn(1000)
+    noises = np.random.randn(1000)
+    outputs = inputs * 3.0 + 2.0 + noises
+    with autodist.scope():
+        x = ad.placeholder(shape=[None], dtype=np.float32, name='x')
+        y = ad.placeholder(shape=[None], dtype=np.float32, name='y')
+        W = ad.Variable(5.0, name='W')
+        b = ad.Variable(0.0, name='b')
+        loss = ad.ops.reduce_mean(ad.ops.square(W * x + b - y))
+        train_op = ad.optimizers.SGD(0.01).minimize(loss, [W, b])
+        sess = autodist.create_distributed_session()
+        loss_val, _ = sess.run([loss, train_op],
+                               {x: local_slice(inputs, rank, world),
+                                y: local_slice(outputs, rank, world)})
+        W_val, b_val = sess.run([W, b])
+    return float(loss_val), float(W_val), float(b_val)
+
+
+def c0_matrix(device, rank=0, world=1):
+    """The c0 program under every builder entry: {name: (loss, W, b)};
+    raises when b misses its ground truth."""
+    out = {}
+    for name, builder in C0_STRATEGIES:
+        out[name] = run_linear_regression(
+            fresh_autodist(builder(), device, world), rank, world)
+        b = out[name][2]
+        require(abs(b - EXPECTED_B) <= c0_tol(name),
+                'c0 %s: b=%r, expected %r' % (name, b, EXPECTED_B))
+    return out
+
+
+def ncf_init(cfg, seed=0):
+    """NCF's variables from numpy at ``models/core.py``'s scales:
+    embedding tables normal 0.02, Dense kernels normal / sqrt(fan_in),
+    biases zero."""
+    rng = np.random.RandomState(seed)
+    users, items, mf, mlp = (cfg['users'], cfg['items'], cfg['mf_dim'],
+                             cfg['mlp'])
+    init = {}
+    for name, rows, dim in (('mf_user', users, mf), ('mf_item', items, mf),
+                            ('mlp_user', users, mlp[0] // 2),
+                            ('mlp_item', items, mlp[0] // 2)):
+        init[name] = (rng.standard_normal((rows, dim)) * 0.02).astype(
+            np.float32)
+    dims = list(mlp) + [None]
+    for i in range(1, len(mlp)):
+        init['mlp_%d/kernel' % (i - 1)] = (rng.standard_normal(
+            (dims[i - 1], dims[i])) / math.sqrt(dims[i - 1])).astype(
+                np.float32)
+        init['mlp_%d/bias' % (i - 1)] = np.zeros(dims[i], np.float32)
+    head_in = mf + mlp[-1]
+    init['head/kernel'] = (rng.standard_normal((head_in, 1)) /
+                           math.sqrt(head_in)).astype(np.float32)
+    init['head/bias'] = np.zeros(1, np.float32)
+    return init
+
+
+def ncf_batch(cfg, seed):
+    rng = np.random.RandomState(seed)
+    n = cfg['batch']
+    return (rng.randint(0, cfg['users'], (n,)).astype(np.int32),
+            rng.randint(0, cfg['items'], (n,)).astype(np.int32),
+            rng.randint(0, 2, (n,)).astype(np.float32))
+
+
+def ncf_program(autodist, init, lr=1e-3):
+    """NCF written in DSL ops (``autodist_tpu/models/ncf.py``'s GMF and
+    MLP towers, stable sigmoid BCE) under ``autodist``'s scope, trained
+    by Adam. Returns (session, feeds (users, items, labels), loss,
+    train_op)."""
+    with autodist.scope():
+        users = ad.placeholder(shape=[None], dtype=np.int32, name='users')
+        items = ad.placeholder(shape=[None], dtype=np.int32, name='items')
+        labels = ad.placeholder(shape=[None], dtype=np.float32,
+                                name='labels')
+        v = {name: ad.Variable(val, name=name) for name, val in init.items()}
+        gmf = ad.ops.embedding_lookup(v['mf_user'], users) * \
+            ad.ops.embedding_lookup(v['mf_item'], items)
+        y = ad.ops.concat([ad.ops.embedding_lookup(v['mlp_user'], users),
+                           ad.ops.embedding_lookup(v['mlp_item'], items)],
+                          axis=-1)
+        i = 0
+        while 'mlp_%d/kernel' % i in v:
+            y = ad.ops.relu(ad.ops.matmul(y, v['mlp_%d/kernel' % i]) +
+                            v['mlp_%d/bias' % i])
+            i += 1
+        both = ad.ops.concat([gmf, y], axis=-1)
+        logits = ad.ops.reshape(
+            ad.ops.matmul(both, v['head/kernel']) + v['head/bias'], (-1,))
+        loss = ad.ops.reduce_mean(ad.ops.sigmoid_cross_entropy_with_logits(
+            labels=labels, logits=logits))
+        train_op = ad.optimizers.Adam(lr).minimize(loss)
+        sess = autodist.create_distributed_session()
+    return sess, (users, items, labels), loss, train_op
+
+
+NCF_TABLES = ('mf_user', 'mf_item', 'mlp_user', 'mlp_item')
+
+
+def sparse_route_marked(plan):
+    """{table: whether its gradient would ship as (ids, rows) at more
+    than one replica}: the table is read only through recorded lookups.
+    At one replica every collective is the identity and
+    ``sync_gradients`` returns the gradients as they are, as the JAX
+    package does, so the route itself runs only at dp > 1."""
+    return {t: bool(plan.var_plans[t].var.sparse_read and
+                    plan._purely_sparse(plan.var_plans[t].var))
+            for t in NCF_TABLES}
+
+
+def ncf_train(builder, device, cfg, steps, seed=0, rank=0, world=1):
+    """``steps`` NCF steps through the DSL: (losses, step seconds, the
+    execution plan, ``step(batch_seed)`` running one more). Each step's
+    batch is this process's share of batch ``seed + 1 + step``; the loss
+    is fetched (a host read) every step."""
+    autodist = fresh_autodist(builder, device, world)
+    sess, feeds, loss, train_op = ncf_program(autodist, ncf_init(cfg, seed))
+
+    def step(batch_seed):
+        batch = [local_slice(x, rank, world)
+                 for x in ncf_batch(cfg, batch_seed)]
+        return float(sess.run([loss, train_op], dict(zip(feeds, batch)))[0])
+
+    losses, seconds = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(seed + 1 + i))
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, autodist._transformed[2], step
+
+
+def dsl_phase(smi, profiling):
+    """The reference DSL path on the card, in a one-process NCCL group:
+    the c0 matrix, NCF at full width under PSLoadBalancing and
+    AllReduce, and a small NCF on the card against the CPU."""
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    dist.init_process_group('nccl', init_method='tcp://127.0.0.1:%d' % port,
+                            world_size=1, rank=0)
+    try:
+        t0 = time.time()
+        c0 = c0_matrix('cuda')
+        emit(phase='dsl_c0', seconds=time.time() - t0, expected_b=EXPECTED_B,
+             b={name: rec[2] for name, rec in c0.items()},
+             max_abs_err={name: abs(rec[2] - EXPECTED_B)
+                          for name, rec in c0.items()}, card=smi)
+        for name, builder in (('PSLoadBalancing', ad.PSLoadBalancing),
+                              ('AllReduce', ad.AllReduce)):
+            torch.cuda.reset_peak_memory_stats()
+            losses, seconds, plan, step = ncf_train(
+                builder(), 'cuda', NCF_FULL, NCF_STEPS)
+            step_s = float(np.median(seconds[1:]))
+            marked = sparse_route_marked(plan)
+            synced = {t: plan.var_plans[t].sparse_synced
+                      for t in NCF_TABLES}
+            emit(phase='dsl_ncf', strategy=name, steps=NCF_STEPS,
+                 batch=NCF_FULL['batch'], losses=losses,
+                 step_seconds=seconds, median_step_s=step_s,
+                 examples_per_s=NCF_FULL['batch'] / step_s,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 sparse_route_marked=marked, sparse_synced=synced,
+                 sparse_route='not taken at one replica: every collective '
+                 'is the identity', card=smi)
+            require(all(math.isfinite(x) for x in losses),
+                    'NCF %s loss not finite' % name)
+            require(abs(losses[0] - math.log(2)) < 0.05,
+                    'NCF %s first loss %.4f is not near ln 2'
+                    % (name, losses[0]))
+            require(all(marked.values()),
+                    'NCF %s: the tables are not all marked for the '
+                    '(ids, rows) route: %s' % (name, marked))
+            require(not any(synced.values()),
+                    'NCF %s: the (ids, rows) route ran at one replica: %s'
+                    % (name, synced))
+            if profiling:
+                _, wall, by_name = _profiled(lambda: step(NCF_STEPS + 1))
+                emit_profile('ncf_dsl_%s' % name, wall, by_name, smi)
+            del plan, step
+            torch.cuda.empty_cache()
+        small = {}
+        for device in ('cuda', 'cpu'):
+            small[device] = ncf_train(ad.PSLoadBalancing(), device,
+                                      NCF_SMALL, 3)[0]
+        err = max(abs(a - b) for a, b in zip(small['cuda'], small['cpu']))
+        emit(phase='dsl_ncf_small_reference', losses_cuda=small['cuda'],
+             losses_cpu=small['cpu'], max_abs_err=err, tol=1e-4)
+        require(err <= 1e-4, 'the small NCF on the card disagrees with '
+                'the CPU: %r vs %r' % (small['cuda'], small['cpu']))
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv):
@@ -777,6 +1066,8 @@ def main(argv):
     family_step('vgg16', vision.VGG.vgg16(dtype=torch.bfloat16), 224, False,
                 smi)
     set_fused_gate(False)
+
+    dsl_phase(smi, profiling)
 
     main_path = results[(GPT_SHAPE, True, torch.bfloat16)]
     kernels = []

@@ -148,3 +148,42 @@ def test_conv_bn_rates_follow_the_work_and_the_bound(prologue, want_stats):
     # at Cin = Cout = 2048 the product outweighs the bytes
     assert chip_smoke.bound_conv_bn(12544, 2048, 2048, torch.bfloat16,
                                     prologue)[1] == 'operations'
+
+
+# -- the DSL phase's helpers, at tiny width on the CPU -----------------------
+def test_dsl_c0_matrix_runs_on_the_cpu():
+    out = chip_smoke.c0_matrix('cpu')
+    assert [name for name, _ in chip_smoke.C0_STRATEGIES] == list(out)
+    for name, (loss, W, b) in out.items():
+        assert abs(b - chip_smoke.EXPECTED_B) <= chip_smoke.c0_tol(name)
+        assert loss > 0 and W < 5.0
+
+
+def test_dsl_ncf_program_at_tiny_width():
+    """The NCF DSL program trains, starts near ln 2, marks its four
+    tables (and no other variable) for the sparse (ids, rows) route,
+    returns the gradients as they are at one replica, and its variables
+    have the widths the configuration names."""
+    import math
+    cfg = chip_smoke.NCF_SMALL
+    init = chip_smoke.ncf_init(cfg)
+    assert init['mlp_user'].shape == (cfg['users'], cfg['mlp'][0] // 2)
+    assert init['head/kernel'].shape == (cfg['mf_dim'] + cfg['mlp'][-1], 1)
+    losses, seconds, plan, step = chip_smoke.ncf_train(
+        chip_smoke.ad.PSLoadBalancing(), 'cpu', cfg, 3)
+    assert len(seconds) == 3 and all(math.isfinite(x) for x in losses)
+    assert abs(losses[0] - math.log(2)) < 0.05
+    assert chip_smoke.sparse_route_marked(plan) == dict.fromkeys(
+        chip_smoke.NCF_TABLES, True)
+    assert not any(p.var.sparse_read for name, p in plan.var_plans.items()
+                   if name not in chip_smoke.NCF_TABLES)
+    assert not any(p.sparse_synced for p in plan.var_plans.values())
+    assert plan.last_bucket_stats == []
+    assert math.isfinite(step(7))
+
+
+def test_local_slice_splits_like_the_jax_package():
+    import numpy as np
+    x = np.arange(8)
+    assert list(chip_smoke.local_slice(x, 1, 2)) == [4, 5, 6, 7]
+    assert list(chip_smoke.local_slice(x, 1, 3)) == list(x)   # replicated

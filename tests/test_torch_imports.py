@@ -3,7 +3,8 @@
 A subprocess in which ``jax`` and ``autodist_tpu`` cannot be imported
 imports the port and ``chip_smoke.py`` and trains one step of a
 Transformer and one of a small ResNet through the fused conv + BatchNorm
-kernel's module on the CPU;
+kernel's module on the CPU, and one c0 step through the DSL
+(``autodist_tpu_torch.AutoDist``);
 an AST scan finds no import of either in any of the port's files. The
 scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
 name, never by prefix.
@@ -43,6 +44,10 @@ trainer = trainer_from_strategy(
 _, losses, _ = chip_smoke.train_steps(
     trainer, chip_smoke.make_images(2, 32, 10), 1)
 assert len(losses) == 1 and losses[0] == losses[0]
+import autodist_tpu_torch as ad
+loss, W, b = chip_smoke.run_linear_regression(
+    chip_smoke.fresh_autodist(ad.AllReduce(), 'cpu'))
+assert abs(b - chip_smoke.EXPECTED_B) <= 1e-5, b
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                 ('jax', 'jaxlib', 'autodist_tpu') and sys.modules[m])
 assert not leaked, leaked
