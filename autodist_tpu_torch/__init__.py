@@ -22,7 +22,9 @@ has both user APIs of the JAX package:
 
 - the functional :class:`Trainer` (``trainer_from_strategy``), which
   trains the Transformer and vision models data-parallel through
-  hand-written Hopper kernels.
+  hand-written Hopper kernels, and NCF and the LSTM language model
+  (``NCF``, ``LSTMLM``), with ``fit`` / ``evaluate`` / ``profile`` and
+  checkpoints that either package restores.
 
 It imports torch and numpy, never jax or the JAX package.
 """
@@ -34,6 +36,7 @@ from autodist_tpu_torch.frontend import optimizers  # noqa: F401
 from autodist_tpu_torch.frontend.graph import (  # noqa: F401
     Graph, Placeholder, Variable, gradients, placeholder)
 from autodist_tpu_torch.graph_item import GraphItem  # noqa: F401
+from autodist_tpu_torch.models import LSTMLM, NCF  # noqa: F401
 from autodist_tpu_torch.parallel.axes import ParallelSpec  # noqa: F401
 from autodist_tpu_torch.resource_spec import ResourceSpec  # noqa: F401
 from autodist_tpu_torch.strategy import (  # noqa: F401

@@ -1,1 +1,2 @@
-"""Checkpointing of the port (ROADMAP.md Queue 1 item 11)."""
+"""Checkpointing of the port: logical-layout checkpoints that either
+package restores (``saver.py``)."""

@@ -45,8 +45,15 @@
 // and output columns tx + 16 jd (jd < D / 16). The 16 threads that share a
 // score row are one half-warp, so row max and row sum are shuffles. Shared
 // tiles are stored as f32 with a row pitch of D + 1 words (no bank conflicts
-// on the strided reads). The bf16 kernels' layout is described where they
-// are defined. Supported: f32 and bf16, D in {16, 32, 64, 128}.
+// on the strided reads). At D = 256 the four f32 tiles of dQ and dK/dV
+// (257 KB at 64 rows) do not fit an SM's 227 KB of shared memory, so the
+// query tile shrinks to QT = 32 rows there (q_tile), and bf16 at D = 256
+// runs these kernels too, with T = bf16 keeping its cast points: the
+// mma.sync kernels hold a warp's A fragments and its D-wide accumulators in
+// registers, which at D = 256 is more than the 255 a thread may have. The
+// bf16 kernels' layout is described where they are defined. Supported: f32
+// and bf16, D in {16, 32, 64, 128, 256}; the wrapper zero-pads any other
+// D <= 256 to the next of these.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,20 +89,21 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// Stage rows [row0, row0 + 64) of a [S, D] slab into shared memory as f32,
+// Stage rows [row0, row0 + ROWS) of a [S, D] slab into shared memory as f32,
 // row pitch D + 1, zero past S.
-template <typename T, int D>
+template <typename T, int D, int ROWS = 64>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int S) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
+  for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int g = row0 + r;
     dst[r * (D + 1) + c] = g < S ? to_f(src[(size_t)g * D + c]) : 0.f;
   }
 }
 
-// Stage 64 entries of a per-row f32 vector (lse, delta), zero past S.
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int S) {
-  for (int r = threadIdx.x; r < 64; r += NT) dst[r] = row0 + r < S ? src[row0 + r] : 0.f;
+// Stage `rows` entries of a per-row f32 vector (lse, delta), zero past S.
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int S,
+                                          int rows = 64) {
+  for (int r = threadIdx.x; r < rows; r += NT) dst[r] = row0 + r < S ? src[row0 + r] : 0.f;
 }
 
 // Reductions over the 16 lanes of a half-warp (the threads sharing a row).
@@ -115,64 +123,65 @@ __device__ __forceinline__ bool live(int qpos, int kpos, int S, int causal) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: one CTA per (b*h, 64-row q tile); loops over kv tiles up to the
+// forward: one CTA per (b*h, QT-row q tile); loops over kv tiles up to the
 // diagonal when causal; online softmax state per row in registers.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int QT>
 __global__ void __launch_bounds__(NT)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            T* __restrict__ o, float* __restrict__ lse, int S, float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int DPT = D / TX;
+  constexpr int R = QT / TY;   // score rows per thread
   extern __shared__ float smem[];
-  float* qs = smem;            // [64][LD]
-  float* ks = qs + BQ * LD;    // [64][LD]
+  float* qs = smem;            // [QT][LD]
+  float* ks = qs + QT * LD;    // [64][LD]
   float* vs = ks + BK * LD;    // [64][LD]
-  float* ps = vs + BK * LD;    // [64][PP]
+  float* ps = vs + BK * LD;    // [QT][PP]
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * QT;
   const size_t base = (size_t)blockIdx.y * S * D;
   q += base; k += base; v += base; o += base;
   lse += (size_t)blockIdx.y * S;
 
-  load_tile<T, D>(qs, q, q0, S);
+  load_tile<T, D, QT>(qs, q, q0, S);
 
-  float m[RPT], l[RPT], acc[RPT][DPT];
+  float m[R], l[R], acc[R][DPT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = 0.f;
   }
 
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(S, q0 + QT) : S;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile's ks / vs / ps reads are done
     load_tile<T, D>(ks, k, k0, S);
     load_tile<T, D>(vs, v, k0, S);
     __syncthreads();
 
-    float s[RPT][CPT];
+    float s[R][CPT];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      float a[RPT], b[CPT];
+      float a[R], b[CPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) a[i] = qs[(ty + TY * i) * LD + d];
+      for (int i = 0; i < R; ++i) a[i] = qs[(ty + TY * i) * LD + d];
 #pragma unroll
       for (int j = 0; j < CPT; ++j) b[j] = ks[(tx + TX * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int r = ty + TY * i;
       float mb = NEG_INF;
 #pragma unroll
@@ -202,7 +211,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
       for (int jd = 0; jd < DPT; ++jd) b[jd] = vs[kk * LD + tx + TX * jd];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
+      for (int i = 0; i < R; ++i) {
         const float p = ps[(ty + TY * i) * PP + kk];
 #pragma unroll
         for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = fmaf(p, b[jd], acc[i][jd]);
@@ -211,7 +220,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qpos = q0 + ty + TY * i;
     if (qpos >= S) continue;
     const float li = fmaxf(l[i], 1e-30f);
@@ -223,11 +232,11 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// dQ: one CTA per (b*h, 64-row q tile); loops over kv tiles up to the diagonal.
+// dQ: one CTA per (b*h, QT-row q tile); loops over kv tiles up to the diagonal.
 // P = exp(S - lse); dS = P * (dP - delta) * scale, rounded to k's dtype;
 // dQ = sum dS.K.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int QT>
 __global__ void __launch_bounds__(NT)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
@@ -235,49 +244,50 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           int causal) {
   constexpr int LD = D + 1;
   constexpr int DPT = D / TX;
+  constexpr int R = QT / TY;    // score rows per thread
   extern __shared__ float smem[];
-  float* qs = smem;             // [64][LD]
-  float* dos = qs + BQ * LD;    // [64][LD]
-  float* ks = dos + BQ * LD;    // [64][LD]
+  float* qs = smem;             // [QT][LD]
+  float* dos = qs + QT * LD;    // [QT][LD]
+  float* ks = dos + QT * LD;    // [64][LD]
   float* vs = ks + BK * LD;     // [64][LD]
-  float* dss = vs + BK * LD;    // [64][PP]
-  float* lse_s = dss + BQ * PP; // [64]
-  float* delta_s = lse_s + BQ;  // [64]
+  float* dss = vs + BK * LD;    // [QT][PP]
+  float* lse_s = dss + QT * PP; // [QT]
+  float* delta_s = lse_s + QT;  // [QT]
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * QT;
   const size_t base = (size_t)blockIdx.y * S * D;
   q += base; k += base; v += base; dout += base; dq += base;
   lse += (size_t)blockIdx.y * S;
   delta += (size_t)blockIdx.y * S;
 
-  load_tile<T, D>(qs, q, q0, S);
-  load_tile<T, D>(dos, dout, q0, S);
-  load_rows(lse_s, lse, q0, S);
-  load_rows(delta_s, delta, q0, S);
+  load_tile<T, D, QT>(qs, q, q0, S);
+  load_tile<T, D, QT>(dos, dout, q0, S);
+  load_rows(lse_s, lse, q0, S, QT);
+  load_rows(delta_s, delta, q0, S, QT);
 
-  float acc[RPT][DPT];
+  float acc[R][DPT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = 0.f;
 
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(S, q0 + QT) : S;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();
     load_tile<T, D>(ks, k, k0, S);
     load_tile<T, D>(vs, v, k0, S);
     __syncthreads();
 
-    float s[RPT][CPT], dp[RPT][CPT];
+    float s[R][CPT], dp[R][CPT];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      float a[RPT], g[RPT], b[CPT], c[CPT];
+      float a[R], g[R], b[CPT], c[CPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
+      for (int i = 0; i < R; ++i) {
         a[i] = qs[(ty + TY * i) * LD + d];
         g[i] = dos[(ty + TY * i) * LD + d];
       }
@@ -287,7 +297,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         c[j] = vs[(tx + TX * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
           s[i][j] = fmaf(a[i], b[j], s[i][j]);
@@ -296,7 +306,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     }
 
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int r = ty + TY * i;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
@@ -312,7 +322,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
       for (int jd = 0; jd < DPT; ++jd) b[jd] = ks[kk * LD + tx + TX * jd];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
+      for (int i = 0; i < R; ++i) {
         const float a = dss[(ty + TY * i) * PP + kk];
 #pragma unroll
         for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = fmaf(a, b[jd], acc[i][jd]);
@@ -321,7 +331,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int qpos = q0 + ty + TY * i;
     if (qpos >= S) continue;
 #pragma unroll
@@ -335,7 +345,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 // S^T[kv row ty + 16 i][q col tx + 16 j].
 // dV += P^T.dO (P rounded to dO's dtype); dK += dS^T.Q (dS rounded to q's).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int QT>
 __global__ void __launch_bounds__(NT)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const T* __restrict__ dout, const float* __restrict__ lse,
@@ -343,15 +353,17 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int DPT = D / TX;
+  constexpr int QC = QT / TX;    // q columns per thread
+  constexpr int QP = QT + 1;     // row pitch of the [64, QT] tiles
   extern __shared__ float smem[];
   float* ks = smem;              // [64][LD]
   float* vs = ks + BK * LD;      // [64][LD]
-  float* qs = vs + BK * LD;      // [64][LD]
-  float* dos = qs + BQ * LD;     // [64][LD]
-  float* pts = dos + BQ * LD;    // [64 kv][PP]
-  float* dsts = pts + BK * PP;   // [64 kv][PP]
-  float* lse_s = dsts + BK * PP; // [64]
-  float* delta_s = lse_s + BQ;   // [64]
+  float* qs = vs + BK * LD;      // [QT][LD]
+  float* dos = qs + QT * LD;     // [QT][LD]
+  float* pts = dos + QT * LD;    // [64 kv][QP]
+  float* dsts = pts + BK * QP;   // [64 kv][QP]
+  float* lse_s = dsts + BK * QP; // [QT]
+  float* delta_s = lse_s + QT;   // [QT]
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int k0 = blockIdx.x * BK;
@@ -369,36 +381,36 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd) acck[i][jd] = accv[i][jd] = 0.f;
 
-  const int q_start = causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_start; q0 < S; q0 += BQ) {
+  const int q_start = causal ? (k0 / QT) * QT : 0;
+  for (int q0 = q_start; q0 < S; q0 += QT) {
     __syncthreads();
-    load_tile<T, D>(qs, q, q0, S);
-    load_tile<T, D>(dos, dout, q0, S);
-    load_rows(lse_s, lse, q0, S);
-    load_rows(delta_s, delta, q0, S);
+    load_tile<T, D, QT>(qs, q, q0, S);
+    load_tile<T, D, QT>(dos, dout, q0, S);
+    load_rows(lse_s, lse, q0, S, QT);
+    load_rows(delta_s, delta, q0, S, QT);
     __syncthreads();
 
-    float st[RPT][CPT], dpt[RPT][CPT];
+    float st[RPT][QC], dpt[RPT][QC];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) st[i][j] = dpt[i][j] = 0.f;
+      for (int j = 0; j < QC; ++j) st[i][j] = dpt[i][j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      float a[RPT], g[RPT], b[CPT], c[CPT];
+      float a[RPT], g[RPT], b[QC], c[QC];
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         a[i] = ks[(ty + TY * i) * LD + d];
         g[i] = vs[(ty + TY * i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
+      for (int j = 0; j < QC; ++j) {
         b[j] = qs[(tx + TX * j) * LD + d];
         c[j] = dos[(tx + TX * j) * LD + d];
       }
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
+        for (int j = 0; j < QC; ++j) {
           st[i][j] = fmaf(a[i], b[j], st[i][j]);
           dpt[i][j] = fmaf(g[i], c[j], dpt[i][j]);
         }
@@ -408,17 +420,17 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int i = 0; i < RPT; ++i) {
       const int r = ty + TY * i;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
+      for (int j = 0; j < QC; ++j) {
         const int c = tx + TX * j;
         const float x = live(q0 + c, k0 + r, S, causal) ? st[i][j] * scale : NEG_INF;
         const float p = expf(x - lse_s[c]);
-        pts[r * PP + c] = round_to<T>(p);
-        dsts[r * PP + c] = round_to<T>(p * (dpt[i][j] - delta_s[c]) * scale);
+        pts[r * QP + c] = round_to<T>(p);
+        dsts[r * QP + c] = round_to<T>(p * (dpt[i][j] - delta_s[c]) * scale);
       }
     }
     __syncthreads();
 
-    for (int qq = 0; qq < BQ; ++qq) {
+    for (int qq = 0; qq < QT; ++qq) {
       float bo[DPT], bq[DPT];
 #pragma unroll
       for (int jd = 0; jd < DPT; ++jd) {
@@ -427,8 +439,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       }
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
-        const float p = pts[(ty + TY * i) * PP + qq];
-        const float ds = dsts[(ty + TY * i) * PP + qq];
+        const float p = pts[(ty + TY * i) * QP + qq];
+        const float ds = dsts[(ty + TY * i) * QP + qq];
 #pragma unroll
         for (int jd = 0; jd < DPT; ++jd) {
           accv[i][jd] = fmaf(p, bo[jd], accv[i][jd]);
@@ -1271,12 +1283,17 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 }
 
 // Shared-memory bytes of each kernel.
-constexpr size_t fwd_smem(int d) { return 4u * ((size_t)(BQ + 2 * BK) * (d + 1) + BQ * PP); }
-constexpr size_t dq_smem(int d) {
-  return 4u * ((size_t)(2 * BQ + 2 * BK) * (d + 1) + BQ * PP + 2 * BQ);
+// The CUDA-core kernels' query tile: 64 rows, 32 at D = 256, where four f32
+// tiles of 64 rows (dQ, dK/dV) would need more than an SM's 227 KB.
+constexpr int q_tile(int d) { return d > 128 ? 32 : BQ; }
+constexpr size_t fwd_smem(int d, int qt) {
+  return 4u * ((size_t)(qt + 2 * BK) * (d + 1) + qt * PP);
 }
-constexpr size_t dkv_smem(int d) {
-  return 4u * ((size_t)(2 * BQ + 2 * BK) * (d + 1) + 2 * BK * PP + 2 * BQ);
+constexpr size_t dq_smem(int d, int qt) {
+  return 4u * ((size_t)(2 * qt + 2 * BK) * (d + 1) + qt * PP + 2 * qt);
+}
+constexpr size_t dkv_smem(int d, int qt) {
+  return 4u * ((size_t)(2 * qt + 2 * BK) * (d + 1) + 2 * BK * (qt + 1) + 2 * qt);
 }
 constexpr size_t rows_bytes(int d) { return 2u * 64 * (d + 8); }
 constexpr size_t cols_bytes(int d) { return 2u * d * TP; }
@@ -1381,20 +1398,27 @@ cudaError_t run_dq_wgmma(const void* q, const void* k, const void* v, const void
 // strides of lse and delta), which every S that supports() admits meets.
 constexpr bool wgmma_dim(int d) { return d == 64 || d == 128; }
 
-// f32 runs the CUDA-core kernels, bf16 the tensor-core ones.
+// f32 runs the CUDA-core kernels, bf16 the tensor-core ones up to D = 128 and
+// the CUDA-core ones (T = bf16) at D = 256.
+template <typename T>
+constexpr bool mma_dim(int d) {
+  return std::is_same<T, bf16>::value && d <= 128;
+}
+
 template <typename T, int D>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                     int s, float scale, int causal, cudaStream_t st) {
   const dim3 grid((s + 63) / 64, bh);
+  constexpr int QT = q_tile(D);
   if constexpr (std::is_same<T, bf16>::value && wgmma_dim(D))
     return run_fwd_wgmma<D>(q, k, v, o, lse, bh, s, scale, causal, st);
-  else if constexpr (std::is_same<T, bf16>::value)
+  else if constexpr (mma_dim<T>(D))
     return launch(fwd_mma_kernel<D>, grid, MT, rows_bytes(D) + cols_bytes(D), st,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, s,
                   scale, causal);
   else
-    return launch(fwd_kernel<T, D>, grid, NT, fwd_smem(D), st, (const T*)q, (const T*)k,
-                  (const T*)v, (T*)o, (float*)lse, s, scale, causal);
+    return launch(fwd_kernel<T, D, QT>, dim3((s + QT - 1) / QT, bh), NT, fwd_smem(D, QT), st,
+                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, s, scale, causal);
 }
 
 template <typename T, int D>
@@ -1402,16 +1426,17 @@ cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout
                    const void* lse, const void* delta, void* dq, int bh, int s, float scale,
                    int causal, cudaStream_t st) {
   const dim3 grid((s + 63) / 64, bh);
+  constexpr int QT = q_tile(D);
   if constexpr (std::is_same<T, bf16>::value && wgmma_dim(D))
     return run_dq_wgmma<D>(q, k, v, dout, lse, delta, dq, bh, s, scale, causal, st);
-  else if constexpr (std::is_same<T, bf16>::value)
+  else if constexpr (mma_dim<T>(D))
     return launch(dq_mma_kernel<D>, grid, MT, 2 * rows_bytes(D) + cols_bytes(D), st,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
                   (const float*)lse, (const float*)delta, (bf16*)dq, s, scale, causal);
   else
-    return launch(dq_kernel<T, D>, grid, NT, dq_smem(D), st, (const T*)q, (const T*)k,
-                  (const T*)v, (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq,
-                  s, scale, causal);
+    return launch(dq_kernel<T, D, QT>, dim3((s + QT - 1) / QT, bh), NT, dq_smem(D, QT), st,
+                  (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+                  (const float*)delta, (T*)dq, s, scale, causal);
 }
 
 template <typename T, int D>
@@ -1419,16 +1444,17 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
                     const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
                     float scale, int causal, cudaStream_t st) {
   const dim3 grid((s + 63) / 64, bh);
+  constexpr int QT = q_tile(D);
   if constexpr (std::is_same<T, bf16>::value && wgmma_dim(D))
     return run_dkv_wgmma<D>(q, k, v, dout, lse, delta, dk, dv, bh, s, scale, causal, st);
-  else if constexpr (std::is_same<T, bf16>::value)
+  else if constexpr (mma_dim<T>(D))
     return launch(dkv_mma_kernel<D>, grid, MT,
                   2 * rows_bytes(D) + 2 * cols_bytes(D) + 2 * 64 * sizeof(float), st,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
                   (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, s, scale,
                   causal);
   else
-    return launch(dkv_kernel<T, D>, grid, NT, dkv_smem(D), st, (const T*)q, (const T*)k,
+    return launch(dkv_kernel<T, D, QT>, grid, NT, dkv_smem(D, QT), st, (const T*)q, (const T*)k,
                   (const T*)v, (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk,
                   (T*)dv, s, scale, causal);
 }
@@ -1447,6 +1473,7 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
         case 32: return (int)FN<float, 32>(__VA_ARGS__, st);                       \
         case 64: return (int)FN<float, 64>(__VA_ARGS__, st);                       \
         case 128: return (int)FN<float, 128>(__VA_ARGS__, st);                     \
+        case 256: return (int)FN<float, 256>(__VA_ARGS__, st);                     \
       }                                                                            \
     } else if (dtype == 1) {                                                       \
       switch (d) {                                                                 \
@@ -1454,6 +1481,7 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
         case 32: return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__, st);               \
         case 64: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__, st);               \
         case 128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__, st);             \
+        case 256: return (int)FN<__nv_bfloat16, 256>(__VA_ARGS__, st);             \
       }                                                                            \
     }                                                                              \
     return (int)cudaErrorInvalidValue;                                             \

@@ -15,8 +15,17 @@ Layout: q/k/v are [batch, heads, seq, head_dim]; LSE is f32
 exactly, so the same shapes take the same branch in both packages. The
 CUDA tiles are the kernels' own and are documented in the source: bf16
 at head dim 64 or 128 runs all three as TMA-fed wgmma kernels on
-128-row output tiles, every other case on 64-row tiles; the TPU's
-``_default_blocks`` tiling has no counterpart here.
+128-row output tiles, every other case on 64-row tiles (32-row query
+tiles at head dim 256); the TPU's ``_default_blocks`` tiling has no
+counterpart here.
+
+The kernels take head dims 16, 32, 64, 128 and 256; the JAX kernel takes
+any. ``flash_attention`` zero-pads q, k and v along the head dim up to
+the next of these (``padded_head_dim``) and slices the output back:
+zero columns of q and k leave every score unchanged, since ``sm_scale``
+comes from the true head dim; zero columns of v give zero columns of o,
+and autograd slices dq, dk and dv the same way. A head dim above 256
+raises.
 
 Beside the kernels live their plain PyTorch versions (``_fwd_plain``,
 ``_dq_plain``, ``_dkv_plain``): they materialize the scores but keep the
@@ -27,12 +36,13 @@ launches by name.
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from autodist_tpu_torch.kernels import build
 
 NEG_INF = -1e30   # same masking constant as parallel/ring_attention.py
 SOURCE = 'flash_attention.cu'
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128)   # bf16 at these: the TMA-fed wgmma kernels
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,6 +77,16 @@ MIN_KERNEL_SEQ = 512
 def preferred(shape):
     """True when the dispatch rule sends [B, H, S, D] to the kernel."""
     return shape[2] >= MIN_KERNEL_SEQ and supports(shape)
+
+
+def padded_head_dim(head_dim):
+    """The head dim the kernels run ``head_dim`` at: the smallest of
+    ``HEAD_DIMS`` that holds it."""
+    for width in HEAD_DIMS:
+        if head_dim <= width:
+            return width
+    raise ValueError('flash_attention: head_dim %d is above the kernels\' '
+                     'limit of %d' % (head_dim, HEAD_DIMS[-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -293,11 +313,17 @@ def flash_attention(q, k, v, causal=True, sm_scale=None):
     Differentiable (flash backward). Requires ``seq`` to split into
     uniform blocks (``supports()``), as the JAX package does; callers
     take ``local_flash_attention`` otherwise. CUDA tensors run the
-    kernels, CPU tensors their plain versions.
+    kernels, CPU tensors their plain versions; on both, a head dim
+    outside ``HEAD_DIMS`` runs zero-padded to ``padded_head_dim``.
     """
+    head_dim = q.shape[-1]
     if sm_scale is None:
-        sm_scale = q.shape[-1] ** -0.5
+        sm_scale = head_dim ** -0.5
     if not supports(q.shape):
         raise ValueError('flash_attention: seq %d not blockable; check '
                          'supports() first' % q.shape[2])
-    return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
+    width = padded_head_dim(head_dim)
+    if width != head_dim:
+        q, k, v = (F.pad(t, (0, width - head_dim)) for t in (q, k, v))
+    o = _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
+    return o if width == head_dim else o[..., :head_dim]

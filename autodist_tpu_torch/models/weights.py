@@ -4,7 +4,9 @@ A port parameter's ``state_dict`` key is its JAX pytree path with ``.``
 for ``/`` (``blocks/attn/qkv/kernel``, stacked ``[L, dim, 3 * dim]``, is
 ``blocks.attn.qkv.kernel``), so the mapping is by name, and
 ``PytreeGraphItem`` names variables identically in both packages. Trees
-are nested dicts of numpy arrays; no JAX type crosses over.
+are nested dicts of numpy arrays; no JAX type crosses over. Every model
+of the port keeps the JAX paths (``NCF``'s ``mf_user/table``,
+``LSTMLM``'s ``lstm_0/kernel``), so these functions serve them all.
 
 State leaves (BatchNorm's ``ema_mean``/``ema_var``) are buffers in the
 port and cross over with the parameters: ``state_dict`` and ``params()``

@@ -6,4 +6,4 @@ from autodist_tpu_torch.strategy.builders import (  # noqa: F401
     PS, AllReduce, AutoStrategy, Parallax, PartitionedAR, PartitionedPS,
     PSLoadBalancing, RandomAxisPartitionAR, UnevenPartitionedPS)
 from autodist_tpu_torch.strategy.adapter import (  # noqa: F401
-    PytreeGraphItem, trainer_from_strategy)
+    PytreeGraphItem, grad_bucket_layout, trainer_from_strategy)

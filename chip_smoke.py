@@ -19,6 +19,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    TFLOP/s and the bound's share of the time; a second launch of each
    kernel must give the same bits; dQ and dK/dV are also timed together
    against the fused attention's backward, which computes both;
+2b. ``flash_head_dims``: K1-K3 through the wrapper at [2, 8, 1024, D]
+   for the head dims the kernels take only zero-padded (80 and 96 ->
+   128, 160 -> 256), bf16 and f32, causal and not: forward and the three
+   gradients against the plain versions at the true D, one launch of
+   each kernel, and each kernel's time beside the same B·H·S at D = 64;
 3. the fused conv + BatchNorm kernel (K4) held against its plain version
    at each of ResNet-101's main-path shapes (batch 256) in bf16, and in
    f32 at two of them and at a stage-1 shape (802,816 rows), with times:
@@ -56,19 +61,34 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    examples/s and peak memory; and a small NCF on the card against the
    CPU (first 3 losses within 1e-4). The path runs no kernel of its
    own;
-10. the card's line, the ``kernels`` line, and last
+10. ``bench.py:bench_sparse``'s models through the functional Trainer
+   (no kernel on this path): ``ncf_trainer``, NCF at full width under
+   ``trainer_from_strategy(..., optim.adam(1e-3), PSLoadBalancing())``,
+   ``fit`` for 20 steps of batch 4096 with prefetch 2, eval and
+   checkpoints every 10 steps (finite losses, the first within 0.05 of
+   ln 2, step time, examples/s, peak memory), the checkpoint restored
+   into a fresh trainer bitwise, ``profile`` leaving the params bitwise,
+   and one step at grad_accum=4 against one at 1; ``lm1b_trainer``,
+   LSTMLM(100000, 512, 1024, 2) at batch 128 x 32 in f32 under
+   PartitionedPS, 5 steps at remat='none' and 5 at remat='full' from
+   the same init (losses within 1e-5 relative, the first within 0.5 of
+   ln(vocab)); and both at tiny width on the card against the CPU (3
+   Adam steps, losses within 1e-4);
+11. the card's line, the ``kernels`` line (K1-K4 of the main paths, and
+   the head-dim-256 variant of K1-K3 as launched at head dim 160), and last
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time (CUDA events around back-to-back launches
 through the wrapper, queued while a spin kernel holds the device).
 
 ``python3 chip_smoke.py --profile`` adds one profiled step after each
-model's timed steps (NCF's included): device-busy time, idle share and
-the top kernels.
+model's timed steps (the DSL's NCF, the Trainer's NCF and both LM1B arms
+included): device-busy time, idle share and the top kernels.
 
 Without a card, or without the rest of the repository beside it, it
 fails before printing any result.
 """
+import copy
 import json
 import math
 import os
@@ -76,6 +96,7 @@ import re
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,14 +106,19 @@ import torch.nn.functional as F
 import autodist_tpu_torch as ad
 from autodist_tpu_torch import optim
 from autodist_tpu_torch.api import Trainer
+from autodist_tpu_torch.checkpoint.saver import CheckpointManager
 from autodist_tpu_torch.kernels import build
 from autodist_tpu_torch.kernels import conv_bn as cb
 from autodist_tpu_torch.kernels import flash_attention as fa
 from autodist_tpu_torch.models import core, vision
+from autodist_tpu_torch.models.ncf import NCF
+from autodist_tpu_torch.models.rnn import LSTMLM
 from autodist_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 from autodist_tpu_torch.parallel.axes import ParallelSpec
-from autodist_tpu_torch.strategy import AllReduce, trainer_from_strategy
+from autodist_tpu_torch.strategy import (AllReduce, PartitionedPS,
+                                         PSLoadBalancing,
+                                         trainer_from_strategy)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 on the tensor cores,
 # f32 outside them (the kernels' f32 path), and device memory.
@@ -259,13 +285,13 @@ def ptxas_summary(log):
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"entry function '\w*?\d+((?:fwd|dq|dkv)(?:_(?:wg)?mma)?_kernel)"
-                      r"I(f)?Li(\d+)E", line)
+                      r"I(f|13__nv_bfloat16)?Li(\d+)E", line)
         c = re.search(r"entry function '\w*?\d+(cb_\w+?_kernel)"
                       r"(?:I((?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+)E)?",
                       line)
         if m:
-            name = '%s<%s,%s>' % (m.group(1), 'f32' if m.group(2) else 'bf16',
-                                  m.group(3))
+            name = '%s<%s,%s>' % (m.group(1), 'f32' if m.group(2) == 'f'
+                                  else 'bf16', m.group(3))
             spill = 0
         elif c:
             name = _cb_name(c.group(1), c.group(2))
@@ -593,6 +619,7 @@ KERNEL_CLASSES = (
     ('cudnn_conv', ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
                     'implicit')),
     ('gemm', ('gemm', 'nvjet', 'cutlass')),
+    ('optimizer_foreach', ('multi_tensor_apply',)),
     ('reductions', ('reduce_kernel',)),
     ('copies_and_casts', ('copy',)),
     ('elementwise', ('elementwise',)))
@@ -638,7 +665,7 @@ def emit_profile(name, wall, by_name, smi):
          idle_share=1 - busy / wall,
          device_ms_by_class=dict(sorted(by_class.items(),
                                         key=lambda kv: -kv[1])),
-         top_kernels_ms={n[:120]: ms for n, ms in top}, card=smi)
+         top_kernels_ms=dict(top), card=smi)
     require(busy > 0, 'the profiler saw no device time')
     return [n for n, _ in top]
 
@@ -943,6 +970,321 @@ def dsl_phase(smi, profiling):
         dist.destroy_process_group()
 
 
+# -- head dims the kernels take zero-padded ---------------------------------
+# B, H, S of the flash_head_dims phase, and the head dims it runs: 80 and
+# 96 run padded to 128 (the wgmma kernels in bf16), 160 padded to 256 (the
+# CUDA-core kernels with a 32-row query tile, in both dtypes)
+HEAD_DIM_BHS = (2, 8, 1024)
+PADDED_HEAD_DIMS = (80, 96, 160)
+
+
+def check_head_dim(d, causal, dtype, smi):
+    """flash_head_dims for one (head dim, mask, dtype). Through the
+    wrapper, which zero-pads to ``fa.padded_head_dim(d)``: the forward and
+    the three gradients against the plain versions at the true head dim,
+    one launch of each kernel. Then each kernel's time at the padded
+    width (``_fwd_cuda`` etc., as the wrapper launches them), its plain
+    version's and the library's at the true head dim, and the bound of
+    the work at the true head dim; and the wrapper's whole forward (the
+    pad copies and the slice included). Returns {kernel: record}."""
+    shape = HEAD_DIM_BHS + (d,)
+    width = fa.padded_head_dim(d)
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=gen, device='cuda',
+                               dtype=torch.float32).to(dtype)
+                   for _ in range(4))
+    scale = d ** -0.5
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    fa.reset_launches()
+    o = fa.flash_attention(qq, kk, vv, causal=causal)
+    dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    o2, lse2 = fa._fwd_plain(q, k, v, causal, scale)
+    delta = fa._delta(do, o2)
+    dq2 = fa._dq_plain(q, k, v, do, lse2, delta, causal, scale)
+    dk2, dv2 = fa._dkv_plain(q, k, v, do, lse2, delta, causal, scale)
+    tol = TOL[dtype]
+    checks = {'fwd': [max_err(o, o2, tol['o'])],
+              'dq': [max_err(dq, dq2, tol['grad'])],
+              'dkv': [max_err(dk, dk2, tol['grad']),
+                      max_err(dv, dv2, tol['grad'])]}
+    del o, dq, dk, dv, o2, dq2, dk2, dv2, qq, kk, vv
+
+    def pad(t):
+        return F.pad(t, (0, width - d)).contiguous()
+    qp, kp, vp, dop = (pad(t) for t in (q, k, v, do))
+    op, lsep = fa._fwd_cuda(qp, kp, vp, causal, scale)
+    bwd = (qp, kp, vp, dop, lsep, fa._delta(dop, op), causal, scale)
+    plain_bwd = (q, k, v, do, lse2, delta, causal, scale)
+    runs = {'fwd': (lambda: fa._fwd_cuda(qp, kp, vp, causal, scale),
+                    lambda: fa._fwd_plain(q, k, v, causal, scale)),
+            'dq': (lambda: fa._dq_cuda(*bwd),
+                   lambda: fa._dq_plain(*plain_bwd)),
+            'dkv': (lambda: fa._dkv_cuda(*bwd),
+                    lambda: fa._dkv_plain(*plain_bwd))}
+    out = {}
+    for name, results in checks.items():
+        ok = all(p for _, p in results)
+        rec = {'max_abs_err': max(e for e, _ in results),
+               'launches': launches[name]}
+        rec.update(_times(name, *runs[name], q, k, v, do, causal, scale))
+        if name == 'fwd':
+            with torch.no_grad():
+                rec['wrapper_ms'] = cuda_ms(lambda: fa.flash_attention(
+                    q, k, v, causal=causal), 10)
+        rec['bound_ms'], rec['bound_by'] = bound(name, shape, dtype, causal)
+        rec.update(rates(name, shape, dtype, causal, rec['ms']))
+        emit(phase='flash_head_dims', kernel=name, head_dim=d,
+             padded_to=width, shape=list(shape),
+             dtype=str(dtype).replace('torch.', ''), causal=causal, ok=ok,
+             tol={k: list(v) for k, v in tol.items()}, card=smi, **rec)
+        require(ok, '%s kernel at head dim %d (padded to %d) disagrees with '
+                'its plain version, %s causal=%s' % (name, d, width, dtype,
+                                                     causal))
+        require(launches[name] == 1, 'the wrapper at head dim %d launched '
+                '%s %d times, expected once' % (d, name, launches[name]))
+        out[name] = rec
+    return out
+
+
+def flash_head_dims(smi):
+    """The head dims the kernels take only zero-padded, each beside the
+    kernels at head dim 64 on the same B·H·S. Returns (records by (d,
+    causal, dtype), launches summed over the head-dim-160 runs: the
+    head-dim-256 variant)."""
+    records, launches_256 = {}, dict.fromkeys(('fwd', 'dq', 'dkv'), 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            records[(64, causal, dtype)] = check_kernels(
+                HEAD_DIM_BHS + (64,), causal, dtype, True, smi)
+            for d in PADDED_HEAD_DIMS:
+                rec = check_head_dim(d, causal, dtype, smi)
+                records[(d, causal, dtype)] = rec
+                if fa.padded_head_dim(d) == 256:
+                    for name in launches_256:
+                        launches_256[name] += rec[name]['launches']
+            torch.cuda.empty_cache()
+    emit(phase='flash_head_dims_summary', bhs=list(HEAD_DIM_BHS),
+         ms={'%s d%d %s %s' % (name, d, str(dt).replace('torch.', ''),
+                               'causal' if c else 'full'): rec[name]['ms']
+             for (d, c, dt), rec in sorted(records.items(), key=str)
+             for name in ('fwd', 'dq', 'dkv')}, card=smi)
+    return records, launches_256
+
+
+# -- bench_sparse's models through the functional Trainer ---------------------
+# LSTMLM at bench.py:bench_sparse's LM1B configuration: vocab 100,000,
+# embedding 512, 2 LSTM layers of 1024, batch 128 x 32 tokens
+LM1B = {'vocab': 100000, 'dim': 512, 'hidden': 1024, 'layers': 2,
+        'batch': 128, 'seq': 32}
+LM1B_SMALL = {'vocab': 64, 'dim': 16, 'hidden': 24, 'layers': 2,
+              'batch': 4, 'seq': 6}
+LM1B_STEPS = 5
+# one step at grad_accum=4 against one at 1: the loss agrees to 1e-5
+# relative (a mean of 4 chunk means of equal size is the batch mean, up
+# to rounding), each gradient to 1e-5 of the largest gradient (the
+# chunks' f32 sums in another order)
+ACCUM_LOSS_REL, ACCUM_GRAD_REL = 1e-5, 1e-5
+
+
+def ncf_model(cfg, device, seed=0):
+    return NCF(cfg['users'], cfg['items'], mf_dim=cfg['mf_dim'],
+               mlp_dims=cfg['mlp'], device=device, seed=seed)
+
+
+def ncf_batch_dict(cfg, seed):
+    users, items, labels = ncf_batch(cfg, seed)
+    return {'users': users, 'items': items, 'labels': labels}
+
+
+def host_state(trainer, state):
+    """{leaf name: host array} of the state as ``save_state`` writes it."""
+    from autodist_tpu_torch.checkpoint.saver import _leaf_paths
+    return dict(_leaf_paths(trainer._state_tree(state)))
+
+
+def grad_accum_check(trainer, state, batch, accum):
+    """One step at ``grad_accum=accum`` and one at 1, each from the same
+    state (put back after each). Returns (|loss difference| / |loss|,
+    max |gradient difference| / max |gradient|)."""
+    model, opt = trainer.model, state.opt_state
+    params = list(model.parameters())
+    saved = ([p.detach().clone() for p in params],
+             copy.deepcopy(opt.state_dict()), state.step)
+    out = []
+    for a in (1, accum):
+        t = Trainer(model, trainer.optimizer, spec=ParallelSpec(grad_accum=a))
+        _, m = t.step(state, batch)
+        out.append((float(m['loss']), [p.grad.clone() for p in params]))
+        with torch.no_grad():
+            for p, v in zip(params, saved[0]):
+                p.copy_(v)
+        opt.load_state_dict(copy.deepcopy(saved[1]))
+        state.step = saved[2]
+    (l1, g1), (la, ga) = out
+    top = max(float(g.abs().max()) for g in g1)
+    return abs(la - l1) / abs(l1), \
+        max(float((a - b).abs().max()) for a, b in zip(g1, ga)) / top
+
+
+def ncf_trainer_phase(cfg, device, tmp, steps=NCF_STEPS, smi=None,
+                      profiling=False):
+    """bench_sparse's NCF through ``trainer_from_strategy(...,
+    optim.adam(1e-3), PSLoadBalancing())`` and ``fit`` (prefetch 2, eval
+    of 2 batches and a checkpoint every 10 steps); then the checkpoint
+    restored into a fresh trainer (params and Adam slots bitwise), a
+    profile (trace written, params bitwise unchanged) and one step at
+    grad_accum=4 against one at 1. A step's time is the time between
+    two pulls from the source: with prefetch 2, fit pulls batch k + 2 as
+    step k starts. Returns the record."""
+    cuda = torch.device(device).type == 'cuda'
+    trainer = trainer_from_strategy(ncf_model(cfg, device), optim.adam(1e-3),
+                                    PSLoadBalancing())
+    data = [ncf_batch_dict(cfg, 100 + i) for i in range(steps + 2)]
+    eval_data = [ncf_batch_dict(cfg, 900 + i) for i in range(2)]
+    pulls = []
+
+    def source():
+        for b in data:
+            pulls.append(time.perf_counter())
+            yield b
+
+    mgr = CheckpointManager(os.path.join(tmp, 'ncf_ckpt'))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    state = trainer.init(seed=0)
+    state, hist = trainer.fit(state, source(), steps=steps,
+                              eval_data=eval_data, eval_every=10,
+                              checkpoint_manager=mgr, save_every=10,
+                              prefetch=2)
+    seconds = np.diff(pulls[2:]).tolist()      # steps 1 .. steps - 1
+    step_s = float(np.median(seconds[1:]))
+    losses = hist['loss']
+    rec = {'steps': steps, 'batch': cfg['batch'], 'losses': losses,
+           'eval_loss': hist['eval_loss'], 'checkpoints': mgr.all_steps(),
+           'step_seconds': seconds, 'median_step_s': step_s,
+           'examples_per_s': cfg['batch'] / step_s}
+    if cuda:
+        rec['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    require(all(math.isfinite(x) for x in losses), 'NCF trainer loss not '
+            'finite')
+    require(abs(losses[0] - math.log(2)) < 0.05, 'NCF trainer first loss '
+            '%.4f is not near ln 2' % losses[0])
+    require(len(losses) == steps and [s for s, _ in hist['eval_loss']] ==
+            [10, 20][:steps // 10] and mgr.all_steps()[-1] == steps,
+            'NCF fit: %d losses, evals %s, checkpoints %s'
+            % (len(losses), hist['eval_loss'], mgr.all_steps()))
+
+    fresh = trainer_from_strategy(ncf_model(cfg, device, seed=1),
+                                  optim.adam(1e-3), PSLoadBalancing())
+    fstate, got = fresh.restore_state(mgr, fresh.init(seed=1))
+    saved, restored = host_state(trainer, state), host_state(fresh, fstate)
+    rec['restored_step'] = got
+    rec['restore_bitwise'] = saved.keys() == restored.keys() and all(
+        np.array_equal(saved[k], restored[k]) for k in saved)
+    require(got == steps and rec['restore_bitwise'], 'NCF restore_state: '
+            'step %s, params and Adam slots bitwise %s'
+            % (got, rec['restore_bitwise']))
+    del fresh, fstate, saved, restored
+
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    trace_dir = os.path.join(tmp, 'ncf_trace')
+    trainer.profile(state, data[0], trace_dir, steps=2)
+    rec['trace_files'] = sorted(os.listdir(trace_dir))
+    rec['profile_left_params'] = all(
+        torch.equal(a, b) for a, b in zip(before, trainer.model.parameters()))
+    require(rec['trace_files'] and rec['profile_left_params'],
+            'NCF profile: trace %s, params unchanged %s'
+            % (rec['trace_files'], rec['profile_left_params']))
+    del before
+
+    loss_rel, grad_rel = grad_accum_check(trainer, state, data[0], 4)
+    rec.update(accum_loss_rel=loss_rel, accum_grad_rel=grad_rel,
+               accum_tol={'loss_rel': ACCUM_LOSS_REL,
+                          'grad_rel_to_max': ACCUM_GRAD_REL})
+    require(loss_rel <= ACCUM_LOSS_REL and grad_rel <= ACCUM_GRAD_REL,
+            'NCF grad_accum=4 against 1: loss %.3g, gradients %.3g'
+            % (loss_rel, grad_rel))
+    if smi is not None:
+        emit(phase='ncf_trainer', strategy='PSLoadBalancing', card=smi,
+             **rec)
+    if profiling:
+        profile_step('ncf_trainer', trainer, state, data[0], smi)
+    return rec
+
+
+def lm1b_phase(cfg, device, steps=LM1B_STEPS, smi=None, profiling=False):
+    """LSTMLM through ``trainer_from_strategy(..., optim.adam(1e-3),
+    PartitionedPS())`` (a no-op partition at dp = 1): ``steps`` steps at
+    remat='none', then as many at remat='full' from the same init; the
+    losses agree to 1e-5 relative and the first is near ln(vocab).
+    Returns {remat: record}."""
+    cuda = torch.device(device).type == 'cuda'
+    model = LSTMLM(cfg['vocab'], cfg['dim'], cfg['hidden'], cfg['layers'],
+                   device=device)
+    batch = make_batch(cfg['vocab'], cfg['batch'], cfg['seq'], seed=6)
+    tokens = cfg['batch'] * cfg['seq']
+    arms = {}
+    for remat in ('none', 'full'):
+        trainer = trainer_from_strategy(model, optim.adam(1e-3),
+                                        PartitionedPS(),
+                                        spec=ParallelSpec(remat=remat))
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        state, losses, seconds = train_steps(trainer, batch, steps)
+        step_s = float(np.median(seconds[1:]))
+        rec = {'remat': remat, 'steps': steps, 'losses': losses,
+               'step_seconds': seconds, 'median_step_s': step_s,
+               'tokens_per_s': tokens / step_s}
+        if cuda:
+            rec['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+        require(all(math.isfinite(x) for x in losses), 'LM1B loss not finite')
+        require(abs(losses[0] - math.log(cfg['vocab'])) < 0.5,
+                'LM1B first loss %.4f is not near ln(vocab)' % losses[0])
+        if smi is not None:
+            emit(phase='lm1b_trainer', strategy='PartitionedPS',
+                 batch=cfg['batch'], seq=cfg['seq'], card=smi, **rec)
+        if profiling:
+            profile_step('lm1b_%s' % remat, trainer, state, batch, smi)
+        arms[remat] = rec
+    rel = max(abs(a - b) / abs(b) for a, b in zip(arms['full']['losses'],
+                                                  arms['none']['losses']))
+    arms['remat_loss_rel'] = rel
+    require(rel <= 1e-5, 'LM1B remat=full losses %s against %s'
+            % (arms['full']['losses'], arms['none']['losses']))
+    return arms
+
+
+def small_sparse_reference():
+    """NCF and LSTMLM at tiny width through the Trainer, 3 Adam steps on
+    the card and on the CPU from the same init (the port's own init from
+    a seed): the losses agree to 1e-4."""
+    runs = {'ncf': (lambda dev: ncf_model(NCF_SMALL, dev),
+                    [ncf_batch_dict(NCF_SMALL, i) for i in range(3)]),
+            'lstm': (lambda dev: LSTMLM(LM1B_SMALL['vocab'],
+                                        LM1B_SMALL['dim'],
+                                        LM1B_SMALL['hidden'],
+                                        LM1B_SMALL['layers'], device=dev),
+                     [make_batch(LM1B_SMALL['vocab'], LM1B_SMALL['batch'],
+                                 LM1B_SMALL['seq'], seed=i)
+                      for i in range(3)])}
+    for name, (make, batches) in runs.items():
+        losses = {}
+        for device in ('cuda', 'cpu'):
+            trainer = Trainer(make(device), optim.adam(1e-3))
+            state = trainer.init(seed=0)
+            losses[device] = [float(trainer.step(state, b)[1]['loss'])
+                              for b in batches]
+        err = max(abs(a - b) for a, b in zip(losses['cuda'], losses['cpu']))
+        emit(phase='small_sparse_reference', model=name,
+             losses_cuda=losses['cuda'], losses_cpu=losses['cpu'],
+             max_abs_err=err, tol=1e-4)
+        require(err <= 1e-4, 'the small %s on the card disagrees with the '
+                'CPU: %r vs %r' % (name, losses['cuda'], losses['cpu']))
+
+
 def main(argv):
     profiling = '--profile' in argv
     if not torch.cuda.is_available():
@@ -983,6 +1325,7 @@ def main(argv):
     for shape, causal in ((GPT_SHAPE, False), (BERT_SHAPE, True)):
         check_kernels(shape, causal, torch.bfloat16, False, smi)
         torch.cuda.empty_cache()
+    head_dims, launches_256 = flash_head_dims(smi)
 
     k4 = [check_conv_bn(shape, torch.bfloat16, smi) for shape in RESNET_K4]
     for shape in K4_F32:
@@ -1069,6 +1412,14 @@ def main(argv):
 
     dsl_phase(smi, profiling)
 
+    # bench_sparse's models through the functional Trainer (no kernel)
+    with tempfile.TemporaryDirectory() as tmp:
+        ncf_trainer_phase(NCF_FULL, 'cuda', tmp, smi=smi, profiling=profiling)
+    torch.cuda.empty_cache()
+    lm1b_phase(LM1B, 'cuda', smi=smi, profiling=profiling)
+    torch.cuda.empty_cache()
+    small_sparse_reference()
+
     main_path = results[(GPT_SHAPE, True, torch.bfloat16)]
     kernels = []
     for name in ('fwd', 'dq', 'dkv'):
@@ -1082,6 +1433,23 @@ def main(argv):
             'library_ms': rec['library_ms'], 'library': rec['library'],
             'tflops': rec['tflops'], 'bound_share': rec['bound_share'],
             'shape': list(GPT_SHAPE), 'dtype': 'bfloat16', 'causal': True})
+    # the head-dim-256 variant of K1-K3 (the CUDA-core kernels with a
+    # 32-row query tile), reached at head dim 160 through the wrapper's
+    # zero padding: its launches in the flash_head_dims phase, its record
+    # at bf16, causal
+    d256 = head_dims[(160, True, torch.bfloat16)]
+    for name in ('fwd', 'dq', 'dkv'):
+        rec = d256[name]
+        kernels.append({
+            'name': 'flash_attention_%s_head_dim_256' % name, 'route': 'cuda',
+            'source': SOURCE, 'replaces': REPLACES[name],
+            'launches': launches_256[name], 'max_abs_err': rec['max_abs_err'],
+            'ms': rec['ms'], 'plain_ms': rec['plain_ms'],
+            'bound_ms': rec['bound_ms'], 'bound_by': rec['bound_by'],
+            'library_ms': rec['library_ms'], 'library': rec['library'],
+            'tflops': rec['tflops'], 'bound_share': rec['bound_share'],
+            'shape': list(HEAD_DIM_BHS) + [160], 'padded_to': 256,
+            'dtype': 'bfloat16', 'causal': True})
     # K4: launch-weighted means over ResNet-101's main-path shapes
     weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]
 

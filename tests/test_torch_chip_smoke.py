@@ -98,6 +98,9 @@ def test_ptxas_summary_reads_every_generation_of_kernel():
      'int, int)', 'k4_conv_bn'),
     ('void at::native::elementwise_kernel<128, 2>(int)', 'elementwise'),
     ('nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN', 'gemm'),
+    ('void at::native::(anonymous namespace)::multi_tensor_apply_kernel<'
+     'at::native::(anonymous namespace)::TensorListMetadata<4>>(int)',
+     'optimizer_foreach'),
     ('some_unknown_kernel', 'other')])
 def test_kernel_class_sorts_the_kernels(name, cls):
     assert chip_smoke.kernel_class(name) == cls
@@ -187,3 +190,41 @@ def test_local_slice_splits_like_the_jax_package():
     x = np.arange(8)
     assert list(chip_smoke.local_slice(x, 1, 2)) == [4, 5, 6, 7]
     assert list(chip_smoke.local_slice(x, 1, 3)) == list(x)   # replicated
+
+
+def test_ptxas_summary_reads_the_head_dim_256_kernels():
+    """The CUDA-core kernels take a query-tile argument, and at head dim
+    256 run bf16 too (T = __nv_bfloat16)."""
+    log = '''\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110dkv_kernelI13__nv_bfloat16Li256ELi32EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_ifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110dkv_kernelI13__nv_bfloat16Li256ELi32EEEvPKT_S4_S4_S4_PKfS6_PS2_S7_ifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 204 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110fwd_kernelIfLi256ELi32EEEvPKT_S3_S3_PS1_Pfifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110fwd_kernelIfLi256ELi32EEEvPKT_S3_S3_PS1_Pfifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 400 bytes cmem[0]
+'''
+    assert chip_smoke.ptxas_summary(log) == {
+        'dkv_kernel<bf16,256>': '204 regs, 0 B spilled',
+        'fwd_kernel<f32,256>': '96 regs, 0 B spilled'}
+
+
+# -- the functional Trainer phases' helpers, at tiny width on the CPU --------
+def test_ncf_trainer_phase_at_tiny_width(tmp_path):
+    """fit with prefetch, eval and checkpoints every 10 steps; the
+    restore bitwise; profile leaving the params; grad_accum=4 against 1
+    within its stated tolerance."""
+    rec = chip_smoke.ncf_trainer_phase(chip_smoke.NCF_SMALL, 'cpu',
+                                       str(tmp_path))
+    assert len(rec['losses']) == 20 and rec['checkpoints'] == [10, 20]
+    assert [s for s, _ in rec['eval_loss']] == [10, 20]
+    assert len(rec['step_seconds']) == 19 and rec['examples_per_s'] > 0
+    assert rec['restore_bitwise'] and rec['profile_left_params']
+    assert rec['accum_loss_rel'] <= chip_smoke.ACCUM_LOSS_REL
+
+
+def test_lm1b_phase_at_tiny_width():
+    arms = chip_smoke.lm1b_phase(chip_smoke.LM1B_SMALL, 'cpu', steps=2)
+    assert arms['none']['losses'] == arms['full']['losses']
+    assert arms['remat_loss_rel'] == 0.0

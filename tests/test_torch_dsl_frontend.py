@@ -327,11 +327,16 @@ def test_ssh_coordinator_launch_raises_naming_its_queue_item():
 
 
 def test_saver_and_autostrategy_raise_naming_their_queue_items():
+    """AutoStrategy still raises, naming its queue item. Saver is ported
+    (tests/test_torch_checkpoint.py): it builds and registers itself on
+    the default graph, as the JAX Saver does."""
     from autodist_tpu_torch.checkpoint.saver import Saver
+    from autodist_tpu_torch.frontend import graph as fe
     from autodist_tpu_torch.strategy import AutoStrategy
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1 item 11'):
-        Saver()
+    saver = Saver()
+    graph = fe.get_default_graph()
+    assert saver in graph.savers
+    graph.savers.remove(saver)
     with pytest.raises(NotImplementedError,
                        match='ROADMAP.md Queue 1 item 10'):
         AutoStrategy()

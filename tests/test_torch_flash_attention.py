@@ -146,3 +146,76 @@ def test_wgmma_kernels_take_seq_a_multiple_of_8(seq, head_dim, dtype,
     else:
         fa._check((x, x, x), head_dim)
     assert fa.supports((1, 1, seq, head_dim)) == (seq % 8 == 0)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('head_dim', [80, 96, 160])
+def test_head_dims_between_the_kernels_widths_pad_and_slice(head_dim,
+                                                             causal):
+    """A head dim the kernels lack runs zero-padded to the next width
+    (80, 96 -> 128; 160 -> 256) with sm_scale from the true head dim,
+    and o, dq, dk, dv are sliced back: the same values as the plain
+    versions at the true head dim (f32: the padding adds exact zeros, so
+    only the products' blocking differs; 1e-5)."""
+    assert fa.padded_head_dim(head_dim) == (128 if head_dim <= 128 else 256)
+    shape = (1, 2, 64, head_dim)
+    q, k, v, w = _inputs(shape, 6)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = fa.flash_attention(tq, tk, tv, causal=causal)
+    assert o.shape == shape
+    (o * torch.from_numpy(w)).sum().backward()
+    pq, pk, pv, do = map(torch.from_numpy, (q, k, v, w))
+    scale = head_dim ** -0.5
+    o2, lse2 = fa._fwd_plain(pq, pk, pv, causal, scale)
+    delta = fa._delta(do, o2)
+    dq2 = fa._dq_plain(pq, pk, pv, do, lse2, delta, causal, scale)
+    dk2, dv2 = fa._dkv_plain(pq, pk, pv, do, lse2, delta, causal, scale)
+    for got, want in ((o, o2), (tq.grad, dq2), (tk.grad, dk2),
+                      (tv.grad, dv2)):
+        assert got.shape == shape
+        np.testing.assert_allclose(got.detach().numpy(), want.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_head_dim_above_the_kernels_limit_raises():
+    x = torch.zeros(1, 1, 64, 264)
+    with pytest.raises(ValueError, match='limit of 256'):
+        fa.flash_attention(x, x, x)
+    assert fa.padded_head_dim(256) == 256 and fa.padded_head_dim(16) == 16
+    assert fa.padded_head_dim(1) == 16
+
+
+def test_lm_at_head_dim_96_matches_jax_interpret():
+    """TransformerLM with dim 192 and 2 heads (head dim 96) at S = 512:
+    the flash branch in both packages (Pallas interpret mode in JAX,
+    which takes any head dim; the padded plain versions in the port).
+    Loss 1e-5 relative, gradients 5e-4 as the other flash parity tests."""
+    from autodist_tpu.models.transformer import TransformerConfig as JConfig
+    from autodist_tpu.models.transformer import TransformerLM as JLM
+    from autodist_tpu_torch.models.weights import load_params, tree_to_numpy
+    kw = dict(dim=192, n_heads=2, max_len=512, n_layers=1)
+    jm = JLM(JConfig.tiny(dtype=jnp.float32, **kw))
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    tm = TransformerLM(TransformerConfig.tiny(dtype=torch.float32, **kw),
+                       device='cpu')
+    load_params(tm, jp)
+    assert fa.preferred((1, 2, 512, 96)) and jfa.preferred((1, 2, 512, 96))
+    rng = np.random.RandomState(5)
+    batch = {k: rng.randint(0, 256, (1, 512), dtype=np.int32)
+             for k in ('tokens', 'targets')}
+    params = tm.params()
+    loss = tm.loss(params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    jloss, jgrads = jax.value_and_grad(jm.loss)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+
+    def grads(tree):
+        return {k: grads(v) if isinstance(v, dict) else v.grad
+                for k, v in tree.items()}
+    got = jax.tree_util.tree_flatten_with_path(tree_to_numpy(grads(params)))
+    want = jax.tree_util.tree_flatten_with_path(jgrads)
+    assert [p for p, _ in got[0]] == [p for p, _ in want[0]]
+    for (path, g), (_, w) in zip(got[0], want[0]):
+        np.testing.assert_allclose(g, np.asarray(w), atol=5e-4, rtol=5e-4,
+                                   err_msg=str(path))

@@ -3,8 +3,9 @@
 A subprocess in which ``jax`` and ``autodist_tpu`` cannot be imported
 imports the port and ``chip_smoke.py`` and trains one step of a
 Transformer and one of a small ResNet through the fused conv + BatchNorm
-kernel's module on the CPU, and one c0 step through the DSL
-(``autodist_tpu_torch.AutoDist``);
+kernel's module on the CPU, one c0 step through the DSL
+(``autodist_tpu_torch.AutoDist``), and NCF and LSTMLM through ``fit``
+with prefetch and a checkpoint, restored into a fresh trainer;
 an AST scan finds no import of either in any of the port's files. The
 scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
 name, never by prefix.
@@ -48,6 +49,27 @@ import autodist_tpu_torch as ad
 loss, W, b = chip_smoke.run_linear_regression(
     chip_smoke.fresh_autodist(ad.AllReduce(), 'cpu'))
 assert abs(b - chip_smoke.EXPECTED_B) <= 1e-5, b
+import tempfile
+from autodist_tpu_torch import LSTMLM, NCF
+from autodist_tpu_torch.checkpoint.saver import CheckpointManager, Saver
+from autodist_tpu_torch.data.prefetch import prefetch_to_device
+import numpy as np
+rng = np.random.RandomState(0)
+for model, batch in (
+        (NCF(16, 12, mf_dim=4, mlp_dims=(8, 4), device='cpu'),
+         {'users': rng.randint(0, 16, (8,)), 'items': rng.randint(0, 12, (8,)),
+          'labels': rng.randint(0, 2, (8,)).astype(np.float32)}),
+        (LSTMLM(32, 8, 8, 1, device='cpu'),
+         {'tokens': rng.randint(0, 32, (2, 4)),
+          'targets': rng.randint(0, 32, (2, 4))})):
+    trainer = trainer_from_strategy(model, optim.adam(1e-3),
+                                    ad.PSLoadBalancing())
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        state, hist = trainer.fit(trainer.init(seed=0), [batch] * 2,
+                                  prefetch=2, checkpoint_manager=mgr)
+        assert len(hist['loss']) == 2 and mgr.all_steps() == [2]
+        assert trainer.restore_state(mgr, state)[1] == 2
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                 ('jax', 'jaxlib', 'autodist_tpu') and sys.modules[m])
 assert not leaked, leaked

@@ -9,7 +9,9 @@ one. The file imports no jax, so it runs on the machine with the card:
 shapes include ragged tile edges (S = 40, 96, 200 against 64- and
 128-row tiles), every head dim the kernels take, a long S that wraps the
 wgmma kernels' TMA ring many times, and a bitwise repeat of two launches.
-The fused conv + BatchNorm kernel: row counts that are multiples of 8 but
+Head dims the kernels lack (80, 96, 160) run through the wrapper,
+zero-padded to 128 or 256, against the plain versions at the true head
+dim; the head-dim-256 kernels run directly too. The fused conv + BatchNorm kernel: row counts that are multiples of 8 but
 not of its 128-row tile, Cin = 8, 24 and 2048 (a Cin tail short of its
 64-wide step), stride 2, each prologue, bf16 and f32, and a prologue that
 would leak relu(b) into the padding if the kernel did not zero it.
@@ -105,6 +107,72 @@ def _close_to_max(got, want, rel):
     want = want.float()
     torch.testing.assert_close(got.float(), want, rtol=0,
                                atol=rel * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('head_dim', [80, 96, 160])
+def test_padded_head_dims_match_plain_on_card(head_dim, causal, dtype):
+    """Through the wrapper, which pads 80 and 96 to 128 and 160 to 256:
+    one launch of each kernel, and o, dq, dk, dv against the plain
+    versions at the true head dim (S = 200, a ragged edge for every
+    tile). Tolerances as test_kernels_match_plain_on_card; the padding
+    adds exact zeros to every sum."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    shape = (2, 2, 200, head_dim)
+    q, k, v, do = (torch.from_numpy(x).to('cuda', dt)
+                   for x in _inputs(shape, 4))
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.reset_launches()
+    o = fa.flash_attention(qq, kk, vv, causal=causal)
+    dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {'fwd': 1, 'dq': 1, 'dkv': 1}
+    scale = head_dim ** -0.5
+    o2, lse2 = fa._fwd_plain(q, k, v, causal, scale)
+    delta = fa._delta(do, o2)
+    dq2 = fa._dq_plain(q, k, v, do, lse2, delta, causal, scale)
+    dk2, dv2 = fa._dkv_plain(q, k, v, do, lse2, delta, causal, scale)
+    t_o, t_g = {'float32': (1e-5, 1e-5), 'bfloat16': (2e-2, 1e-2)}[dtype]
+    assert o.shape == dq.shape == shape
+    torch.testing.assert_close(o.float(), o2.float(), atol=t_o, rtol=t_o)
+    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+        torch.testing.assert_close(a.float(), b.float(), atol=t_g, rtol=t_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('causal', [True, False])
+def test_head_dim_256_kernels_match_plain_on_card(causal, dtype):
+    """The CUDA-core kernels at head dim 256 (32-row query tiles), called
+    directly: every output against its plain version, ragged S = 200
+    and a longer S = 1024."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    for shape in ((1, 2, 200, 256), (1, 1, 1024, 256)):
+        q, k, v, do = (torch.from_numpy(x).to('cuda', dt)
+                       for x in _inputs(shape, 7))
+        scale = shape[-1] ** -0.5
+        o, lse = fa._fwd_cuda(q, k, v, causal, scale)
+        o2, lse2 = fa._fwd_plain(q, k, v, causal, scale)
+        delta = fa._delta(do, o)
+        outs = (fa._dq_cuda(q, k, v, do, lse, delta, causal, scale),) + \
+            fa._dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+        want = (fa._dq_plain(q, k, v, do, lse, delta, causal, scale),) + \
+            fa._dkv_plain(q, k, v, do, lse, delta, causal, scale)
+        t_o, t_g = {'float32': (1e-5, 1e-5),
+                    'bfloat16': (2e-2, 1e-2)}[dtype]
+        torch.testing.assert_close(o.float(), o2.float(), atol=t_o, rtol=t_o)
+        torch.testing.assert_close(lse, lse2, atol=1e-5, rtol=1e-5)
+        for a, b in zip(outs, want):
+            torch.testing.assert_close(a.float(), b.float(), atol=t_g,
+                                       rtol=t_g)
 
 
 @pytest.mark.cuda
