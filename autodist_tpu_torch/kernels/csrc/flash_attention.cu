@@ -1,19 +1,21 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
 // Replaces the three Pallas TPU kernels of autodist_tpu/kernels/flash_attention.py:
-//   fwd_wgmma_kernel (bf16, D 64/128), fwd_mma_kernel (bf16, D 16/32),
-//   fwd_kernel (f32)                                  <- _fwd_kernel
-//   dq_wgmma_kernel (bf16, D 64/128), dq_mma_kernel (bf16, D 16/32),
-//   dq_kernel (f32)                                   <- _dq_kernel
+//   fwd_wgmma_kernel (bf16, D 64/128/256), fwd_mma_kernel (bf16, D 16/32),
+//   fwd_kernel (f32, D <= 256), fwd_wgmma_cols_kernel (bf16, D > 256),
+//   fwd_cols_kernel (f32, D > 256)                             <- _fwd_kernel
+//   dq_wgmma_kernel (bf16, D 64/128/256), dq_mma_kernel (bf16, D 16/32),
+//   dq_kernel (f32, D <= 256), dq_wgmma_cols_kernel (bf16, D > 256),
+//   dq_cols_kernel (f32, D > 256)                              <- _dq_kernel
 //   dkv_wgmma_kernel (bf16, D 64/128), dkv_mma_kernel (bf16, D 16/32),
-//   dkv_kernel (f32)                                  <- _dkv_kernel
+//   dkv_kernel (f32 D <= 256; bf16 D 256), dkv_cols_kernel (D > 256)
+//                                                              <- _dkv_kernel
 // and computes what they compute, with the same constants (mask value -1e30,
 // l floored at 1e-30) and the same cast points: P is rounded to v's dtype
 // before P.V, dS to k's dtype before dS.K and to q's dtype before dS^T.Q, and
 // P to dO's dtype before P^T.dO. All sums are f32. Which kernel runs is a
-// rule of dtype and shape, fixed before the launch (run_fwd / run_dq /
-// run_dkv): bf16 at D = 64 or 128 takes the wgmma kernels (S a multiple of
-// 8, as supports() admits), other bf16 the mma.sync ones.
+// rule of kernel, dtype and head dim (route()), fixed before the launch and
+// read by the launchers (run_fwd / run_dq / run_dkv) and by fa_kernel_name.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are contiguous [B*H, S, D]; lse and delta
 // are f32 [B*H, S]. Causal masking is by global position (q_pos >= k_pos
@@ -23,12 +25,13 @@
 // (B4 H12 S4096 D64, causal, bf16) the forward does 1.03e11 FLOP on 101 MB, so
 // it is bound by operations (0.10 ms at 989 TFLOP/s on the tensor cores
 // against 0.03 ms for the bytes); dQ does 1.5x and dK/dV 2x the forward's
-// operations. What the design does about that:
-//   * bf16 runs on the tensor cores with f32 sums; at D = 64 and 128 all
-//     three kernels as Hopper's warpgroup products (wgmma) fed by TMA
-//     through an mbarrier ring, so copies overlap the products and no
-//     operand is transposed in software (wgmma reads a tile MN-major
-//     through its descriptor);
+// operations. At a fixed H * D the work does not depend on D, so the same
+// holds at D = 256. What the design does about that:
+//   * bf16 runs on the tensor cores with f32 sums; the forward and dQ at
+//     every D from 64 on, and dK/dV at 64 and 128, as Hopper's warpgroup
+//     products (wgmma) fed by TMA through an mbarrier ring, so copies overlap
+//     the products and no operand is transposed in software (wgmma reads a
+//     tile MN-major through its descriptor);
 //   * the [S, S] score matrix never touches device memory: a CTA owns an
 //     output tile and loops over the other operand's tiles, as the TPU grid's
 //     sequential axis did, keeping its running sums in registers;
@@ -47,13 +50,24 @@
 // tiles are stored as f32 with a row pitch of D + 1 words (no bank conflicts
 // on the strided reads). At D = 256 the four f32 tiles of dQ and dK/dV
 // (257 KB at 64 rows) do not fit an SM's 227 KB of shared memory, so the
-// query tile shrinks to QT = 32 rows there (q_tile), and bf16 at D = 256
-// runs these kernels too, with T = bf16 keeping its cast points: the
-// mma.sync kernels hold a warp's A fragments and its D-wide accumulators in
-// registers, which at D = 256 is more than the 255 a thread may have. The
-// bf16 kernels' layout is described where they are defined. Supported: f32
-// and bf16, D in {16, 32, 64, 128, 256}; the wrapper zero-pads any other
-// D <= 256 to the next of these.
+// query tile shrinks to QT = 32 rows there (q_tile), and bf16 dK/dV at
+// D = 256 runs these kernels too, with T = bf16 keeping its cast points: its
+// two D-wide accumulators (dK and dV) are more registers than a wgmma
+// consumer has (the next kernel PR's work).
+//
+// Above D = 256 no tile of D fits: not wgmma's N (at most 256), not a
+// thread's 255 registers, not 227 KB of shared memory. There the kernels
+// split the output columns into chunks over a third grid axis: each CTA
+// streams the reductions over D (S = Q.K^T, dP = dO.V^T) through shared
+// memory in 64-wide slices and recomputes the scores for its own column
+// chunk; only chunk 0 writes LSE. The bf16 forward and dQ do it on the tensor
+// cores in chunks of 256 (fwd_wgmma_cols_kernel, dq_wgmma_cols_kernel: the
+// score work ceil(D / 256) times, 2x at D = 320 and 384), the f32 kernels and
+// bf16 dK/dV on the CUDA cores in chunks of 128 (*_cols_kernel: ceil(D / 128)
+// times, 3x at D = 320 and 384). The bf16 kernels' layout is described where
+// they are defined. Supported: f32 and bf16, D in {16, 32, 64, 128, 256} and every
+// multiple of 64 above 256; the wrapper zero-pads any other D to the next of
+// these.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -463,6 +477,372 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 }
 
 // ---------------------------------------------------------------------------
+// D > 256: the same three kernels with the output columns split into chunks
+// of DC over grid axis z (chunk c owns columns [c DC, c DC + DC) of O, dQ, or
+// dK and dV) and D a runtime multiple of DS. The score products stream D in
+// DS-wide slices of both operands through shared memory; the operand of the
+// output product (V, K, or Q and dO) is staged as the chunk's DC columns.
+// The thread layout is that of the kernels above, with DC / 16 output
+// columns a thread. A last chunk narrower than DC reads zero columns and
+// stores none of them. They run f32, and bf16 dK/dV (the bf16 forward and dQ
+// above 256 are wgmma kernels, further down).
+// ---------------------------------------------------------------------------
+constexpr int DS = 64;   // width of a slice of the score products' reduction
+static_assert(DS == BK, "the slices share the score tiles' row pitch PP");
+
+// Rows [row0, row0 + ROWS) x columns [c0, c0 + W) of a [S, D] slab into
+// shared memory as f32, row pitch W + 1, zero past S and past column `cols`.
+template <typename T, int W, int ROWS>
+__device__ __forceinline__ void load_cols(float* dst, const T* src, int row0, int S, int D,
+                                          int c0, int cols = W) {
+  for (int idx = threadIdx.x; idx < ROWS * W; idx += NT) {
+    const int r = idx / W, c = idx % W;
+    const int g = row0 + r;
+    dst[r * (W + 1) + c] = g < S && c < cols ? to_f(src[(size_t)g * D + c0 + c]) : 0.f;
+  }
+}
+
+template <typename T, int DC, int QT>
+__global__ void __launch_bounds__(NT)
+fwd_cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                T* __restrict__ o, float* __restrict__ lse, int S, int D, float scale,
+                int causal) {
+  constexpr int DPT = DC / TX;
+  constexpr int R = QT / TY;
+  extern __shared__ float smem[];
+  float* qs = smem;                  // [QT][PP], a DS-wide slice of Q
+  float* ks = qs + QT * PP;          // [64][PP], the same slice of K
+  float* vs = ks + BK * PP;          // [64][DC + 1], the chunk's columns of V
+  float* ps = vs + BK * (DC + 1);    // [QT][PP]
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int q0 = blockIdx.x * QT, c0 = blockIdx.z * DC, cols = min(DC, D - c0);
+  const size_t base = (size_t)blockIdx.y * S * D;
+  q += base; k += base; v += base; o += base;
+  lse += (size_t)blockIdx.y * S;
+
+  float m[R], l[R], acc[R][DPT];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = 0.f;
+  }
+
+  const int kv_end = causal ? min(S, q0 + QT) : S;
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    float s[R][CPT];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += DS) {
+      __syncthreads();  // the previous slice's (and tile's) reads are done
+      load_cols<T, DS, QT>(qs, q, q0, S, D, d0);
+      load_cols<T, DS, BK>(ks, k, k0, S, D, d0);
+      if (d0 == 0) load_cols<T, DC, BK>(vs, v, k0, S, D, c0, cols);
+      __syncthreads();
+      for (int d = 0; d < DS; ++d) {
+        float a[R], b[CPT];
+#pragma unroll
+        for (int i = 0; i < R; ++i) a[i] = qs[(ty + TY * i) * PP + d];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) b[j] = ks[(tx + TX * j) * PP + d];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = ty + TY * i;
+      float mb = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const float x = live(q0 + r, k0 + tx + TX * j, S, causal) ? s[i][j] * scale : NEG_INF;
+        s[i][j] = x;
+        mb = fmaxf(mb, x);
+      }
+      const float mn = fmaxf(m[i], half_warp_max(mb));
+      const float alpha = expf(m[i] - mn);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const float p = expf(s[i][j] - mn);
+        rs += p;
+        ps[r * PP + tx + TX * j] = round_to<T>(p);
+      }
+      l[i] = alpha * l[i] + half_warp_sum(rs);
+      m[i] = mn;
+#pragma unroll
+      for (int jd = 0; jd < DPT; ++jd) acc[i][jd] *= alpha;
+    }
+    __syncthreads();
+
+    for (int kk = 0; kk < BK; ++kk) {
+      float b[DPT];
+#pragma unroll
+      for (int jd = 0; jd < DPT; ++jd) b[jd] = vs[kk * (DC + 1) + tx + TX * jd];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float p = ps[(ty + TY * i) * PP + kk];
+#pragma unroll
+        for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = fmaf(p, b[jd], acc[i][jd]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qpos = q0 + ty + TY * i;
+    if (qpos >= S) continue;
+    const float li = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int jd = 0; jd < DPT; ++jd) {
+      const int c = tx + TX * jd;
+      if (c < cols) o[(size_t)qpos * D + c0 + c] = from_f<T>(acc[i][jd] / li);
+    }
+    // every chunk computes the same m and l; one of them writes LSE
+    if (tx == 0 && blockIdx.z == 0) lse[qpos] = m[i] + logf(li);
+  }
+}
+
+template <typename T, int DC, int QT>
+__global__ void __launch_bounds__(NT)
+dq_cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dq, int S, int D, float scale,
+               int causal) {
+  constexpr int DPT = DC / TX;
+  constexpr int R = QT / TY;
+  extern __shared__ float smem[];
+  float* qs = smem;                  // [QT][PP], a DS-wide slice of Q
+  float* dos = qs + QT * PP;         // [QT][PP], of dO
+  float* ks = dos + QT * PP;         // [64][PP], of K
+  float* vs = ks + BK * PP;          // [64][PP], of V
+  float* kc = vs + BK * PP;          // [64][DC + 1], the chunk's columns of K
+  float* dss = kc + BK * (DC + 1);   // [QT][PP]
+  float* lse_s = dss + QT * PP;      // [QT]
+  float* delta_s = lse_s + QT;       // [QT]
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int q0 = blockIdx.x * QT, c0 = blockIdx.z * DC, cols = min(DC, D - c0);
+  const size_t base = (size_t)blockIdx.y * S * D;
+  q += base; k += base; v += base; dout += base; dq += base;
+  lse += (size_t)blockIdx.y * S;
+  delta += (size_t)blockIdx.y * S;
+
+  load_rows(lse_s, lse, q0, S, QT);
+  load_rows(delta_s, delta, q0, S, QT);
+
+  float acc[R][DPT];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = 0.f;
+
+  const int kv_end = causal ? min(S, q0 + QT) : S;
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    float s[R][CPT], dp[R][CPT];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += DS) {
+      __syncthreads();
+      load_cols<T, DS, QT>(qs, q, q0, S, D, d0);
+      load_cols<T, DS, QT>(dos, dout, q0, S, D, d0);
+      load_cols<T, DS, BK>(ks, k, k0, S, D, d0);
+      load_cols<T, DS, BK>(vs, v, k0, S, D, d0);
+      if (d0 == 0) load_cols<T, DC, BK>(kc, k, k0, S, D, c0, cols);
+      __syncthreads();
+      for (int d = 0; d < DS; ++d) {
+        float a[R], g[R], b[CPT], c[CPT];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          a[i] = qs[(ty + TY * i) * PP + d];
+          g[i] = dos[(ty + TY * i) * PP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          b[j] = ks[(tx + TX * j) * PP + d];
+          c[j] = vs[(tx + TX * j) * PP + d];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            s[i][j] = fmaf(a[i], b[j], s[i][j]);
+            dp[i][j] = fmaf(g[i], c[j], dp[i][j]);
+          }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = ty + TY * i;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const float x = live(q0 + r, k0 + tx + TX * j, S, causal) ? s[i][j] * scale : NEG_INF;
+        const float p = expf(x - lse_s[r]);
+        dss[r * PP + tx + TX * j] = round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
+      }
+    }
+    __syncthreads();
+
+    for (int kk = 0; kk < BK; ++kk) {
+      float b[DPT];
+#pragma unroll
+      for (int jd = 0; jd < DPT; ++jd) b[jd] = kc[kk * (DC + 1) + tx + TX * jd];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float a = dss[(ty + TY * i) * PP + kk];
+#pragma unroll
+        for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = fmaf(a, b[jd], acc[i][jd]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qpos = q0 + ty + TY * i;
+    if (qpos >= S) continue;
+#pragma unroll
+    for (int jd = 0; jd < DPT; ++jd) {
+      const int c = tx + TX * jd;
+      if (c < cols) dq[(size_t)qpos * D + c0 + c] = from_f<T>(acc[i][jd]);
+    }
+  }
+}
+
+template <typename T, int DC, int QT>
+__global__ void __launch_bounds__(NT)
+dkv_cols_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int S,
+                int D, float scale, int causal) {
+  constexpr int DPT = DC / TX;
+  constexpr int QC = QT / TX;          // q columns per thread
+  constexpr int QP = QT + 1;           // row pitch of the [64, QT] tiles
+  extern __shared__ float smem[];
+  float* ks = smem;                    // [64][PP], a DS-wide slice of K
+  float* vs = ks + BK * PP;            // [64][PP], of V
+  float* qs = vs + BK * PP;            // [QT][PP], of Q
+  float* dos = qs + QT * PP;           // [QT][PP], of dO
+  float* qc = dos + QT * PP;           // [QT][DC + 1], the chunk's columns of Q
+  float* doc = qc + QT * (DC + 1);     // [QT][DC + 1], of dO
+  float* pts = doc + QT * (DC + 1);    // [64 kv][QP]
+  float* dsts = pts + BK * QP;         // [64 kv][QP]
+  float* lse_s = dsts + BK * QP;       // [QT]
+  float* delta_s = lse_s + QT;         // [QT]
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int k0 = blockIdx.x * BK, c0 = blockIdx.z * DC, cols = min(DC, D - c0);
+  const size_t base = (size_t)blockIdx.y * S * D;
+  q += base; k += base; v += base; dout += base; dk += base; dv += base;
+  lse += (size_t)blockIdx.y * S;
+  delta += (size_t)blockIdx.y * S;
+
+  float acck[RPT][DPT], accv[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int jd = 0; jd < DPT; ++jd) acck[i][jd] = accv[i][jd] = 0.f;
+
+  const int q_start = causal ? (k0 / QT) * QT : 0;
+  for (int q0 = q_start; q0 < S; q0 += QT) {
+    float st[RPT][QC], dpt[RPT][QC];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < QC; ++j) st[i][j] = dpt[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += DS) {
+      __syncthreads();
+      load_cols<T, DS, BK>(ks, k, k0, S, D, d0);
+      load_cols<T, DS, BK>(vs, v, k0, S, D, d0);
+      load_cols<T, DS, QT>(qs, q, q0, S, D, d0);
+      load_cols<T, DS, QT>(dos, dout, q0, S, D, d0);
+      if (d0 == 0) {
+        load_cols<T, DC, QT>(qc, q, q0, S, D, c0, cols);
+        load_cols<T, DC, QT>(doc, dout, q0, S, D, c0, cols);
+        load_rows(lse_s, lse, q0, S, QT);
+        load_rows(delta_s, delta, q0, S, QT);
+      }
+      __syncthreads();
+      for (int d = 0; d < DS; ++d) {
+        float a[RPT], g[RPT], b[QC], c[QC];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          a[i] = ks[(ty + TY * i) * PP + d];
+          g[i] = vs[(ty + TY * i) * PP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < QC; ++j) {
+          b[j] = qs[(tx + TX * j) * PP + d];
+          c[j] = dos[(tx + TX * j) * PP + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < QC; ++j) {
+            st[i][j] = fmaf(a[i], b[j], st[i][j]);
+            dpt[i][j] = fmaf(g[i], c[j], dpt[i][j]);
+          }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = ty + TY * i;
+#pragma unroll
+      for (int j = 0; j < QC; ++j) {
+        const int c = tx + TX * j;
+        const float x = live(q0 + c, k0 + r, S, causal) ? st[i][j] * scale : NEG_INF;
+        const float p = expf(x - lse_s[c]);
+        pts[r * QP + c] = round_to<T>(p);
+        dsts[r * QP + c] = round_to<T>(p * (dpt[i][j] - delta_s[c]) * scale);
+      }
+    }
+    __syncthreads();
+
+    for (int qq = 0; qq < QT; ++qq) {
+      float bo[DPT], bq[DPT];
+#pragma unroll
+      for (int jd = 0; jd < DPT; ++jd) {
+        bo[jd] = doc[qq * (DC + 1) + tx + TX * jd];
+        bq[jd] = qc[qq * (DC + 1) + tx + TX * jd];
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float p = pts[(ty + TY * i) * QP + qq];
+        const float ds = dsts[(ty + TY * i) * QP + qq];
+#pragma unroll
+        for (int jd = 0; jd < DPT; ++jd) {
+          accv[i][jd] = fmaf(p, bo[jd], accv[i][jd]);
+          acck[i][jd] = fmaf(ds, bq[jd], acck[i][jd]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int kpos = k0 + ty + TY * i;
+    if (kpos >= S) continue;
+#pragma unroll
+    for (int jd = 0; jd < DPT; ++jd) {
+      const int c = tx + TX * jd;
+      if (c >= cols) continue;
+      dk[(size_t)kpos * D + c0 + c] = from_f<T>(acck[i][jd]);
+      dv[(size_t)kpos * D + c0 + c] = from_f<T>(accv[i][jd]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 path: warp-level tensor-core products, mma.sync m16n8k16 (bf16 in, f32
 // sums). 128 threads: warp w owns rows 16 w .. 16 w + 15 of the CTA's 64-row
 // tile. In the m16n8k16 fragments, lane = 4 g + t: a C fragment holds rows g
@@ -835,25 +1215,31 @@ constexpr uint32_t BOX_BYTES = 64 * 128;   // one 64-row x 128-byte TMA box
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// TMA rows [row0, row0 + ROWS) of head bh into a swizzled [ROWS][D] tile.
+// TMA rows [row0, row0 + ROWS) x columns [col0, col0 + D) of head bh into a
+// swizzled [ROWS][D] tile, in boxes of min(ROWS, 64) rows (the map's box
+// height); only the first `slabs` 64-column slabs are loaded.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                          int row0, int bh) {
+                                          int row0, int bh, int col0 = 0, int slabs = D / 64) {
+  constexpr int BR = ROWS < 64 ? ROWS : 64;
 #pragma unroll
   for (int s = 0; s < D / 64; ++s)
+    if (s < slabs)
 #pragma unroll
-    for (int rb = 0; rb < ROWS / 64; ++rb)
-      sm90::tma_load_3d(dst + (s * (ROWS / 64) + rb) * BOX_BYTES, map, bar, s * 64, row0 + rb * 64,
-                        bh);
+      for (int rb = 0; rb < ROWS / BR; ++rb)
+        sm90::tma_load_3d(dst + (s * (ROWS / BR) + rb) * BR * 128, map, bar, col0 + s * 64,
+                          row0 + rb * BR, bh);
 }
 
 // A warpgroup's 64 x D accumulator, row-scaled and rounded to bf16, into its
 // rows [64 wg, 64 wg + 64) of a swizzled [128][D] tile; then TMA to rows
-// [row0, row0 + 64) of head bh. All 128 threads of the warpgroup call it.
+// [row0, row0 + 64) x columns [col0, col0 + 64 slabs) of head bh. All 128
+// threads of the warpgroup call it.
 template <int D>
 __device__ __forceinline__ void store_tile(unsigned char* tile, const float (&acc)[D / 2],
                                            const CUtensorMap* map, int wg, int row0, int bh,
-                                           float s_lo = 1.f, float s_hi = 1.f) {
+                                           float s_lo = 1.f, float s_hi = 1.f, int col0 = 0,
+                                           int slabs = D / 64) {
   const int tid = threadIdx.x % WG, t = tid & 3;
   const int r_lo = wg * 64 + (tid / 32) * 16 + ((tid & 31) >> 2);
 #pragma unroll
@@ -869,7 +1255,8 @@ __device__ __forceinline__ void store_tile(unsigned char* tile, const float (&ac
   if (tid == 0) {
     const uint32_t base = sm90::smem_u32(tile) + wg * BOX_BYTES;
 #pragma unroll
-    for (int s = 0; s < D / 64; ++s) sm90::tma_store_3d(map, base + s * 128 * 128, s * 64, row0, bh);
+    for (int s = 0; s < slabs; ++s)
+      sm90::tma_store_3d(map, base + s * 128 * 128, col0 + s * 64, row0, bh);
     sm90::tma_store_wait();
   }
 }
@@ -889,13 +1276,17 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (
 
 template <int N>
 __device__ __forceinline__ void ss_product(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  if constexpr (N == 64) sm90::wgmma_ss_n64(d, da, db, acc);
+  static_assert(N == 32 || N == 64 || N == 128, "score tiles are 32, 64 or 128 wide");
+  if constexpr (N == 32) sm90::wgmma_ss_n32(d, da, db, acc);
+  else if constexpr (N == 64) sm90::wgmma_ss_n64(d, da, db, acc);
   else sm90::wgmma_ss_n128(d, da, db, acc);
 }
 template <int N>
 __device__ __forceinline__ void rs_product(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 64 || N == 128 || N == 256, "output tiles are 64, 128 or 256 wide");
   if constexpr (N == 64) sm90::wgmma_rs_n64(d, a, db, 1);
-  else sm90::wgmma_rs_n128(d, a, db, 1);
+  else if constexpr (N == 128) sm90::wgmma_rs_n128(d, a, db, 1);
+  else sm90::wgmma_rs_n256(d, a, db, 1);
 }
 
 // d (64 x N) = A . B^T over D: A the warpgroup's 64 rows of a swizzled
@@ -961,7 +1352,10 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float (&m)[2]
 
 // K1: one CTA per (b*h, 128-row q tile), the q tiles in reverse order so the
 // longest causal rows are scheduled first; K and V tiles of BK rows stream
-// through the ring up to the diagonal.
+// through the ring up to the diagonal. At D = 256 (fwd_bk, fwd_stages) the
+// Q tile takes 64 KB and a 64-row (K, V) stage 64 KB, so two stages (192 KB);
+// a consumer thread holds the 64 x 256 O accumulator (128 registers), the
+// 64 x 64 scores (32) and P's bf16 fragments (16) of its 240.
 template <int D, int BK, int STAGES>
 __global__ void __launch_bounds__(HT, 1)
 fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -1173,16 +1567,23 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
 // K2: one CTA per (b*h, 128-row q tile), the q tiles in reverse order so the
 // longest causal rows are scheduled first. The CTA's Q, dO, lse and delta
-// rows are loaded once; K and V tiles of 64 rows stream through the ring up
+// rows are loaded once; K and V tiles of BK rows stream through the ring up
 // to the diagonal. S = Q.K^T and dP = dO.V^T read K and V K-major; dQ +=
 // dS.K reads the same K tile MN-major.
-template <int D, int STAGES>
+//
+// At D = 256 the resident Q and dO tiles take 128 KB, and a 64-row (K, V)
+// stage 64 KB: one such stage would leave the producer nothing to load ahead
+// while the consumers work, and 64-row output tiles would halve the
+// warpgroups that share each K and V stage. So BK = 32 there (dq_bk): three
+// 32 KB stages (226 KB in all), the scores a 64 x 32 tile of 16 registers, and
+// 128 registers a thread for the 64 x 256 dQ accumulator.
+template <int D, int BK, int STAGES>
 __global__ void __launch_bounds__(HT, 1)
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap tdq, const __grid_constant__ CUtensorMap tlse,
                 const __grid_constant__ CUtensorMap tdelta, int S, float scale, int causal) {
-  constexpr uint32_t Q_BYTES = 128 * D * 2, T_BYTES = 64 * D * 2, R_BYTES = 128 * 4;
+  constexpr uint32_t Q_BYTES = 128 * D * 2, T_BYTES = BK * D * 2, R_BYTES = 128 * 4;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const uint32_t sq = sm90::smem_u32(smem), sdo = sq + Q_BYTES;
@@ -1198,7 +1599,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 
   const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * 128;
   const int kv_end = causal ? min(S, q0 + 128) : S;
-  const int n_tiles = (kv_end + 63) / 64;
+  const int n_tiles = (kv_end + BK - 1) / BK;
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_bar, 1);
     for (int st = 0; st < STAGES; ++st) {
@@ -1225,8 +1626,8 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         const int st = it % STAGES;
         sm90::mbar_wait(empty(st), ((it / STAGES) & 1) ^ 1);
         sm90::mbar_expect_tx(full(st), 2 * T_BYTES);
-        load_tile<D, 64>(sk(st), &tk, full(st), it * 64, bh);
-        load_tile<D, 64>(sv(st), &tv, full(st), it * 64, bh);
+        load_tile<D, BK>(sk(st), &tk, full(st), it * BK, bh);
+        load_tile<D, BK>(sv(st), &tv, full(st), it * BK, bh);
       }
     }
   } else {   // consumers
@@ -1244,20 +1645,20 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const float lse2[2] = {lse_s[lr] * LOG2E, lse_s[lr + 8] * LOG2E};
     const float dl[2] = {delta_s[lr], delta_s[lr + 8]};
     for (int it = 0; it < n_tiles; ++it) {
-      const int st = it % STAGES, k0 = it * 64;
+      const int st = it % STAGES, k0 = it * BK;
       sm90::mbar_wait(full(st), (it / STAGES) & 1);
       if (!(causal && k0 > qw + 63)) {   // else every (q, kv) pair is masked
-        float s[32], dp[32];
+        float s[BK / 2], dp[BK / 2];
         sm90::wgmma_fence();
-        product_k<D, 64, 128>(s, sq + wg * BOX_BYTES, sk(st));
-        product_k<D, 64, 128>(dp, sdo + wg * BOX_BYTES, sv(st));
+        product_k<D, BK, 128>(s, sq + wg * BOX_BYTES, sk(st));
+        product_k<D, BK, 128>(dp, sdo + wg * BOX_BYTES, sv(st));
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_operand(s);
         sm90::fence_operand(dp);
-        const bool edge = (causal && k0 + 63 > qw) || k0 + 64 > S || qw + 64 > S;
+        const bool edge = (causal && k0 + BK - 1 > qw) || k0 + BK > S || qw + 64 > S;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float x = s[4 * j + e];
@@ -1266,11 +1667,11 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
             const float p = exp2f(fmaf(x, scale_log2, -lse2[e >> 1]));
             dp[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]) * scale;
           }
-        uint32_t dsa[4][4];
-        acc_to_a<64>(dsa, dp);   // dS rounded to k's dtype
+        uint32_t dsa[BK / 16][4];
+        acc_to_a<BK>(dsa, dp);   // dS rounded to k's dtype
         sm90::fence_operand(dq);
         sm90::wgmma_fence();
-        product_mn<D, 64>(dq, dsa, sk(st));
+        product_mn<D, BK>(dq, dsa, sk(st));
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_operand(dq);
@@ -1279,6 +1680,296 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     }
     // the warpgroup's Q rows are read by no one else: dQ goes out through them
     store_tile<D>(smem, dq, &tdq, wg, qw, bh);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 above D = 256: K1 and K2 on the tensor cores, the output columns split
+// into chunks of N = 256 over grid axis z. Chunk c owns columns [N c, N c + N)
+// of O or dQ; a last chunk past D loads and stores only its slabs inside D
+// (the columns past D hold what the product makes of stale shared memory and
+// are never stored; no column of O or dQ reads another). D is a runtime
+// multiple of 64. The score products (S = Q.K^T, and dP = dO.V^T for dQ)
+// stream D in 64-wide slices through ring A: a stage holds one slice of the
+// CTA's 128 Q (and dO) rows and of the BK-row K (and V) tile. The chunk's N
+// columns of V (forward) or K (dQ) stream through ring B. A slice's products
+// are one commit group; the previous slice's group is retired, and its stage
+// released, once the next is issued. Each CTA recomputes the scores for its
+// chunk, ceil(D / 256) times the score work in all; every chunk computes the
+// same softmax, and chunk 0 writes LSE. Ring A, free once both warpgroups are
+// done (named barrier 3), carries the output tile out.
+// ---------------------------------------------------------------------------
+constexpr uint32_t SLICE_BYTES = 128 * 128;   // a 64-column slice of 128 rows
+
+// The stages of ring A from `ia` on, one a slice of D: d (64 x BK) = the sum
+// over the slices of (A rows of the warpgroup) . B^T for each (A, B) pair of
+// a stage, A a 128-row slice at offset a_off[p], B a BK-row slice at b_off[p].
+template <int BK, int SA, int NP>
+__device__ __forceinline__ void slice_products(float (&d)[NP][BK / 2], int& ia, int n_slices,
+                                               uint32_t ra, uint32_t a_bytes,
+                                               const uint32_t (&a_off)[NP],
+                                               const uint32_t (&b_off)[NP], uint32_t full,
+                                               uint32_t empty, int wg) {
+  int prev = 0;
+  for (int sl = 0; sl < n_slices; ++sl, ++ia) {
+    const int st = ia % SA;
+    sm90::mbar_wait(full + 8 * st, (ia / SA) & 1);
+    const uint32_t a = ra + st * a_bytes;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ss_product<BK>(d[p], sm90::desc_k(a + a_off[p] + wg * BOX_BYTES + kk * 32),
+                       sm90::desc_k(a + b_off[p] + kk * 32), sl > 0 || kk > 0);
+    sm90::wgmma_commit();
+    if (sl > 0) {
+      sm90::wgmma_wait<1>();
+      sm90::mbar_arrive(empty + 8 * prev);
+    }
+    prev = st;
+  }
+  sm90::wgmma_wait<0>();
+  sm90::mbar_arrive(empty + 8 * prev);
+#pragma unroll
+  for (int p = 0; p < NP; ++p) sm90::fence_operand(d[p]);
+}
+
+// The same stages consumed without products (a tile every pair of which the
+// warpgroup masks).
+template <int SA>
+__device__ __forceinline__ void skip_slices(int& ia, int n_slices, uint32_t full, uint32_t empty) {
+  for (int sl = 0; sl < n_slices; ++sl, ++ia) {
+    sm90::mbar_wait(full + 8 * (ia % SA), (ia / SA) & 1);
+    sm90::mbar_arrive(empty + 8 * (ia % SA));
+  }
+}
+
+// K1 above D = 256: one CTA per (b*h, 128-row q tile, N-column chunk), the q
+// tiles in reverse order; BK-row K and V tiles up to the diagonal.
+template <int N, int BK, int SA, int SB>
+__global__ void __launch_bounds__(HT, 1)
+fwd_wgmma_cols_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap to, float* __restrict__ lse, int S,
+                      int D, float scale_log2, int causal) {
+  constexpr uint32_t A_BYTES = SLICE_BYTES + BK * 128, B_BYTES = BK * N * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t ra = sm90::smem_u32(smem), rb = ra + SA * A_BYTES;
+  const uint32_t full_a = rb + SB * B_BYTES, empty_a = full_a + 8 * SA;
+  const uint32_t full_b = empty_a + 8 * SA, empty_b = full_b + 8 * SB;
+
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * 128, c0 = blockIdx.z * N;
+  const int slabs = min(N, D - c0) / 64;
+  const int kv_end = causal ? min(S, q0 + 128) : S;
+  const int n_tiles = (kv_end + BK - 1) / BK, n_slices = D / 64;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < SA; ++st) {
+      sm90::mbar_init(full_a + 8 * st, 1);
+      sm90::mbar_init(empty_a + 8 * st, 2 * WG);
+    }
+    for (int st = 0; st < SB; ++st) {
+      sm90::mbar_init(full_b + 8 * st, 1);
+      sm90::mbar_init(empty_b + 8 * st, 2 * WG);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role is warp-uniform to the compiler: setmaxnreg is warpgroup-collective
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (wg == 2) {   // producer
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 2 * WG) {
+      int ia = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        for (int sl = 0; sl < n_slices; ++sl, ++ia) {
+          const int st = ia % SA;
+          const uint32_t a = ra + st * A_BYTES;
+          sm90::mbar_wait(empty_a + 8 * st, ((ia / SA) & 1) ^ 1);
+          sm90::mbar_expect_tx(full_a + 8 * st, A_BYTES);
+          load_tile<64, 128>(a, &tq, full_a + 8 * st, q0, bh, sl * 64);
+          load_tile<64, BK>(a + SLICE_BYTES, &tk, full_a + 8 * st, it * BK, bh, sl * 64);
+        }
+        const int st = it % SB;
+        sm90::mbar_wait(empty_b + 8 * st, ((it / SB) & 1) ^ 1);
+        sm90::mbar_expect_tx(full_b + 8 * st, slabs * BK * 128);
+        load_tile<N, BK>(rb + st * B_BYTES, &tv, full_b + 8 * st, it * BK, bh, c0, slabs);
+      }
+    }
+  } else {   // consumers
+    sm90::reg_alloc<240>();
+    const int tid = threadIdx.x % WG, t = tid & 3;
+    const int row_lo = q0 + wg * 64 + (tid / 32) * 16 + ((tid & 31) >> 2);   // and row_lo + 8
+    const uint32_t a_off[1] = {0}, b_off[1] = {SLICE_BYTES};
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    float o[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) o[i] = 0.f;
+
+    int ia = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      float s[1][BK / 2];
+      float alpha[2];
+      slice_products<BK, SA, 1>(s, ia, n_slices, ra, A_BYTES, a_off, b_off, full_a, empty_a, wg);
+      online_softmax<BK>(s[0], m, l, alpha, row_lo, it * BK, q0 + wg * 64, S, causal, t,
+                         scale_log2);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      uint32_t pa[BK / 16][4];
+      acc_to_a<BK>(pa, s[0]);   // P rounded to v's dtype
+      const int sb = it % SB;
+      sm90::mbar_wait(full_b + 8 * sb, (it / SB) & 1);
+      sm90::fence_operand(o);
+      sm90::wgmma_fence();
+      product_mn<N, BK>(o, pa, rb + sb * B_BYTES);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(o);
+      sm90::mbar_arrive(empty_b + 8 * sb);
+    }
+
+    const float l_lo = fmaxf(l[0], 1e-30f), l_hi = fmaxf(l[1], 1e-30f);
+    if (t == 0 && blockIdx.z == 0) {
+      float* out = lse + (size_t)bh * S;
+      if (row_lo < S) out[row_lo] = m[0] * LN2 + logf(l_lo);
+      if (row_lo + 8 < S) out[row_lo + 8] = m[1] * LN2 + logf(l_hi);
+    }
+    sm90::named_barrier(3, 2 * WG);   // both warpgroups are done with ring A
+    store_tile<N>(smem, o, &to, wg, q0 + wg * 64, bh, 1.f / l_lo, 1.f / l_hi, c0, slabs);
+  }
+}
+
+// K2 above D = 256: one CTA per (b*h, 128-row q tile, N-column chunk of dQ),
+// the q tiles in reverse order; BK-row K and V tiles up to the diagonal. The
+// CTA's lse and delta rows are loaded once.
+template <int N, int BK, int SA, int SB>
+__global__ void __launch_bounds__(HT, 1)
+dq_wgmma_cols_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdq,
+                     const __grid_constant__ CUtensorMap tlse,
+                     const __grid_constant__ CUtensorMap tdelta, int S, int D, float scale,
+                     int causal) {
+  constexpr uint32_t A_BYTES = 2 * SLICE_BYTES + 2 * BK * 128, B_BYTES = BK * N * 2;
+  constexpr uint32_t R_BYTES = 128 * 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t ra = sm90::smem_u32(smem), rb = ra + SA * A_BYTES;
+  const uint32_t rows = rb + SB * B_BYTES;             // lse[128], delta[128]
+  const uint32_t q_bar = rows + 2 * R_BYTES;
+  const uint32_t full_a = q_bar + 8, empty_a = full_a + 8 * SA;
+  const uint32_t full_b = empty_a + 8 * SA, empty_b = full_b + 8 * SB;
+  const float* lse_s = reinterpret_cast<const float*>(smem + (rows - ra));
+  const float* delta_s = lse_s + 128;
+
+  const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * 128, c0 = blockIdx.z * N;
+  const int slabs = min(N, D - c0) / 64;
+  const int kv_end = causal ? min(S, q0 + 128) : S;
+  const int n_tiles = (kv_end + BK - 1) / BK, n_slices = D / 64;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_bar, 1);
+    for (int st = 0; st < SA; ++st) {
+      sm90::mbar_init(full_a + 8 * st, 1);
+      sm90::mbar_init(empty_a + 8 * st, 2 * WG);
+    }
+    for (int st = 0; st < SB; ++st) {
+      sm90::mbar_init(full_b + 8 * st, 1);
+      sm90::mbar_init(empty_b + 8 * st, 2 * WG);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role is warp-uniform to the compiler: setmaxnreg is warpgroup-collective
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (wg == 2) {   // producer
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(q_bar, 2 * R_BYTES);
+      for (int h = 0; h < 2; ++h) {
+        sm90::tma_load_2d(rows + h * 256, &tlse, q_bar, q0 + 64 * h, bh);
+        sm90::tma_load_2d(rows + R_BYTES + h * 256, &tdelta, q_bar, q0 + 64 * h, bh);
+      }
+      int ia = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        for (int sl = 0; sl < n_slices; ++sl, ++ia) {
+          const int st = ia % SA;
+          const uint32_t a = ra + st * A_BYTES, bar = full_a + 8 * st;
+          sm90::mbar_wait(empty_a + 8 * st, ((ia / SA) & 1) ^ 1);
+          sm90::mbar_expect_tx(bar, A_BYTES);
+          load_tile<64, 128>(a, &tq, bar, q0, bh, sl * 64);
+          load_tile<64, 128>(a + SLICE_BYTES, &tdo, bar, q0, bh, sl * 64);
+          load_tile<64, BK>(a + 2 * SLICE_BYTES, &tk, bar, it * BK, bh, sl * 64);
+          load_tile<64, BK>(a + 2 * SLICE_BYTES + BK * 128, &tv, bar, it * BK, bh, sl * 64);
+        }
+        const int st = it % SB;
+        sm90::mbar_wait(empty_b + 8 * st, ((it / SB) & 1) ^ 1);
+        sm90::mbar_expect_tx(full_b + 8 * st, slabs * BK * 128);
+        load_tile<N, BK>(rb + st * B_BYTES, &tk, full_b + 8 * st, it * BK, bh, c0, slabs);
+      }
+    }
+  } else {   // consumers
+    sm90::reg_alloc<240>();
+    const int tid = threadIdx.x % WG, t = tid & 3;
+    const int qw = q0 + wg * 64;                                   // the warpgroup's first q row
+    const int lr = wg * 64 + (tid / 32) * 16 + ((tid & 31) >> 2);   // local row, and lr + 8
+    const int row_lo = q0 + lr;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t a_off[2] = {0, SLICE_BYTES};
+    const uint32_t b_off[2] = {2 * SLICE_BYTES, 2 * SLICE_BYTES + BK * 128};
+    float dq[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) dq[i] = 0.f;
+
+    sm90::mbar_wait(q_bar, 0);
+    const float lse2[2] = {lse_s[lr] * LOG2E, lse_s[lr + 8] * LOG2E};
+    const float dl[2] = {delta_s[lr], delta_s[lr + 8]};
+    int ia = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * BK, sb = it % SB;
+      if (causal && k0 > qw + 63) {   // every (q, kv) pair is masked
+        skip_slices<SA>(ia, n_slices, full_a, empty_a);
+        sm90::mbar_wait(full_b + 8 * sb, (it / SB) & 1);
+        sm90::mbar_arrive(empty_b + 8 * sb);
+        continue;
+      }
+      float sd[2][BK / 2];   // S and dP
+      slice_products<BK, SA, 2>(sd, ia, n_slices, ra, A_BYTES, a_off, b_off, full_a, empty_a,
+                                wg);
+      const bool edge = (causal && k0 + BK - 1 > qw) || k0 + BK > S || qw + 64 > S;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sd[0][4 * j + e];
+          if (edge && !live(row_lo + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1), S, causal))
+            x = NEG_INF;
+          const float p = exp2f(fmaf(x, scale_log2, -lse2[e >> 1]));
+          sd[1][4 * j + e] = p * (sd[1][4 * j + e] - dl[e >> 1]) * scale;
+        }
+      uint32_t dsa[BK / 16][4];
+      acc_to_a<BK>(dsa, sd[1]);   // dS rounded to k's dtype
+      sm90::mbar_wait(full_b + 8 * sb, (it / SB) & 1);
+      sm90::fence_operand(dq);
+      sm90::wgmma_fence();
+      product_mn<N, BK>(dq, dsa, rb + sb * B_BYTES);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(dq);
+      sm90::mbar_arrive(empty_b + 8 * sb);
+    }
+    sm90::named_barrier(3, 2 * WG);   // both warpgroups are done with ring A
+    store_tile<N>(smem, dq, &tdq, wg, qw, bh, 1.f, 1.f, c0, slabs);
   }
 }
 
@@ -1298,6 +1989,20 @@ constexpr size_t dkv_smem(int d, int qt) {
 constexpr size_t rows_bytes(int d) { return 2u * 64 * (d + 8); }
 constexpr size_t cols_bytes(int d) { return 2u * d * TP; }
 
+// The *_cols kernels (D > 256): output columns per chunk, query rows per
+// tile, and shared memory (83 KB forward, 117 KB dQ, 100 KB dK/dV).
+constexpr int COLS_DC = 128;
+constexpr int FWD_COLS_QT = 64, DQ_COLS_QT = 64, DKV_COLS_QT = 32;
+constexpr size_t fwd_cols_smem(int dc, int qt) {
+  return 4u * ((size_t)2 * qt * PP + BK * PP + BK * (dc + 1));
+}
+constexpr size_t dq_cols_smem(int dc, int qt) {
+  return 4u * ((size_t)3 * qt * PP + 2 * BK * PP + BK * (dc + 1) + 2 * qt);
+}
+constexpr size_t dkv_cols_smem(int dc, int qt) {
+  return 4u * ((size_t)2 * BK * PP + 2 * qt * PP + 2 * qt * (dc + 1) + 2 * BK * (qt + 1) + 2 * qt);
+}
+
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t st,
                    Args... args) {
@@ -1310,12 +2015,13 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStrea
 
 // ---- host side of the wgmma kernels: tensor maps and launch ----------------
 
-// bf16 [bh, s, d] in 64 x 64 boxes, 128-byte swizzle, zeros past the edges.
-bool tile_map(CUtensorMap* map, const void* ptr, int bh, int s, int d) {
+// bf16 [bh, s, d] in boxes of 64 columns x box_rows rows, 128-byte swizzle,
+// zeros past the edges.
+bool tile_map(CUtensorMap* map, const void* ptr, int bh, int s, int d, int box_rows = 64) {
   const sm90::EncodeTiled encode = sm90::encode_tiled();
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
-  const cuuint32_t box[3] = {64, 64, 1}, step[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1}, step[3] = {1, 1, 1};
   return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                           strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -1336,26 +2042,49 @@ constexpr size_t fwd_wgmma_smem(int d, int bk, int stages) {
 constexpr size_t dkv_wgmma_smem(int d, int stages) {
   return 1024 + 2 * 2u * 128 * d + stages * (2 * 2u * 64 * d + 2 * 4u * 64) + 8 * (1 + 2 * stages);
 }
-constexpr size_t dq_wgmma_smem(int d, int stages) {
-  return 1024 + 2 * 2u * 128 * d + stages * 2 * 2u * 64 * d + 2 * 4u * 128 + 8 * (1 + 2 * stages);
+constexpr size_t dq_wgmma_smem(int d, int bk, int stages) {
+  return 1024 + 2 * 2u * 128 * d + stages * 2 * 2u * bk * d + 2 * 4u * 128 + 8 * (1 + 2 * stages);
 }
-constexpr int FWD_BK = 128;
+constexpr int fwd_bk(int d) { return d == 256 ? 64 : 128; }
 constexpr int fwd_stages(int d) { return d == 64 ? 3 : 2; }
 constexpr int DKV_STAGES = 3;
+constexpr int dq_bk(int d) { return d == 256 ? 32 : 64; }
 constexpr int DQ_STAGES = 3;
+// bf16 above D = 256 (the wgmma chunk kernels): output columns per chunk,
+// kv rows per tile, and the stages of rings A and B.
+constexpr int COLS_N = 256;
+constexpr int FWD_COLS_BK = 64, FWD_COLS_SA = 6, FWD_COLS_SB = 2;
+constexpr int DQ_COLS_BK = 32, DQ_COLS_SA = 4, DQ_COLS_SB = 2;
+constexpr size_t fwd_wgmma_cols_smem(int bk, int sa, int sb) {
+  return 1024 + sa * (SLICE_BYTES + bk * 128u) + sb * bk * COLS_N * 2u + 8 * 2 * (sa + sb);
+}
+constexpr size_t dq_wgmma_cols_smem(int bk, int sa, int sb) {
+  return 1024 + sa * (2 * SLICE_BYTES + 2 * bk * 128u) + sb * bk * COLS_N * 2u + 2 * 4u * 128 +
+         8 * (1 + 2 * (sa + sb));
+}
+constexpr size_t SMEM_LIMIT = 232448;   // an H100 block's opt-in maximum (227 KB)
+static_assert(fwd_wgmma_cols_smem(FWD_COLS_BK, FWD_COLS_SA, FWD_COLS_SB) <= SMEM_LIMIT &&
+                  FWD_COLS_SA * (SLICE_BYTES + FWD_COLS_BK * 128) >= 128 * COLS_N * 2,
+              "K1 above D 256: the rings, and ring A holds the output tile");
+static_assert(dq_wgmma_cols_smem(DQ_COLS_BK, DQ_COLS_SA, DQ_COLS_SB) <= SMEM_LIMIT &&
+                  DQ_COLS_SA * (2 * SLICE_BYTES + 2 * DQ_COLS_BK * 128) >= 128 * COLS_N * 2,
+              "K2 above D 256: the rings, and ring A holds the output tile");
+static_assert(fwd_wgmma_smem(256, fwd_bk(256), fwd_stages(256)) <= SMEM_LIMIT, "K1 at D 256");
+static_assert(dq_wgmma_smem(256, dq_bk(256), DQ_STAGES) <= SMEM_LIMIT, "K2 at D 256");
+static_assert(dkv_cols_smem(COLS_DC, DKV_COLS_QT) <= SMEM_LIMIT, "K3 above D 256");
 
 template <int D>
 cudaError_t run_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                           int s, float scale, int causal, cudaStream_t st) {
-  constexpr int STAGES = fwd_stages(D);
+  constexpr int BKF = fwd_bk(D), STAGES = fwd_stages(D);
   CUtensorMap tq, tk, tv, to;
   if (s % 8 != 0 || !tile_map(&tq, q, bh, s, D) || !tile_map(&tk, k, bh, s, D) || !tile_map(&tv, v, bh, s, D) ||
       !tile_map(&to, o, bh, s, D))
     return cudaErrorInvalidValue;
-  auto kernel = fwd_wgmma_kernel<D, FWD_BK, STAGES>;
+  auto kernel = fwd_wgmma_kernel<D, BKF, STAGES>;
   const cudaError_t err = check_registers(kernel);
   if (err != cudaSuccess) return err;
-  return launch(kernel, dim3(bh, (s + 127) / 128), HT, fwd_wgmma_smem(D, FWD_BK, STAGES), st, tq,
+  return launch(kernel, dim3(bh, (s + 127) / 128), HT, fwd_wgmma_smem(D, BKF, STAGES), st, tq,
                 tk, tv, to, (float*)lse, s, scale * LOG2E, causal);
 }
 
@@ -1380,41 +2109,56 @@ template <int D>
 cudaError_t run_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, int bh, int s, float scale,
                          int causal, cudaStream_t st) {
+  constexpr int BKQ = dq_bk(D);
   CUtensorMap tq, tk, tv, tdo, tdq, tlse, tdelta;
-  if (s % 8 != 0 || !tile_map(&tq, q, bh, s, D) || !tile_map(&tk, k, bh, s, D) ||
-      !tile_map(&tv, v, bh, s, D) || !tile_map(&tdo, dout, bh, s, D) ||
+  if (s % 8 != 0 || !tile_map(&tq, q, bh, s, D) || !tile_map(&tk, k, bh, s, D, BKQ) ||
+      !tile_map(&tv, v, bh, s, D, BKQ) || !tile_map(&tdo, dout, bh, s, D) ||
       !tile_map(&tdq, dq, bh, s, D) || !row_map(&tlse, lse, bh, s) ||
       !row_map(&tdelta, delta, bh, s))
     return cudaErrorInvalidValue;
-  auto kernel = dq_wgmma_kernel<D, DQ_STAGES>;
+  auto kernel = dq_wgmma_kernel<D, BKQ, DQ_STAGES>;
   const cudaError_t err = check_registers(kernel);
   if (err != cudaSuccess) return err;
-  return launch(kernel, dim3(bh, (s + 127) / 128), HT, dq_wgmma_smem(D, DQ_STAGES), st, tq, tk,
-                tv, tdo, tdq, tlse, tdelta, s, scale, causal);
+  return launch(kernel, dim3(bh, (s + 127) / 128), HT, dq_wgmma_smem(D, BKQ, DQ_STAGES), st, tq,
+                tk, tv, tdo, tdq, tlse, tdelta, s, scale, causal);
 }
 
-// bf16 at D = 64 and 128 takes the wgmma kernels, D = 16 and 32 the
-// mma.sync ones. The wgmma kernels need S % 8 == 0 (TMA's 16-byte row
-// strides of lse and delta), which every S that supports() admits meets.
-constexpr bool wgmma_dim(int d) { return d == 64 || d == 128; }
-
-// f32 runs the CUDA-core kernels, bf16 the tensor-core ones up to D = 128 and
-// the CUDA-core ones (T = bf16) at D = 256.
+// Which kernel runs, a rule of (kernel, dtype, head dim). The wgmma kernels
+// need S % 8 == 0 (TMA's 16-byte row strides of lse and delta), which every S
+// that supports() admits meets.
+enum Kernel { K_FWD = 0, K_DQ = 1, K_DKV = 2 };
+enum Route { R_NONE, R_WGMMA, R_MMA, R_CORE, R_COLS, R_WGMMA_COLS };
+// the widths of the *_cols kernels
+constexpr bool cols_dim(int d) { return d > 256 && d % DS == 0; }
+constexpr Route route(int kernel, bool bf, int d) {
+  if (d > 256) {
+    if (!cols_dim(d)) return R_NONE;
+    return bf && kernel != K_DKV ? R_WGMMA_COLS : R_COLS;
+  }
+  if (d != 16 && d != 32 && d != 64 && d != 128 && d != 256) return R_NONE;
+  if (!bf) return R_CORE;                   // f32: scalar FMA
+  if (d <= 32) return R_MMA;                // mma.sync m16n8k16
+  if (d <= 128) return R_WGMMA;
+  return kernel == K_DKV ? R_CORE : R_WGMMA;   // D = 256
+}
 template <typename T>
-constexpr bool mma_dim(int d) {
-  return std::is_same<T, bf16>::value && d <= 128;
-}
+constexpr bool is_bf16() { return std::is_same<T, bf16>::value; }
+// above 256 the launchers split by dtype at compile time, as route() does
+static_assert(route(K_FWD, true, 320) == R_WGMMA_COLS && route(K_DQ, true, 320) == R_WGMMA_COLS &&
+                  route(K_DKV, true, 320) == R_COLS && route(K_FWD, false, 320) == R_COLS &&
+                  route(K_DQ, false, 320) == R_COLS,
+              "the *_cols launchers follow route()");
 
 template <typename T, int D>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                     int s, float scale, int causal, cudaStream_t st) {
-  const dim3 grid((s + 63) / 64, bh);
+  constexpr Route r = route(K_FWD, is_bf16<T>(), D);
   constexpr int QT = q_tile(D);
-  if constexpr (std::is_same<T, bf16>::value && wgmma_dim(D))
+  if constexpr (r == R_WGMMA)
     return run_fwd_wgmma<D>(q, k, v, o, lse, bh, s, scale, causal, st);
-  else if constexpr (mma_dim<T>(D))
-    return launch(fwd_mma_kernel<D>, grid, MT, rows_bytes(D) + cols_bytes(D), st,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, s,
+  else if constexpr (r == R_MMA)
+    return launch(fwd_mma_kernel<D>, dim3((s + 63) / 64, bh), MT, rows_bytes(D) + cols_bytes(D),
+                  st, (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, s,
                   scale, causal);
   else
     return launch(fwd_kernel<T, D, QT>, dim3((s + QT - 1) / QT, bh), NT, fwd_smem(D, QT), st,
@@ -1425,13 +2169,13 @@ template <typename T, int D>
 cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dq, int bh, int s, float scale,
                    int causal, cudaStream_t st) {
-  const dim3 grid((s + 63) / 64, bh);
+  constexpr Route r = route(K_DQ, is_bf16<T>(), D);
   constexpr int QT = q_tile(D);
-  if constexpr (std::is_same<T, bf16>::value && wgmma_dim(D))
+  if constexpr (r == R_WGMMA)
     return run_dq_wgmma<D>(q, k, v, dout, lse, delta, dq, bh, s, scale, causal, st);
-  else if constexpr (mma_dim<T>(D))
-    return launch(dq_mma_kernel<D>, grid, MT, 2 * rows_bytes(D) + cols_bytes(D), st,
-                  (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+  else if constexpr (r == R_MMA)
+    return launch(dq_mma_kernel<D>, dim3((s + 63) / 64, bh), MT, 2 * rows_bytes(D) + cols_bytes(D),
+                  st, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
                   (const float*)lse, (const float*)delta, (bf16*)dq, s, scale, causal);
   else
     return launch(dq_kernel<T, D, QT>, dim3((s + QT - 1) / QT, bh), NT, dq_smem(D, QT), st,
@@ -1443,11 +2187,12 @@ template <typename T, int D>
 cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
                     float scale, int causal, cudaStream_t st) {
-  const dim3 grid((s + 63) / 64, bh);
+  constexpr Route r = route(K_DKV, is_bf16<T>(), D);
   constexpr int QT = q_tile(D);
-  if constexpr (std::is_same<T, bf16>::value && wgmma_dim(D))
+  const dim3 grid((s + 63) / 64, bh);
+  if constexpr (r == R_WGMMA)
     return run_dkv_wgmma<D>(q, k, v, dout, lse, delta, dk, dv, bh, s, scale, causal, st);
-  else if constexpr (mma_dim<T>(D))
+  else if constexpr (r == R_MMA)
     return launch(dkv_mma_kernel<D>, grid, MT,
                   2 * rows_bytes(D) + 2 * cols_bytes(D) + 2 * 64 * sizeof(float), st,
                   (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
@@ -1459,9 +2204,84 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
                   (T*)dv, s, scale, causal);
 }
 
+// D > 256 (a multiple of 64): the column-chunked kernels, grid axis z over
+// the chunks (COLS_N wide on the tensor cores, COLS_DC on the CUDA cores).
+cudaError_t run_fwd_wgmma_cols(int d, const void* q, const void* k, const void* v, void* o,
+                               void* lse, int bh, int s, float scale, int causal,
+                               cudaStream_t st) {
+  CUtensorMap tq, tk, tv, to;
+  if (s % 8 != 0 || !tile_map(&tq, q, bh, s, d) || !tile_map(&tk, k, bh, s, d) ||
+      !tile_map(&tv, v, bh, s, d) || !tile_map(&to, o, bh, s, d))
+    return cudaErrorInvalidValue;
+  auto kernel = fwd_wgmma_cols_kernel<COLS_N, FWD_COLS_BK, FWD_COLS_SA, FWD_COLS_SB>;
+  const cudaError_t err = check_registers(kernel);
+  if (err != cudaSuccess) return err;
+  return launch(kernel, dim3(bh, (s + 127) / 128, (d + COLS_N - 1) / COLS_N), HT,
+                fwd_wgmma_cols_smem(FWD_COLS_BK, FWD_COLS_SA, FWD_COLS_SB), st, tq, tk, tv, to,
+                (float*)lse, s, d, scale * LOG2E, causal);
+}
+
+cudaError_t run_dq_wgmma_cols(int d, const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse, const void* delta, void* dq,
+                              int bh, int s, float scale, int causal, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdq, tlse, tdelta;
+  if (s % 8 != 0 || !tile_map(&tq, q, bh, s, d) || !tile_map(&tk, k, bh, s, d, DQ_COLS_BK) ||
+      !tile_map(&tv, v, bh, s, d, DQ_COLS_BK) || !tile_map(&tdo, dout, bh, s, d) ||
+      !tile_map(&tdq, dq, bh, s, d) || !row_map(&tlse, lse, bh, s) ||
+      !row_map(&tdelta, delta, bh, s))
+    return cudaErrorInvalidValue;
+  auto kernel = dq_wgmma_cols_kernel<COLS_N, DQ_COLS_BK, DQ_COLS_SA, DQ_COLS_SB>;
+  const cudaError_t err = check_registers(kernel);
+  if (err != cudaSuccess) return err;
+  return launch(kernel, dim3(bh, (s + 127) / 128, (d + COLS_N - 1) / COLS_N), HT,
+                dq_wgmma_cols_smem(DQ_COLS_BK, DQ_COLS_SA, DQ_COLS_SB), st, tq, tk, tv, tdo, tdq,
+                tlse, tdelta, s, d, scale, causal);
+}
+
+template <typename T>
+cudaError_t run_fwd_cols(int d, const void* q, const void* k, const void* v, void* o, void* lse,
+                         int bh, int s, float scale, int causal, cudaStream_t st) {
+  constexpr int QT = FWD_COLS_QT;
+  if constexpr (is_bf16<T>())
+    return run_fwd_wgmma_cols(d, q, k, v, o, lse, bh, s, scale, causal, st);
+  else
+    return launch(fwd_cols_kernel<T, COLS_DC, QT>,
+                  dim3((s + QT - 1) / QT, bh, (d + COLS_DC - 1) / COLS_DC), NT,
+                  fwd_cols_smem(COLS_DC, QT), st, (const T*)q, (const T*)k, (const T*)v, (T*)o,
+                  (float*)lse, s, d, scale, causal);
+}
+
+template <typename T>
+cudaError_t run_dq_cols(int d, const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dq, int bh, int s, float scale,
+                        int causal, cudaStream_t st) {
+  constexpr int QT = DQ_COLS_QT;
+  if constexpr (is_bf16<T>())
+    return run_dq_wgmma_cols(d, q, k, v, dout, lse, delta, dq, bh, s, scale, causal, st);
+  else
+    return launch(dq_cols_kernel<T, COLS_DC, QT>,
+                  dim3((s + QT - 1) / QT, bh, (d + COLS_DC - 1) / COLS_DC), NT,
+                  dq_cols_smem(COLS_DC, QT), st, (const T*)q, (const T*)k, (const T*)v,
+                  (const T*)dout, (const float*)lse, (const float*)delta, (T*)dq, s, d, scale,
+                  causal);
+}
+
+template <typename T>
+cudaError_t run_dkv_cols(int d, const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
+                         float scale, int causal, cudaStream_t st) {
+  return launch(dkv_cols_kernel<T, COLS_DC, DKV_COLS_QT>,
+                dim3((s + BK - 1) / BK, bh, (d + COLS_DC - 1) / COLS_DC), NT,
+                dkv_cols_smem(COLS_DC, DKV_COLS_QT), st, (const T*)q, (const T*)k, (const T*)v,
+                (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, s, d,
+                scale, causal);
+}
+
 }  // namespace
 
-// Dispatch on dtype (0 = f32, 1 = bf16) and head dim; FN is a run_* template.
+// Dispatch on dtype (0 = f32, 1 = bf16) and head dim: FN<T, D> for each
+// width route() names below 256, FN##_cols<T>(d, ...) above it. Any other
+// head dim returns cudaErrorInvalidValue (the wrapper pads before it calls).
 #define FA_DISPATCH(FN, ...)                                                       \
   do {                                                                             \
     (void)cudaGetLastError();                                                      \
@@ -1475,6 +2295,7 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
         case 128: return (int)FN<float, 128>(__VA_ARGS__, st);                     \
         case 256: return (int)FN<float, 256>(__VA_ARGS__, st);                     \
       }                                                                            \
+      if (cols_dim(d)) return (int)FN##_cols<float>(d, __VA_ARGS__, st);                \
     } else if (dtype == 1) {                                                       \
       switch (d) {                                                                 \
         case 16: return (int)FN<__nv_bfloat16, 16>(__VA_ARGS__, st);               \
@@ -1483,6 +2304,7 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
         case 128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__, st);             \
         case 256: return (int)FN<__nv_bfloat16, 256>(__VA_ARGS__, st);             \
       }                                                                            \
+      if (cols_dim(d)) return (int)FN##_cols<__nv_bfloat16>(d, __VA_ARGS__, st);        \
     }                                                                              \
     return (int)cudaErrorInvalidValue;                                             \
   } while (0)
@@ -1507,14 +2329,32 @@ int fa_dkv(int dtype, int d, const void* q, const void* k, const void* v, const 
   FA_DISPATCH(run_dkv, q, k, v, dout, lse, delta, dk, dv, bh, s, scale, causal);
 }
 
-// Dynamic shared-memory bytes of the bf16 wgmma kernel (0: forward, 1: dK/dV,
-// 2: dQ) at head dim d, or 0 where d takes the mma.sync kernels.
+// The kernel that fa_fwd (kernel 0), fa_dq (1) or fa_dkv (2) launches at this
+// dtype and head dim, by route(); null where none takes it.
+const char* fa_kernel_name(int kernel, int dtype, int d) {
+  static const char* const names[6][3] = {
+      {nullptr, nullptr, nullptr},
+      {"fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel"},
+      {"fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel"},
+      {"fwd_kernel", "dq_kernel", "dkv_kernel"},
+      {"fwd_cols_kernel", "dq_cols_kernel", "dkv_cols_kernel"},
+      {"fwd_wgmma_cols_kernel", "dq_wgmma_cols_kernel", nullptr}};
+  if (kernel < 0 || kernel > 2 || dtype < 0 || dtype > 1) return nullptr;
+  return names[route(kernel, dtype == 1, d)][kernel];
+}
+
+// Dynamic shared-memory bytes of the bf16 wgmma kernel (0: forward, 1: dQ,
+// 2: dK/dV) at head dim d, or 0 where d takes another kernel.
 int fa_wgmma_smem(int kernel, int d) {
-  if (!wgmma_dim(d)) return 0;
+  if (kernel < 0 || kernel > 2) return 0;
+  if (route(kernel, true, d) == R_WGMMA_COLS)
+    return (int)(kernel == K_FWD ? fwd_wgmma_cols_smem(FWD_COLS_BK, FWD_COLS_SA, FWD_COLS_SB)
+                                 : dq_wgmma_cols_smem(DQ_COLS_BK, DQ_COLS_SA, DQ_COLS_SB));
+  if (route(kernel, true, d) != R_WGMMA) return 0;
   switch (kernel) {
-    case 0: return (int)fwd_wgmma_smem(d, FWD_BK, fwd_stages(d));
-    case 1: return (int)dkv_wgmma_smem(d, DKV_STAGES);
-    case 2: return (int)dq_wgmma_smem(d, DQ_STAGES);
+    case K_FWD: return (int)fwd_wgmma_smem(d, fwd_bk(d), fwd_stages(d));
+    case K_DQ: return (int)dq_wgmma_smem(d, dq_bk(d), DQ_STAGES);
+    case K_DKV: return (int)dkv_wgmma_smem(d, DKV_STAGES);
   }
   return 0;
 }

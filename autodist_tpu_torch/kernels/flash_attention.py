@@ -15,25 +15,29 @@ Layout: q/k/v are [batch, heads, seq, head_dim]; LSE is f32
 exactly, so the same shapes take the same branch in both packages. The
 CUDA tiles are the kernels' own and are documented in the source: bf16
 at head dim 64 or 128 runs all three as TMA-fed wgmma kernels on
-128-row output tiles, every other case on 64-row tiles (32-row query
-tiles at head dim 256); the TPU's ``_default_blocks`` tiling has no
-counterpart here.
+128-row output tiles, and so do the bf16 forward and dQ at 256 and
+above (in chunks of 256 output columns above 256); every other case
+runs on the CUDA cores or mma.sync on 64-row tiles (32-row query tiles
+at head dim 256; chunks of 128 columns above 256). ``kernel_name`` says
+which kernel the dispatch picks; the TPU's ``_default_blocks`` tiling
+has no counterpart here.
 
-The kernels take head dims 16, 32, 64, 128 and 256; the JAX kernel takes
-any. ``flash_attention`` zero-pads q, k and v along the head dim up to
-the next of these (``padded_head_dim``) and slices the output back:
-zero columns of q and k leave every score unchanged, since ``sm_scale``
-comes from the true head dim; zero columns of v give zero columns of o,
-and autograd slices dq, dk and dv the same way. A head dim above 256
-raises.
+The kernels take head dims 16, 32, 64, 128, 256 and every multiple of 64
+above 256; the JAX kernel takes any. ``flash_attention`` zero-pads q, k
+and v along the head dim up to the next of these (``padded_head_dim``)
+and slices the output back: zero columns of q and k leave every score
+unchanged, since ``sm_scale`` comes from the true head dim; zero columns
+of v give zero columns of o, and autograd slices dq, dk and dv the same
+way.
 
 Beside the kernels live their plain PyTorch versions (``_fwd_plain``,
 ``_dq_plain``, ``_dkv_plain``): they materialize the scores but keep the
 kernels' cast points and constants. A tensor on the CPU goes to them; a
 CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches by name.
+launches by name, ``KERNEL_LAUNCHES`` by the CUDA kernel that ran.
 """
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -42,17 +46,21 @@ from autodist_tpu_torch.kernels import build
 
 NEG_INF = -1e30   # same masking constant as parallel/ring_attention.py
 SOURCE = 'flash_attention.cu'
-HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128)   # bf16 at these: the TMA-fed wgmma kernels
+HEAD_DIMS = (16, 32, 64, 128, 256)   # and every multiple of COL_STEP above
+COL_STEP = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_CODES = {'fwd': 0, 'dq': 1, 'dkv': 2}
 
 #: Kernel launches since the last reset, by kernel: 'fwd', 'dq', 'dkv'.
 LAUNCHES = {'fwd': 0, 'dq': 0, 'dkv': 0}
+#: The same launches by the CUDA kernel that ran (``kernel_name``).
+KERNEL_LAUNCHES = {}
 
 
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    KERNEL_LAUNCHES.clear()
 
 
 def _pick_block(seq, target):
@@ -81,12 +89,18 @@ def preferred(shape):
 
 def padded_head_dim(head_dim):
     """The head dim the kernels run ``head_dim`` at: the smallest of
-    ``HEAD_DIMS`` that holds it."""
+    ``HEAD_DIMS`` that holds it, above them the next multiple of
+    ``COL_STEP`` (264 -> 320)."""
     for width in HEAD_DIMS:
         if head_dim <= width:
             return width
-    raise ValueError('flash_attention: head_dim %d is above the kernels\' '
-                     'limit of %d' % (head_dim, HEAD_DIMS[-1]))
+    return -(-head_dim // COL_STEP) * COL_STEP
+
+
+def kernel_width(head_dim):
+    """Whether the kernels take ``head_dim`` as it is."""
+    return head_dim in HEAD_DIMS or (head_dim > HEAD_DIMS[-1] and
+                                     head_dim % COL_STEP == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +159,8 @@ _SIGNATURES = {
     'fa_fwd': [_I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     'fa_dq': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     'fa_dkv': [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    'fa_wgmma_smem': [_I, _I],   # (0 fwd | 1 dK/dV | 2 dQ, head dim) -> bytes
+    'fa_wgmma_smem': [_I, _I],   # (0 fwd | 1 dQ | 2 dK/dV, head dim) -> bytes
+    'fa_kernel_name': [_I, _I, _I],   # (kernel, dtype, head dim) -> name
 }
 _lib = None
 
@@ -158,9 +173,24 @@ def load_library():
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = ctypes.c_char_p if name == 'fa_kernel_name' \
+                else ctypes.c_int
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_name(kernel, dtype, head_dim):
+    """The CUDA kernel that the dispatch launches for ``kernel`` ('fwd',
+    'dq' or 'dkv') at this dtype and kernel head dim, as
+    'fwd_wgmma_kernel<bf16,256>'; None where no kernel takes it. Read
+    from the library (its ``route()``), so it builds the kernels."""
+    name = load_library().fa_kernel_name(_KERNEL_CODES[kernel],
+                                         _DTYPE_CODES[dtype], head_dim)
+    if name is None:
+        return None
+    return '%s<%s,%d>' % (name.decode(), 'bf16' if dtype == torch.bfloat16
+                          else 'f32', head_dim)
 
 
 def _check(tensors, head_dim):
@@ -169,27 +199,30 @@ def _check(tensors, head_dim):
     if ref.dtype not in _DTYPE_CODES:
         raise TypeError('flash_attention kernels take float32 or bfloat16, '
                         'got %s' % ref.dtype)
-    if head_dim not in HEAD_DIMS:
-        raise ValueError('flash_attention kernels take head_dim in %s, got '
-                         '%d' % (HEAD_DIMS, head_dim))
+    if not kernel_width(head_dim):
+        raise ValueError('flash_attention kernels take head_dim in %s or a '
+                         'multiple of %d above, got %d'
+                         % (HEAD_DIMS, COL_STEP, head_dim))
     for t in tensors:
         if t.device != ref.device or t.dtype != ref.dtype or \
                 t.shape != ref.shape:
             raise ValueError('flash_attention: q/k/v (and dO) must share '
                              'device, dtype and shape')
-    if ref.dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and \
-            ref.shape[2] % 8:
+    # bf16 from head dim 64 on runs TMA-fed kernels (S % 8 == 0)
+    if ref.dtype == torch.bfloat16 and head_dim >= 64 and ref.shape[2] % 8:
         raise ValueError('flash_attention: bf16 at head_dim %d takes seq '
                          'a multiple of 8 (as supports() admits), got %d'
                          % (head_dim, ref.shape[2]))
 
 
-def _launch(name, fn, *args):
-    err = fn(*args)
+def _launch(name, fn, dtype, head_dim, *args):
+    err = fn(_DTYPE_CODES[dtype], head_dim, *args)
     if err != 0:
         raise RuntimeError('%s kernel launch failed: cudaError %d'
                            % (name, err))
     LAUNCHES[name] += 1
+    kernel = kernel_name(name, dtype, head_dim)
+    KERNEL_LAUNCHES[kernel] = KERNEL_LAUNCHES.get(kernel, 0) + 1
 
 
 def _prep(t):
@@ -215,7 +248,7 @@ def _fwd_cuda(q, k, v, causal, sm_scale):
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
-        _launch('fwd', lib.fa_fwd, _DTYPE_CODES[q.dtype], d, _ptr(q),
+        _launch('fwd', lib.fa_fwd, q.dtype, d, _ptr(q),
                 _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b * h, s,
                 float(sm_scale), int(causal), _stream(q))
     return o, lse
@@ -238,7 +271,7 @@ def _dq_cuda(q, k, v, do, lse, delta, causal, sm_scale):
     dq = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):
-        _launch('dq', lib.fa_dq, _DTYPE_CODES[q.dtype], d, _ptr(q), _ptr(k),
+        _launch('dq', lib.fa_dq, q.dtype, d, _ptr(q), _ptr(k),
                 _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), b * h,
                 s, float(sm_scale), int(causal), _stream(q))
     return dq
@@ -252,7 +285,7 @@ def _dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
     with torch.cuda.device(q.device):
-        _launch('dkv', lib.fa_dkv, _DTYPE_CODES[q.dtype], d, _ptr(q),
+        _launch('dkv', lib.fa_dkv, q.dtype, d, _ptr(q),
                 _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
                 _ptr(dv), b * h, s, float(sm_scale), int(causal), _stream(q))
     return dk, dv
@@ -313,8 +346,9 @@ def flash_attention(q, k, v, causal=True, sm_scale=None):
     Differentiable (flash backward). Requires ``seq`` to split into
     uniform blocks (``supports()``), as the JAX package does; callers
     take ``local_flash_attention`` otherwise. CUDA tensors run the
-    kernels, CPU tensors their plain versions; on both, a head dim
-    outside ``HEAD_DIMS`` runs zero-padded to ``padded_head_dim``.
+    kernels, CPU tensors their plain versions; on both, a head dim the
+    kernels lack (``kernel_width``) runs zero-padded to
+    ``padded_head_dim``.
     """
     head_dim = q.shape[-1]
     if sm_scale is None:

@@ -18,12 +18,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the port) and the least time the card could take (the bound), with
    TFLOP/s and the bound's share of the time; a second launch of each
    kernel must give the same bits; dQ and dK/dV are also timed together
-   against the fused attention's backward, which computes both;
+   against the fused attention's backward, which computes both; the
+   same at gpt_small(n_heads=3)'s [4, 3, 4096, 256] and at
+   gpt_small(n_heads=2)'s [1, 2, 4096, 384] (bf16, causal, timed), the
+   shapes the head-dim-256 and -384 steps of phase 5 give the kernels;
 2b. ``flash_head_dims``: K1-K3 through the wrapper at [2, 8, 1024, D]
-   for the head dims the kernels take only zero-padded (80 and 96 ->
-   128, 160 -> 256), bf16 and f32, causal and not: forward and the three
-   gradients against the plain versions at the true D, one launch of
-   each kernel, and each kernel's time beside the same B·H·S at D = 64;
+   for head dims 80 and 96 (zero-padded to 128), 160 (to 256), 256 and
+   384 (as they are), bf16 and f32, causal and not: forward and the
+   three gradients against the plain versions at the true D, one launch
+   of each kernel, the CUDA kernel the dispatch named, and each kernel's
+   time beside the same B·H·S at D = 64;
 3. the fused conv + BatchNorm kernel (K4) held against its plain version
    at each of ResNet-101's main-path shapes (batch 256) in bf16, and in
    f32 at two of them and at a stage-1 shape (802,816 rows), with times:
@@ -32,12 +36,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the bound, with TFLOP/s and the bound's share of the time;
 4. small models through the kernels on the card against the same models
    on the CPU (the plain versions), as the reference on a small input: a
-   Transformer at S = 512 and ``ResNet((1, 1))`` with
+   Transformer at S = 512 (head dim 64, and one layer at head dim 384,
+   the column-chunked kernels) and ``ResNet((1, 1))`` with
    ``AUTODIST_FUSED_CONV=1`` (loss, every gradient, every EMA update);
 5. gpt_small at full width through ``Trainer`` at bench_longctx's
    configuration (seq 4096, batch 4, bf16, remat), 3 adamw steps; the
    launch counts must read 24 fwd (12 blocks plus 12 remat recomputes),
-   12 dQ and 12 dK/dV per step;
+   12 dQ and 12 dK/dV per step, each by the CUDA kernel the head dim
+   routes to; then the same at 3 heads (``gpt_small_head_dim_256``: head
+   dim 256, the same attention work) and one step at 2 heads
+   (``gpt_small_head_dim_384``, batch cut to 1), printed beside it;
 6. bert_large at full width, seq 128, batch 32, 2 steps through
    ``trainer_from_strategy(..., AllReduce())``: the plain-attention arm,
    so every launch count stays 0;
@@ -74,8 +82,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the same init (losses within 1e-5 relative, the first within 0.5 of
    ln(vocab)); and both at tiny width on the card against the CPU (3
    Adam steps, losses within 1e-4);
-11. the card's line, the ``kernels`` line (K1-K4 of the main paths, and
-   the head-dim-256 variant of K1-K3 as launched at head dim 160), and last
+11. the card's line, the ``kernels`` line (K1-K4 of the main paths:
+   K1-K3 at head dim 64, at 256 and at 384, each row with the CUDA
+   kernel that ran and its launches in its own phase), and last
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time (CUDA events around back-to-back launches
@@ -135,6 +144,9 @@ REPLACES = {'fwd': 'autodist_tpu/kernels/flash_attention.py:99',
             'dq': 'autodist_tpu/kernels/flash_attention.py:183',
             'dkv': 'autodist_tpu/kernels/flash_attention.py:224'}
 GPT_SHAPE, BERT_SHAPE = (4, 12, 4096, 64), (8, 16, 512, 64)
+# gpt_small at 3 heads (head dim 256, the same attention work as
+# GPT_SHAPE) and at 2 heads (head dim 384) with the batch cut to 1
+GPT_D256_SHAPE, GPT_D384_SHAPE = (4, 3, 4096, 256), (1, 2, 4096, 384)
 # max |kernel - plain| <= atol + rtol * |plain|, per output.
 # f32 (TF32 off): the same products summed in another order over up to
 # 4096 terms. bf16: O may differ by two bf16 ulps (P is rounded at the
@@ -284,7 +296,8 @@ def ptxas_summary(log):
     report (flash attention's kernels and K4's)."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"entry function '\w*?\d+((?:fwd|dq|dkv)(?:_(?:wg)?mma)?_kernel)"
+        m = re.search(r"entry function '\w*?\d+((?:fwd|dq|dkv)"
+                      r"(?:_(?:wg)?mma|_cols|_wgmma_cols)?_kernel)"
                       r"I(f|13__nv_bfloat16)?Li(\d+)E", line)
         c = re.search(r"entry function '\w*?\d+(cb_\w+?_kernel)"
                       r"(?:I((?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+)E)?",
@@ -354,7 +367,8 @@ def check_kernels(shape, causal, dtype, timed, smi):
         ok = all(p for _, p in results)
         repeat = all(bool(torch.equal(a, b))
                      for a, b in zip(first[name], again[name]))
-        rec = {'max_abs_err': err, 'bitwise_repeat': repeat}
+        rec = {'max_abs_err': err, 'bitwise_repeat': repeat,
+               'cuda_kernel': fa.kernel_name(name, dtype, shape[-1])}
         if timed:
             rec.update(_times(name, *runs[name], q, k, v, do, causal,
                               scale))
@@ -590,6 +604,88 @@ def family_step(name, model, hw, launches_expected, smi):
     torch.cuda.empty_cache()
 
 
+# gpt_small's attention at three head dims, and the CUDA kernels each must
+# run on: (heads, batch, steps, kernels by wrapper kernel, cut)
+GPT_ARMS = {
+    'gpt_small': (12, 4, 3, {'fwd': 'fwd_wgmma_kernel',
+                             'dq': 'dq_wgmma_kernel',
+                             'dkv': 'dkv_wgmma_kernel'}, None),
+    'gpt_small_head_dim_256': (3, 4, 3, {'fwd': 'fwd_wgmma_kernel',
+                                         'dq': 'dq_wgmma_kernel',
+                                         'dkv': 'dkv_kernel'}, None),
+    'gpt_small_head_dim_384': (2, 1, 1, {'fwd': 'fwd_wgmma_cols_kernel',
+                                         'dq': 'dq_wgmma_cols_kernel',
+                                         'dkv': 'dkv_cols_kernel'},
+                               'batch 4 -> 1 and one step: the column-'
+                               'chunked CUDA-core dK/dV bounds its time')}
+
+
+def gpt_small_phase(name, smi, profiling):
+    """gpt_small at full width (dim 768, 12 layers, vocab 32000) at
+    bench_longctx's seq 4096, bf16, remat, through ``Trainer``, with the
+    heads, batch and steps of ``GPT_ARMS[name]``, on one batch. The
+    launches must read 24 fwd (12 blocks plus 12 remat recomputes), 12 dQ
+    and 12 dK/dV per step, every one by the CUDA kernel the arm names.
+    Returns the phase's record."""
+    n_heads, batch, steps, kernels, cut = GPT_ARMS[name]
+    cfg = TransformerConfig.gpt_small(n_heads=n_heads, dtype=torch.bfloat16,
+                                      remat=True, max_len=4096)
+    d = cfg.dim // n_heads
+    trainer = Trainer(TransformerLM(cfg, seed=0), optim.adamw(1e-4),
+                      spec=ParallelSpec(dp=1))
+    data = make_batch(cfg.vocab, batch, 4096)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    state, losses, seconds = train_steps(trainer, data, steps)
+    launches, by_kernel = dict(fa.LAUNCHES), dict(fa.KERNEL_LAUNCHES)
+    # the median of the steps after the first; a one-step arm reports its
+    # only step, first-use costs included
+    step_s = float(np.median(seconds[1:] or seconds))
+    rec = dict(phase=name, head_dim=d, n_heads=n_heads, seq=4096,
+               batch=batch, steps=steps, losses=losses,
+               step_seconds=seconds, tokens_per_s=batch * 4096 / step_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, kernel_launches=by_kernel,
+               launches_per_step={k: n / steps for k, n in launches.items()},
+               card=smi)
+    if cut:
+        rec['reduced'] = cut
+    emit(**rec)
+    require(all(math.isfinite(x) for x in losses), '%s loss not finite'
+            % name)
+    require(abs(losses[0] - math.log(cfg.vocab)) < 0.5,
+            '%s initial loss %.4f is not near ln(vocab)' % (name, losses[0]))
+    per_step = {'fwd': 2 * cfg.n_layers, 'dq': cfg.n_layers,
+                'dkv': cfg.n_layers}
+    require(launches == {k: steps * n for k, n in per_step.items()},
+            '%s launch counts %s, expected %s per step'
+            % (name, launches, per_step))
+    want = {'%s<bf16,%d>' % (kernels[k], d): steps * n
+            for k, n in per_step.items()}
+    require(by_kernel == want, '%s ran the CUDA kernels %s, expected %s'
+            % (name, by_kernel, want))
+    if profiling:
+        profile_step(name, trainer, state, data, smi)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flash_row(name, rec, launches, shape, suffix=''):
+    """A flash kernel's entry of the ``kernels`` line: ``rec`` from
+    ``check_kernels`` at ``shape`` (bf16, causal, timed), ``launches``
+    from the main-path phase that gives the kernels that shape."""
+    return {'name': 'flash_attention_' + name + suffix, 'route': 'cuda',
+            'source': SOURCE, 'replaces': REPLACES[name],
+            'launches': launches, 'max_abs_err': rec['max_abs_err'],
+            'ms': rec['ms'], 'plain_ms': rec['plain_ms'],
+            'bound_ms': rec['bound_ms'], 'bound_by': rec['bound_by'],
+            'library_ms': rec['library_ms'], 'library': rec['library'],
+            'tflops': rec['tflops'], 'bound_share': rec['bound_share'],
+            'cuda_kernel': rec['cuda_kernel'], 'shape': list(shape),
+            'dtype': 'bfloat16', 'causal': True}
+
+
 def make_batch(vocab, batch, seq, seed=0):
     rng = np.random.RandomState(seed)
     return {'tokens': rng.randint(0, vocab, (batch, seq), dtype=np.int32),
@@ -684,12 +780,13 @@ def profile_step(name, trainer, state, batch, smi):
     return state, emit_profile(name, wall, by_name, smi)
 
 
-def small_reference():
+def small_reference(dim=128, n_heads=2, n_layers=2):
     """The kernels on the card against the plain versions on the CPU, on
     a small model whose attention takes the kernel branch (S = 512):
     loss and every gradient."""
-    cfg = TransformerConfig.tiny(dtype=torch.float32, max_len=512, dim=128,
-                                 n_heads=2, remat=True)
+    cfg = TransformerConfig.tiny(dtype=torch.float32, max_len=512, dim=dim,
+                                 n_heads=n_heads, n_layers=n_layers,
+                                 remat=True)
     batch = make_batch(cfg.vocab, 2, 512, seed=2)
     out = {}
     for device in ('cuda', 'cpu'):
@@ -708,8 +805,8 @@ def small_reference():
     ok = abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu) and grad_err <= 1e-4 and \
         launches == {'fwd': 2 * cfg.n_layers, 'dq': cfg.n_layers,
                      'dkv': cfg.n_layers}
-    emit(phase='small_reference', loss_cuda=l_gpu, loss_cpu=l_cpu,
-         max_grad_err=grad_err, launches=launches, ok=ok)
+    emit(phase='small_reference', head_dim=dim // n_heads, loss_cuda=l_gpu,
+         loss_cpu=l_cpu, max_grad_err=grad_err, launches=launches, ok=ok)
     require(ok, 'the model on the card disagrees with the CPU reference')
 
 
@@ -970,19 +1067,22 @@ def dsl_phase(smi, profiling):
         dist.destroy_process_group()
 
 
-# -- head dims the kernels take zero-padded ---------------------------------
+# -- head dims beside 64 ------------------------------------------------------
 # B, H, S of the flash_head_dims phase, and the head dims it runs: 80 and
-# 96 run padded to 128 (the wgmma kernels in bf16), 160 padded to 256 (the
-# CUDA-core kernels with a 32-row query tile, in both dtypes)
+# 96 run padded to 128 (the wgmma kernels in bf16), 160 padded to 256 and
+# 256 as it is (bf16: the wgmma forward and dQ, dK/dV on the CUDA cores
+# with a 32-row query tile; f32: all three there), 384 as it is (the
+# column-chunked kernels, both dtypes)
 HEAD_DIM_BHS = (2, 8, 1024)
-PADDED_HEAD_DIMS = (80, 96, 160)
+HEAD_DIM_CASES = (80, 96, 160, 256, 384)
 
 
 def check_head_dim(d, causal, dtype, smi):
     """flash_head_dims for one (head dim, mask, dtype). Through the
     wrapper, which zero-pads to ``fa.padded_head_dim(d)``: the forward and
     the three gradients against the plain versions at the true head dim,
-    one launch of each kernel. Then each kernel's time at the padded
+    one launch of each kernel, by the CUDA kernel that the dispatch names
+    (``fa.kernel_name``). Then each kernel's time at the padded
     width (``_fwd_cuda`` etc., as the wrapper launches them), its plain
     version's and the library's at the true head dim, and the bound of
     the work at the true head dim; and the wrapper's whole forward (the
@@ -1000,6 +1100,7 @@ def check_head_dim(d, causal, dtype, smi):
     dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), do)
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
+    by_kernel = dict(fa.KERNEL_LAUNCHES)
     o2, lse2 = fa._fwd_plain(q, k, v, causal, scale)
     delta = fa._delta(do, o2)
     dq2 = fa._dq_plain(q, k, v, do, lse2, delta, causal, scale)
@@ -1026,8 +1127,10 @@ def check_head_dim(d, causal, dtype, smi):
     out = {}
     for name, results in checks.items():
         ok = all(p for _, p in results)
+        kernel = fa.kernel_name(name, dtype, width)
         rec = {'max_abs_err': max(e for e, _ in results),
-               'launches': launches[name]}
+               'launches': launches[name], 'cuda_kernel': kernel,
+               'cuda_kernel_launches': by_kernel.get(kernel, 0)}
         rec.update(_times(name, *runs[name], q, k, v, do, causal, scale))
         if name == 'fwd':
             with torch.no_grad():
@@ -1042,35 +1145,32 @@ def check_head_dim(d, causal, dtype, smi):
         require(ok, '%s kernel at head dim %d (padded to %d) disagrees with '
                 'its plain version, %s causal=%s' % (name, d, width, dtype,
                                                      causal))
-        require(launches[name] == 1, 'the wrapper at head dim %d launched '
-                '%s %d times, expected once' % (d, name, launches[name]))
+        require(launches[name] == 1 and by_kernel.get(kernel) == 1,
+                'the wrapper at head dim %d launched %s %d times (%s), '
+                'expected once by %s' % (d, name, launches[name], by_kernel,
+                                         kernel))
         out[name] = rec
     return out
 
 
 def flash_head_dims(smi):
-    """The head dims the kernels take only zero-padded, each beside the
-    kernels at head dim 64 on the same B·H·S. Returns (records by (d,
-    causal, dtype), launches summed over the head-dim-160 runs: the
-    head-dim-256 variant)."""
-    records, launches_256 = {}, dict.fromkeys(('fwd', 'dq', 'dkv'), 0)
+    """The head dims beside 64, each beside the kernels at head dim 64 on
+    the same B·H·S. Returns the records by (d, causal, dtype)."""
+    records = {}
     for dtype in (torch.bfloat16, torch.float32):
         for causal in (True, False):
             records[(64, causal, dtype)] = check_kernels(
                 HEAD_DIM_BHS + (64,), causal, dtype, True, smi)
-            for d in PADDED_HEAD_DIMS:
-                rec = check_head_dim(d, causal, dtype, smi)
-                records[(d, causal, dtype)] = rec
-                if fa.padded_head_dim(d) == 256:
-                    for name in launches_256:
-                        launches_256[name] += rec[name]['launches']
+            for d in HEAD_DIM_CASES:
+                records[(d, causal, dtype)] = check_head_dim(d, causal,
+                                                             dtype, smi)
             torch.cuda.empty_cache()
     emit(phase='flash_head_dims_summary', bhs=list(HEAD_DIM_BHS),
          ms={'%s d%d %s %s' % (name, d, str(dt).replace('torch.', ''),
                                'causal' if c else 'full'): rec[name]['ms']
              for (d, c, dt), rec in sorted(records.items(), key=str)
              for name in ('fwd', 'dq', 'dkv')}, card=smi)
-    return records, launches_256
+    return records
 
 
 # -- bench_sparse's models through the functional Trainer ---------------------
@@ -1306,7 +1406,8 @@ def main(argv):
     lib = fa.load_library()
     cblib = cb.load_library()
     smem = {'%s_wgmma_kernel<bf16,%d>' % (name, d): lib.fa_wgmma_smem(i, d)
-            for i, name in enumerate(('fwd', 'dkv', 'dq')) for d in (64, 128)}
+            for i, name in enumerate(('fwd', 'dq', 'dkv'))
+            for d in (64, 128, 256) if lib.fa_wgmma_smem(i, d)}
     smem.update({'cb_wgmma_kernel<%d>' % cblib.cb_block_n(shape[2]):
                  cblib.cb_wgmma_smem(shape[2]) for shape in RESNET_K4})
     emit(phase='build', sources=[SOURCE, CB_SOURCE],
@@ -1325,7 +1426,11 @@ def main(argv):
     for shape, causal in ((GPT_SHAPE, False), (BERT_SHAPE, True)):
         check_kernels(shape, causal, torch.bfloat16, False, smi)
         torch.cuda.empty_cache()
-    head_dims, launches_256 = flash_head_dims(smi)
+    for shape in (GPT_D256_SHAPE, GPT_D384_SHAPE):
+        results[(shape, True, torch.bfloat16)] = check_kernels(
+            shape, True, torch.bfloat16, True, smi)
+        torch.cuda.empty_cache()
+    flash_head_dims(smi)
 
     k4 = [check_conv_bn(shape, torch.bfloat16, smi) for shape in RESNET_K4]
     for shape in K4_F32:
@@ -1333,35 +1438,16 @@ def main(argv):
     torch.cuda.empty_cache()
 
     small_reference()
+    small_reference(dim=768, n_heads=2, n_layers=1)   # head dim 384
     small_resnet_reference()
 
-    # gpt_small at bench_longctx's configuration: the kernel arm
-    cfg = TransformerConfig.gpt_small(dtype=torch.bfloat16, remat=True,
-                                      max_len=4096)
-    trainer = Trainer(TransformerLM(cfg, seed=0), optim.adamw(1e-4),
-                      spec=ParallelSpec(dp=1))
-    batch = make_batch(cfg.vocab, 4, 4096)
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    state, losses, seconds = train_steps(trainer, batch, 3)
-    launches = dict(fa.LAUNCHES)
-    step_s = float(np.median(seconds[1:]))
-    emit(phase='gpt_small', seq=4096, batch=4, steps=3, losses=losses,
-         step_seconds=seconds, tokens_per_s=4 * 4096 / step_s,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches, card=smi)
-    require(all(math.isfinite(x) for x in losses), 'gpt_small loss not finite')
-    require(abs(losses[0] - math.log(cfg.vocab)) < 0.5,
-            'gpt_small initial loss %.4f is not near ln(vocab)' % losses[0])
-    per_step = {'fwd': 2 * cfg.n_layers, 'dq': cfg.n_layers,
-                'dkv': cfg.n_layers}
-    require(launches == {k: 3 * n for k, n in per_step.items()},
-            'gpt_small launch counts %s, expected %s per step'
-            % (launches, per_step))
-    if profiling:
-        profile_step('gpt_small', trainer, state, batch, smi)
-    del trainer, state
-    torch.cuda.empty_cache()
+    # gpt_small at bench_longctx's configuration (the kernel arm), and the
+    # same width at head dims 256 and 384
+    gpt = {name: gpt_small_phase(name, smi, profiling) for name in GPT_ARMS}
+    emit(phase='head_dim_comparison', card=smi, **{
+        name: {k: rec[k] for k in ('head_dim', 'batch', 'tokens_per_s',
+                                   'step_seconds', 'peak_mem_gb')}
+        for name, rec in gpt.items()})
 
     # bert_large at bench_bert's seq 128: the plain-attention arm
     cfg = TransformerConfig.bert_large(dtype=torch.bfloat16, remat=True)
@@ -1420,36 +1506,20 @@ def main(argv):
     torch.cuda.empty_cache()
     small_sparse_reference()
 
-    main_path = results[(GPT_SHAPE, True, torch.bfloat16)]
+    # K1-K3 at each head dim's main-path shape, with the launches of the
+    # phase that gives the kernels that shape
     kernels = []
-    for name in ('fwd', 'dq', 'dkv'):
-        rec = main_path[name]
-        kernels.append({
-            'name': 'flash_attention_' + name, 'route': 'cuda',
-            'source': SOURCE, 'replaces': REPLACES[name],
-            'launches': launches[name], 'max_abs_err': rec['max_abs_err'],
-            'ms': rec['ms'], 'plain_ms': rec['plain_ms'],
-            'bound_ms': rec['bound_ms'], 'bound_by': rec['bound_by'],
-            'library_ms': rec['library_ms'], 'library': rec['library'],
-            'tflops': rec['tflops'], 'bound_share': rec['bound_share'],
-            'shape': list(GPT_SHAPE), 'dtype': 'bfloat16', 'causal': True})
-    # the head-dim-256 variant of K1-K3 (the CUDA-core kernels with a
-    # 32-row query tile), reached at head dim 160 through the wrapper's
-    # zero padding: its launches in the flash_head_dims phase, its record
-    # at bf16, causal
-    d256 = head_dims[(160, True, torch.bfloat16)]
-    for name in ('fwd', 'dq', 'dkv'):
-        rec = d256[name]
-        kernels.append({
-            'name': 'flash_attention_%s_head_dim_256' % name, 'route': 'cuda',
-            'source': SOURCE, 'replaces': REPLACES[name],
-            'launches': launches_256[name], 'max_abs_err': rec['max_abs_err'],
-            'ms': rec['ms'], 'plain_ms': rec['plain_ms'],
-            'bound_ms': rec['bound_ms'], 'bound_by': rec['bound_by'],
-            'library_ms': rec['library_ms'], 'library': rec['library'],
-            'tflops': rec['tflops'], 'bound_share': rec['bound_share'],
-            'shape': list(HEAD_DIM_BHS) + [160], 'padded_to': 256,
-            'dtype': 'bfloat16', 'causal': True})
+    for arm, shape, suffix in (('gpt_small', GPT_SHAPE, ''),
+                               ('gpt_small_head_dim_256', GPT_D256_SHAPE,
+                                '_head_dim_256'),
+                               ('gpt_small_head_dim_384', GPT_D384_SHAPE,
+                                '_head_dim_384')):
+        main_path = results[(shape, True, torch.bfloat16)]
+        for name in ('fwd', 'dq', 'dkv'):
+            rec = main_path[name]
+            kernels.append(flash_row(
+                name, rec, gpt[arm]['kernel_launches'].get(rec['cuda_kernel'],
+                                                           0), shape, suffix))
     # K4: launch-weighted means over ResNet-101's main-path shapes
     weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]
 

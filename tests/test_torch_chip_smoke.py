@@ -210,6 +210,83 @@ ptxas info    : Used 96 registers, used 1 barriers, 400 bytes cmem[0]
         'fwd_kernel<f32,256>': '96 regs, 0 B spilled'}
 
 
+def test_ptxas_summary_reads_the_head_dim_256_and_column_chunked_kernels():
+    """The bf16 wgmma forward and dQ at head dim 256 (their first
+    template argument) and the column-chunked kernels above 256 (the
+    dtype, then the chunk width; the wgmma ones' chunk width first), as
+    nvcc 12.8 names them in a file-specific anonymous namespace."""
+    ns = '_ZN49_GLOBAL__N__f013377b_18_flash_attention_cu_fa_fwd'
+    log = '\n'.join(
+        "ptxas info    : Compiling entry function '%s%s' for 'sm_90a'\n"
+        "    0 bytes stack frame, %d bytes spill stores, 0 bytes spill "
+        "loads\nptxas info    : Used %d registers, used 1 barriers"
+        % (ns, name, spill, regs) for name, spill, regs in (
+            ('16fwd_wgmma_kernelILi256ELi64ELi2EEEv14CUtensorMap_stS1_S1_S1_'
+             'Pfifi', 0, 168),
+            ('15dq_wgmma_kernelILi256ELi32ELi3EEEv14CUtensorMap_stS1_S1_S1_S1_'
+             'S1_S1_ifi', 0, 168),
+            ('15fwd_cols_kernelIfLi128ELi64EEEvPKT_S3_S3_PS1_Pfiifi', 0, 114),
+            ('14dq_cols_kernelIfLi128ELi64EEEvPKT_S3_S3_S3_PKfS5_PS1_iifi', 0,
+             124),
+            ('15dkv_cols_kernelI13__nv_bfloat16Li128ELi32EEEvPKT_S4_S4_S4_'
+             'PKfS6_PS2_S7_iifi', 8, 170),
+            ('21fwd_wgmma_cols_kernelILi256ELi64ELi6ELi2EEEv14CUtensorMap_st'
+             'S1_S1_S1_Pfiifi', 0, 168)))
+    assert chip_smoke.ptxas_summary(log) == {
+        'fwd_wgmma_kernel<bf16,256>': '168 regs, 0 B spilled',
+        'dq_wgmma_kernel<bf16,256>': '168 regs, 0 B spilled',
+        'fwd_cols_kernel<f32,128>': '114 regs, 0 B spilled',
+        'dq_cols_kernel<f32,128>': '124 regs, 0 B spilled',
+        'dkv_cols_kernel<bf16,128>': '170 regs, 8 B spilled',
+        'fwd_wgmma_cols_kernel<bf16,256>': '168 regs, 0 B spilled'}
+
+
+@pytest.mark.parametrize('name', ['fwd', 'dq', 'dkv'])
+def test_flash_rows_carry_every_key_of_the_kernels_line(name):
+    """A flash row of the ``kernels`` line: every key the line promises,
+    the numbers of the record it came from, and the CUDA kernel that
+    ran."""
+    rec = {'max_abs_err': 0.01, 'bitwise_repeat': True,
+           'cuda_kernel': '%s_wgmma_kernel<bf16,256>' % name, 'ms': 0.3,
+           'plain_ms': 20.0, 'library_ms': 0.25, 'library': 'sdpa',
+           'bound_ms': 0.1, 'bound_by': 'operations', 'tflops': 330.0,
+           'bound_share': 0.33}
+    row = chip_smoke.flash_row(name, rec, 72, chip_smoke.GPT_D256_SHAPE,
+                               '_head_dim_256')
+    for key in ('name', 'route', 'source', 'replaces', 'launches',
+                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                'library_ms'):
+        assert key in row, key
+    assert row['name'] == 'flash_attention_%s_head_dim_256' % name
+    assert row['replaces'] == chip_smoke.REPLACES[name]
+    assert row['launches'] == 72 and row['route'] == 'cuda'
+    assert row['cuda_kernel'] == rec['cuda_kernel']
+    assert row['shape'] == [4, 3, 4096, 256]
+    for key in ('ms', 'plain_ms', 'bound_ms', 'library_ms', 'max_abs_err'):
+        assert row[key] == rec[key]
+
+
+def test_gpt_arms_share_the_width_and_name_their_kernels():
+    """The three gpt_small arms: one width (768), head dims 64, 256 and
+    384, and for each the kernels the dispatch must run: wgmma at 64,
+    the wgmma forward and dQ with the CUDA-core dK/dV at 256, the
+    column-chunked kernels at 384 (whose arm lists its cut)."""
+    from autodist_tpu_torch.models.transformer import TransformerConfig
+    dims = {}
+    for name, (heads, batch, steps, kernels, cut) in \
+            chip_smoke.GPT_ARMS.items():
+        cfg = TransformerConfig.gpt_small(n_heads=heads)
+        dims[name] = cfg.dim // heads
+        assert set(kernels) == {'fwd', 'dq', 'dkv'}
+        assert (cut is not None) == (batch != 4 or steps != 3)
+    assert dims == {'gpt_small': 64, 'gpt_small_head_dim_256': 256,
+                    'gpt_small_head_dim_384': 384}
+    assert chip_smoke.GPT_ARMS['gpt_small_head_dim_256'][3]['dkv'] == \
+        'dkv_kernel'
+    assert chip_smoke.GPT_D256_SHAPE[1] * chip_smoke.GPT_D256_SHAPE[3] == \
+        chip_smoke.GPT_SHAPE[1] * chip_smoke.GPT_SHAPE[3]
+
+
 # -- the functional Trainer phases' helpers, at tiny width on the CPU --------
 def test_ncf_trainer_phase_at_tiny_width(tmp_path):
     """fit with prefetch, eval and checkpoints every 10 steps; the

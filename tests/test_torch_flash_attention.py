@@ -133,12 +133,15 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
 @pytest.mark.parametrize('seq,head_dim,dtype,raises', [
     (36, 64, torch.bfloat16, True), (36, 128, torch.bfloat16, True),
     (36, 32, torch.bfloat16, False), (36, 64, torch.float32, False),
-    (40, 64, torch.bfloat16, False)])
+    (40, 64, torch.bfloat16, False), (36, 256, torch.bfloat16, True),
+    (36, 256, torch.float32, False), (36, 384, torch.bfloat16, True),
+    (36, 384, torch.float32, False)])
 def test_wgmma_kernels_take_seq_a_multiple_of_8(seq, head_dim, dtype,
                                                 raises):
-    """bf16 at head dim 64/128 runs the TMA-fed kernels, whose lse/delta
-    rows need S % 8 == 0 (every S supports() admits): the wrapper says so
-    before any pointer reaches the card; other cases pass the check."""
+    """bf16 at head dim 64, 128 and from 256 on runs TMA-fed kernels (all
+    three at 64/128, the forward and dQ from 256 on), whose lse/delta rows need
+    S % 8 == 0 (every S supports() admits): the wrapper says so before
+    any pointer reaches the card; other cases pass the check."""
     x = torch.zeros(1, 1, seq, head_dim, dtype=dtype)
     if raises:
         with pytest.raises(ValueError, match='multiple of 8'):
@@ -177,29 +180,65 @@ def test_head_dims_between_the_kernels_widths_pad_and_slice(head_dim,
                                    atol=1e-5, rtol=1e-5)
 
 
-def test_head_dim_above_the_kernels_limit_raises():
-    x = torch.zeros(1, 1, 64, 264)
-    with pytest.raises(ValueError, match='limit of 256'):
-        fa.flash_attention(x, x, x)
+def test_padded_head_dim_widths():
+    """The kernels' widths: 16, 32, 64, 128, 256, then every multiple of
+    64 (the column-chunked kernels); any other head dim pads up."""
     assert fa.padded_head_dim(256) == 256 and fa.padded_head_dim(16) == 16
     assert fa.padded_head_dim(1) == 16
+    assert [fa.padded_head_dim(d) for d in (257, 264, 320, 321, 384,
+                                            1000)] == \
+        [320, 320, 320, 384, 384, 1024]
+    assert all(fa.kernel_width(fa.padded_head_dim(d)) for d in range(1, 600))
+    assert not fa.kernel_width(192) and not fa.kernel_width(264)
 
 
-def test_lm_at_head_dim_96_matches_jax_interpret():
-    """TransformerLM with dim 192 and 2 heads (head dim 96) at S = 512:
-    the flash branch in both packages (Pallas interpret mode in JAX,
-    which takes any head dim; the padded plain versions in the port).
-    Loss 1e-5 relative, gradients 5e-4 as the other flash parity tests."""
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('head_dim', [264, 320, 384])
+def test_head_dims_above_256_match_jax_interpret(head_dim, causal):
+    """Above 256 the wrapper pads to the next multiple of 64 (264 -> 320)
+    and slices back: the forward and the gradients of the port's wrapper
+    on the CPU (the plain versions at the padded width) against the JAX
+    flash_attention in Pallas interpret mode, which takes any head dim,
+    for a random cotangent. Tolerances as the other parity tests here:
+    2e-5 on o, 5e-4 on gradients."""
+    shape = (1, 2, 64, head_dim)
+    q, k, v, w = _inputs(shape, 9)
+
+    def jloss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, causal=causal) *
+                       jnp.asarray(w))
+
+    jo = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal)
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = fa.flash_attention(tq, tk, tv, causal=causal)
+    assert o.shape == shape
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo),
+                               atol=2e-5, rtol=2e-5)
+    (o * torch.from_numpy(w)).sum().backward()
+    for got, wg in zip((tq.grad, tk.grad, tv.grad), want):
+        assert got.shape == shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(wg),
+                                   atol=5e-4, rtol=5e-4)
+
+
+def _lm_matches_jax_interpret(dim, n_heads):
+    """TransformerLM with ``dim`` / ``n_heads`` = head dim, one layer, at
+    S = 512: the flash branch in both packages (Pallas interpret mode in
+    JAX, which takes any head dim; the padded plain versions in the
+    port). Loss 1e-5 relative, gradients 5e-4 as the other flash parity
+    tests."""
     from autodist_tpu.models.transformer import TransformerConfig as JConfig
     from autodist_tpu.models.transformer import TransformerLM as JLM
     from autodist_tpu_torch.models.weights import load_params, tree_to_numpy
-    kw = dict(dim=192, n_heads=2, max_len=512, n_layers=1)
+    kw = dict(dim=dim, n_heads=n_heads, max_len=512, n_layers=1)
     jm = JLM(JConfig.tiny(dtype=jnp.float32, **kw))
     jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
     tm = TransformerLM(TransformerConfig.tiny(dtype=torch.float32, **kw),
                        device='cpu')
     load_params(tm, jp)
-    assert fa.preferred((1, 2, 512, 96)) and jfa.preferred((1, 2, 512, 96))
+    shape = (1, n_heads, 512, dim // n_heads)
+    assert fa.preferred(shape) and jfa.preferred(shape)
     rng = np.random.RandomState(5)
     batch = {k: rng.randint(0, 256, (1, 512), dtype=np.int32)
              for k in ('tokens', 'targets')}
@@ -219,3 +258,14 @@ def test_lm_at_head_dim_96_matches_jax_interpret():
     for (path, g), (_, w) in zip(got[0], want[0]):
         np.testing.assert_allclose(g, np.asarray(w), atol=5e-4, rtol=5e-4,
                                    err_msg=str(path))
+
+
+def test_lm_at_head_dim_96_matches_jax_interpret():
+    """dim 192 and 2 heads: head dim 96, padded to 128 in the port."""
+    _lm_matches_jax_interpret(192, 2)
+
+
+def test_lm_at_head_dim_384_matches_jax_interpret():
+    """dim 768 and 2 heads (gpt_small's width with 2 heads): head dim
+    384, above the fixed widths, which the port runs as it is."""
+    _lm_matches_jax_interpret(768, 2)

@@ -9,9 +9,12 @@ one. The file imports no jax, so it runs on the machine with the card:
 shapes include ragged tile edges (S = 40, 96, 200 against 64- and
 128-row tiles), every head dim the kernels take, a long S that wraps the
 wgmma kernels' TMA ring many times, and a bitwise repeat of two launches.
-Head dims the kernels lack (80, 96, 160) run through the wrapper,
-zero-padded to 128 or 256, against the plain versions at the true head
-dim; the head-dim-256 kernels run directly too. The fused conv + BatchNorm kernel: row counts that are multiples of 8 but
+Head dims the kernels lack (80, 96, 160, 264) run through the wrapper,
+zero-padded to 128, 256 or 320, against the plain versions at the true
+head dim; the head-dim-256 kernels (the wgmma forward and dQ in bf16) and
+the column-chunked kernels above 256 run directly too, and the dispatch
+names the kernel each case runs. The fused conv + BatchNorm kernel: row
+counts that are multiples of 8 but
 not of its 128-row tile, Cin = 8, 24 and 2048 (a Cin tail short of its
 64-wide step), stride 2, each prologue, bf16 and f32, and a prologue that
 would leak relu(b) into the padding if the kernel did not zero it.
@@ -73,11 +76,14 @@ def test_kernels_match_plain_on_card(shape, causal, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize('causal', [True, False])
 @pytest.mark.parametrize('shape', [(2, 3, 1024, 64), (1, 2, 200, 128),
-                                   (1, 2, 200, 64)])
+                                   (1, 2, 200, 64), (1, 2, 1024, 256),
+                                   (1, 2, 200, 384)])
 def test_kernels_repeat_bitwise_on_card(shape, causal):
     """Each CTA owns its output tile, with no atomics: two launches of
-    the forward, dQ and dK/dV (bf16, the wgmma kernels) on the same
-    inputs give the same bits."""
+    the forward, dQ and dK/dV (bf16: the wgmma kernels at 64 and 128, the
+    wgmma forward and dQ and the CUDA-core dK/dV at 256, the
+    column-chunked kernels at 384) on the same inputs give the same
+    bits."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     q, k, v, do = (torch.from_numpy(x).to('cuda', torch.bfloat16)
@@ -145,12 +151,41 @@ def test_padded_head_dims_match_plain_on_card(head_dim, causal, dtype):
 
 
 @pytest.mark.cuda
+def test_dispatch_names_the_kernel_of_each_head_dim():
+    """route() in the source, read through fa_kernel_name: bf16 at 256
+    runs the wgmma forward and dQ and the CUDA-core dK/dV; f32 at 256 the
+    CUDA-core kernels; every multiple of 64 above 256 the column-chunked
+    kernels (bf16 forward and dQ on the tensor cores); a width the
+    kernels lack, none."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels are built there')
+    bf, f32 = torch.bfloat16, torch.float32
+    want = {(bf, 256): ('fwd_wgmma_kernel', 'dq_wgmma_kernel', 'dkv_kernel'),
+            (f32, 256): ('fwd_kernel', 'dq_kernel', 'dkv_kernel'),
+            (bf, 128): ('fwd_wgmma_kernel', 'dq_wgmma_kernel',
+                        'dkv_wgmma_kernel'),
+            (bf, 32): ('fwd_mma_kernel', 'dq_mma_kernel', 'dkv_mma_kernel')}
+    for d in (320, 384, 1024):
+        want[(f32, d)] = ('fwd_cols_kernel', 'dq_cols_kernel',
+                          'dkv_cols_kernel')
+        want[(bf, d)] = ('fwd_wgmma_cols_kernel', 'dq_wgmma_cols_kernel',
+                         'dkv_cols_kernel')
+    for (dt, d), names in want.items():
+        tag = 'bf16' if dt == bf else 'f32'
+        assert [fa.kernel_name(k, dt, d) for k in ('fwd', 'dq', 'dkv')] == \
+            ['%s<%s,%d>' % (n, tag, d) for n in names]
+    for d in (192, 264, 48):
+        assert fa.kernel_name('fwd', bf, d) is None
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('causal', [True, False])
 def test_head_dim_256_kernels_match_plain_on_card(causal, dtype):
-    """The CUDA-core kernels at head dim 256 (32-row query tiles), called
-    directly: every output against its plain version, ragged S = 200
-    and a longer S = 1024."""
+    """The kernels at head dim 256, called directly (bf16: the wgmma
+    forward and dQ, dK/dV on the CUDA cores; f32: all three there): every
+    output against its plain version, ragged S = 200 and a longer
+    S = 1024."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -268,3 +303,60 @@ def test_conv_bn_backward_on_card_matches_cpu(dtype):
     for g, want in zip(grads['cuda'], grads['cpu']):
         assert g.dtype == want.dtype
         _close_to_max(g, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('head_dim', [264, 384])
+def test_head_dims_above_256_match_plain_on_card(head_dim, causal, dtype):
+    """The column-chunked kernels (the score products streamed over D;
+    chunks of 256 output columns for the bf16 forward and dQ on the
+    tensor cores, of 128 for the rest): through the wrapper, which pads
+    264 to 320 (a last chunk of 64 columns) and runs 384 as it is, one
+    launch of each kernel, and o, dq, dk, dv against the plain versions
+    at the true head dim (S = 200, ragged for every tile); then the
+    kernels called directly at 384, LSE included, at S = 1024.
+    Tolerances as test_kernels_match_plain_on_card."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    t_o, t_g = {'float32': (1e-5, 1e-5), 'bfloat16': (2e-2, 1e-2)}[dtype]
+    shape = (2, 2, 200, head_dim)
+    q, k, v, do = (torch.from_numpy(x).to('cuda', dt)
+                   for x in _inputs(shape, 8))
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.reset_launches()
+    o = fa.flash_attention(qq, kk, vv, causal=causal)
+    dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    width = fa.padded_head_dim(head_dim)
+    assert fa.LAUNCHES == {'fwd': 1, 'dq': 1, 'dkv': 1}
+    assert fa.KERNEL_LAUNCHES == {fa.kernel_name(n, dt, width): 1
+                                  for n in ('fwd', 'dq', 'dkv')}
+    scale = head_dim ** -0.5
+    o2, lse2 = fa._fwd_plain(q, k, v, causal, scale)
+    delta = fa._delta(do, o2)
+    dq2 = fa._dq_plain(q, k, v, do, lse2, delta, causal, scale)
+    dk2, dv2 = fa._dkv_plain(q, k, v, do, lse2, delta, causal, scale)
+    assert o.shape == dq.shape == dk.shape == dv.shape == shape
+    torch.testing.assert_close(o.float(), o2.float(), atol=t_o, rtol=t_o)
+    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+        torch.testing.assert_close(a.float(), b.float(), atol=t_g, rtol=t_g)
+    if head_dim % 64:
+        return
+    shape = (1, 1, 1024, head_dim)
+    q, k, v, do = (torch.from_numpy(x).to('cuda', dt)
+                   for x in _inputs(shape, 9))
+    o, lse = fa._fwd_cuda(q, k, v, causal, scale)
+    o2, lse2 = fa._fwd_plain(q, k, v, causal, scale)
+    delta = fa._delta(do, o)
+    outs = (fa._dq_cuda(q, k, v, do, lse, delta, causal, scale),) + \
+        fa._dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    want = (fa._dq_plain(q, k, v, do, lse, delta, causal, scale),) + \
+        fa._dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    torch.testing.assert_close(o.float(), o2.float(), atol=t_o, rtol=t_o)
+    torch.testing.assert_close(lse, lse2, atol=1e-5, rtol=1e-5)
+    for a, b in zip(outs, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=t_g, rtol=t_g)
