@@ -7,9 +7,9 @@
 //   dq_wgmma_kernel (bf16, D 64/128/256), dq_mma_kernel (bf16, D 16/32),
 //   dq_kernel (f32, D <= 256), dq_wgmma_cols_kernel (bf16, D > 256),
 //   dq_cols_kernel (f32, D > 256)                              <- _dq_kernel
-//   dkv_wgmma_kernel (bf16, D 64/128), dkv_mma_kernel (bf16, D 16/32),
-//   dkv_kernel (f32 D <= 256; bf16 D 256), dkv_cols_kernel (D > 256)
-//                                                              <- _dkv_kernel
+//   dkv_wgmma_kernel (bf16, D 64/128/256), dkv_mma_kernel (bf16, D 16/32),
+//   dkv_kernel (f32, D <= 256), dkv_wgmma_cols_kernel (bf16, D > 256),
+//   dkv_cols_kernel (f32, D > 256)                             <- _dkv_kernel
 // and computes what they compute, with the same constants (mask value -1e30,
 // l floored at 1e-30) and the same cast points: P is rounded to v's dtype
 // before P.V, dS to k's dtype before dS.K and to q's dtype before dS^T.Q, and
@@ -27,11 +27,11 @@
 // against 0.03 ms for the bytes); dQ does 1.5x and dK/dV 2x the forward's
 // operations. At a fixed H * D the work does not depend on D, so the same
 // holds at D = 256. What the design does about that:
-//   * bf16 runs on the tensor cores with f32 sums; the forward and dQ at
-//     every D from 64 on, and dK/dV at 64 and 128, as Hopper's warpgroup
-//     products (wgmma) fed by TMA through an mbarrier ring, so copies overlap
-//     the products and no operand is transposed in software (wgmma reads a
-//     tile MN-major through its descriptor);
+//   * bf16 runs on the tensor cores with f32 sums; all three kernels at
+//     every D from 64 on as Hopper's warpgroup products (wgmma) fed by TMA
+//     through an mbarrier ring, so copies overlap the products and no
+//     operand is transposed in software (wgmma reads a tile MN-major
+//     through its descriptor);
 //   * the [S, S] score matrix never touches device memory: a CTA owns an
 //     output tile and loops over the other operand's tiles, as the TPU grid's
 //     sequential axis did, keeping its running sums in registers;
@@ -50,24 +50,20 @@
 // tiles are stored as f32 with a row pitch of D + 1 words (no bank conflicts
 // on the strided reads). At D = 256 the four f32 tiles of dQ and dK/dV
 // (257 KB at 64 rows) do not fit an SM's 227 KB of shared memory, so the
-// query tile shrinks to QT = 32 rows there (q_tile), and bf16 dK/dV at
-// D = 256 runs these kernels too, with T = bf16 keeping its cast points: its
-// two D-wide accumulators (dK and dV) are more registers than a wgmma
-// consumer has (the next kernel PR's work).
+// query tile shrinks to QT = 32 rows there (q_tile).
 //
 // Above D = 256 no tile of D fits: not wgmma's N (at most 256), not a
 // thread's 255 registers, not 227 KB of shared memory. There the kernels
 // split the output columns into chunks over a third grid axis: each CTA
 // streams the reductions over D (S = Q.K^T, dP = dO.V^T) through shared
 // memory in 64-wide slices and recomputes the scores for its own column
-// chunk; only chunk 0 writes LSE. The bf16 forward and dQ do it on the tensor
-// cores in chunks of 256 (fwd_wgmma_cols_kernel, dq_wgmma_cols_kernel: the
-// score work ceil(D / 256) times, 2x at D = 320 and 384), the f32 kernels and
-// bf16 dK/dV on the CUDA cores in chunks of 128 (*_cols_kernel: ceil(D / 128)
-// times, 3x at D = 320 and 384). The bf16 kernels' layout is described where
-// they are defined. Supported: f32 and bf16, D in {16, 32, 64, 128, 256} and every
-// multiple of 64 above 256; the wrapper zero-pads any other D to the next of
-// these.
+// chunk; only chunk 0 writes LSE. The bf16 kernels do it on the tensor cores
+// in chunks of 256 (*_wgmma_cols_kernel: the score work ceil(D / 256) times,
+// 2x at D = 320 and 384), the f32 kernels on the CUDA cores in chunks of 128
+// (*_cols_kernel: ceil(D / 128) times, 3x at D = 320 and 384). The bf16
+// kernels' layout is described where they are defined. Supported: f32 and
+// bf16, D in {16, 32, 64, 128, 256} and every multiple of 64 above 256; the
+// wrapper zero-pads any other D to the next of these.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -484,8 +480,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 // output product (V, K, or Q and dO) is staged as the chunk's DC columns.
 // The thread layout is that of the kernels above, with DC / 16 output
 // columns a thread. A last chunk narrower than DC reads zero columns and
-// stores none of them. They run f32, and bf16 dK/dV (the bf16 forward and dQ
-// above 256 are wgmma kernels, further down).
+// stores none of them. They run f32 (bf16 above 256 runs the wgmma kernels
+// further down).
 // ---------------------------------------------------------------------------
 constexpr int DS = 64;   // width of a slice of the score products' reduction
 static_assert(DS == BK, "the slices share the score tiles' row pitch PP");
@@ -1191,9 +1187,10 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 64 and 128: warp-specialised wgmma kernels (K1 forward, K2
-// dQ, K3 dK/dV). 384 threads: warpgroups 0 and 1 consume, each owning 64 rows of
-// the CTA's 128-row output tile; warpgroup 2 produces: one thread issues
+// bf16 from D = 64 on: warp-specialised wgmma kernels (K1 forward, K2 dQ,
+// K3 dK/dV). 384 threads: warpgroups 0 and 1 consume, each owning 64 rows of
+// the CTA's 128-row output tile (K3 from D = 256 on splits a 64-row tile by
+// columns instead, dkv_halves); warpgroup 2 produces: one thread issues
 // every TMA copy, and the warpgroup hands its registers to the consumers
 // (setmaxnreg 24 / 240). The CTA's own 128 rows are loaded once; the other
 // operand streams through a ring of STAGES shared-memory stages, each with a
@@ -1290,13 +1287,13 @@ __device__ __forceinline__ void rs_product(float (&d)[N / 2], const uint32_t (&a
 }
 
 // d (64 x N) = A . B^T over D: A the warpgroup's 64 rows of a swizzled
-// [AR][D] tile at a, B a swizzled [N][D] tile at b, both K-major.
-template <int D, int N, int AR>
+// [AR][D] tile at a, B N rows of a swizzled [BR][D] tile at b, both K-major.
+template <int D, int N, int AR, int BR = N>
 __device__ __forceinline__ void product_k(float (&d)[N / 2], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t da = a + (kk / 4) * AR * 128 + (kk % 4) * 32;
-    const uint32_t db = b + (kk / 4) * N * 128 + (kk % 4) * 32;
+    const uint32_t db = b + (kk / 4) * BR * 128 + (kk % 4) * 32;
     ss_product<N>(d, sm90::desc_k(da), sm90::desc_k(db), kk > 0);
   }
 }
@@ -1447,19 +1444,19 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-// K3: one CTA per (b*h, 128-row kv tile), kv tile 0 (the most causal work)
-// first; q tiles of 64 rows with their lse and delta stream through the
-// ring from the diagonal. S^T = K.Q^T and dP^T = V.dO^T read Q and dO
-// K-major; dV += P^T.dO and dK += dS^T.Q read the same tiles MN-major.
+// K3 at D = 64 and 128: one CTA per (b*h, 128-row kv tile), kv tile 0 (the
+// most causal work) first; q tiles of 64 rows with their lse and delta
+// stream through the ring from the diagonal. S^T = K.Q^T and dP^T = V.dO^T
+// read Q and dO K-major; dV += P^T.dO and dK += dS^T.Q read the same tiles
+// MN-major.
 template <int D, int STAGES>
-__global__ void __launch_bounds__(HT, 1)
-dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-                 const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
-                 const __grid_constant__ CUtensorMap tlse,
-                 const __grid_constant__ CUtensorMap tdelta, int S, float scale, int causal) {
+__device__ __forceinline__ void dkv_rows(unsigned char* smem_raw, const CUtensorMap& tq,
+                                         const CUtensorMap& tk, const CUtensorMap& tv,
+                                         const CUtensorMap& tdo, const CUtensorMap& tdk,
+                                         const CUtensorMap& tdv, const CUtensorMap& tlse,
+                                         const CUtensorMap& tdelta, int S, float scale,
+                                         int causal) {
   constexpr uint32_t KV_BYTES = 128 * D * 2, T_BYTES = 64 * D * 2, R_BYTES = 64 * 4;
-  extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   const uint32_t sk = sm90::smem_u32(smem), sv = sk + KV_BYTES;
   const uint32_t ring = sv + KV_BYTES;                    // (Q, dO) per stage
@@ -1563,6 +1560,208 @@ dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     store_tile<D>(smem, dk, &tdk, wg, kw, bh);
     store_tile<D>(smem + KV_BYTES, dv, &tdv, wg, kw, bh);
   }
+}
+
+// A warpgroup's 64 x N accumulator, rounded to bf16, into a swizzled [64][N]
+// tile (N / 64 slabs of BOX_BYTES); then TMA to rows [row0, row0 + 64) x
+// columns [col0, col0 + 64 slabs) of head bh. All 128 threads of the
+// warpgroup call it.
+template <int N>
+__device__ __forceinline__ void store_rows64(unsigned char* tile, const float (&acc)[N / 2],
+                                             const CUtensorMap* map, int wg, int row0, int bh,
+                                             int col0, int slabs = N / 64) {
+  const int tid = threadIdx.x % WG, t = tid & 3;
+  const int r_lo = (tid / 32) * 16 + ((tid & 31) >> 2);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(tile + swz<64>(r_lo + 8 * i, 8 * j + 2 * t)) =
+          pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  sm90::fence_async_smem();
+  sm90::named_barrier(1 + wg, WG);
+  if (tid == 0) {
+    const uint32_t base = sm90::smem_u32(tile);
+#pragma unroll
+    for (int s = 0; s < N / 64; ++s)
+      if (s < slabs) sm90::tma_store_3d(map, base + s * BOX_BYTES, col0 + s * 64, row0, bh);
+    sm90::tma_store_wait();
+  }
+}
+
+// K3 from D = 256 on, split by columns: a warpgroup's S^T and dP^T (the
+// CTA's 64 kv rows x the warpgroup's 32 q columns from qc, of the q tile at
+// q0) into P = exp(S - lse) and dS = P (dP - delta) scale in f32, masked
+// only on a tile that reaches the diagonal or past S; then both, rounded (P
+// to dO's dtype, dS to q's), into the warpgroup's columns of the shared
+// [64 kv][64 q] tiles P^T at pt and dS^T at pt + BOX_BYTES.
+__device__ __forceinline__ void dkv_pds(float (&s)[16], float (&dp)[16], unsigned char* pt,
+                                        const float* ls, const float* dl, int q0, int qc,
+                                        int k0, int S, int causal, float scale) {
+  const int tid = threadIdx.x % WG, t = tid & 3;
+  const int kv_lo = (tid / 32) * 16 + ((tid & 31) >> 2);   // local kv row, and kv_lo + 8
+  const float scale_log2 = scale * LOG2E;
+  const bool edge = (causal && q0 < k0 + 64) || q0 + 64 > S || k0 + 64 > S;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 lv = *reinterpret_cast<const float2*>(ls + qc + 8 * j + 2 * t);
+    const float2 dv = *reinterpret_cast<const float2*>(dl + qc + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e];
+      if (edge &&
+          !live(q0 + qc + 8 * j + 2 * t + (e & 1), k0 + kv_lo + 8 * (e >> 1), S, causal))
+        x = NEG_INF;
+      const float p = exp2f(fmaf(x, scale_log2, -((e & 1) ? lv.y : lv.x) * LOG2E));
+      s[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dv.y : dv.x)) * scale;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t off = swz<64>(kv_lo + 8 * i, qc + 8 * j + 2 * t);
+      *reinterpret_cast<uint32_t*>(pt + off) = pack_bf16(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(pt + BOX_BYTES + off) =
+          pack_bf16(dp[4 * j + 2 * i], dp[4 * j + 2 * i + 1]);
+    }
+  }
+  sm90::fence_async_smem();
+}
+
+// dV += P^T.dO and dK += dS^T.Q over a 64-row q tile, for a warpgroup's 128
+// output columns: P^T and dS^T the shared [64][64] tiles at pd and
+// pd + BOX_BYTES (A, K-major), dO and Q 64-row tiles at sdo and sq from the
+// warpgroup's first column slab (B, read MN-major; slabs BOX_BYTES apart).
+__device__ __forceinline__ void dkv_half_products(float (&dv)[64], float (&dk)[64], uint32_t pd,
+                                                  uint32_t sdo, uint32_t sq) {
+  sm90::fence_operand(dv);
+  sm90::fence_operand(dk);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    sm90::wgmma_ss_mn_n128(dv, sm90::desc_k(pd + kk * 32),
+                           sm90::desc_mn(sdo + kk * 2048, BOX_BYTES), 1);
+    sm90::wgmma_ss_mn_n128(dk, sm90::desc_k(pd + BOX_BYTES + kk * 32),
+                           sm90::desc_mn(sq + kk * 2048, BOX_BYTES), 1);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_operand(dv);
+  sm90::fence_operand(dk);
+}
+
+// K3 at D = 256: one CTA per (b*h, 64-row kv tile), kv tile 0 first. The
+// 128-row kv tile of D 64 and 128 does not fit here: its K and V would take
+// 128 KB and each (Q, dO) stage 64 KB, and a consumer would hold two 64 x 256
+// f32 accumulators (256 registers of its 240). So K and V rows stay resident
+// (64 KB), two 64-row (Q, dO) stages (64 KB each) stream from the diagonal,
+// and the warpgroups split the work by columns: warpgroup w computes S^T and
+// dP^T for q columns [32 w, 32 w + 32) of the tile over all of D
+// (m64n32k16), turns them into P and dS (dkv_pds), and after named barrier 3
+// reads both warpgroups' halves as the A operand of dV += P^T.dO and
+// dK += dS^T.Q for its output columns [128 w, 128 w + 128) (m64n128k16). No
+// product is computed twice; a thread holds 64 + 64 accumulator registers
+// and 16 + 16 of scores. The (P^T, dS^T) tiles are double-buffered, so one
+// barrier a q tile suffices: a warpgroup writes buffer it % 2 after the
+// barrier of tile it - 1, which the other passes only once it has retired
+// its products of tile it - 2, the last to read that buffer.
+template <int STAGES>
+__device__ __forceinline__ void dkv_halves(unsigned char* smem_raw, const CUtensorMap& tq,
+                                           const CUtensorMap& tk, const CUtensorMap& tv,
+                                           const CUtensorMap& tdo, const CUtensorMap& tdk,
+                                           const CUtensorMap& tdv, const CUtensorMap& tlse,
+                                           const CUtensorMap& tdelta, int S, float scale,
+                                           int causal) {
+  constexpr int D = 256;
+  constexpr uint32_t T_BYTES = 64 * D * 2, R_BYTES = 64 * 4, PD_BYTES = 2 * BOX_BYTES;
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t sk = sm90::smem_u32(smem), sv = sk + T_BYTES;
+  const uint32_t ring = sv + T_BYTES;                    // (Q, dO) per stage
+  const uint32_t pds = ring + STAGES * 2 * T_BYTES;      // (P^T, dS^T) x 2 buffers
+  const uint32_t rows = pds + 2 * PD_BYTES;              // lse[STAGES][64], delta[STAGES][64]
+  const uint32_t kv_bar = rows + STAGES * 2 * R_BYTES;   // then full[STAGES], empty[STAGES]
+  auto sq = [&](int st) { return ring + st * 2 * T_BYTES; };
+  auto sdo = [&](int st) { return ring + st * 2 * T_BYTES + T_BYTES; };
+  auto full = [&](int st) { return kv_bar + 8 * (1 + st); };
+  auto empty = [&](int st) { return kv_bar + 8 * (1 + STAGES + st); };
+  const float* lse_s = reinterpret_cast<const float*>(smem + (rows - sk));
+  const float* delta_s = lse_s + STAGES * 64;
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * 64;
+  const int q_start = causal ? k0 : 0;
+  const int n_tiles = (S - q_start + 63) / 64;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(full(st), 1);
+      sm90::mbar_init(empty(st), 2 * WG);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role is warp-uniform to the compiler: setmaxnreg is warpgroup-collective
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (wg == 2) {   // producer
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 2 * WG) {
+      sm90::mbar_expect_tx(kv_bar, 2 * T_BYTES);
+      load_tile<D, 64>(sk, &tk, kv_bar, k0, bh);
+      load_tile<D, 64>(sv, &tv, kv_bar, k0, bh);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % STAGES, q0 = q_start + it * 64;
+        sm90::mbar_wait(empty(st), ((it / STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(full(st), 2 * T_BYTES + 2 * R_BYTES);
+        load_tile<D, 64>(sq(st), &tq, full(st), q0, bh);
+        load_tile<D, 64>(sdo(st), &tdo, full(st), q0, bh);
+        sm90::tma_load_2d(rows + st * R_BYTES, &tlse, full(st), q0, bh);
+        sm90::tma_load_2d(rows + (STAGES + st) * R_BYTES, &tdelta, full(st), q0, bh);
+      }
+    }
+  } else {   // consumers
+    sm90::reg_alloc<240>();
+    const int qc = 32 * wg;   // the warpgroup's q columns of a tile
+    float dk[64], dv[64];     // its output columns [128 wg, 128 wg + 128)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+    sm90::mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES, q0 = q_start + it * 64;
+      sm90::mbar_wait(full(st), (it / STAGES) & 1);
+      float s[16], dp[16];   // S^T and dP^T: kv rows x the warpgroup's q columns
+      sm90::wgmma_fence();
+      product_k<D, 32, 64, 64>(s, sk, sq(st) + qc * 128);
+      product_k<D, 32, 64, 64>(dp, sv, sdo(st) + qc * 128);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(s);
+      sm90::fence_operand(dp);
+      const uint32_t pd = pds + (it & 1) * PD_BYTES;
+      dkv_pds(s, dp, smem + (pd - sk), lse_s + st * 64, delta_s + st * 64, q0, qc, k0, S,
+              causal, scale);
+      sm90::named_barrier(3, 2 * WG);   // both halves of P^T and dS^T are written
+      dkv_half_products(dv, dk, pd, sdo(st) + wg * 2 * BOX_BYTES, sq(st) + wg * 2 * BOX_BYTES);
+      sm90::mbar_arrive(empty(st));
+    }
+    // no one reads K or V after the last barrier: dK, dV go out through them
+    store_rows64<128>(smem + wg * 2 * BOX_BYTES, dk, &tdk, wg, k0, bh, 128 * wg);
+    store_rows64<128>(smem + T_BYTES + wg * 2 * BOX_BYTES, dv, &tdv, wg, k0, bh, 128 * wg);
+  }
+}
+
+// K3: dkv_rows at D 64 and 128, dkv_halves at 256.
+template <int D, int STAGES>
+__global__ void __launch_bounds__(HT, 1)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                 const __grid_constant__ CUtensorMap tlse,
+                 const __grid_constant__ CUtensorMap tdelta, int S, float scale, int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  if constexpr (D == 256)
+    dkv_halves<STAGES>(smem_raw, tq, tk, tv, tdo, tdk, tdv, tlse, tdelta, S, scale, causal);
+  else
+    dkv_rows<D, STAGES>(smem_raw, tq, tk, tv, tdo, tdk, tdv, tlse, tdelta, S, scale, causal);
 }
 
 // K2: one CTA per (b*h, 128-row q tile), the q tiles in reverse order so the
@@ -1684,9 +1883,10 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 above D = 256: K1 and K2 on the tensor cores, the output columns split
-// into chunks of N = 256 over grid axis z. Chunk c owns columns [N c, N c + N)
-// of O or dQ; a last chunk past D loads and stores only its slabs inside D
+// bf16 above D = 256: K1 and K2 (and K3, described at its kernel) on the
+// tensor cores, the output columns split into chunks of N = 256 over grid
+// axis z. Chunk c owns columns [N c, N c + N) of O or dQ; a last chunk past
+// D loads and stores only its slabs inside D
 // (the columns past D hold what the product makes of stale shared memory and
 // are never stored; no column of O or dQ reads another). D is a runtime
 // multiple of 64. The score products (S = Q.K^T, and dP = dO.V^T for dQ)
@@ -1973,6 +2173,118 @@ dq_wgmma_cols_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// K3 above D = 256: one CTA per (b*h, 64-row kv tile, N-column chunk of dK
+// and dV), kv tile 0 first; 64-row q tiles from the diagonal. The score
+// products stream D through ring A, a stage one 64-wide slice of the CTA's
+// K and V rows and of the q tile's Q and dO rows; ring B carries the q
+// tile's N chunk columns of Q and dO, with its lse and delta. The
+// warpgroups split the work as dkv_halves does at D = 256; a warpgroup
+// whose 128 output columns lie past D (in a last chunk of 64 or 128
+// columns) computes its scores and skips its products. Ring A, free once
+// both warpgroups passed the last q tile's barrier, carries dK and dV out.
+template <int N, int SA, int SB>
+__global__ void __launch_bounds__(HT, 1)
+dkv_wgmma_cols_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tdk,
+                      const __grid_constant__ CUtensorMap tdv,
+                      const __grid_constant__ CUtensorMap tlse,
+                      const __grid_constant__ CUtensorMap tdelta, int S, int D, float scale,
+                      int causal) {
+  static_assert(N == 256, "two warpgroups of 128 output columns");
+  constexpr uint32_t A_BYTES = 4 * BOX_BYTES, B_BYTES = 2 * 64 * N * 2;
+  constexpr uint32_t R_BYTES = 64 * 4, PD_BYTES = 2 * BOX_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t ra = sm90::smem_u32(smem), rb = ra + SA * A_BYTES;
+  const uint32_t pds = rb + SB * B_BYTES;     // (P^T, dS^T) x 2 buffers
+  const uint32_t rows = pds + 2 * PD_BYTES;   // lse[SB][64], delta[SB][64]
+  const uint32_t full_a = rows + SB * 2 * R_BYTES, empty_a = full_a + 8 * SA;
+  const uint32_t full_b = empty_a + 8 * SA, empty_b = full_b + 8 * SB;
+  const float* lse_s = reinterpret_cast<const float*>(smem + (rows - ra));
+  const float* delta_s = lse_s + SB * 64;
+
+  const int bh = blockIdx.x, k0 = blockIdx.y * 64, c0 = blockIdx.z * N;
+  const int slabs = min(N, D - c0) / 64;
+  const int q_start = causal ? k0 : 0;
+  const int n_tiles = (S - q_start + 63) / 64, n_slices = D / 64;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < SA; ++st) {
+      sm90::mbar_init(full_a + 8 * st, 1);
+      sm90::mbar_init(empty_a + 8 * st, 2 * WG);
+    }
+    for (int st = 0; st < SB; ++st) {
+      sm90::mbar_init(full_b + 8 * st, 1);
+      sm90::mbar_init(empty_b + 8 * st, 2 * WG);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role is warp-uniform to the compiler: setmaxnreg is warpgroup-collective
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (wg == 2) {   // producer
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 2 * WG) {
+      int ia = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int q0 = q_start + it * 64;
+        for (int sl = 0; sl < n_slices; ++sl, ++ia) {
+          const int st = ia % SA;
+          const uint32_t a = ra + st * A_BYTES, bar = full_a + 8 * st;
+          sm90::mbar_wait(empty_a + 8 * st, ((ia / SA) & 1) ^ 1);
+          sm90::mbar_expect_tx(bar, A_BYTES);
+          load_tile<64, 64>(a, &tk, bar, k0, bh, sl * 64);
+          load_tile<64, 64>(a + BOX_BYTES, &tv, bar, k0, bh, sl * 64);
+          load_tile<64, 64>(a + 2 * BOX_BYTES, &tq, bar, q0, bh, sl * 64);
+          load_tile<64, 64>(a + 3 * BOX_BYTES, &tdo, bar, q0, bh, sl * 64);
+        }
+        const int st = it % SB;
+        const uint32_t b = rb + st * B_BYTES, bar = full_b + 8 * st;
+        sm90::mbar_wait(empty_b + 8 * st, ((it / SB) & 1) ^ 1);
+        sm90::mbar_expect_tx(bar, 2 * slabs * BOX_BYTES + 2 * R_BYTES);
+        load_tile<N, 64>(b, &tq, bar, q0, bh, c0, slabs);
+        load_tile<N, 64>(b + B_BYTES / 2, &tdo, bar, q0, bh, c0, slabs);
+        sm90::tma_load_2d(rows + st * R_BYTES, &tlse, bar, q0, bh);
+        sm90::tma_load_2d(rows + (SB + st) * R_BYTES, &tdelta, bar, q0, bh);
+      }
+    }
+  } else {   // consumers
+    sm90::reg_alloc<240>();
+    const int qc = 32 * wg;            // the warpgroup's q columns of a tile
+    const bool own = 2 * wg < slabs;   // its output columns reach inside D
+    const uint32_t a_off[2] = {0, BOX_BYTES};   // K and V: the same rows for both
+    const uint32_t b_off[2] = {2 * BOX_BYTES + qc * 128, 3 * BOX_BYTES + qc * 128};
+    float dk[64], dv[64];   // output columns [c0 + 128 wg, c0 + 128 wg + 128)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+    int ia = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int q0 = q_start + it * 64, sb = it % SB;
+      float sd[2][16];   // S^T and dP^T
+      slice_products<32, SA, 2>(sd, ia, n_slices, ra, A_BYTES, a_off, b_off, full_a, empty_a,
+                                0);
+      sm90::mbar_wait(full_b + 8 * sb, (it / SB) & 1);   // lse, delta, the chunk's columns
+      const uint32_t pd = pds + (it & 1) * PD_BYTES;
+      dkv_pds(sd[0], sd[1], smem + (pd - ra), lse_s + sb * 64, delta_s + sb * 64, q0, qc, k0,
+              S, causal, scale);
+      sm90::named_barrier(3, 2 * WG);   // both halves of P^T and dS^T are written
+      const uint32_t b = rb + sb * B_BYTES + wg * 2 * BOX_BYTES;
+      if (own) dkv_half_products(dv, dk, pd, b + B_BYTES / 2, b);
+      sm90::mbar_arrive(empty_b + 8 * sb);
+    }
+    if (own) {
+      const int n = min(2, slabs - 2 * wg);
+      store_rows64<128>(smem + wg * 2 * BOX_BYTES, dk, &tdk, wg, k0, bh, c0 + 128 * wg, n);
+      store_rows64<128>(smem + (4 + 2 * wg) * BOX_BYTES, dv, &tdv, wg, k0, bh, c0 + 128 * wg,
+                        n);
+    }
+  }
+}
+
 // Shared-memory bytes of each kernel.
 // The CUDA-core kernels' query tile: 64 rows, 32 at D = 256, where four f32
 // tiles of 64 rows (dQ, dK/dV) would need more than an SM's 227 KB.
@@ -2039,15 +2351,18 @@ using sm90::check_registers;
 constexpr size_t fwd_wgmma_smem(int d, int bk, int stages) {
   return 1024 + 2u * 128 * d + 2 * stages * 2u * bk * d + 8 * (1 + 2 * stages);
 }
+// K3's kv rows a CTA (64 at D = 256, dkv_halves), and its (Q, dO) stages
+constexpr int dkv_tile(int d) { return d == 256 ? 64 : 128; }
+constexpr int dkv_stages(int d) { return d == 256 ? 2 : 3; }
 constexpr size_t dkv_wgmma_smem(int d, int stages) {
-  return 1024 + 2 * 2u * 128 * d + stages * (2 * 2u * 64 * d + 2 * 4u * 64) + 8 * (1 + 2 * stages);
+  return 1024 + 2 * 2u * dkv_tile(d) * d + stages * (2 * 2u * 64 * d + 2 * 4u * 64) +
+         (d == 256 ? 4u * BOX_BYTES : 0) + 8 * (1 + 2 * stages);
 }
 constexpr size_t dq_wgmma_smem(int d, int bk, int stages) {
   return 1024 + 2 * 2u * 128 * d + stages * 2 * 2u * bk * d + 2 * 4u * 128 + 8 * (1 + 2 * stages);
 }
 constexpr int fwd_bk(int d) { return d == 256 ? 64 : 128; }
 constexpr int fwd_stages(int d) { return d == 64 ? 3 : 2; }
-constexpr int DKV_STAGES = 3;
 constexpr int dq_bk(int d) { return d == 256 ? 32 : 64; }
 constexpr int DQ_STAGES = 3;
 // bf16 above D = 256 (the wgmma chunk kernels): output columns per chunk,
@@ -2055,12 +2370,17 @@ constexpr int DQ_STAGES = 3;
 constexpr int COLS_N = 256;
 constexpr int FWD_COLS_BK = 64, FWD_COLS_SA = 6, FWD_COLS_SB = 2;
 constexpr int DQ_COLS_BK = 32, DQ_COLS_SA = 4, DQ_COLS_SB = 2;
+constexpr int DKV_COLS_SA = 2, DKV_COLS_SB = 2;
 constexpr size_t fwd_wgmma_cols_smem(int bk, int sa, int sb) {
   return 1024 + sa * (SLICE_BYTES + bk * 128u) + sb * bk * COLS_N * 2u + 8 * 2 * (sa + sb);
 }
 constexpr size_t dq_wgmma_cols_smem(int bk, int sa, int sb) {
   return 1024 + sa * (2 * SLICE_BYTES + 2 * bk * 128u) + sb * bk * COLS_N * 2u + 2 * 4u * 128 +
          8 * (1 + 2 * (sa + sb));
+}
+constexpr size_t dkv_wgmma_cols_smem(int sa, int sb) {
+  return 1024 + sa * 4u * BOX_BYTES + sb * (2 * 2u * 64 * COLS_N + 2 * 4u * 64) + 4u * BOX_BYTES +
+         8 * 2 * (sa + sb);
 }
 constexpr size_t SMEM_LIMIT = 232448;   // an H100 block's opt-in maximum (227 KB)
 static_assert(fwd_wgmma_cols_smem(FWD_COLS_BK, FWD_COLS_SA, FWD_COLS_SB) <= SMEM_LIMIT &&
@@ -2071,7 +2391,11 @@ static_assert(dq_wgmma_cols_smem(DQ_COLS_BK, DQ_COLS_SA, DQ_COLS_SB) <= SMEM_LIM
               "K2 above D 256: the rings, and ring A holds the output tile");
 static_assert(fwd_wgmma_smem(256, fwd_bk(256), fwd_stages(256)) <= SMEM_LIMIT, "K1 at D 256");
 static_assert(dq_wgmma_smem(256, dq_bk(256), DQ_STAGES) <= SMEM_LIMIT, "K2 at D 256");
-static_assert(dkv_cols_smem(COLS_DC, DKV_COLS_QT) <= SMEM_LIMIT, "K3 above D 256");
+static_assert(dkv_wgmma_smem(256, dkv_stages(256)) <= SMEM_LIMIT, "K3 at D 256");
+static_assert(dkv_wgmma_cols_smem(DKV_COLS_SA, DKV_COLS_SB) <= SMEM_LIMIT &&
+                  DKV_COLS_SA * 4 * BOX_BYTES >= 2 * 64 * COLS_N * 2,
+              "K3 above D 256: the rings, and ring A holds the dK and dV tiles");
+static_assert(dkv_cols_smem(COLS_DC, DKV_COLS_QT) <= SMEM_LIMIT, "f32 K3 above D 256");
 
 template <int D>
 cudaError_t run_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
@@ -2098,10 +2422,11 @@ cudaError_t run_dkv_wgmma(const void* q, const void* k, const void* v, const voi
       !tile_map(&tdv, dv, bh, s, D) || !row_map(&tlse, lse, bh, s) ||
       !row_map(&tdelta, delta, bh, s))
     return cudaErrorInvalidValue;
-  auto kernel = dkv_wgmma_kernel<D, DKV_STAGES>;
+  constexpr int KT = dkv_tile(D), STAGES = dkv_stages(D);
+  auto kernel = dkv_wgmma_kernel<D, STAGES>;
   const cudaError_t err = check_registers(kernel);
   if (err != cudaSuccess) return err;
-  return launch(kernel, dim3(bh, (s + 127) / 128), HT, dkv_wgmma_smem(D, DKV_STAGES), st, tq, tk,
+  return launch(kernel, dim3(bh, (s + KT - 1) / KT), HT, dkv_wgmma_smem(D, STAGES), st, tq, tk,
                 tv, tdo, tdk, tdv, tlse, tdelta, s, scale, causal);
 }
 
@@ -2133,20 +2458,19 @@ constexpr bool cols_dim(int d) { return d > 256 && d % DS == 0; }
 constexpr Route route(int kernel, bool bf, int d) {
   if (d > 256) {
     if (!cols_dim(d)) return R_NONE;
-    return bf && kernel != K_DKV ? R_WGMMA_COLS : R_COLS;
+    return bf ? R_WGMMA_COLS : R_COLS;
   }
   if (d != 16 && d != 32 && d != 64 && d != 128 && d != 256) return R_NONE;
   if (!bf) return R_CORE;                   // f32: scalar FMA
   if (d <= 32) return R_MMA;                // mma.sync m16n8k16
-  if (d <= 128) return R_WGMMA;
-  return kernel == K_DKV ? R_CORE : R_WGMMA;   // D = 256
+  return R_WGMMA;                           // D 64, 128, 256
 }
 template <typename T>
 constexpr bool is_bf16() { return std::is_same<T, bf16>::value; }
 // above 256 the launchers split by dtype at compile time, as route() does
 static_assert(route(K_FWD, true, 320) == R_WGMMA_COLS && route(K_DQ, true, 320) == R_WGMMA_COLS &&
-                  route(K_DKV, true, 320) == R_COLS && route(K_FWD, false, 320) == R_COLS &&
-                  route(K_DQ, false, 320) == R_COLS,
+                  route(K_DKV, true, 320) == R_WGMMA_COLS && route(K_FWD, false, 320) == R_COLS &&
+                  route(K_DQ, false, 320) == R_COLS && route(K_DKV, false, 320) == R_COLS,
               "the *_cols launchers follow route()");
 
 template <typename T, int D>
@@ -2266,15 +2590,36 @@ cudaError_t run_dq_cols(int d, const void* q, const void* k, const void* v, cons
                   causal);
 }
 
+cudaError_t run_dkv_wgmma_cols(int d, const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse, const void* delta, void* dk,
+                               void* dv, int bh, int s, float scale, int causal,
+                               cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv, tlse, tdelta;
+  if (s % 8 != 0 || !tile_map(&tq, q, bh, s, d) || !tile_map(&tk, k, bh, s, d) ||
+      !tile_map(&tv, v, bh, s, d) || !tile_map(&tdo, dout, bh, s, d) ||
+      !tile_map(&tdk, dk, bh, s, d) || !tile_map(&tdv, dv, bh, s, d) ||
+      !row_map(&tlse, lse, bh, s) || !row_map(&tdelta, delta, bh, s))
+    return cudaErrorInvalidValue;
+  auto kernel = dkv_wgmma_cols_kernel<COLS_N, DKV_COLS_SA, DKV_COLS_SB>;
+  const cudaError_t err = check_registers(kernel);
+  if (err != cudaSuccess) return err;
+  return launch(kernel, dim3(bh, (s + 63) / 64, (d + COLS_N - 1) / COLS_N), HT,
+                dkv_wgmma_cols_smem(DKV_COLS_SA, DKV_COLS_SB), st, tq, tk, tv, tdo, tdk, tdv,
+                tlse, tdelta, s, d, scale, causal);
+}
+
 template <typename T>
 cudaError_t run_dkv_cols(int d, const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
                          float scale, int causal, cudaStream_t st) {
-  return launch(dkv_cols_kernel<T, COLS_DC, DKV_COLS_QT>,
-                dim3((s + BK - 1) / BK, bh, (d + COLS_DC - 1) / COLS_DC), NT,
-                dkv_cols_smem(COLS_DC, DKV_COLS_QT), st, (const T*)q, (const T*)k, (const T*)v,
-                (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, s, d,
-                scale, causal);
+  if constexpr (is_bf16<T>())
+    return run_dkv_wgmma_cols(d, q, k, v, dout, lse, delta, dk, dv, bh, s, scale, causal, st);
+  else
+    return launch(dkv_cols_kernel<T, COLS_DC, DKV_COLS_QT>,
+                  dim3((s + BK - 1) / BK, bh, (d + COLS_DC - 1) / COLS_DC), NT,
+                  dkv_cols_smem(COLS_DC, DKV_COLS_QT), st, (const T*)q, (const T*)k, (const T*)v,
+                  (const T*)dout, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, s, d,
+                  scale, causal);
 }
 
 }  // namespace
@@ -2338,7 +2683,7 @@ const char* fa_kernel_name(int kernel, int dtype, int d) {
       {"fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel"},
       {"fwd_kernel", "dq_kernel", "dkv_kernel"},
       {"fwd_cols_kernel", "dq_cols_kernel", "dkv_cols_kernel"},
-      {"fwd_wgmma_cols_kernel", "dq_wgmma_cols_kernel", nullptr}};
+      {"fwd_wgmma_cols_kernel", "dq_wgmma_cols_kernel", "dkv_wgmma_cols_kernel"}};
   if (kernel < 0 || kernel > 2 || dtype < 0 || dtype > 1) return nullptr;
   return names[route(kernel, dtype == 1, d)][kernel];
 }
@@ -2347,14 +2692,18 @@ const char* fa_kernel_name(int kernel, int dtype, int d) {
 // 2: dK/dV) at head dim d, or 0 where d takes another kernel.
 int fa_wgmma_smem(int kernel, int d) {
   if (kernel < 0 || kernel > 2) return 0;
-  if (route(kernel, true, d) == R_WGMMA_COLS)
-    return (int)(kernel == K_FWD ? fwd_wgmma_cols_smem(FWD_COLS_BK, FWD_COLS_SA, FWD_COLS_SB)
-                                 : dq_wgmma_cols_smem(DQ_COLS_BK, DQ_COLS_SA, DQ_COLS_SB));
+  if (route(kernel, true, d) == R_WGMMA_COLS) {
+    switch (kernel) {
+      case K_FWD: return (int)fwd_wgmma_cols_smem(FWD_COLS_BK, FWD_COLS_SA, FWD_COLS_SB);
+      case K_DQ: return (int)dq_wgmma_cols_smem(DQ_COLS_BK, DQ_COLS_SA, DQ_COLS_SB);
+      case K_DKV: return (int)dkv_wgmma_cols_smem(DKV_COLS_SA, DKV_COLS_SB);
+    }
+  }
   if (route(kernel, true, d) != R_WGMMA) return 0;
   switch (kernel) {
     case K_FWD: return (int)fwd_wgmma_smem(d, fwd_bk(d), fwd_stages(d));
     case K_DQ: return (int)dq_wgmma_smem(d, dq_bk(d), DQ_STAGES);
-    case K_DKV: return (int)dkv_wgmma_smem(d, DKV_STAGES);
+    case K_DKV: return (int)dkv_wgmma_smem(d, dkv_stages(d));
   }
   return 0;
 }

@@ -14,11 +14,12 @@ Layout: q/k/v are [batch, heads, seq, head_dim]; LSE is f32
 ``preferred``, ``_pick_block`` and ``MIN_KERNEL_SEQ`` keep the JAX rule
 exactly, so the same shapes take the same branch in both packages. The
 CUDA tiles are the kernels' own and are documented in the source: bf16
-at head dim 64 or 128 runs all three as TMA-fed wgmma kernels on
-128-row output tiles, and so do the bf16 forward and dQ at 256 and
-above (in chunks of 256 output columns above 256); every other case
-runs on the CUDA cores or mma.sync on 64-row tiles (32-row query tiles
-at head dim 256; chunks of 128 columns above 256). ``kernel_name`` says
+from head dim 64 on runs all three as TMA-fed wgmma kernels, on 128-row
+output tiles (dK/dV from 256 on: 64-row kv tiles, split by columns over
+the two consumer warpgroups), in chunks of 256 output columns above
+256; every other case runs on the CUDA cores or mma.sync on 64-row
+tiles (f32: 32-row query tiles at head dim 256, chunks of 128 columns
+above 256). ``kernel_name`` says
 which kernel the dispatch picks; the TPU's ``_default_blocks`` tiling
 has no counterpart here.
 

@@ -20,7 +20,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    kernel must give the same bits; dQ and dK/dV are also timed together
    against the fused attention's backward, which computes both; the
    same at gpt_small(n_heads=3)'s [4, 3, 4096, 256] and at
-   gpt_small(n_heads=2)'s [1, 2, 4096, 384] (bf16, causal, timed), the
+   gpt_small(n_heads=2)'s [4, 2, 4096, 384] (bf16, causal, timed), the
    shapes the head-dim-256 and -384 steps of phase 5 give the kernels;
 2b. ``flash_head_dims``: K1-K3 through the wrapper at [2, 8, 1024, D]
    for head dims 80 and 96 (zero-padded to 128), 160 (to 256), 256 and
@@ -28,6 +28,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    three gradients against the plain versions at the true D, one launch
    of each kernel, the CUDA kernel the dispatch named, and each kernel's
    time beside the same B·H·S at D = 64;
+2c. ``dkv_head_dims``: bf16 dK/dV at [2, 4, 1000, D] for D = 256, 320
+   and 384 (the wgmma kernels with 64-row kv tiles; 320 leaves a last
+   chunk of one 64-column slab), causal and full, against the plain
+   version, with a bitwise repeat;
 3. the fused conv + BatchNorm kernel (K4) held against its plain version
    at each of ResNet-101's main-path shapes (batch 256) in bf16, and in
    f32 at two of them and at a stage-1 shape (802,816 rows), with times:
@@ -44,8 +48,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    launch counts must read 24 fwd (12 blocks plus 12 remat recomputes),
    12 dQ and 12 dK/dV per step, each by the CUDA kernel the head dim
    routes to; then the same at 3 heads (``gpt_small_head_dim_256``: head
-   dim 256, the same attention work) and one step at 2 heads
-   (``gpt_small_head_dim_384``, batch cut to 1), printed beside it;
+   dim 256, the same attention work) and at 2 heads
+   (``gpt_small_head_dim_384``), printed beside it;
 6. bert_large at full width, seq 128, batch 32, 2 steps through
    ``trainer_from_strategy(..., AllReduce())``: the plain-attention arm,
    so every launch count stays 0;
@@ -145,8 +149,8 @@ REPLACES = {'fwd': 'autodist_tpu/kernels/flash_attention.py:99',
             'dkv': 'autodist_tpu/kernels/flash_attention.py:224'}
 GPT_SHAPE, BERT_SHAPE = (4, 12, 4096, 64), (8, 16, 512, 64)
 # gpt_small at 3 heads (head dim 256, the same attention work as
-# GPT_SHAPE) and at 2 heads (head dim 384) with the batch cut to 1
-GPT_D256_SHAPE, GPT_D384_SHAPE = (4, 3, 4096, 256), (1, 2, 4096, 384)
+# GPT_SHAPE) and at 2 heads (head dim 384)
+GPT_D256_SHAPE, GPT_D384_SHAPE = (4, 3, 4096, 256), (4, 2, 4096, 384)
 # max |kernel - plain| <= atol + rtol * |plain|, per output.
 # f32 (TF32 off): the same products summed in another order over up to
 # 4096 terms. bf16: O may differ by two bf16 ulps (P is rounded at the
@@ -317,6 +321,26 @@ def ptxas_summary(log):
             out[name] = '%s regs, %d B spilled' % (m.group(1), spill)
             name = None
     return out
+
+
+def wgmma_smem(lib, cblib):
+    """{kernel<dtype, width>: dynamic shared-memory bytes} of the
+    warp-specialised kernels, named as ``ptxas_summary`` names them: the
+    flash kernels at head dims 64, 128 and 256, the chunk kernels (by
+    their 256-column chunk, read at head dim 320) and K4 at ResNet-101's
+    output widths."""
+    smem = {}
+    for i, name in enumerate(('fwd', 'dq', 'dkv')):
+        for d in (64, 128, 256):
+            if lib.fa_wgmma_smem(i, d):
+                smem['%s_wgmma_kernel<bf16,%d>' % (name, d)] = \
+                    lib.fa_wgmma_smem(i, d)
+        if lib.fa_wgmma_smem(i, 320):
+            smem['%s_wgmma_cols_kernel<bf16,256>' % name] = \
+                lib.fa_wgmma_smem(i, 320)
+    smem.update({'cb_wgmma_kernel<%d>' % cblib.cb_block_n(shape[2]):
+                 cblib.cb_wgmma_smem(shape[2]) for shape in RESNET_K4})
+    return smem
 
 
 def max_err(got, want, tol):
@@ -605,19 +629,17 @@ def family_step(name, model, hw, launches_expected, smi):
 
 
 # gpt_small's attention at three head dims, and the CUDA kernels each must
-# run on: (heads, batch, steps, kernels by wrapper kernel, cut)
+# run on: (heads, batch, steps, kernels by wrapper kernel)
 GPT_ARMS = {
     'gpt_small': (12, 4, 3, {'fwd': 'fwd_wgmma_kernel',
                              'dq': 'dq_wgmma_kernel',
-                             'dkv': 'dkv_wgmma_kernel'}, None),
+                             'dkv': 'dkv_wgmma_kernel'}),
     'gpt_small_head_dim_256': (3, 4, 3, {'fwd': 'fwd_wgmma_kernel',
                                          'dq': 'dq_wgmma_kernel',
-                                         'dkv': 'dkv_kernel'}, None),
-    'gpt_small_head_dim_384': (2, 1, 1, {'fwd': 'fwd_wgmma_cols_kernel',
+                                         'dkv': 'dkv_wgmma_kernel'}),
+    'gpt_small_head_dim_384': (2, 4, 3, {'fwd': 'fwd_wgmma_cols_kernel',
                                          'dq': 'dq_wgmma_cols_kernel',
-                                         'dkv': 'dkv_cols_kernel'},
-                               'batch 4 -> 1 and one step: the column-'
-                               'chunked CUDA-core dK/dV bounds its time')}
+                                         'dkv': 'dkv_wgmma_cols_kernel'})}
 
 
 def gpt_small_phase(name, smi, profiling):
@@ -627,7 +649,7 @@ def gpt_small_phase(name, smi, profiling):
     launches must read 24 fwd (12 blocks plus 12 remat recomputes), 12 dQ
     and 12 dK/dV per step, every one by the CUDA kernel the arm names.
     Returns the phase's record."""
-    n_heads, batch, steps, kernels, cut = GPT_ARMS[name]
+    n_heads, batch, steps, kernels = GPT_ARMS[name]
     cfg = TransformerConfig.gpt_small(n_heads=n_heads, dtype=torch.bfloat16,
                                       remat=True, max_len=4096)
     d = cfg.dim // n_heads
@@ -638,9 +660,7 @@ def gpt_small_phase(name, smi, profiling):
     fa.reset_launches()
     state, losses, seconds = train_steps(trainer, data, steps)
     launches, by_kernel = dict(fa.LAUNCHES), dict(fa.KERNEL_LAUNCHES)
-    # the median of the steps after the first; a one-step arm reports its
-    # only step, first-use costs included
-    step_s = float(np.median(seconds[1:] or seconds))
+    step_s = float(np.median(seconds[1:]))   # the steps after the first
     rec = dict(phase=name, head_dim=d, n_heads=n_heads, seq=4096,
                batch=batch, steps=steps, losses=losses,
                step_seconds=seconds, tokens_per_s=batch * 4096 / step_s,
@@ -648,8 +668,6 @@ def gpt_small_phase(name, smi, profiling):
                launches=launches, kernel_launches=by_kernel,
                launches_per_step={k: n / steps for k, n in launches.items()},
                card=smi)
-    if cut:
-        rec['reduced'] = cut
     emit(**rec)
     require(all(math.isfinite(x) for x in losses), '%s loss not finite'
             % name)
@@ -1070,9 +1088,9 @@ def dsl_phase(smi, profiling):
 # -- head dims beside 64 ------------------------------------------------------
 # B, H, S of the flash_head_dims phase, and the head dims it runs: 80 and
 # 96 run padded to 128 (the wgmma kernels in bf16), 160 padded to 256 and
-# 256 as it is (bf16: the wgmma forward and dQ, dK/dV on the CUDA cores
-# with a 32-row query tile; f32: all three there), 384 as it is (the
-# column-chunked kernels, both dtypes)
+# 256 as it is (bf16: the wgmma kernels; f32: the CUDA-core ones with a
+# 32-row query tile), 384 as it is (the column-chunked kernels, both
+# dtypes)
 HEAD_DIM_BHS = (2, 8, 1024)
 HEAD_DIM_CASES = (80, 96, 160, 256, 384)
 
@@ -1171,6 +1189,45 @@ def flash_head_dims(smi):
              for (d, c, dt), rec in sorted(records.items(), key=str)
              for name in ('fwd', 'dq', 'dkv')}, card=smi)
     return records
+
+
+# bf16 dK/dV from head dim 256 on (dkv_wgmma_kernel at 256,
+# dkv_wgmma_cols_kernel above), at an S ragged for their 64-row tiles
+DKV_WIDE_BHS = (2, 4, 1000)
+DKV_WIDE_DIMS = (256, 320, 384)
+
+
+def dkv_head_dims(smi):
+    """bf16 dK/dV at [2, 4, 1000, D] for each of ``DKV_WIDE_DIMS``,
+    causal and full, called directly: against the plain version within
+    ``TOL``, and a second launch on the same inputs bitwise equal."""
+    dtype, tol = torch.bfloat16, TOL[torch.bfloat16]['grad']
+    for d in DKV_WIDE_DIMS:
+        shape = DKV_WIDE_BHS + (d,)
+        gen = torch.Generator(device='cuda').manual_seed(6)
+        q, k, v, do = (torch.randn(shape, generator=gen, device='cuda',
+                                   dtype=torch.float32).to(dtype)
+                       for _ in range(4))
+        scale = d ** -0.5
+        for causal in (True, False):
+            o, lse = fa._fwd_cuda(q, k, v, causal, scale)
+            args = (q, k, v, do, lse, fa._delta(do, o), causal, scale)
+            got, again = fa._dkv_cuda(*args), fa._dkv_cuda(*args)
+            want = fa._dkv_plain(*args)
+            torch.cuda.synchronize()
+            errs = [max_err(g, w, tol) for g, w in zip(got, want)]
+            rec = dict(phase='dkv_head_dims', head_dim=d, shape=list(shape),
+                       dtype='bfloat16', causal=causal,
+                       ok=all(p for _, p in errs),
+                       max_abs_err=max(e for e, _ in errs), tol=list(tol),
+                       bitwise_repeat=all(bool(torch.equal(a, b))
+                                          for a, b in zip(got, again)),
+                       cuda_kernel=fa.kernel_name('dkv', dtype, d), card=smi)
+            emit(**rec)
+            require(rec['ok'], 'dK/dV at head dim %d causal=%s disagrees '
+                    'with its plain version' % (d, causal))
+            require(rec['bitwise_repeat'], 'dK/dV at head dim %d causal=%s: '
+                    'two launches differ' % (d, causal))
 
 
 # -- bench_sparse's models through the functional Trainer ---------------------
@@ -1403,18 +1460,12 @@ def main(argv):
 
     t0 = time.time()
     build.build_all([fa.SOURCE, cb.SOURCE])
-    lib = fa.load_library()
-    cblib = cb.load_library()
-    smem = {'%s_wgmma_kernel<bf16,%d>' % (name, d): lib.fa_wgmma_smem(i, d)
-            for i, name in enumerate(('fwd', 'dq', 'dkv'))
-            for d in (64, 128, 256) if lib.fa_wgmma_smem(i, d)}
-    smem.update({'cb_wgmma_kernel<%d>' % cblib.cb_block_n(shape[2]):
-                 cblib.cb_wgmma_smem(shape[2]) for shape in RESNET_K4})
     emit(phase='build', sources=[SOURCE, CB_SOURCE],
          seconds=time.time() - t0,
          ptxas=dict(ptxas_summary(build.build_log(fa.SOURCE)),
                     **ptxas_summary(build.build_log(cb.SOURCE))),
-         dynamic_smem_bytes=smem)
+         dynamic_smem_bytes=wgmma_smem(fa.load_library(),
+                                       cb.load_library()))
 
     results = {}
     for shape, causal in ((GPT_SHAPE, True), (BERT_SHAPE, False)):
@@ -1431,6 +1482,7 @@ def main(argv):
             shape, True, torch.bfloat16, True, smi)
         torch.cuda.empty_cache()
     flash_head_dims(smi)
+    dkv_head_dims(smi)
 
     k4 = [check_conv_bn(shape, torch.bfloat16, smi) for shape in RESNET_K4]
     for shape in K4_F32:

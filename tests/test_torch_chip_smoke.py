@@ -268,23 +268,87 @@ def test_flash_rows_carry_every_key_of_the_kernels_line(name):
 
 def test_gpt_arms_share_the_width_and_name_their_kernels():
     """The three gpt_small arms: one width (768), head dims 64, 256 and
-    384, and for each the kernels the dispatch must run: wgmma at 64,
-    the wgmma forward and dQ with the CUDA-core dK/dV at 256, the
-    column-chunked kernels at 384 (whose arm lists its cut)."""
+    384, each at batch 4 for 3 steps, and for each the kernels the
+    dispatch must run: the wgmma kernels at 64 and 256 (dK/dV with
+    64-row kv tiles at 256), the wgmma column-chunked kernels at 384."""
     from autodist_tpu_torch.models.transformer import TransformerConfig
     dims = {}
-    for name, (heads, batch, steps, kernels, cut) in \
-            chip_smoke.GPT_ARMS.items():
+    for name, (heads, batch, steps, kernels) in chip_smoke.GPT_ARMS.items():
         cfg = TransformerConfig.gpt_small(n_heads=heads)
         dims[name] = cfg.dim // heads
         assert set(kernels) == {'fwd', 'dq', 'dkv'}
-        assert (cut is not None) == (batch != 4 or steps != 3)
+        assert (batch, steps) == (4, 3)
     assert dims == {'gpt_small': 64, 'gpt_small_head_dim_256': 256,
                     'gpt_small_head_dim_384': 384}
-    assert chip_smoke.GPT_ARMS['gpt_small_head_dim_256'][3]['dkv'] == \
-        'dkv_kernel'
-    assert chip_smoke.GPT_D256_SHAPE[1] * chip_smoke.GPT_D256_SHAPE[3] == \
-        chip_smoke.GPT_SHAPE[1] * chip_smoke.GPT_SHAPE[3]
+    arms = chip_smoke.GPT_ARMS
+    assert arms['gpt_small_head_dim_256'][3]['dkv'] == 'dkv_wgmma_kernel'
+    assert arms['gpt_small_head_dim_384'][3] == {
+        'fwd': 'fwd_wgmma_cols_kernel', 'dq': 'dq_wgmma_cols_kernel',
+        'dkv': 'dkv_wgmma_cols_kernel'}
+    for shape, arm in ((chip_smoke.GPT_D256_SHAPE, 'gpt_small_head_dim_256'),
+                       (chip_smoke.GPT_D384_SHAPE, 'gpt_small_head_dim_384')):
+        heads, batch = arms[arm][:2]
+        assert shape == (batch, heads, 4096, dims[arm])
+        assert shape[1] * shape[3] == \
+            chip_smoke.GPT_SHAPE[1] * chip_smoke.GPT_SHAPE[3]
+
+
+def test_ptxas_summary_reads_the_dkv_wgmma_kernels_from_head_dim_256():
+    """The bf16 dK/dV kernels from head dim 256 on, as nvcc 12.8 names
+    them: dkv_wgmma_kernel<256, 2 stages> beside the 64- and 128-wide
+    instances of the same template, and dkv_wgmma_cols_kernel<256-column
+    chunk, 2 and 2 stages>; the spill count of each is its own."""
+    ns = '_ZN49_GLOBAL__N__f013377b_18_flash_attention_cu_fa_fwd'
+    log = '\n'.join(
+        "ptxas info    : Compiling entry function '%s%s' for 'sm_90a'\n"
+        "ptxas info    : Function properties for %s%s\n"
+        "    0 bytes stack frame, %d bytes spill stores, 0 bytes spill "
+        "loads\nptxas info    : Used %d registers, used 16 barriers"
+        % (ns, name, ns, name, spill, regs) for name, spill, regs in (
+            ('16dkv_wgmma_kernelILi256ELi2EEEv14CUtensorMap_stS1_S1_S1_S1_'
+             'S1_S1_S1_ifi', 0, 168),
+            ('16dkv_wgmma_kernelILi64ELi3EEEv14CUtensorMap_stS1_S1_S1_S1_'
+             'S1_S1_S1_ifi', 4, 168),
+            ('21dkv_wgmma_cols_kernelILi256ELi2ELi2EEEv14CUtensorMap_stS1_'
+             'S1_S1_S1_S1_S1_S1_iifi', 0, 168)))
+    assert chip_smoke.ptxas_summary(log) == {
+        'dkv_wgmma_kernel<bf16,256>': '168 regs, 0 B spilled',
+        'dkv_wgmma_kernel<bf16,64>': '168 regs, 4 B spilled',
+        'dkv_wgmma_cols_kernel<bf16,256>': '168 regs, 0 B spilled'}
+
+
+class _SmemLib:
+    """fa_wgmma_smem / cb_* as the built libraries answer them: bytes by
+    (kernel, head dim), 0 where the head dim takes no wgmma kernel."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def fa_wgmma_smem(self, kernel, d):
+        return self.table.get((kernel, d), 0)
+
+    def cb_block_n(self, c_out):
+        return 128 if c_out == 512 else 256
+
+    def cb_wgmma_smem(self, c_out):
+        return 1000 * self.cb_block_n(c_out)
+
+
+def test_wgmma_smem_names_every_warp_specialised_kernel():
+    """The build phase's shared memory, under the names ptxas_summary
+    gives: the three wgmma kernels at 64, 128 and 256, the three chunk
+    kernels by their 256-column chunk (read at head dim 320), K4 by its
+    tile width."""
+    table = {(k, d): 100 * k + d for k in range(3) for d in (64, 128, 256,
+                                                             320)}
+    smem = chip_smoke.wgmma_smem(_SmemLib(table), _SmemLib({}))
+    for i, name in enumerate(('fwd', 'dq', 'dkv')):
+        for d in (64, 128, 256):
+            assert smem['%s_wgmma_kernel<bf16,%d>' % (name, d)] == 100 * i + d
+        assert smem['%s_wgmma_cols_kernel<bf16,256>' % name] == 100 * i + 320
+    assert smem['cb_wgmma_kernel<256>'] == 256000
+    assert smem['cb_wgmma_kernel<128>'] == 128000
+    assert len(smem) == 12 + 2
 
 
 # -- the functional Trainer phases' helpers, at tiny width on the CPU --------

@@ -138,10 +138,10 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
     (36, 384, torch.float32, False)])
 def test_wgmma_kernels_take_seq_a_multiple_of_8(seq, head_dim, dtype,
                                                 raises):
-    """bf16 at head dim 64, 128 and from 256 on runs TMA-fed kernels (all
-    three at 64/128, the forward and dQ from 256 on), whose lse/delta rows need
-    S % 8 == 0 (every S supports() admits): the wrapper says so before
-    any pointer reaches the card; other cases pass the check."""
+    """bf16 from head dim 64 on runs TMA-fed kernels (all three), whose
+    lse/delta rows need S % 8 == 0 (every S supports() admits): the
+    wrapper says so before any pointer reaches the card; other cases pass
+    the check."""
     x = torch.zeros(1, 1, seq, head_dim, dtype=dtype)
     if raises:
         with pytest.raises(ValueError, match='multiple of 8'):
@@ -220,6 +220,42 @@ def test_head_dims_above_256_match_jax_interpret(head_dim, causal):
         assert got.shape == shape
         np.testing.assert_allclose(got.numpy(), np.asarray(wg),
                                    atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('head_dim', [256, 384])
+def test_bf16_dkv_plain_matches_jax_interpret(head_dim, causal):
+    """bf16 dK/dV at the head dims of the wgmma dK/dV kernels with 64-row
+    kv tiles (256, and 384 in column chunks): the plain version, which
+    keeps the kernels' cast points (P rounded to dO's dtype, dS to q's),
+    against the gradients of the JAX flash_attention in Pallas interpret
+    mode, whose _dkv_kernel rounds at the same points, for a bf16
+    cotangent; o and lse from the Pallas forward feed the plain version.
+    Tolerance 1e-2 + 2e-2 |want| (chip_smoke's bf16 gradient tolerance):
+    the two exps differ in f32's last bits, which can move a rounding of
+    P or dS by one bf16 ulp, and each output is rounded to bf16 from f32
+    sums taken in another order."""
+    shape = (1, 2, 128, head_dim)
+    q, k, v, do = (jnp.asarray(x, jnp.bfloat16) for x in _inputs(shape, 10))
+    scale = head_dim ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(q, k, v,
+                                                        causal=causal),
+                     q, k, v)
+    _, jdk, jdv = vjp(do)
+    bq, bk = _jax_blocks(shape[2])
+    o, lse = jfa._fwd(q, k, v, causal, scale, bq, bk, True)
+
+    def torch_bf16(x):
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+            torch.bfloat16)
+    tq, tk, tv, tdo, to = map(torch_bf16, (q, k, v, do, o))
+    dk, dv = fa._dkv_plain(tq, tk, tv, tdo, torch.from_numpy(np.array(lse)),
+                           fa._delta(tdo, to), causal, scale)
+    for got, want in ((dk, jdk), (dv, jdv)):
+        assert got.dtype == torch.bfloat16 and got.shape == shape
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   atol=1e-2, rtol=2e-2)
 
 
 def _lm_matches_jax_interpret(dim, n_heads):

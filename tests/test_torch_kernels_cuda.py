@@ -11,9 +11,10 @@ shapes include ragged tile edges (S = 40, 96, 200 against 64- and
 wgmma kernels' TMA ring many times, and a bitwise repeat of two launches.
 Head dims the kernels lack (80, 96, 160, 264) run through the wrapper,
 zero-padded to 128, 256 or 320, against the plain versions at the true
-head dim; the head-dim-256 kernels (the wgmma forward and dQ in bf16) and
-the column-chunked kernels above 256 run directly too, and the dispatch
-names the kernel each case runs. The fused conv + BatchNorm kernel: row
+head dim; the head-dim-256 kernels (the three wgmma kernels in bf16) and
+the column-chunked kernels above 256 run directly too, bf16 dK/dV at 256,
+320 and 384 with ragged S and a bitwise repeat, and the dispatch names
+the kernel each case runs. The fused conv + BatchNorm kernel: row
 counts that are multiples of 8 but
 not of its 128-row tile, Cin = 8, 24 and 2048 (a Cin tail short of its
 64-wide step), stride 2, each prologue, bf16 and f32, and a prologue that
@@ -80,9 +81,8 @@ def test_kernels_match_plain_on_card(shape, causal, dtype):
                                    (1, 2, 200, 384)])
 def test_kernels_repeat_bitwise_on_card(shape, causal):
     """Each CTA owns its output tile, with no atomics: two launches of
-    the forward, dQ and dK/dV (bf16: the wgmma kernels at 64 and 128, the
-    wgmma forward and dQ and the CUDA-core dK/dV at 256, the
-    column-chunked kernels at 384) on the same inputs give the same
+    the forward, dQ and dK/dV (bf16: the wgmma kernels at 64, 128 and
+    256, the column-chunked ones at 384) on the same inputs give the same
     bits."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
@@ -153,14 +153,14 @@ def test_padded_head_dims_match_plain_on_card(head_dim, causal, dtype):
 @pytest.mark.cuda
 def test_dispatch_names_the_kernel_of_each_head_dim():
     """route() in the source, read through fa_kernel_name: bf16 at 256
-    runs the wgmma forward and dQ and the CUDA-core dK/dV; f32 at 256 the
-    CUDA-core kernels; every multiple of 64 above 256 the column-chunked
-    kernels (bf16 forward and dQ on the tensor cores); a width the
-    kernels lack, none."""
+    runs the three wgmma kernels; f32 at 256 the CUDA-core kernels; every
+    multiple of 64 above 256 the column-chunked kernels (all three bf16
+    ones on the tensor cores); a width the kernels lack, none."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels are built there')
     bf, f32 = torch.bfloat16, torch.float32
-    want = {(bf, 256): ('fwd_wgmma_kernel', 'dq_wgmma_kernel', 'dkv_kernel'),
+    want = {(bf, 256): ('fwd_wgmma_kernel', 'dq_wgmma_kernel',
+                        'dkv_wgmma_kernel'),
             (f32, 256): ('fwd_kernel', 'dq_kernel', 'dkv_kernel'),
             (bf, 128): ('fwd_wgmma_kernel', 'dq_wgmma_kernel',
                         'dkv_wgmma_kernel'),
@@ -169,7 +169,7 @@ def test_dispatch_names_the_kernel_of_each_head_dim():
         want[(f32, d)] = ('fwd_cols_kernel', 'dq_cols_kernel',
                           'dkv_cols_kernel')
         want[(bf, d)] = ('fwd_wgmma_cols_kernel', 'dq_wgmma_cols_kernel',
-                         'dkv_cols_kernel')
+                         'dkv_wgmma_cols_kernel')
     for (dt, d), names in want.items():
         tag = 'bf16' if dt == bf else 'f32'
         assert [fa.kernel_name(k, dt, d) for k in ('fwd', 'dq', 'dkv')] == \
@@ -182,10 +182,9 @@ def test_dispatch_names_the_kernel_of_each_head_dim():
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('causal', [True, False])
 def test_head_dim_256_kernels_match_plain_on_card(causal, dtype):
-    """The kernels at head dim 256, called directly (bf16: the wgmma
-    forward and dQ, dK/dV on the CUDA cores; f32: all three there): every
-    output against its plain version, ragged S = 200 and a longer
-    S = 1024."""
+    """The kernels at head dim 256, called directly (bf16: the three
+    wgmma kernels; f32: all three on the CUDA cores): every output against
+    its plain version, ragged S = 200 and a longer S = 1024."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card: the kernels have no CPU mode')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -208,6 +207,44 @@ def test_head_dim_256_kernels_match_plain_on_card(causal, dtype):
         for a, b in zip(outs, want):
             torch.testing.assert_close(a.float(), b.float(), atol=t_g,
                                        rtol=t_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('head_dim', [256, 320, 384])
+def test_bf16_dkv_from_head_dim_256_matches_plain_on_card(head_dim, causal):
+    """bf16 dK/dV from head dim 256 on, the wgmma kernels with 64-row kv
+    tiles split by columns over the two warpgroups (dkv_wgmma_kernel at
+    256, dkv_wgmma_cols_kernel above, whose last chunk at 320 holds one
+    64-column slab and leaves the second warpgroup no output column),
+    called directly: against the plain version at S = 1000 (ragged for
+    the 64-row kv and q tiles) and S = 4096 (the TMA rings wrapped many
+    times), and a second launch on the same inputs gives the same bits.
+    Tolerance as test_kernels_match_plain_on_card (1e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    dt = torch.bfloat16
+    assert fa.kernel_name('dkv', dt, head_dim) == '%s<bf16,%d>' % (
+        'dkv_wgmma_kernel' if head_dim == 256 else 'dkv_wgmma_cols_kernel',
+        head_dim)
+    for shape in ((2, 2, 1000, head_dim), (1, 1, 4096, head_dim)):
+        q, k, v, do = (torch.from_numpy(x).to('cuda', dt)
+                       for x in _inputs(shape, 11))
+        scale = head_dim ** -0.5
+        o, lse = fa._fwd_cuda(q, k, v, causal, scale)
+        delta = fa._delta(do, o)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        fa.reset_launches()
+        dk, dv = fa._dkv_cuda(*args)
+        dk2, dv2 = fa._dkv_cuda(*args)
+        assert fa.KERNEL_LAUNCHES == {fa.kernel_name('dkv', dt, head_dim): 2}
+        want = fa._dkv_plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip((dk, dv), want):
+            assert a.shape == shape
+            torch.testing.assert_close(a.float(), b.float(), atol=1e-2,
+                                       rtol=1e-2)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 @pytest.mark.cuda
@@ -311,8 +348,8 @@ def test_conv_bn_backward_on_card_matches_cpu(dtype):
 @pytest.mark.parametrize('head_dim', [264, 384])
 def test_head_dims_above_256_match_plain_on_card(head_dim, causal, dtype):
     """The column-chunked kernels (the score products streamed over D;
-    chunks of 256 output columns for the bf16 forward and dQ on the
-    tensor cores, of 128 for the rest): through the wrapper, which pads
+    chunks of 256 output columns for the bf16 kernels on the tensor
+    cores, of 128 for the f32 ones): through the wrapper, which pads
     264 to 320 (a last chunk of 64 columns) and runs 384 as it is, one
     launch of each kernel, and o, dq, dk, dv against the plain versions
     at the true head dim (S = 200, ragged for every tile); then the
