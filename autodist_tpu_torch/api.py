@@ -19,7 +19,14 @@ mean over the global batch:
 - with a ``mask`` and a model with ``per_token_loss``, the global masked
   mean ``sum(nll * mask) / max(sum(mask), 1)``: the mask count is
   all-reduced first, each rank differentiates its masked sum over that
-  global count, and the gradients are summed over the ranks.
+  global count, and the gradients are summed over the ranks;
+- plus, for a model with an ``aux_loss_weight`` (the MoE
+  ``TransformerLM``), that weight times the model's aux loss, in both
+  cases: with a mask each rank adds ``1/world`` of its aux, so the sum
+  over the ranks takes their mean. The MoE load-balance loss is a
+  product of two batch means; its first-choice fractions are averaged
+  over the group inside the model (``core.mean_over_batch``), so the
+  mean over the ranks is the global value.
 
 A user ``loss_fn`` is taken per rank and averaged over the ranks, which
 is the global value only for a loss that is a mean over equal slices.
@@ -37,8 +44,9 @@ the step callable for an already-sharded batch. The port updates the
 model's parameters and the optimizer state in place; ``TrainState``
 holds references to both.
 
-A model with state (BatchNorm running statistics, as buffers) runs its
-loss under ``model_mode(training=True)``; the updates it records are
+Every loss runs under ``model_mode(training=...)`` with the
+data-parallel group. A model with state (BatchNorm running statistics,
+as buffers) records updates there; they are
 written into the buffers after the optimizer step, as the JAX package
 folds them into the params tree (under ``grad_accum``, the last chunk's
 updates). The step hands the data-parallel group to the model on that
@@ -197,20 +205,29 @@ class Trainer:
     def _chunk_loss(self, params, chunk, count, training):
         """(the loss this rank differentiates, the state updates its
         forward recorded). With ``count`` (a global mask count) that is
-        this rank's masked sum over it; else the rank's mean loss. Under
+        this rank's masked sum over it, plus its share of the model's
+        aux loss; else the rank's mean loss. The forward runs under
+        ``model_mode`` with the data-parallel group. Under
         ``remat='full'`` the forward runs again in the backward; the
         state updates are those of the first run."""
         def compute():
             if count is None:
                 return self.loss_for(params, chunk)
-            nll = self.model.per_token_loss(params, chunk)
-            return (nll * chunk['mask'].to(nll.dtype)).sum() / count
+            if hasattr(self.model, 'per_token_loss_with_aux'):
+                nll, aux = self.model.per_token_loss_with_aux(params, chunk)
+            else:
+                nll, aux = self.model.per_token_loss(params, chunk), 0.0
+            loss = (nll * chunk['mask'].to(nll.dtype)).sum() / count
+            weight = getattr(self.model, 'aux_loss_weight', 0.0)
+            if weight:
+                # the ranks' parts are summed: each adds its share of the
+                # mean of the ranks' aux
+                loss = loss + weight * aux / self.world
+            return loss
 
         recorded = []
 
         def run():
-            if not self._has_state:
-                return compute()
             with model_mode(training=training, group=self.group,
                             world=self.world) as mm:
                 out = compute()

@@ -147,8 +147,8 @@ class AutoDist:
             raise NotImplementedError(
                 'a spec of %d nodes asks the chief to launch the workers '
                 'over ssh: the Coordinator launch is not ported yet '
-                '(ROADMAP.md Queue 1 item 8); start one process per '
-                'device yourself (AUTODIST_PROCESS_ID / '
+                '(ROADMAP.md Queue 1: Loose-mode PS plane); start one '
+                'process per device yourself (AUTODIST_PROCESS_ID / '
                 'AUTODIST_NUM_PROCESSES, or torchrun)' % len(nodes))
         world, rank = world_and_rank()
         resolver = DeviceResolver(self._resource_spec, world,
@@ -166,8 +166,8 @@ class AutoDist:
             raise NotImplementedError(
                 'relaxed-consistency PS strategy (staleness > 0 or '
                 'sync=False) across %d processes: loose mode and its PS '
-                'data plane are not ported yet (ROADMAP.md Queue 1 item '
-                '8)' % world)
+                'data plane are not ported yet (ROADMAP.md Queue 1: '
+                'Loose-mode PS plane)' % world)
         compiler.set_device_resolver(resolver)
         compiled = compiler.compile(strategy)
         logging.debug('Compiled strategy: %s', compiled)

@@ -31,6 +31,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.nn.functional import all_reduce
+from torch.utils.checkpoint import checkpoint as torch_checkpoint
 
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -162,27 +163,39 @@ class _StateCollector:
         self.updates = {}    # path tuple -> new value (detached)
 
 
-class model_mode:
-    """Context: set training/eval mode and collect state updates during a
-    forward. ``group``/``world`` name the data-parallel group whose ranks
-    each hold a slice of the batch (``world`` 1: no collective)."""
+class _resumed:
+    """Context: make ``col`` the active collector again (the backward's
+    recompute runs on another thread, and after the forward's context
+    has closed)."""
 
-    def __init__(self, training=True, group=None, world=1):
-        self._col = _StateCollector(training, group, world)
-
-    @property
-    def updates(self):
-        return self._col.updates
+    def __init__(self, col):
+        self.col = col
 
     def __enter__(self):
         stack = getattr(_MODEL_CTX, 'stack', None)
         if stack is None:
             stack = _MODEL_CTX.stack = []
-        stack.append(self._col)
-        return self
+        stack.append(self.col)
 
     def __exit__(self, *exc):
         _MODEL_CTX.stack.pop()
+
+
+class model_mode(_resumed):
+    """Context: set training/eval mode and collect state updates during a
+    forward. ``group``/``world`` name the data-parallel group whose ranks
+    each hold a slice of the batch (``world`` 1: no collective)."""
+
+    def __init__(self, training=True, group=None, world=1):
+        super().__init__(_StateCollector(training, group, world))
+
+    @property
+    def updates(self):
+        return self.col.updates
+
+    def __enter__(self):
+        super().__enter__()
+        return self
 
 
 def _collector():
@@ -206,6 +219,40 @@ def reduce_over_batch(t):
     if col is None or col.world <= 1:
         return t
     return all_reduce(t, group=col.group or dist.group.WORLD)
+
+
+def mean_over_batch(t):
+    """Mean of ``t`` over the data-parallel group of the active step, as
+    a constant (no gradient flows through the collective); ``t`` itself
+    outside a step or with one rank. The ranks hold equal slices, so the
+    mean of their batch means is the global batch's: the JAX package's
+    value, where GSPMD sees the whole batch."""
+    col = _collector()
+    if col is None or col.world <= 1:
+        return t
+    t = t.detach().clone()
+    dist.all_reduce(t, group=col.group or dist.group.WORLD)
+    return t / col.world
+
+
+def checkpoint(fn, *args, context_fn=None):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)``, whose
+    recompute in the backward runs under the model mode active at this
+    call, so a collective the forward ran over the data-parallel group
+    (:func:`mean_over_batch`, :func:`reduce_over_batch`) runs again in
+    the recompute. ``context_fn`` as in ``torch.utils.checkpoint``
+    (selective policies). Without grad mode it just calls ``fn``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    col = _collector()
+
+    def run(*a):
+        if col is None:
+            return fn(*a)
+        with _resumed(col):
+            return fn(*a)
+    kw = {} if context_fn is None else {'context_fn': context_fn}
+    return torch_checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 def record_state_update(module, name, value):

@@ -1,27 +1,47 @@
 """Transformer language model for the port.
 
 The counterpart of ``autodist_tpu/models/transformer.py``: the same
-``TransformerConfig`` presets and parameter paths, a pre-LN ``Block``
-and ``TransformerLM`` with a tied head, f32 logits and a mean-NLL loss.
+``TransformerConfig`` presets, options and parameter paths, a pre-LN
+``Block`` (MoE MLP when ``moe_experts`` is set) and ``TransformerLM``
+with f32 logits, a mean-NLL loss and the MoE load-balance loss.
 
 - ``scan_layers=True`` keeps the block params stacked on a leading
   ``[n_layers]`` axis under ``blocks/...`` (the JAX layout); the blocks
   run in a Python loop over the stack.
-- ``remat=True`` checkpoints each block
-  (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
-  the block's forward, flash kernel included.
+- ``remat`` (``torch.utils.checkpoint``, non-reentrant, through
+  :func:`core.checkpoint` so the data-parallel group of the step is
+  there in the recompute): ``True`` checkpoints each block, and the
+  backward recomputes its forward. The selective policies keep more:
+  ``'save_attn'`` runs each block as two checkpoint regions, attention
+  then MLP, so the post-attention residual is saved and the backward
+  recomputes each half from its own input; ``'dots'`` saves the output
+  of every matmul op (``mm``, ``addmm``, ``bmm``, ``baddbmm``) and
+  ``'dots_no_batch'`` only those without batch dims (``mm``,
+  ``addmm``: the Dense products and the MoE router, not the
+  expert and dispatch einsums or the plain attention's ``bmm``), both
+  through ``create_selective_checkpoint_contexts``, and recompute the
+  rest. The flash kernels run inside an ``autograd.Function``, not as
+  matmul ops, so every policy recomputes them. Every policy gives the
+  numbers of ``remat=False``.
+- ``loss_chunk`` splits the lm-head and NLL into sequence chunks of at
+  least ``loss_chunk`` rows (the largest count that divides the
+  sequence), each checkpointed, so the backward holds one
+  ``[b, s/n, vocab]`` slab of logits at a time.
 
-``loss_chunk``, MoE, the selective remat policies and the pipeline are
-not ported yet; a config that asks for them raises.
+Tensor, sequence and pipeline parallelism are not ported (``ParallelSpec``
+refuses them).
 """
+import functools
 from dataclasses import dataclass
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from autodist_tpu_torch.models.attention import MultiHeadAttention
 from autodist_tpu_torch.models.core import (Dense, Embedding, LayerNorm, Mlp,
-                                            Module)
+                                            Module, checkpoint)
+from autodist_tpu_torch.models.moe import MoeMlp
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -36,10 +56,14 @@ class TransformerConfig:
     causal: bool = True
     tied_embeddings: bool = True
     dtype: object = torch.bfloat16
-    remat: object = False        # False | True (checkpoint each block)
+    # False | True (checkpoint each block) | 'save_attn' | 'dots' |
+    # 'dots_no_batch' (see the module docstring)
+    remat: object = False
     scan_layers: bool = True     # stacked block params, looped in Python
-    loss_chunk: int = 0          # chunked cross-entropy: not ported yet
-    moe_experts: int = 0         # MoE blocks: not ported yet
+    loss_chunk: int = 0          # rows per chunk of the lm-head + NLL
+    moe_experts: int = 0         # >0: MoE MLP with this many experts
+    moe_top_k: int = 2
+    moe_aux_coef: float = 0.01   # load-balance loss weight
 
     @classmethod
     def bert_large(cls, **kw):
@@ -62,19 +86,12 @@ class TransformerConfig:
         d.update(kw)
         return cls(**d)
 
-    def check_ported(self):
-        """Raise for the options this slice of the port lacks."""
-        if self.remat not in (False, True):
-            raise NotImplementedError('remat=%r: only False and True are '
-                                      'ported' % (self.remat,))
-        for name in ('loss_chunk', 'moe_experts'):
-            if getattr(self, name):
-                raise NotImplementedError('%s=%r is not ported yet'
-                                          % (name, getattr(self, name)))
-
 
 class Block(Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block; MoE MLP when ``cfg.moe_experts`` > 0.
+
+    ``apply`` returns ``(x, aux)``, aux the router load-balance loss
+    (None for dense blocks, which add no term)."""
 
     def __init__(self, cfg, device=None, stack=()):
         super().__init__(stack)
@@ -84,17 +101,47 @@ class Block(Module):
         self.attn = MultiHeadAttention(cfg.dim, cfg.n_heads,
                                        causal=cfg.causal, **kw)
         self.ln2 = LayerNorm(cfg.dim, **kw)
-        self.mlp = Mlp(cfg.dim, cfg.dim * cfg.mlp_ratio, **kw)
+        if cfg.moe_experts:
+            self.mlp = MoeMlp(cfg.dim, cfg.dim * cfg.mlp_ratio,
+                              cfg.moe_experts, top_k=cfg.moe_top_k, **kw)
+        else:
+            self.mlp = Mlp(cfg.dim, cfg.dim * cfg.mlp_ratio, **kw)
 
     def param_defs(self):
         return {'ln1': self.ln1, 'attn': self.attn,
                 'ln2': self.ln2, 'mlp': self.mlp}
 
+    def attn_half(self, params, x):
+        """The residual after attention (the JAX package's ``attn_out``)."""
+        return x + self.attn.apply(params['attn'],
+                                   self.ln1.apply(params['ln1'], x))
+
+    def mlp_half(self, params, x):
+        h = self.mlp.apply(params['mlp'], self.ln2.apply(params['ln2'], x))
+        aux = None
+        if self.cfg.moe_experts:
+            h, aux = h
+        return x + h, aux
+
     def apply(self, params, x):
-        x = x + self.attn.apply(params['attn'],
-                                self.ln1.apply(params['ln1'], x))
-        return x + self.mlp.apply(params['mlp'],
-                                  self.ln2.apply(params['ln2'], x))
+        return self.mlp_half(params, self.attn_half(params, x))
+
+
+# matmul ops each selective policy saves (the aten ops the Dense products,
+# einsums and the plain attention lower to)
+_MATMULS = {'dots': (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                     torch.ops.aten.bmm.default,
+                     torch.ops.aten.baddbmm.default),
+            'dots_no_batch': (torch.ops.aten.mm.default,
+                              torch.ops.aten.addmm.default)}
+REMAT_POLICIES = ('dots', 'dots_no_batch', 'save_attn')
+
+
+def _save_ops(ops):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 class TransformerLM(Module):
@@ -105,7 +152,10 @@ class TransformerLM(Module):
 
     def __init__(self, cfg, device=None, seed=0):
         super().__init__()
-        cfg.check_ported()
+        if isinstance(cfg.remat, str) and cfg.remat not in REMAT_POLICIES:
+            raise ValueError(
+                'unknown remat mode %r (expected False, True, or one of %s)'
+                % (cfg.remat, sorted(REMAT_POLICIES)))
         self.cfg = cfg
         device = resolve_device(device)
         kw = dict(dtype=cfg.dtype, device=device)
@@ -136,8 +186,13 @@ class TransformerLM(Module):
         return d
 
     def apply(self, params, tokens):
-        x = self.hidden(params, tokens)
-        return self._head_logits(params, x).float()
+        return self.apply_with_aux(params, tokens)[0]
+
+    def apply_with_aux(self, params, tokens):
+        """(logits f32, aux): aux the summed MoE router load-balance loss
+        (0.0 for dense configs)."""
+        x, aux = self.hidden_with_aux(params, tokens)
+        return self._head_logits(params, x).float(), aux
 
     def _head_logits(self, params, x):
         if self.cfg.tied_embeddings:
@@ -152,35 +207,86 @@ class TransformerLM(Module):
                      params['block_%03d' % i]) for i in range(cfg.n_layers)]
         return [(self.blocks, p) for p in _unstack(params['blocks'])]
 
-    def hidden(self, params, tokens):
-        """Final hidden states (post ln_f)."""
+    def _run_block(self, block, p, x):
+        """One block under the remat policy: (x, aux)."""
+        remat = self.cfg.remat
+        if remat is False:
+            return block.apply(p, x)
+        if remat == 'save_attn':
+            x = checkpoint(block.attn_half, p, x)
+            return checkpoint(block.mlp_half, p, x)
+        if remat is True:
+            return checkpoint(block.apply, p, x)
+        return checkpoint(block.apply, p, x,
+                          context_fn=_save_ops(_MATMULS[remat]))
+
+    def hidden_with_aux(self, params, tokens):
+        """Final hidden states (post ln_f) and the MoE aux loss summed
+        over the layers: everything but the lm-head, so the loss can
+        chunk the head."""
         s = tokens.shape[1]
         x = self.embed.apply(params['embed'], tokens)
         pos = torch.arange(s, device=tokens.device)
         x = x + self.pos_embed.apply(params['pos_embed'], pos)[None]
+        aux_total = torch.zeros((), device=x.device)
         for block, p in self._layers(params):
-            if self.cfg.remat:
-                x = checkpoint(block.apply, p, x, use_reentrant=False)
-            else:
-                x = block.apply(p, x)
-        return self.ln_f.apply(params['ln_f'], x)
+            x, aux = self._run_block(block, p, x)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return self.ln_f.apply(params['ln_f'], x), aux_total
+
+    @property
+    def aux_loss_weight(self):
+        return self.cfg.moe_aux_coef if self.cfg.moe_experts else 0.0
 
     def per_token_loss(self, params, batch):
-        """[batch, seq] token NLL; expects {'tokens', 'targets'}."""
-        logits = self.apply(params, batch['tokens'])
+        return self.per_token_loss_with_aux(params, batch)[0]
+
+    def per_token_loss_with_aux(self, params, batch):
+        """([batch, seq] token NLL, aux loss); expects {'tokens',
+        'targets'}. With ``loss_chunk`` the head and NLL run per sequence
+        chunk, each checkpointed."""
+        targets = batch['targets']
+        x, aux = self.hidden_with_aux(params, batch['tokens'])
+        b, s = targets.shape
+        n = self._ce_chunks(s, b * s)
+        if n == 1:
+            return self._chunk_nll(params, x, targets), aux
+        c = s // n
+        nll = [checkpoint(self._chunk_nll, params, x[:, i * c:(i + 1) * c],
+                          targets[:, i * c:(i + 1) * c]) for i in range(n)]
+        return torch.cat(nll, dim=1), aux
+
+    def _chunk_nll(self, params, x, targets):
+        logits = self._head_logits(params, x).float()
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            batch['targets'].long()[..., None])[..., 0]
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
         return logz - gold
 
+    def _ce_chunks(self, s, rows):
+        """Number of sequence chunks for chunked CE: the largest chunk
+        count that divides ``s`` while keeping >= loss_chunk rows per
+        chunk (0 or rows <= loss_chunk -> 1 = unchunked)."""
+        chunk = self.cfg.loss_chunk
+        if not chunk or rows <= chunk:
+            return 1
+        n = max(1, min(s, rows // chunk))
+        while s % n:
+            n -= 1
+        return n
+
     def loss(self, params, batch):
-        """Mean token cross-entropy, optional mask."""
-        nll = self.per_token_loss(params, batch)
+        """Mean token cross-entropy (+ MoE balance loss), optional mask."""
+        nll, aux = self.per_token_loss_with_aux(params, batch)
         mask = batch.get('mask')
         if mask is not None:
             mask = mask.to(nll.dtype)
-            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
-        return nll.mean()
+            ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+        else:
+            ce = nll.mean()
+        if not self.cfg.moe_experts:
+            return ce
+        return ce + self.cfg.moe_aux_coef * aux
 
 
 def _unstack(tree):

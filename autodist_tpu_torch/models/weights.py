@@ -6,7 +6,10 @@ for ``/`` (``blocks/attn/qkv/kernel``, stacked ``[L, dim, 3 * dim]``, is
 ``PytreeGraphItem`` names variables identically in both packages. Trees
 are nested dicts of numpy arrays; no JAX type crosses over. Every model
 of the port keeps the JAX paths (``NCF``'s ``mf_user/table``,
-``LSTMLM``'s ``lstm_0/kernel``), so these functions serve them all.
+``LSTMLM``'s ``lstm_0/kernel``, the MoE ``TransformerLM``'s stacked
+experts ``blocks/mlp/up`` [L, e, dim, hidden] and router
+``blocks/mlp/router/kernel``), so these functions serve them all, in f32
+bit for bit both ways.
 
 State leaves (BatchNorm's ``ema_mean``/``ema_var``) are buffers in the
 port and cross over with the parameters: ``state_dict`` and ``params()``

@@ -677,7 +677,8 @@ class ExecutionPlan:
                    if p.staleness > 0 or not p.sync_mode]
         if relaxed:
             # lock-step replicas satisfy any staleness bound; the
-            # relaxed-consistency PS plane is ROADMAP Queue 1 item 8
+            # relaxed-consistency PS plane is ROADMAP Queue 1: Loose-mode
+            # PS plane
             logging.warning(
                 'Strategy requests relaxed consistency (async/stale) for '
                 '%d vars; lock-step execution is synchronous, which is a '
@@ -726,7 +727,8 @@ class ExecutionPlan:
             raise NotImplementedError(
                 'the cost model picks a two-level (hierarchical) '
                 'schedule over %d node groups: multi-node collectives '
-                'are not ported yet (ROADMAP.md Queue 1 item 12); set '
+                'are not ported yet (ROADMAP.md Queue 1: Multi-node '
+                'collectives); set '
                 "hierarchical='never' on the synchronizer"
                 % len(groups))
         return None

@@ -955,8 +955,8 @@ def execute(program, x, group, *, axis=0):
     if tag in ('hier', 'int8_hier', 'hier_scatter', 'hier_gather'):
         raise NotImplementedError(
             'two-level (hierarchical) collective %r: multi-node '
-            'collectives are not ported yet (ROADMAP.md Queue 1 item '
-            '12)' % tag)
+            'collectives are not ported yet (ROADMAP.md Queue 1: '
+            'Multi-node collectives)' % tag)
     return execute_generic(program, x, group)
 
 

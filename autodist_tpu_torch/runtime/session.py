@@ -19,8 +19,9 @@ same program.
   this replica's shard, gathered at the start of every run; the aux
   state (error-feedback residuals) is this replica's own.
 
-Loose mode (the relaxed-consistency PS plane) is ROADMAP.md Queue 1
-item 8, and checkpointing item 11.
+Loose mode (the relaxed-consistency PS plane) is ROADMAP.md Queue 1's
+"Loose-mode PS plane" item; checkpointing came with the Trainer's
+(``checkpoint/saver.py``).
 """
 import contextlib
 import os

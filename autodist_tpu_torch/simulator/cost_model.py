@@ -7,7 +7,7 @@ the wire bytes of a bucket, the calibrated constants
 decisions. It imports neither jax nor torch; only module paths and the
 dtype-width lookup (``_itemsize``, which knows ``bfloat16``) differ. The whole-strategy prediction
 (``predict``, ``memory_footprint``) comes with ``AutoStrategy``
-(ROADMAP.md Queue 1 item 10).
+(ROADMAP.md Queue 1: Simulator and AutoStrategy).
 
 Grounded in the PCCL formulation (per-process-group collective cost as
 α + β·bytes over link latency/bandwidth) and *Automatic Cross-Replica

@@ -12,7 +12,8 @@ One-to-one with the reference's ``autodist/strategy/`` directory:
 - :class:`Parallax`             — parallax_strategy.py:38-70
 
 The cost-model-driven ``AutoStrategy`` selector waits for the port of
-the simulator's search (ROADMAP.md Queue 1 item 10): it raises.
+the simulator's search (ROADMAP.md Queue 1: Simulator and AutoStrategy): it
+raises.
 
 Builders only *choose* per-variable synchronization/partitioning/placement;
 the lowering onto the data-parallel Trainer happens in
@@ -340,4 +341,4 @@ class AutoStrategy(StrategyBuilder):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             'AutoStrategy: the simulator search and calibration are not '
-            'ported yet (ROADMAP.md Queue 1 item 10)')
+            'ported yet (ROADMAP.md Queue 1: Simulator and AutoStrategy)')

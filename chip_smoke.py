@@ -41,8 +41,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 4. small models through the kernels on the card against the same models
    on the CPU (the plain versions), as the reference on a small input: a
    Transformer at S = 512 (head dim 64, and one layer at head dim 384,
-   the column-chunked kernels) and ``ResNet((1, 1))`` with
-   ``AUTODIST_FUSED_CONV=1`` (loss, every gradient, every EMA update);
+   the column-chunked kernels), the same with MoE blocks
+   (``small_moe_reference``: 4 experts, aux weight 1.0) and
+   ``ResNet((1, 1))`` with ``AUTODIST_FUSED_CONV=1`` (loss, every
+   gradient, every EMA update);
 5. gpt_small at full width through ``Trainer`` at bench_longctx's
    configuration (seq 4096, batch 4, bf16, remat), 3 adamw steps; the
    launch counts must read 24 fwd (12 blocks plus 12 remat recomputes),
@@ -50,6 +52,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    routes to; then the same at 3 heads (``gpt_small_head_dim_256``: head
    dim 256, the same attention work) and at 2 heads
    (``gpt_small_head_dim_384``), printed beside it;
+5b. ``gpt_small_moe8``, this slice's path: gpt_small with an MoE MLP in
+   every block (8 experts, top 2, capacity factor 2.0: Switch-Base's
+   width with GShard's routing) at the same seq, batch and remat, 3 adamw
+   steps through ``Trainer``: the first loss's cross-entropy near
+   ln(vocab) and aux about one a layer, launches 24/12/12 a step on the
+   D-64 kernels, tokens/s and peak memory (``--profile``: device ms in
+   the ``moe_dispatch`` / ``moe_experts`` / ``moe_combine`` ranges);
+   ``moe_einsums`` times each of its einsums alone at those shapes and
+   gives the dense dispatch's share of the step;
+5c. ``transformer_options``: gpt_small dense at the same shapes, 2 steps
+   from one init in each of remat=True, 'save_attn', 'dots',
+   'dots_no_batch', remat=False and loss_chunk=4096 under remat: first
+   losses within 1e-3 of the remat arm's, tokens/s and peak memory;
 6. bert_large at full width, seq 128, batch 32, 2 steps through
    ``trainer_from_strategy(..., AllReduce())``: the plain-attention arm,
    so every launch count stays 0;
@@ -60,6 +75,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    runs must agree; then the two arms' step times in turns;
 8. DenseNet-121 and InceptionV3 (299 px), which launch K4 under the
    gate, and VGG16, one step each at full width, batch 16;
+8b. ``batch_norm``: ``kernels/batch_norm.batch_norm_train`` against the
+   vision BatchNorm's training formulation at ResNet-101's four BN
+   shapes (batch 256, bf16): y and the three gradients within 2e-2 of
+   the largest, each side's forward and forward + backward timed;
 9. the reference DSL path (``AutoDist.scope()`` ->
    ``create_distributed_session()`` -> ``sess.run``) in a one-process
    NCCL group: the c0 linear regression of
@@ -102,6 +121,7 @@ Without a card, or without the rest of the repository beside it, it
 fails before printing any result.
 """
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -689,6 +709,274 @@ def gpt_small_phase(name, smi, profiling):
     return rec
 
 
+# gpt_small at bench_longctx's seq with an MoE MLP in every block, as the
+# JAX Block builds it: Switch-Base's width (d 768, d_ff 3072, 12 layers)
+# with 8 experts and GShard's top-2 routing at capacity factor 2.0 (the
+# JAX defaults), batch 4, 3 steps, remat (the [b, s, e, cap] dispatch
+# tensors are 0.54 GB each a block)
+MOE_ARM = dict(moe_experts=8, moe_top_k=2, remat=True)
+MOE_BATCH, MOE_STEPS = 4, 3
+# the aux loss a layer at init: e * sum_e f_e * P_e is 1 at balanced
+# routing (P_e = 1/e); a random router sends more first choices to the
+# experts it favours on average, which raises it (1.89 a layer at
+# gpt_small_moe8's init and batch on one H100 80GB HBM3)
+MOE_AUX_PER_LAYER = (0.9, 3.0)
+MOE_RANGES = ('moe_dispatch', 'moe_experts', 'moe_combine')
+
+
+def moe_phase(cfg, batch, seq, steps, device, smi=None, profiling=False):
+    """The MoE TransformerLM through ``Trainer`` (adamw 1e-4), ``steps``
+    steps on one batch. Before them, the loss's parts on that batch: the
+    cross-entropy within 0.5 of ln(vocab), the aux (summed over the
+    layers) within ``MOE_AUX_PER_LAYER`` a layer, and the first step's
+    loss their sum, ce + coef * aux, to 1e-3 relative. On the card at S
+    >= 512 the launches must read 2 forwards (block and remat), one dQ
+    and one dK/dV a layer a step, by the wgmma kernels at the head dim.
+    Returns the record."""
+    cuda = torch.device(device).type == 'cuda'
+    model = TransformerLM(cfg, device=device, seed=0)
+    trainer = Trainer(model, optim.adamw(1e-4), spec=ParallelSpec(dp=1))
+    data = make_batch(cfg.vocab, batch, seq, seed=8)
+    with torch.no_grad():
+        nll, aux = model.per_token_loss_with_aux(
+            model.params(), trainer.shard_batch(data))
+        ce, aux = float(nll.mean()), float(aux)
+    del nll
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    state, losses, seconds = train_steps(trainer, data, steps)
+    launches, by_kernel = dict(fa.LAUNCHES), dict(fa.KERNEL_LAUNCHES)
+    step_s = float(np.median(seconds[1:]))
+    d = cfg.dim // cfg.n_heads
+    rec = dict(phase='gpt_small_moe8', experts=cfg.moe_experts,
+               top_k=cfg.moe_top_k, capacity=model.blocks.mlp.capacity(seq)
+               if cfg.scan_layers else None, dim=cfg.dim,
+               n_layers=cfg.n_layers, head_dim=d, seq=seq, batch=batch,
+               steps=steps, first_ce=ce, first_aux=aux,
+               aux_coef=cfg.moe_aux_coef, losses=losses,
+               step_seconds=seconds, median_step_s=step_s,
+               tokens_per_s=batch * seq / step_s, launches=launches,
+               kernel_launches=by_kernel,
+               launches_per_step={k: n / steps for k, n in launches.items()})
+    if cuda:
+        rec['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    if smi is not None:
+        emit(card=smi, **rec)
+    require(all(math.isfinite(x) for x in losses), 'MoE loss not finite')
+    require(abs(ce - math.log(cfg.vocab)) < 0.5,
+            'MoE first cross-entropy %.4f is not near ln(vocab)' % ce)
+    lo, hi = MOE_AUX_PER_LAYER
+    require(lo * cfg.n_layers <= aux <= hi * cfg.n_layers,
+            'MoE aux %.4f at init is not near one a layer' % aux)
+    first = ce + cfg.moe_aux_coef * aux
+    require(abs(losses[0] - first) <= 1e-3 * abs(first),
+            'MoE first loss %.5f is not ce + coef * aux = %.5f'
+            % (losses[0], first))
+    if cuda and fa.preferred((batch, cfg.n_heads, seq, d)):
+        per_step = {'fwd': 2 * cfg.n_layers, 'dq': cfg.n_layers,
+                    'dkv': cfg.n_layers}
+        require(launches == {k: steps * n for k, n in per_step.items()},
+                'MoE launch counts %s, expected %s per step'
+                % (launches, per_step))
+        want = {fa.kernel_name(k, cfg.dtype, d): steps * n
+                for k, n in per_step.items()}
+        require(by_kernel == want, 'MoE ran the CUDA kernels %s, expected '
+                '%s' % (by_kernel, want))
+    if profiling:
+        profile_step('gpt_small_moe8', trainer, state, data, smi,
+                     ranges=MOE_RANGES)
+    del trainer, state, model
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def moe_einsum_ms(cfg, batch, seq, step_s, smi):
+    """Device ms of each of the MoE block's einsums at the main path's
+    shapes in bf16 (random operands; the time of a product does not
+    depend on its values), forward and forward + backward, and their
+    share of a step: each runs forward twice a step (the block and its
+    remat recompute) and backward once, in every layer; the two that
+    build dispatch and combine run forward twice each. Dispatch =
+    building the tensors, dispatching and combining; experts = the two
+    expert products."""
+    e, k, d = cfg.moe_experts, cfg.moe_top_k, cfg.dim
+    hid = cfg.dim * cfg.mlp_ratio
+    cap = max(1, int(2.0 * seq * k / e))
+    gen = torch.Generator(device='cuda').manual_seed(9)
+
+    def rnd(*shape, grad=True):
+        return torch.randn(shape, generator=gen, device='cuda',
+                           dtype=torch.bfloat16).requires_grad_(grad)
+    cases = {
+        'build': ('bske,bskc->bsec', rnd(batch, seq, k, e),
+                  rnd(batch, seq, k, cap, grad=False), 'dispatch', 2),
+        'dispatch': ('bsec,bsd->becd', rnd(batch, seq, e, cap, grad=False),
+                     rnd(batch, seq, d), 'dispatch', 1),
+        'expert_up': ('becd,edh->bech', rnd(batch, e, cap, d),
+                      rnd(e, d, hid), 'experts', 1),
+        'expert_down': ('bech,ehd->becd', rnd(batch, e, cap, hid),
+                        rnd(e, hid, d), 'experts', 1),
+        'combine': ('bsec,becd->bsd', rnd(batch, seq, e, cap),
+                    rnd(batch, e, cap, d), 'dispatch', 1)}
+    out, per_step = {}, {'dispatch': 0.0, 'experts': 0.0}
+    for name, (eq, a, b, group, builds) in cases.items():
+        grad = torch.ones_like(torch.einsum(eq, a, b))
+        fwd = cuda_ms(lambda: torch.einsum(eq, a, b), 3)
+        both = cuda_ms(lambda: torch.einsum(eq, a, b).backward(grad), 3)
+        ins = eq.split('->')[0].split(',')
+        sizes = dict(zip(ins[0], a.shape))
+        sizes.update(zip(ins[1], b.shape))
+        flop = 2 * math.prod(sizes.values())
+        ms_step = cfg.n_layers * (fwd * builds + both)
+        per_step[group] += ms_step
+        out[name] = {'equation': eq, 'fwd_ms': fwd, 'fwd_bwd_ms': both,
+                     'fwd_tflops': flop / fwd / 1e9, 'ms_per_step': ms_step}
+        del a, b, grad
+        torch.cuda.empty_cache()
+    rec = dict(phase='moe_einsums', capacity=cap, einsums=out,
+               ms_per_step=per_step, step_ms=step_s * 1e3,
+               share_of_step={g: ms / (step_s * 1e3)
+                              for g, ms in per_step.items()}, card=smi)
+    emit(**rec)
+    return rec
+
+
+def option_arms(loss_chunk):
+    """The ``transformer_options`` arms: each remat policy, no remat, and
+    chunked cross-entropy under remat (``loss_chunk`` rows a chunk)."""
+    return {'remat': dict(remat=True), 'save_attn': dict(remat='save_attn'),
+            'dots': dict(remat='dots'),
+            'dots_no_batch': dict(remat='dots_no_batch'),
+            'no_remat': dict(remat=False),
+            'loss_chunk': dict(remat=True, loss_chunk=loss_chunk)}
+
+
+# first losses of the option arms against the remat arm's (one init, one
+# batch): the same forward in all but the chunked arm, whose head runs on
+# row slices (other GEMM tilings, bf16)
+OPTIONS_FIRST_LOSS_REL = 1e-3
+
+
+def transformer_options_phase(cfg, batch, seq, device, loss_chunk, steps=2,
+                              smi=None):
+    """``cfg`` (dense) through ``Trainer`` (adamw 1e-4) in each arm of
+    :func:`option_arms`, ``steps`` steps each from one init on one batch:
+    losses, step time, tokens/s and (on the card) peak memory and flash
+    launches. Each arm's first loss within ``OPTIONS_FIRST_LOSS_REL`` of
+    the remat arm's. Returns {arm: record}."""
+    cuda = torch.device(device).type == 'cuda'
+    data = make_batch(cfg.vocab, batch, seq, seed=10)
+    arms = {}
+    for name, kw in option_arms(loss_chunk).items():
+        arm_cfg = dataclasses.replace(cfg, **kw)
+        trainer = Trainer(TransformerLM(arm_cfg, device=device, seed=0),
+                          optim.adamw(1e-4), spec=ParallelSpec(dp=1))
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        state, losses, seconds = train_steps(trainer, data, steps)
+        step_s = float(np.median(seconds[1:]))
+        rec = {'losses': losses, 'step_seconds': seconds,
+               'tokens_per_s': batch * seq / step_s,
+               'launches': dict(fa.LAUNCHES), **{
+                   k: v for k, v in kw.items()}}
+        if cuda:
+            rec['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+        del trainer, state
+        require(all(math.isfinite(x) for x in losses),
+                'options arm %s loss not finite' % name)
+        arms[name] = rec
+    ref = arms['remat']['losses'][0]
+    for name, rec in arms.items():
+        rec['first_loss_rel'] = abs(rec['losses'][0] - ref) / abs(ref)
+    if smi is not None:
+        emit(phase='transformer_options', dim=cfg.dim, n_layers=cfg.n_layers,
+             seq=seq, batch=batch, steps=steps, arms=arms, card=smi)
+    for name, rec in arms.items():
+        require(rec['first_loss_rel'] <= OPTIONS_FIRST_LOSS_REL,
+                'options arm %s first loss %.6f against remat %.6f'
+                % (name, rec['losses'][0], ref))
+    return arms
+
+
+# ResNet-101's BatchNorm activations at batch 256 (one per stage, the
+# widest: the 1x1 expansions' outputs)
+BN_SHAPES = [(256, 56, 56, 256), (256, 28, 28, 512), (256, 14, 14, 1024),
+             (256, 7, 7, 2048)]
+# |got - want| <= 2e-2 * max|want| for y, dx, d_gamma, d_beta in bf16: a
+# bf16 ulp of each (vision.BatchNorm's autograd takes d_gamma and d_beta
+# as bf16 sums, batch_norm_train as f32 sums of the same products)
+BN_TOL = 2e-2
+
+
+def batch_norm_phase(shapes, dtype, device, smi=None, reps=5):
+    """``kernels/batch_norm.batch_norm_train`` against ``vision.BatchNorm``
+    in training mode (moments through autograd) on the same input, scale
+    and bias: y, dx, d_gamma and d_beta within ``BN_TOL``; on the card
+    each side's forward and forward + backward timed (device ms). No
+    default changes from it. Returns [record]."""
+    from autodist_tpu_torch.kernels.batch_norm import batch_norm_train
+    cuda = torch.device(device).type == 'cuda'
+    out = []
+    for shape in shapes:
+        c = shape[-1]
+        gen = torch.Generator(device=device).manual_seed(c)
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        ct = torch.randn(shape, generator=gen, device=device).to(dtype)
+        bn = vision.BatchNorm(c, dtype=dtype, device=device)
+        with torch.no_grad():
+            bn.scale.copy_(torch.rand(c, generator=gen, device=device) + 0.5)
+            bn.bias.copy_(torch.randn(c, generator=gen, device=device))
+        scale = bn.scale.detach().clone().requires_grad_(True)
+        bias = bn.bias.detach().clone().requires_grad_(True)
+        xa = x.clone().requires_grad_(True)
+        xb = x.clone().requires_grad_(True)
+
+        def plain_fwd():
+            return bn(xa)
+
+        def fused_fwd():
+            return batch_norm_train(xb, scale, bias, bn.eps)[0]
+        y_plain, y = plain_fwd(), fused_fwd()
+        y_plain.backward(ct)
+        y.backward(ct)
+
+        def err(got, want):
+            got, want = got.detach().float(), want.detach().float()
+            return float((got - want).abs().max()) / float(want.abs().max())
+        errs = {'y': err(y, y_plain), 'dx': err(xb.grad, xa.grad),
+                'd_gamma': err(scale.grad, bn.scale.grad),
+                'd_beta': err(bias.grad, bn.bias.grad)}
+        rec = {'shape': list(shape), 'dtype': str(dtype).replace('torch.',
+                                                                 ''),
+               'rel_err': errs, 'tol': BN_TOL}
+        del y, y_plain
+        if cuda:
+            rec.update(
+                batch_norm_train_fwd_ms=cuda_ms(fused_fwd, reps),
+                vision_bn_fwd_ms=cuda_ms(plain_fwd, reps),
+                batch_norm_train_fwd_bwd_ms=cuda_ms(
+                    lambda: fused_fwd().backward(ct), reps),
+                vision_bn_fwd_bwd_ms=cuda_ms(
+                    lambda: plain_fwd().backward(ct), reps))
+            rec['fwd_bwd_ratio'] = rec['batch_norm_train_fwd_bwd_ms'] / \
+                rec['vision_bn_fwd_bwd_ms']
+        if smi is not None:
+            emit(phase='batch_norm', card=smi, **rec)
+        require(all(v <= BN_TOL for v in errs.values()),
+                'batch_norm_train disagrees with vision.BatchNorm at %s: %s'
+                % (shape, errs))
+        out.append(rec)
+        del x, ct, xa, xb, bn
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
 def flash_row(name, rec, launches, shape, suffix=''):
     """A flash kernel's entry of the ``kernels`` line: ``rec`` from
     ``check_kernels`` at ``shape`` (bf16, causal, timed), ``launches``
@@ -746,9 +1034,12 @@ def kernel_class(name):
     return 'other'
 
 
-def _profiled(fn):
+def _profiled(fn, ranges=None):
     """Run ``fn`` once under torch.profiler: (host seconds, device ms by
-    kernel name)."""
+    kernel name). With a dict ``ranges`` of ``record_function`` names,
+    fill it with the device ms of the kernels launched inside each named
+    range (the host-side ranges: a range's backward, which autograd runs
+    outside it, is not included)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -762,31 +1053,40 @@ def _profiled(fn):
                 not getattr(e, 'is_user_annotation', False):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
+        elif ranges is not None and e.name in ranges and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            ranges[e.name] += (e.device_time_total
+                               if hasattr(e, 'device_time_total')
+                               else e.cuda_time_total) / 1e3
     return out, wall, by_name
 
 
-def emit_profile(name, wall, by_name, smi):
+def emit_profile(name, wall, by_name, smi, ranges=None):
     """The profile line: host seconds, device-busy seconds (kernel time
-    summed), idle share and the kernels that take the most device time.
-    The profiler's own cost inflates the host time, so the idle share
-    is an upper bound. Returns the top kernels' names."""
+    summed), idle share and the kernels that take the most device time
+    (and the device ms inside each named range, when given). The
+    profiler's own cost inflates the host time, so the idle share is an
+    upper bound. Returns the top kernels' names."""
     busy = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     by_class = {}
     for n, ms in by_name.items():
         by_class[kernel_class(n)] = by_class.get(kernel_class(n), 0.0) + ms
+    extra = {} if ranges is None else {'device_ms_in_ranges': ranges}
     emit(phase='profile', model=name, host_s=wall, device_busy_s=busy,
          idle_share=1 - busy / wall,
          device_ms_by_class=dict(sorted(by_class.items(),
                                         key=lambda kv: -kv[1])),
-         top_kernels_ms=dict(top), card=smi)
+         top_kernels_ms=dict(top), card=smi, **extra)
     require(busy > 0, 'the profiler saw no device time')
     return [n for n, _ in top]
 
 
-def profile_step(name, trainer, state, batch, smi):
+def profile_step(name, trainer, state, batch, smi, ranges=()):
     """One more training step under torch.profiler (see
-    :func:`emit_profile`). Returns (state, the top kernels' names)."""
+    :func:`emit_profile`), with the device time inside the named
+    ``record_function`` ranges. Returns (state, the top kernels'
+    names)."""
     step = trainer.compile_step(state, batch)
     local = trainer.shard_batch(batch)
 
@@ -794,38 +1094,55 @@ def profile_step(name, trainer, state, batch, smi):
         out = step(state, local)
         float(out[1]['loss'])
         return out
-    (state, _), wall, by_name = _profiled(run)
-    return state, emit_profile(name, wall, by_name, smi)
+    named = {r: 0.0 for r in ranges} if ranges else None
+    (state, _), wall, by_name = _profiled(run, named)
+    return state, emit_profile(name, wall, by_name, smi, named)
 
 
-def small_reference(dim=128, n_heads=2, n_layers=2):
+def small_reference(dim=128, n_heads=2, n_layers=2, phase='small_reference',
+                    devices=('cuda', 'cpu'), **cfg_kw):
     """The kernels on the card against the plain versions on the CPU, on
     a small model whose attention takes the kernel branch (S = 512):
-    loss and every gradient."""
+    loss and every gradient. ``cfg_kw`` adds config options (the MoE
+    blocks of ``small_moe_reference``); ``devices`` names the two sides
+    (the first must launch the kernels when it is the card)."""
     cfg = TransformerConfig.tiny(dtype=torch.float32, max_len=512, dim=dim,
                                  n_heads=n_heads, n_layers=n_layers,
-                                 remat=True)
+                                 remat=True, **cfg_kw)
     batch = make_batch(cfg.vocab, 2, 512, seed=2)
-    out = {}
-    for device in ('cuda', 'cpu'):
+    out = []
+    for device in devices:
         model = TransformerLM(cfg, device=device, seed=0)
         tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         fa.reset_launches()
         loss = model.loss(model.params(), tb)
         loss.backward()
-        out[device] = (float(loss.detach()), {n: p.grad.float().cpu()
-                                     for n, p in model.named_parameters()},
-                       dict(fa.LAUNCHES))
-    (l_gpu, g_gpu, launches), (l_cpu, g_cpu, _) = out['cuda'], out['cpu']
+        out.append((float(loss.detach()), {n: p.grad.float().cpu()
+                                           for n, p in
+                                           model.named_parameters()},
+                    dict(fa.LAUNCHES)))
+    (l_gpu, g_gpu, launches), (l_cpu, g_cpu, _) = out
     grad_err = max(float((g_gpu[n] - g_cpu[n]).abs().max()) for n in g_cpu)
     # f32 with TF32 off on both sides: sums in other orders through two
     # blocks; 1e-4 on gradients as in the CPU parity tests
+    want = {'fwd': 2 * cfg.n_layers, 'dq': cfg.n_layers, 'dkv': cfg.n_layers}
+    if torch.device(devices[0]).type != 'cuda':
+        want = {k: 0 for k in want}
     ok = abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu) and grad_err <= 1e-4 and \
-        launches == {'fwd': 2 * cfg.n_layers, 'dq': cfg.n_layers,
-                     'dkv': cfg.n_layers}
-    emit(phase='small_reference', head_dim=dim // n_heads, loss_cuda=l_gpu,
-         loss_cpu=l_cpu, max_grad_err=grad_err, launches=launches, ok=ok)
+        launches == want
+    emit(phase=phase, head_dim=dim // n_heads, loss_cuda=l_gpu,
+         loss_cpu=l_cpu, max_grad_err=grad_err, launches=launches, ok=ok,
+         devices=list(devices), **cfg_kw)
     require(ok, 'the model on the card disagrees with the CPU reference')
+    return {'loss': (l_gpu, l_cpu), 'max_grad_err': grad_err}
+
+
+def small_moe_reference(devices=('cuda', 'cpu')):
+    """``small_reference`` with MoE blocks: ``TransformerConfig.tiny(
+    moe_experts=4, moe_aux_coef=1.0, dim=128, n_heads=2, max_len=512)``,
+    f32, S = 512 (the kernel branch), loss and every gradient."""
+    return small_reference(phase='small_moe_reference', devices=devices,
+                           moe_experts=4, moe_aux_coef=1.0)
 
 
 # -- the reference DSL path --------------------------------------------------
@@ -1491,6 +1808,7 @@ def main(argv):
 
     small_reference()
     small_reference(dim=768, n_heads=2, n_layers=1)   # head dim 384
+    small_moe_reference()
     small_resnet_reference()
 
     # gpt_small at bench_longctx's configuration (the kernel arm), and the
@@ -1500,6 +1818,20 @@ def main(argv):
         name: {k: rec[k] for k in ('head_dim', 'batch', 'tokens_per_s',
                                    'step_seconds', 'peak_mem_gb')}
         for name, rec in gpt.items()})
+
+    # this slice's path: gpt_small with MoE blocks, then the share of its
+    # step the dense dispatch takes, then the rest of TransformerConfig's
+    # options on the dense model
+    moe_cfg = TransformerConfig.gpt_small(dtype=torch.bfloat16, max_len=4096,
+                                          **MOE_ARM)
+    moe = moe_phase(moe_cfg, MOE_BATCH, 4096, MOE_STEPS, 'cuda', smi,
+                    profiling)
+    moe_einsum_ms(moe_cfg, MOE_BATCH, 4096, moe['median_step_s'], smi)
+    torch.cuda.empty_cache()
+    transformer_options_phase(
+        TransformerConfig.gpt_small(dtype=torch.bfloat16, max_len=4096), 4,
+        4096, 'cuda', loss_chunk=4096, smi=smi)
+    torch.cuda.empty_cache()
 
     # bert_large at bench_bert's seq 128: the plain-attention arm
     cfg = TransformerConfig.bert_large(dtype=torch.bfloat16, remat=True)
@@ -1547,6 +1879,8 @@ def main(argv):
     family_step('vgg16', vision.VGG.vgg16(dtype=torch.bfloat16), 224, False,
                 smi)
     set_fused_gate(False)
+    batch_norm_phase(BN_SHAPES, torch.bfloat16, 'cuda', smi)
+    torch.cuda.empty_cache()
 
     dsl_phase(smi, profiling)
 
@@ -1567,11 +1901,19 @@ def main(argv):
                                ('gpt_small_head_dim_384', GPT_D384_SHAPE,
                                 '_head_dim_384')):
         main_path = results[(shape, True, torch.bfloat16)]
+        # gpt_small_moe8 gives the kernels gpt_small's shape: at head dim
+        # 64 its launches (this slice's path) are the row's, both listed
+        paths = {arm: gpt[arm]}
+        if arm == 'gpt_small':
+            paths = {'gpt_small_moe8': moe, **paths}
         for name in ('fwd', 'dq', 'dkv'):
             rec = main_path[name]
-            kernels.append(flash_row(
-                name, rec, gpt[arm]['kernel_launches'].get(rec['cuda_kernel'],
-                                                           0), shape, suffix))
+            by_path = {p: r['kernel_launches'].get(rec['cuda_kernel'], 0)
+                       for p, r in paths.items()}
+            row = flash_row(name, rec, next(iter(by_path.values())), shape,
+                            suffix)
+            row['launches_by_path'] = by_path
+            kernels.append(row)
     # K4: launch-weighted means over ResNet-101's main-path shapes
     weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]
 

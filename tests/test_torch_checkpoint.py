@@ -117,6 +117,48 @@ def test_trainer_state_from_the_port_restores_in_jax(name, tmp_path):
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **_tol(name))
 
 
+@pytest.mark.parametrize('writer', ['jax', 'port'])
+def test_moe_trainer_state_round_trips_bitwise(writer, tmp_path):
+    """The MoE TransformerLM's TrainState (4-D stacked expert leaves and
+    their AdamW slots) after 2 steps, written by one package and restored
+    by the other bit for bit; the next step of both agrees."""
+    from autodist_tpu.models.transformer import TransformerConfig as JConfig
+    from autodist_tpu.models.transformer import TransformerLM as JLM
+    jm = JLM(JConfig.tiny(dtype=jnp.float32, **cases.MOE_TINY))
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    jtr = JTrainer(jm, optax.adamw(1e-3), spec=JSpec(dp=1))
+    jstate = jtr.init(jax.random.PRNGKey(0), params=jp)
+    tr = cases.make_trainer('moe', opt=('adamw', 1e-3))
+    state = tr.init(params=jp)
+    batches = [cases.lm_batch(seed=i) for i in range(3)]
+    if writer == 'jax':
+        for b in batches[:2]:
+            jstate, _ = jtr.step(jstate, b)
+        jtr.save_state(JManager(str(tmp_path)), jstate)
+        state, step = tr.restore_state(CheckpointManager(str(tmp_path)),
+                                       state)
+        assert step == 2 and state.step == 2
+    else:
+        for b in batches[:2]:
+            state, _ = tr.step(state, b)
+        tr.save_state(CheckpointManager(str(tmp_path)), state)
+        jstate, step = jtr.restore_state(JManager(str(tmp_path)), jstate)
+        assert step == 2 and int(jstate.step) == 2
+    leaves = _port_leaves(tr, state)
+    assert leaves['.params/blocks/mlp/up'].shape == (2, 4, 64, 256)
+    assert '.opt_state/0/.mu/blocks/mlp/router/kernel' in leaves
+    _assert_bitwise(leaves, _jax_leaves(jstate))
+    jstate, jm_out = jtr.step(jstate, batches[2])
+    state, m = tr.step(state, batches[2])
+    np.testing.assert_allclose(float(m['loss']), float(jm_out['loss']),
+                               **LOSS)
+    want = cases.flat(jtr.get_params(jstate))
+    got = cases.flat(tr.get_params(state))
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k,
+                                   **_tol('adamw'))
+
+
 def test_state_at_step_0_and_sgd_without_slots(tmp_path):
     """Before any step Adam's slots are zeros and its count 0; plain SGD
     has no slots at all, in both packages."""

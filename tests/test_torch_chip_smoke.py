@@ -369,3 +369,70 @@ def test_lm1b_phase_at_tiny_width():
     arms = chip_smoke.lm1b_phase(chip_smoke.LM1B_SMALL, 'cpu', steps=2)
     assert arms['none']['losses'] == arms['full']['losses']
     assert arms['remat_loss_rel'] == 0.0
+
+
+# -- the MoE slice's phases, at tiny width on the CPU -------------------------
+def test_moe_arm_is_switch_base_width_with_gshard_routing():
+    """gpt_small_moe8: d 768, d_ff 3072, 12 layers, 8 experts, top 2,
+    capacity factor 2.0 (capacity 2048 at seq 4096), remat, head dim 64
+    (the D-64 wgmma kernels of the gpt_small arm)."""
+    from autodist_tpu_torch.models.moe import MoeMlp
+    from autodist_tpu_torch.models.transformer import TransformerConfig
+    cfg = TransformerConfig.gpt_small(max_len=4096, **chip_smoke.MOE_ARM)
+    assert (cfg.dim, cfg.dim * cfg.mlp_ratio, cfg.n_layers) == \
+        (768, 3072, 12)
+    assert (cfg.moe_experts, cfg.moe_top_k, cfg.remat) == (8, 2, True)
+    assert cfg.dim // cfg.n_heads == 64 and cfg.moe_aux_coef == 0.01
+    mlp = MoeMlp(768, 3072, 8, top_k=2, device='meta')
+    assert mlp.capacity(4096) == 2048
+    assert (chip_smoke.MOE_BATCH, chip_smoke.MOE_STEPS) == (4, 3)
+
+
+def test_moe_phase_at_tiny_width():
+    """The MoE phase's checks on the CPU (no kernel launches there): the
+    first loss is ce + coef * aux, ce near ln(vocab), aux about one a
+    layer."""
+    from autodist_tpu_torch.models.transformer import TransformerConfig
+    cfg = TransformerConfig.tiny(dtype=torch.float32, moe_experts=4,
+                                 remat=True)
+    rec = chip_smoke.moe_phase(cfg, 2, 64, 2, 'cpu')
+    assert len(rec['losses']) == 2 and rec['capacity'] == 64
+    assert rec['launches'] == {'fwd': 0, 'dq': 0, 'dkv': 0}
+    assert 0.9 * 2 <= rec['first_aux'] <= 2.0 * 2
+    assert rec['tokens_per_s'] > 0
+
+
+def test_small_moe_reference_runs_both_sides():
+    """small_moe_reference's comparison, with the CPU on both sides."""
+    out = chip_smoke.small_moe_reference(devices=('cpu', 'cpu'))
+    assert out['loss'][0] == out['loss'][1] and out['max_grad_err'] == 0.0
+
+
+def test_transformer_options_phase_at_tiny_width():
+    """Every remat policy gives the remat arm's losses bit for bit on the
+    CPU; the chunked head (4 chunks of 32 rows) to the stated bound."""
+    from autodist_tpu_torch.models.transformer import TransformerConfig
+    arms = chip_smoke.transformer_options_phase(
+        TransformerConfig.tiny(dtype=torch.float32), 2, 64, 'cpu',
+        loss_chunk=32)
+    assert set(arms) == {'remat', 'save_attn', 'dots', 'dots_no_batch',
+                         'no_remat', 'loss_chunk'}
+    for name, rec in arms.items():
+        assert len(rec['losses']) == 2
+        if name != 'loss_chunk':
+            assert rec['losses'] == arms['remat']['losses'], name
+    assert arms['loss_chunk']['first_loss_rel'] <= \
+        chip_smoke.OPTIONS_FIRST_LOSS_REL
+    assert set(chip_smoke.option_arms(4096)['loss_chunk'].items()) == \
+        {('remat', True), ('loss_chunk', 4096)}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_batch_norm_phase_at_tiny_width(dtype):
+    recs = chip_smoke.batch_norm_phase([(2, 4, 4, 8), (4, 2, 2, 16)], dtype,
+                                       'cpu')
+    assert [r['shape'] for r in recs] == [[2, 4, 4, 8], [4, 2, 2, 16]]
+    for r in recs:
+        assert set(r['rel_err']) == {'y', 'dx', 'd_gamma', 'd_beta'}
+        assert max(r['rel_err'].values()) <= chip_smoke.BN_TOL
+    assert [s[-1] for s in chip_smoke.BN_SHAPES] == [256, 512, 1024, 2048]

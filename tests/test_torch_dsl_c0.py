@@ -244,7 +244,8 @@ def test_error_feedback_residual_is_per_replica(world2):
 
 def test_loose_mode_raises_naming_its_queue_item(world2):
     for msg in world2['loose']:
-        assert msg is not None and 'ROADMAP.md Queue 1 item 8' in msg
+        assert msg is not None and \
+            'ROADMAP.md Queue 1: Loose-mode PS plane' in msg
 
 
 def test_load_and_get_variable_value_of_sharded_state(world2):

@@ -322,7 +322,7 @@ def test_ssh_coordinator_launch_raises_naming_its_queue_item():
     with autodist.scope():
         ad.Variable(1.0, name='v')
         with pytest.raises(NotImplementedError,
-                           match='ROADMAP.md Queue 1 item 8'):
+                           match='ROADMAP.md Queue 1: Loose-mode PS plane'):
             autodist.create_distributed_session()
 
 
@@ -338,7 +338,7 @@ def test_saver_and_autostrategy_raise_naming_their_queue_items():
     assert saver in graph.savers
     graph.savers.remove(saver)
     with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1 item 10'):
+                       match='ROADMAP.md Queue 1: Simulator and AutoStrategy'):
         AutoStrategy()
 
 

@@ -179,7 +179,7 @@ def test_two_level_lowering_raises_naming_its_queue_item():
                               'AUTO', 4, hier=2)
     assert sir.verify(prog) == []
     with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1 item 12'):
+                       match='ROADMAP.md Queue 1: Multi-node collectives'):
         sir.execute(prog, torch.zeros(128), ReplicaGroup(4, 0))
 
 
@@ -196,7 +196,7 @@ def test_hierarchical_choice_raises_naming_its_queue_item(monkeypatch):
     plan = ExecutionPlan(plan.strategy, plan.graph_item, ReplicaGroup(4, 0))
     assert plan.hier_groups == [[0, 1], [2, 3]]
     with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1 item 12'):
+                       match='ROADMAP.md Queue 1: Multi-node collectives'):
         plan.sync_gradients(sources, [torch.zeros(64), torch.zeros(32)],
                             fe.Env({}, {}))
 

@@ -78,9 +78,10 @@ def test_block_matches_jax():
     x = np.random.RandomState(2).randn(2, 16, 64).astype(np.float32)
     tb = Block(TransformerConfig.tiny(dtype=torch.float32), device='cpu')
     load_params(tb, jp)
-    want, _ = jb.apply(jp, jnp.asarray(x))
-    np.testing.assert_allclose(tb(torch.from_numpy(x)).detach().numpy(),
-                               np.asarray(want), **F32)
+    want, want_aux = jb.apply(jp, jnp.asarray(x))
+    got, aux = tb(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **F32)
+    assert aux is None and float(want_aux) == 0.0   # a dense block
 
 
 def _lm_pair(seq, remat=False, scan_layers=True):
@@ -160,8 +161,87 @@ def test_weights_round_trip_and_paths():
     assert set(sd) == set(tm.state_dict())
 
 
-def test_unported_options_raise():
+# the JAX package's variants (tests/test_models.py), each against the JAX
+# model under the same config
+REMAT_VARIANTS = {
+    'plain': dict(),
+    'chunked': dict(loss_chunk=64),
+    'save_attn': dict(remat='save_attn', loss_chunk=64),
+    'full_remat': dict(remat=True, loss_chunk=64),
+    'dots': dict(remat='dots', loss_chunk=64),
+    'dots_no_batch': dict(remat='dots_no_batch', loss_chunk=64),
+    'dots_moe': dict(remat='dots', moe_experts=4, moe_aux_coef=1.0),
+    'save_attn_moe': dict(remat='save_attn', moe_experts=4,
+                          moe_aux_coef=1.0, loss_chunk=64),
+}
+
+
+@pytest.mark.parametrize('name', list(REMAT_VARIANTS))
+def test_remat_policies_and_loss_chunk_match_jax(name):
+    """Every remat policy and ``loss_chunk`` (4 chunks of 128 rows here)
+    against the JAX model under the same config: loss 1e-5, gradients
+    5e-5 (tests/test_models.py's bounds); and the port's own numbers equal
+    the port's plain forward's bit for bit (the policies recompute the
+    same ops on the same inputs; the chunked head is the same products
+    on row slices, equal to 1e-6)."""
+    kw = REMAT_VARIANTS[name]
+    jm = JLM(JConfig.tiny(dtype=jnp.float32, **kw))
+    jp = _np_tree(jm.init(jax.random.PRNGKey(0)))
+    batch = _tokens(256, 4, 128)
+    jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    runs = {}
+    for key, cfg_kw in (('variant', kw),
+                        ('plain', {k: v for k, v in kw.items()
+                                   if k not in ('remat', 'loss_chunk')})):
+        tm = TransformerLM(TransformerConfig.tiny(dtype=torch.float32,
+                                                  **cfg_kw), device='cpu')
+        load_params(tm, jp)
+        runs[key] = _run_port(tm, batch)[1:]
+    loss, grads = runs['variant']
+    assert abs(loss - float(jloss)) < 1e-5, (loss, float(jloss))
+    _assert_trees_close(grads, _np_tree(jgrads), atol=5e-5, rtol=0)
+    plain_loss, plain_grads = runs['plain']
+    if 'loss_chunk' in kw:
+        assert abs(loss - plain_loss) < 1e-6
+        _assert_trees_close(grads, plain_grads, atol=1e-6, rtol=0)
+    else:
+        assert loss == plain_loss
+        _assert_trees_close(grads, plain_grads, atol=0, rtol=0)
+
+
+def test_loss_chunk_counts_and_indivisible_fallback():
+    """``loss_chunk`` that cannot split the sequence evenly runs unchunked
+    (n = 1) with the plain numbers, as in the JAX package; the chunk
+    count is the JAX ``_ce_chunks``'s."""
+    jchunked = JLM(JConfig.tiny(dtype=jnp.float32, loss_chunk=4))
+    tchunked = TransformerLM(TransformerConfig.tiny(dtype=torch.float32,
+                                                    loss_chunk=4),
+                             device='cpu')
+    for s, rows in ((7, 14), (128, 512), (96, 384), (64, 4), (5, 1000)):
+        assert tchunked._ce_chunks(s, rows) == jchunked._ce_chunks(s, rows)
+    jp = _np_tree(jchunked.init(jax.random.PRNGKey(0)))
+    batch = _tokens(256, 2, 7, seed=1)
+    load_params(tchunked, jp)
+    plain = TransformerLM(TransformerConfig.tiny(dtype=torch.float32),
+                          device='cpu')
+    load_params(plain, jp)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    l1 = float(tchunked.loss(tchunked.params(), tb))
+    l0 = float(plain.loss(plain.params(), tb))
+    assert l0 == l1
+    want = float(jax.jit(jchunked.loss)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}))
+    assert abs(l1 - want) < 1e-5
+
+
+def test_unknown_remat_mode_raises():
+    """The JAX package's ValueError (message included) for a remat name
+    it does not know; every option it takes builds."""
+    with pytest.raises(ValueError, match=r"unknown remat mode 'attn' "
+                       r"\(expected False, True, or one of \['dots', "
+                       r"'dots_no_batch', 'save_attn'\]\)"):
+        TransformerLM(TransformerConfig.tiny(remat='attn'), device='cpu')
     for kw in (dict(remat='save_attn'), dict(loss_chunk=64),
-               dict(moe_experts=2)):
-        with pytest.raises(NotImplementedError):
-            TransformerLM(TransformerConfig.tiny(**kw), device='cpu')
+               dict(moe_experts=2, moe_top_k=1, moe_aux_coef=0.1)):
+        TransformerLM(TransformerConfig.tiny(**kw), device='cpu')

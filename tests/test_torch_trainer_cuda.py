@@ -9,10 +9,12 @@ cards:
 
 One worker process per card trains a small model on its slice of a
 global batch for 3 steps; the losses and params must match the same 3
-steps on one card with the whole batch. Two models: a Transformer whose
-attention takes the flash kernels (S = 512), under adamw, without a
-loss mask and with one that leaves the ranks unequal numbers of counted
-tokens (the loss is the global masked mean); and a small
+steps on one card with the whole batch. Three models: a Transformer
+whose attention takes the flash kernels (S = 512), under adamw, without
+a loss mask and with one that leaves the ranks unequal numbers of
+counted tokens (the loss is the global masked mean); the same with MoE
+blocks (4 experts, aux weight 1.0, remat), whose load-balance loss takes
+its first-choice fractions over the global batch; and a small
 ResNet through the fused conv + BatchNorm kernel
 (``AUTODIST_FUSED_CONV=1``), under sgd with momentum, whose BatchNorm
 moments are summed over the ranks (so dp = N normalizes over the same
@@ -62,9 +64,13 @@ if world > 1:
                             world_size=world, rank=rank)
 rng = np.random.RandomState(0)
 device = 'cuda:%d' % rank
-if kind.startswith('lm'):
+if kind.startswith('lm') or kind == 'moe':
+    # the MoE case: aux weight 1.0 and remat, so the aux's first-choice
+    # fractions are all-reduced in the forward and again in the recompute
+    extra = dict(moe_experts=4, moe_aux_coef=1.0, remat=True) \
+        if kind == 'moe' else {}
     cfg = TransformerConfig.tiny(dtype=torch.float32, dim=128, n_heads=2,
-                                 max_len=512)
+                                 max_len=512, **extra)
     model = TransformerLM(cfg, device=device, seed=rank)
     trainer = Trainer(model, optim.adamw(1e-4))
     batch = {'tokens': rng.randint(0, cfg.vocab, (8, 512), dtype=np.int32),
@@ -111,6 +117,7 @@ def _launch(world, out, port, kind):
 @pytest.mark.parametrize('kind,atol', [
     pytest.param('lm', 1e-5, id='lm'),
     pytest.param('lm_masked', 1e-5, id='lm_masked'),
+    pytest.param('moe', 1e-5, id='moe'),
     pytest.param('resnet', 1e-4, id='resnet')])
 def test_nccl_dp_equals_one_card(tmp_path, kind, atol):
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0

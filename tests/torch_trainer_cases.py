@@ -67,9 +67,22 @@ def images_batch(b=4, seed=0):
             'labels': rng.randint(0, 10, (b,)).astype(np.int32)}
 
 
+# the MoE LM of the JAX package's tests (tests/test_functional_api.py):
+# aux weight 1.0, so a wrong aux shows above the tolerances
+MOE_TINY = dict(moe_experts=4, moe_aux_coef=1.0)
+
+
+def lm_config(kind):
+    """``TransformerConfig.tiny`` keywords of an LM kind: 'lm', 'moe', or
+    'moe_remat' (the MoE model under per-block remat)."""
+    return {'lm': {}, 'moe': MOE_TINY,
+            'moe_remat': dict(MOE_TINY, remat=True)}[kind]
+
+
 def make_model(kind, tied=False):
-    if kind == 'lm':
-        return TransformerLM(TransformerConfig.tiny(dtype=torch.float32),
+    if kind in ('lm', 'moe', 'moe_remat'):
+        return TransformerLM(TransformerConfig.tiny(dtype=torch.float32,
+                                                    **lm_config(kind)),
                              device='cpu')
     if kind == 'ncf':
         return NCF(**NCF_TINY, device='cpu')
