@@ -488,7 +488,9 @@ class Trainer:
     def profile(self, state, batch, trace_dir, steps=3):
         """Write a ``torch.profiler`` trace (Chrome / Perfetto JSON,
         ``trace_dir/rank<r>.pt.trace.json``) of ``steps`` training steps
-        after one untraced warm-up step. Returns ``trace_dir``. The
+        after one untraced warm-up step, with operator shapes (the
+        collectives' sizes, which ``utils/profiling.collective_timeline``
+        reads, ride them). Returns ``trace_dir``. The
         traced steps' updates are discarded: params, buffers, optimizer
         state and step are put back as they were (profiling must not
         perturb training)."""
@@ -505,7 +507,7 @@ class Trainer:
             _, m = self._step(state, placed)     # warm-up outside the trace
             float(m['loss'])
             os.makedirs(trace_dir, exist_ok=True)
-            with profile(activities=activities) as prof:
+            with profile(activities=activities, record_shapes=True) as prof:
                 for _ in range(steps):
                     _, m = self._step(state, placed)
                 float(m['loss'])

@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from autodist_tpu_torch.kernels import build
+from autodist_tpu_torch.kernels import build, work
 
 SOURCE = 'conv_bn.cu'
 ROW_TILE = 128     # rows of the CUDA kernels' output tile (csrc BM)
@@ -176,6 +176,8 @@ def _fwd_cuda(x2d, w, a, b, relu, want_stats, out_dtype):
     if err != 0:
         raise RuntimeError('conv_bn kernel launch failed: cudaError %d' % err)
     LAUNCHES['conv_bn'] += 1
+    work.record(*work.conv_bn(n, c_in, c_out, x2d.dtype, a is not None,
+                              want_stats))
     return y, s[0], s[1]
 
 

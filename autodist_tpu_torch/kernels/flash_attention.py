@@ -43,7 +43,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from autodist_tpu_torch.kernels import build
+from autodist_tpu_torch.kernels import build, work
 
 NEG_INF = -1e30   # same masking constant as parallel/ring_attention.py
 SOURCE = 'flash_attention.cu'
@@ -216,7 +216,10 @@ def _check(tensors, head_dim):
                          % (head_dim, ref.shape[2]))
 
 
-def _launch(name, fn, dtype, head_dim, *args):
+def _launch(name, fn, shape, dtype, causal, *args):
+    """Launch kernel ``name`` on q of ``shape`` [B, H, S, D]; count the
+    launch and report its work (``kernels/work.py``)."""
+    head_dim = shape[3]
     err = fn(_DTYPE_CODES[dtype], head_dim, *args)
     if err != 0:
         raise RuntimeError('%s kernel launch failed: cudaError %d'
@@ -224,6 +227,7 @@ def _launch(name, fn, dtype, head_dim, *args):
     LAUNCHES[name] += 1
     kernel = kernel_name(name, dtype, head_dim)
     KERNEL_LAUNCHES[kernel] = KERNEL_LAUNCHES.get(kernel, 0) + 1
+    work.record(*work.attention(name, tuple(shape), dtype, causal))
 
 
 def _prep(t):
@@ -249,7 +253,7 @@ def _fwd_cuda(q, k, v, causal, sm_scale):
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
-        _launch('fwd', lib.fa_fwd, q.dtype, d, _ptr(q),
+        _launch('fwd', lib.fa_fwd, q.shape, q.dtype, causal, _ptr(q),
                 _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b * h, s,
                 float(sm_scale), int(causal), _stream(q))
     return o, lse
@@ -272,9 +276,9 @@ def _dq_cuda(q, k, v, do, lse, delta, causal, sm_scale):
     dq = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):
-        _launch('dq', lib.fa_dq, q.dtype, d, _ptr(q), _ptr(k),
-                _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), b * h,
-                s, float(sm_scale), int(causal), _stream(q))
+        _launch('dq', lib.fa_dq, q.shape, q.dtype, causal, _ptr(q),
+                _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
+                b * h, s, float(sm_scale), int(causal), _stream(q))
     return dq
 
 
@@ -286,7 +290,7 @@ def _dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = load_library()
     with torch.cuda.device(q.device):
-        _launch('dkv', lib.fa_dkv, q.dtype, d, _ptr(q),
+        _launch('dkv', lib.fa_dkv, q.shape, q.dtype, causal, _ptr(q),
                 _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
                 _ptr(dv), b * h, s, float(sm_scale), int(causal), _stream(q))
     return dk, dv

@@ -4,7 +4,8 @@ The counterpart of ``autodist_tpu/parallel/compressor.py``:
 ``NoneCompressor``, ``HorovodCompressor`` (bfloat16 wire),
 ``HorovodCompressorEF`` (error feedback), ``Int8RingCompressor`` (int8
 wire with one f32 scale per ``AUTODIST_QUANT_BLOCK`` elements, its ring
-a send/recv ring over the replica group) and ``PowerSGDCompressor``
+a send/recv ring over the replica group, and its two-level form over the
+node subgroups) and ``PowerSGDCompressor``
 (rank-2 power iteration with error feedback).
 
 A compressor transforms this replica's gradient before the collective
@@ -149,6 +150,47 @@ def int8_ring_all_reduce(x, group, block=None):
     # replica row j holds chunk (j+1)%n -> chunk c sits at row (c-1)%n
     full = full[[(c - 1) % n for c in range(n)]]
     return full.reshape(-1)[:x.numel()].reshape(shape)
+
+
+def int8_grouped_ring_all_reduce(x, group, groups, block=None):
+    """Block-quantized int8 ring all-reduce (sum) over INDEPENDENT
+    equal-size groups of replica positions: the recipe of
+    :func:`int8_ring_all_reduce`, its ring run within each group at
+    once (each replica's ring is its group's subgroup). This is the
+    inter-node phase of the two-level schedule: ``groups`` then holds
+    one same-chunk representative per node."""
+    if len(groups[0]) == 1:
+        return x
+    return int8_ring_all_reduce(x, group.split(groups), block=block)
+
+
+def int8_hierarchical_all_reduce(x, group, node_groups, block=None):
+    """Two-level int8-wire all-reduce (sum): quantize once, requantize
+    at the tier boundary.
+
+    The caller has already block-roundtripped the bucket once (the
+    "quantize once" of the error-feedback contract); the intra-node
+    phases then ride plain f32 collectives on the fast link, and only
+    the tier BOUNDARY requantizes: each node's partial chunk sum rides
+    the int8 ring across nodes (per-hop requantization), and the
+    reduced chunks all-gather back within each node at f32.
+    """
+    from autodist_tpu_torch.parallel.plan import _inter_groups
+    k = len(node_groups)
+    g = len(node_groups[0])
+    if k <= 1 or g <= 1:
+        return int8_ring_all_reduce(x, group, block=block)
+    shape = x.shape
+    flat = x.reshape(-1).to(torch.float32)
+    m = -(-flat.numel() // g) * g
+    flat = torch.nn.functional.pad(flat, (0, m - flat.numel()))
+    intra = group.split(node_groups)
+    cur = intra.reduce_scatter(flat)
+    cur = int8_grouped_ring_all_reduce(cur, group,
+                                       _inter_groups(node_groups),
+                                       block=block)
+    out = intra.all_gather(cur)
+    return out[:x.numel()].reshape(shape)
 
 
 def int8_bucket_fusable(compressor, dtype, size):

@@ -6,7 +6,8 @@ once inside ``shard_map``; the port runs one process per device, so
 the data axis is a group of ranks and each rank is one replica.
 :class:`ReplicaGroup` holds that group and the collectives the
 execution plan lowers to: sums, reduce-scatters and all-gathers over
-the whole group, and the neighbour exchange of the ring schedules.
+the whole group, the neighbour exchange of the ring schedules, and the
+subgroups the two-level schedules run over (:meth:`ReplicaGroup.split`).
 With one replica every collective is the identity.
 
 ``mesh_from_strategy`` sizes the group as the JAX package sizes the
@@ -41,7 +42,7 @@ class ReplicaGroup:
         self.rank = int(rank)
         self.group = group
         self.device = torch.device(device or 'cpu')
-        self._subgroups = {}
+        self._splits = {}
 
     # -- whole-group collectives ------------------------------------------
     def all_reduce(self, x):
@@ -98,15 +99,25 @@ class ReplicaGroup:
         return dist.get_global_rank(self.group, rank)
 
     # -- subgroups ---------------------------------------------------------
-    def subgroup(self, ranks):
-        """The ``torch.distributed`` group over data-axis positions
-        ``ranks``. Every replica must ask for the same groups in the
-        same order (``new_group`` is collective)."""
-        key = tuple(sorted(ranks))
-        if key not in self._subgroups:
-            self._subgroups[key] = dist.new_group(
-                [self._global(r) for r in key])
-        return self._subgroups[key]
+    def split(self, groups):
+        """This replica's :class:`ReplicaGroup` within ``groups``,
+        disjoint groups of data-axis positions (the node groups of the
+        two-level schedules, their cross-node groups, or a schedule-IR
+        step's groups); None when this replica is in none of them. Every
+        group is made on every replica, in the same order, as
+        ``new_group`` requires (a group of one needs none); positions
+        rank in ascending order. Cached: each split is made once."""
+        key = tuple(tuple(sorted(g)) for g in groups)
+        if key not in self._splits:
+            mine = None
+            for g in key:
+                pg = dist.new_group([self._global(r) for r in g]) \
+                    if len(g) > 1 else None
+                if self.rank in g:
+                    mine = ReplicaGroup(len(g), g.index(self.rank), pg,
+                                        self.device)
+            self._splits[key] = mine
+        return self._splits[key]
 
 
 def data_axis_node_groups(group, forced_nodes=0, ranks_per_node=None):

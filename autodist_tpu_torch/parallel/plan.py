@@ -19,7 +19,11 @@ ReplicaGroup`):
   to it and the values all-gathered at the next step;
 - sparse-read (embedding) variables ship (ids, rows) instead of the
   dense vocab-sized gradient when that moves fewer bytes;
-- ``RING`` forces an explicit send/recv ring.
+- ``RING`` forces an explicit send/recv ring;
+- on several nodes (or under ``AUTODIST_HIERARCHY_NODES``) a bucket the
+  cost model prices cheaper in two levels runs the hierarchical
+  schedules (:func:`hierarchical_all_reduce` and its scatter and gather
+  halves) over the node and cross-node subgroups.
 
 The bucket packing, the fusion predicate and key, and the static
 schedule the simulator prices are the JAX package's code, so the
@@ -28,6 +32,7 @@ Every collective is routed through the schedule IR
 (:mod:`autodist_tpu_torch.parallel.schedule_ir`).
 """
 import torch
+import torch.distributed as dist
 
 from autodist_tpu_torch.const import (BUCKET_BYTES_PER_CHUNK,
                                       DEFAULT_CHUNK_SIZE, ENV)
@@ -73,6 +78,101 @@ def ring_all_reduce(x, group):
     # replica row j holds chunk (j+1)%n -> chunk c sits at row (c-1)%n
     full = full[[(c - 1) % n for c in range(n)]]
     return full.reshape(-1)[:x.numel()].reshape(shape)
+
+
+def _inter_groups(node_groups):
+    """The cross-node groups of a two-level schedule: the devices at
+    the same intra-node position, one per node."""
+    g = len(node_groups[0])
+    return [[grp[r] for grp in node_groups] for r in range(g)]
+
+
+def hierarchical_all_reduce(x, group, node_groups):
+    """Two-level all-reduce (sum) over ``node_groups`` of replica
+    positions: intra-node reduce-scatter, inter-node all-reduce over one
+    chunk owner per node, intra-node all-gather.
+
+    The PCCL-style process-group synthesis for a two-tier topology
+    (NVLink within a node, the network across nodes): the only traffic
+    that crosses the node boundary is each node's ``1/g`` chunk of the
+    already-reduced bucket, so the slow link carries ``2(k-1)/k·B/g``
+    bytes instead of the flat ring's ``2(n-1)/n·B`` — the gap
+    :func:`~autodist_tpu_torch.simulator.cost_model.hierarchical_time`
+    prices. The subgroups are the replica group's
+    (:meth:`~autodist_tpu_torch.parallel.mesh.ReplicaGroup.split`).
+    Addition is associative over the regrouping, so the result is the
+    flat sum up to the order of the additions. Degenerate group shapes
+    (one node, or one device per node) collapse to the flat all-reduce.
+    """
+    k = len(node_groups) if node_groups else 0
+    g = len(node_groups[0]) if node_groups else 0
+    if k <= 1 or g <= 1:
+        return group.all_reduce(x)
+    shape = x.shape
+    flat = x.reshape(-1)
+    m = -(-flat.numel() // g) * g
+    flat = torch.nn.functional.pad(flat, (0, m - flat.numel()))
+    intra = group.split(node_groups)
+    cur = intra.reduce_scatter(flat)
+    cur = group.split(_inter_groups(node_groups)).all_reduce(cur)
+    out = intra.all_gather(cur)
+    return out[:x.numel()].reshape(shape)
+
+
+def hierarchical_psum_scatter(x, group, node_groups, axis=0):
+    """Two-level reduce-scatter (sum) along ``axis``: intra-node
+    reduce-scatter, then inter-node reduce-scatter of the owned chunk
+    over one representative per node — the scatter HALF of
+    :func:`hierarchical_all_reduce`. A chunk pre-permutation makes the
+    final ownership IDENTICAL to the flat reduce-scatter (the replica at
+    position ``d`` owns chunk ``d``), so ZeRO shard layouts and
+    update-sharding buckets swap schedules without a relayout. ``axis``
+    length must divide by the group size. Degenerate group shapes
+    collapse to the flat collective.
+    """
+    k = len(node_groups) if node_groups else 0
+    g = len(node_groups[0]) if node_groups else 0
+    if k <= 1 or g <= 1:
+        return group.reduce_scatter(x, axis=axis)
+    n = k * g
+    moved = x.movedim(axis, 0)
+    m = moved.shape[0] // n
+    rest = tuple(moved.shape[1:])
+    # the two scatters deliver block (p, j) of a (g, k, m)-blocked
+    # layout to the replica at intra position p in node j (position
+    # j*g+p); pre-permuting (k, g) -> (g, k) block order makes that
+    # block the flat layout's chunk j*g+p
+    arranged = moved.reshape((k, g, m) + rest).transpose(0, 1)
+    arranged = arranged.reshape((n * m,) + rest)
+    cur = group.split(node_groups).reduce_scatter(arranged)
+    cur = group.split(_inter_groups(node_groups)).reduce_scatter(cur)
+    return cur.movedim(0, axis)
+
+
+def hierarchical_all_gather(x, group, node_groups, axis=0):
+    """Two-level all-gather along ``axis``: inter-node all-gather of
+    this replica's chunk, then intra-node all-gather, then the inverse
+    of :func:`hierarchical_psum_scatter`'s chunk permutation — the
+    result is IDENTICAL to the flat all-gather (chunk ``d`` comes from
+    position ``d``). The gather HALF of the two-level schedule: ZeRO
+    param re-gathers and the weight-update-sharding bucket gather ride
+    it when the shared cost-model decision picks the hierarchical
+    schedule.
+    """
+    k = len(node_groups) if node_groups else 0
+    g = len(node_groups[0]) if node_groups else 0
+    if k <= 1 or g <= 1:
+        return group.all_gather(x, axis=axis)
+    moved = x.movedim(axis, 0)
+    m = moved.shape[0]
+    rest = tuple(moved.shape[1:])
+    cur = group.split(_inter_groups(node_groups)).all_gather(moved)
+    out = group.split(node_groups).all_gather(cur)
+    # out block (p, j) holds the shard of position j*g+p; permute back
+    # to flat chunk order
+    out = out.reshape((g, k, m) + rest).transpose(0, 1)
+    out = out.reshape((k * g * m,) + rest)
+    return out.movedim(0, axis)
 
 
 def _numel(shape):
@@ -461,18 +561,27 @@ class ShardedGrad:
     local shard only) or gathered to full on direct fetch.
     ``logical_dim`` is the unpadded size of the shard axis for uneven
     partitions: :meth:`gather` slices the padding back off.
+    ``hier_groups`` carries the node groups of a two-level param
+    re-gather when the shared cost-model decision picked it
+    (:meth:`ExecutionPlan.gather_hier_groups`); None = flat.
     """
 
     is_sharded_value = True
 
-    def __init__(self, value, axis, group, logical_dim=None):
+    def __init__(self, value, axis, group, logical_dim=None,
+                 hier_groups=None):
         self.value = value
         self.axis = axis
         self.group = group
         self.logical_dim = logical_dim
+        self.hier_groups = hier_groups
 
     def gather(self):
-        full = self.group.all_gather(self.value, axis=self.axis)
+        if self.hier_groups:
+            full = hierarchical_all_gather(self.value, self.group,
+                                           self.hier_groups, axis=self.axis)
+        else:
+            full = self.group.all_gather(self.value, axis=self.axis)
         if self.logical_dim is not None and \
                 full.shape[self.axis] != self.logical_dim:
             full = full.narrow(self.axis, 0, self.logical_dim)
@@ -526,7 +635,11 @@ class UpdateShard:
     def gather(self):
         """Full var-shaped value from the shards (single-member gather,
         for direct fetches and user arithmetic)."""
-        full = self.plan.group.all_gather(self.value)
+        if self.meta.get('hier_groups'):
+            full = hierarchical_all_gather(self.value, self.plan.group,
+                                           self.meta['hier_groups'])
+        else:
+            full = self.plan.group.all_gather(self.value)
         return full[:_numel(self.var.shape)].reshape(self.var.shape)
 
 
@@ -620,6 +733,13 @@ class ExecutionPlan:
             ranks_per_node=ranks_per_node)
         self.cost_params = CostModelParams.from_topology(topology) \
             if topology is not None else CostModelParams()
+        if self.hier_groups and dist.is_available() and \
+                dist.is_initialized():
+            # new_group is collective: every replica makes the node and
+            # cross-node groups here, in the same order, before any
+            # bucket decides whether it goes two-level
+            group.split(self.hier_groups)
+            group.split(_inter_groups(self.hier_groups))
         self.var_plans = {}
         nodes = {n.var_name: n for n in strategy.node_config}
         for name, var in graph_item.trainable_var_op_to_var.items():
@@ -713,9 +833,7 @@ class ExecutionPlan:
     def _hier_groups_for(self, nbytes, dtype, compressor_name, spec,
                          knob):
         """Node groups for ONE bucket's collective, or None for flat —
-        the shared ``cost_model.choose_hierarchical`` decision. A
-        two-level schedule needs node groups over several hosts, which
-        the port does not run yet: it raises instead of going flat."""
+        the shared ``cost_model.choose_hierarchical`` decision."""
         groups = self.hier_groups
         if not groups:
             return None
@@ -724,13 +842,7 @@ class ExecutionPlan:
         if choose_hierarchical(nbytes, dtype, compressor_name,
                                self.num_replicas, len(groups),
                                self.cost_params, knob=knob, spec=spec):
-            raise NotImplementedError(
-                'the cost model picks a two-level (hierarchical) '
-                'schedule over %d node groups: multi-node collectives '
-                'are not ported yet (ROADMAP.md Queue 1: Multi-node '
-                'collectives); set '
-                "hierarchical='never' on the synchronizer"
-                % len(groups))
+            return groups
         return None
 
     def _wus_for(self, nbytes, dtype, compressor_name, spec, knob):
@@ -899,11 +1011,11 @@ class ExecutionPlan:
                     continue
                 # ZeRO path: reduce-scatter straight to the shard owner;
                 # uneven partitions pad to the next multiple of n.
-                self.gather_hier_groups(plan)
                 out[i] = ShardedGrad(
                     self._capped_psum_scatter(plan, grad),
                     plan.shard_axis, self.group,
-                    logical_dim=grad.shape[plan.shard_axis])
+                    logical_dim=grad.shape[plan.shard_axis],
+                    hier_groups=self.gather_hier_groups(plan))
             elif (ids is not None and
                     type(plan.compressor) is comp.NoneCompressor and
                     sparse_bytes < grad.numel()):
@@ -1064,20 +1176,24 @@ class ExecutionPlan:
         n = self.num_replicas
         for meta, members in buckets.values():
             names = meta['members']
+            groups = meta['hier_groups']
+            hier = len(groups) if groups else 0
             if set(names) != set(members):
                 for name, sh in members.items():
                     out[name] = sh.gather()
                     mprog = sir.bucket_program(
                         'all_gather', sh.shard_size * n *
                         sh.value.element_size(), meta['dtype'],
-                        meta['compressor'], meta['spec'], n, wus=True)
+                        meta['compressor'], meta['spec'], n, hier=hier,
+                        wus=True, node_groups=groups)
                     self._record_entry(sir.schedule_entry(
                         mprog, group=meta['group'], members=[name]))
                 continue
             cat = torch.cat([members[nm].value for nm in names])
             prog = sir.bucket_program(
                 'all_gather', meta['bytes'], meta['dtype'],
-                meta['compressor'], meta['spec'], n, wus=True)
+                meta['compressor'], meta['spec'], n, hier=hier, wus=True,
+                node_groups=groups)
             full = sir.execute(prog, cat, self.group)
             self._record_entry(sir.schedule_entry(
                 prog, group=meta['group'], members=list(names),

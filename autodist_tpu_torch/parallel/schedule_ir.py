@@ -16,10 +16,6 @@ of composable steps that
   across requantize boundaries, and the final per-device element
   partition matches the program's declared goal.
 
-The JAX package's search over programs (3-level hierarchies, per-link
-wire dtypes, and their pricing and formatting) is not copied: nothing
-in the port builds those programs.
-
 The element model: a program runs over ``elems`` padded elements
 ``[0, E)``. Each device holds a set of fragments ``(lo, hi, contribs)``
 where ``contribs`` is the set of devices whose local addends are summed
@@ -31,10 +27,12 @@ and the goal check maps holdings back to original coordinates, so "the
 two-level scatter lands the flat layout" is a theorem the verifier
 checks, not a comment.
 
-The port copies the algebra, the builders and the pricing from the JAX
-package's ``parallel/schedule_ir.py``; ``execute``/``execute_generic``
-lower onto ``torch.distributed`` over the replica group instead of jax
-collectives, importing torch only when called.
+The port copies the algebra, the builders (3-level hierarchies and
+per-link wire dtypes included, which ``simulator.search`` synthesizes)
+and the formatting from the JAX package's ``parallel/schedule_ir.py``;
+``execute``/``execute_generic`` lower onto ``torch.distributed`` over the
+replica group instead of jax collectives, importing torch only when
+called.
 """
 from dataclasses import dataclass, field
 
@@ -90,7 +88,8 @@ class Step:
     interval the collective covers. ``perm`` (permute) maps new block
     index -> old block index at ``block`` elements per block.
     ``nbytes`` declares the per-group wire payload in bytes — the
-    byte-flow conservation check bounds it against the algebra.
+    byte-flow conservation check bounds it against the algebra, and
+    ``program_time`` prices from it.
     """
     op: str
     tier: str = 'ici'
@@ -521,6 +520,23 @@ def verify(program, init_holdings=None):
     return run_algebra(program, init_holdings=init_holdings)[0]
 
 
+def staging_bytes(program):
+    """Peak staging-buffer estimate of a program's local steps — the
+    memory axis synthesis prunes on: a requantize materializes the
+    re-encoded buffer next to the live one, a permute its re-blocked
+    copy. Wire-only accounting (the live f32 buffer itself is the
+    plan's peak-bytes business, not the schedule's)."""
+    E = int(program.elems)
+    peak = 0
+    for s in program.steps:
+        if s.op == 'requantize':
+            peak = max(peak, wire_nbytes(E, s.wire))
+        elif s.op == 'permute':
+            peak = max(peak, len(s.perm) * int(s.block) *
+                       WIRE_ITEMSIZE.get(s.wire, 4))
+    return int(peak)
+
+
 # -- builders ----------------------------------------------------------
 
 def contiguous_groups(n, k):
@@ -628,7 +644,7 @@ def two_level_program(elems, dtype, host_sizes, *, kind='all_reduce',
                       meta=None, node_groups=None):
     """Two-level program over ``host_sizes`` devices per node (host-
     major positions). Equal sizes reproduce the legacy hierarchical
-    schedules step for step; unequal sizes lift the node-group count's
+    schedules step for step; unequal sizes lift ``num_node_groups``'s
     equal-split requirement via the wave construction (the synthesis
     path — the traced emitter cannot run these yet, but the algebra
     verifies them and the cost model prices the straggler).
@@ -780,6 +796,90 @@ def two_level_program(elems, dtype, host_sizes, *, kind='all_reduce',
                    tuple(steps), init, goal, meta)
 
 
+def three_level_program(elems, dtype, slices, hosts_per_slice,
+                        devs_per_host, *,
+                        tiers=('ici', 'host', 'dcn'), wires=None,
+                        name='', meta=None):
+    """Three-level all-reduce: RS(device tier within host), RS(host
+    tier within slice), AR(slice tier), AG(host), AG(ici) — the AG
+    phases invert the RS phases exactly, so no permute is needed and
+    the goal is full replication. Only the synthesis path emits these
+    (a hand-written emitter covers at most two tiers)."""
+    s, h, g = int(slices), int(hosts_per_slice), int(devs_per_host)
+    n = s * h * g
+    raw_wire = wire_of_dtype(dtype)
+    w0, w1, w2 = wires or (raw_wire, raw_wire, raw_wire)
+    E = _pad_to(elems, g * h)
+    mg = E // g                     # per-device chunk after RS(ici)
+    mh = mg // h                    # ... after RS(host)
+
+    def pos(si, hi, di):
+        return (si * h + hi) * g + di
+
+    host_groups = tuple(
+        tuple(pos(si, hi, di) for di in range(g))
+        for si in range(s) for hi in range(h))
+    host_chunks = tuple(
+        tuple((di * mg, (di + 1) * mg) for di in range(g))
+        for _ in range(s * h))
+    slice_groups = tuple(
+        tuple(pos(si, hi, di) for hi in range(h))
+        for si in range(s) for di in range(g))
+    slice_chunks = tuple(
+        tuple((di * mg + hi * mh, di * mg + (hi + 1) * mh)
+              for hi in range(h))
+        for si in range(s) for di in range(g))
+    top_groups = tuple(
+        tuple(pos(si, hi, di) for si in range(s))
+        for hi in range(h) for di in range(g))
+    top_spans = tuple(
+        (di * mg + hi * mh, di * mg + (hi + 1) * mh)
+        for hi in range(h) for di in range(g))
+
+    steps = []
+
+    def rq(w):
+        return Step('requantize', tier='local', wire=w)
+
+    if w0 != raw_wire:
+        steps.append(rq(w0))
+    steps.append(Step('reduce_scatter', tier=tiers[0], wire=w0,
+                      groups=host_groups, chunks=host_chunks,
+                      nbytes=wire_nbytes(E, w0)))
+    if w1 != w0:
+        steps.append(rq(w1))
+    steps.append(Step('reduce_scatter', tier=tiers[1], wire=w1,
+                      groups=slice_groups, chunks=slice_chunks,
+                      nbytes=wire_nbytes(E, w1) / float(g)))
+    if w2 != w1:
+        steps.append(rq(w2))
+    steps.append(Step('all_reduce', tier=tiers[2], wire=w2,
+                      groups=top_groups, span=top_spans,
+                      nbytes=wire_nbytes(E, w2) / float(g * h)))
+    if w2 != w1:
+        steps.append(rq(w1))
+    steps.append(Step('all_gather', tier=tiers[1], wire=w1,
+                      groups=slice_groups,
+                      span=tuple((di * mg, (di + 1) * mg)
+                                 for si in range(s)
+                                 for di in range(g)),
+                      nbytes=wire_nbytes(E, w1) / float(g)))
+    if w1 != w0:
+        steps.append(rq(w0))
+    steps.append(Step('all_gather', tier=tiers[0], wire=w0,
+                      groups=host_groups,
+                      span=((0, E),) * (s * h),
+                      nbytes=wire_nbytes(E, w0)))
+    if w0 != raw_wire:
+        steps.append(rq(raw_wire))
+    m = dict(meta or {})
+    m.setdefault('levels', 3)
+    m.setdefault('uniform', True)
+    return Program(name or 'three_level_all_reduce', n, E,
+                   str(dtype), tuple(steps), 'replicated',
+                   'reduced_replicated', m)
+
+
 def sparse_program(elems, dtype, *, kind='sparse_all_gather',
                    tier='dcn', name='', meta=None, n=None):
     """Sparse (ids, rows) wire program over wire-buffer element space:
@@ -885,10 +985,38 @@ def schedule_entry(program, *, group=None, members=(), vars_=1,
     return e
 
 
+def entry_program(entry, n, *, node_groups=None, flat_tier='dcn'):
+    """Rebuild the IR program a static-schedule entry lowers to — the
+    inverse of ``schedule_entry`` up to padding, used by the schedule
+    lint, ``cost_model.predict``'s verification and the simulator's
+    ``--schedule-dump``."""
+    prog = bucket_program(
+        entry['kind'], entry.get('bytes', 0), entry.get('dtype') or
+        'float32', entry.get('compressor'), entry.get('spec', 'AUTO'),
+        n, hier=entry.get('hier', 0), wus=entry.get('wus', False),
+        node_groups=node_groups, flat_tier=flat_tier,
+        name=entry.get('entry_id', ''))
+    if entry.get('entry_id'):
+        prog.meta['entry_id'] = entry['entry_id']
+    return prog
+
+
 # -- lowering / execution ----------------------------------------------
 
 def _comm_steps(program):
     return [s for s in program.steps if s.op in COMM_OPS]
+
+
+def node_groups_of(program):
+    """The intra-tier device groups of a hierarchical program (list of
+    lists, the ``axis_index_groups`` the legacy collectives take)."""
+    groups = program.meta.get('node_groups')
+    if groups:
+        return [list(g) for g in groups]
+    for s in _comm_steps(program):
+        if len(s.groups) > 1 and len(s.groups[0]) > 1:
+            return [list(g) for g in s.groups]
+    return None
 
 
 def lowering_of(program):
@@ -935,28 +1063,33 @@ def execute(program, x, group, *, axis=0):
     through. Reductions return the MEAN; gathers return the gathered
     value. Dispatches per ``lowering_of`` to the same collective
     compositions as the JAX package: the group's all-reduce,
-    reduce-scatter and all-gather, and send/recv rings for ``RING``
-    and the int8 wire. The two-level tags need node groups over more
-    than one host and raise."""
+    reduce-scatter and all-gather, send/recv rings for ``RING`` and the
+    int8 wire, and the two-level schedules over the program's node
+    groups (subgroups of the replica group)."""
     from autodist_tpu_torch.parallel import compressor as comp
     from autodist_tpu_torch.parallel import plan as _plan
     n = program.n
     tag = lowering_of(program)
+    groups = node_groups_of(program)
     if tag == 'psum':
         return group.all_reduce(x) / n
     if tag == 'ring':
         return _plan.ring_all_reduce(x, group) / n
+    if tag == 'hier':
+        return _plan.hierarchical_all_reduce(x, group, groups) / n
     if tag == 'int8_ring':
         return comp.int8_ring_all_reduce(x, group) / n
+    if tag == 'int8_hier':
+        return comp.int8_hierarchical_all_reduce(x, group, groups) / n
     if tag == 'psum_scatter':
         return group.reduce_scatter(x, axis=axis) / n
+    if tag == 'hier_scatter':
+        return _plan.hierarchical_psum_scatter(x, group, groups,
+                                               axis=axis) / n
     if tag == 'all_gather':
         return group.all_gather(x, axis=axis)
-    if tag in ('hier', 'int8_hier', 'hier_scatter', 'hier_gather'):
-        raise NotImplementedError(
-            'two-level (hierarchical) collective %r: multi-node '
-            'collectives are not ported yet (ROADMAP.md Queue 1: '
-            'Multi-node collectives)' % tag)
+    if tag == 'hier_gather':
+        return _plan.hierarchical_all_gather(x, group, groups, axis=axis)
     return execute_generic(program, x, group)
 
 
@@ -979,27 +1112,12 @@ def executable_generic(program):
     return True
 
 
-def _group_of(group, groups):
-    """The ``torch.distributed`` group of this replica among
-    ``groups`` (every group is created on every replica, in order, as
-    ``new_group`` requires), and its size."""
-    mine = None
-    for g in groups:
-        pg = group.subgroup(g) if len(g) > 1 else None
-        if group.rank in g:
-            mine = (pg, len(g))
-    return mine
-
-
 def execute_generic(program, x, group):
     """Step-by-step interpreter for synthesized (uniform) programs: sum,
     reduce-scatter and all-gather over the subgroup of each IR step,
     permutes as block relabeling. Reductions return the mean. Raises on
     programs ``executable_generic`` rejects."""
     import torch
-    import torch.distributed as dist
-    from autodist_tpu_torch.parallel.mesh import _all_gather, \
-        _reduce_scatter
     n, E = program.n, program.elems
     if not executable_generic(program):
         raise ValueError('program %s is not generically executable '
@@ -1023,26 +1141,19 @@ def execute_generic(program, x, group):
             continue
         if s.op in ('gather', 'scatter'):
             continue
-        mine = _group_of(group, [list(g) for g in s.groups])
-        if mine is None or mine[1] == 1:
+        # this replica's subgroup of the step (every group is made on
+        # every replica, in order); None when it idles in this step
+        mine = group.split(s.groups)
+        if mine is None or mine.size == 1:
             # idle or alone in its group: the identity (a singleton
             # all-reduce; scatter/gather over one replica)
             continue
-        pg, k = mine
-        buf = buf.contiguous()
         if s.op == 'all_reduce':
-            buf = buf.clone()
-            dist.all_reduce(buf, group=pg)
+            buf = mine.all_reduce(buf)
         elif s.op == 'reduce_scatter':
-            out = torch.empty(buf.numel() // k, dtype=buf.dtype,
-                              device=buf.device)
-            _reduce_scatter(out, buf, group=pg)
-            buf = out
+            buf = mine.reduce_scatter(buf)
         elif s.op == 'all_gather':
-            out = torch.empty(buf.numel() * k, dtype=buf.dtype,
-                              device=buf.device)
-            _all_gather(out, buf, group=pg)
-            buf = out
+            buf = mine.all_gather(buf)
     buf = buf.to(orig_dtype)
     if reduced:
         buf = buf / n
@@ -1051,3 +1162,30 @@ def execute_generic(program, x, group):
     return buf
 
 
+def format_program(program, params=None, links=None):
+    """Human-readable step listing with per-step predicted times (when
+    ``params`` given) — what ``tools/simulate.py --schedule-dump``
+    prints so operators can see WHY a schedule won."""
+    lines = ['%s: n=%d elems=%d dtype=%s goal=%s'
+             % (program.name, program.n, program.elems,
+                program.dtype, program.goal)]
+    times = None
+    if params is not None:
+        from autodist_tpu_torch.simulator.cost_model import program_time
+        _, times = program_time(program, params, links=links,
+                                per_step=True)
+    ci = 0
+    for s in program.steps:
+        desc = '  %-14s %-5s %-4s' % (s.op, s.tier, s.wire)
+        if s.op in COMM_OPS:
+            gsz = sorted({len(g) for g in s.groups})
+            desc += ' groups=%dx%s bytes=%.0f' % (
+                len(s.groups),
+                gsz[0] if len(gsz) == 1 else tuple(gsz), s.nbytes)
+            if times is not None:
+                desc += '  %.3fus' % (1e6 * times[ci])
+            ci += 1
+        elif s.op == 'permute':
+            desc += ' blocks=%d' % len(s.perm)
+        lines.append(desc)
+    return '\n'.join(lines)

@@ -26,9 +26,11 @@ class DeviceType(Enum):
 
 #: Device kinds a ``topology.device_kind`` hint may name. Matching is by
 #: substring, like bench.py's peak-FLOPs table ('v5e' matches 'tpu v5e').
-#: First match wins, so the more specific v5p/v5e come before v5.
+#: First match wins, so the more specific v5p/v5e come before v5, and a
+#: named GPU ('h100', which ``torch.cuda.get_device_name()``'s "NVIDIA
+#: H100 80GB HBM3" contains) before the generic 'gpu' row.
 KNOWN_DEVICE_KINDS = ('v6', 'v5p', 'v5e', 'v5', 'v4', 'v3', 'v2',
-                      'gpu', 'cpu')
+                      'h100', 'gpu', 'cpu')
 
 #: Per-device-KIND ICI defaults (bandwidth GB/s, latency us): coarse
 #: per-device effective ring bandwidth from public figures, refining
@@ -42,6 +44,10 @@ _ICI_BY_KIND = {
     'v4': (100.0, 1.0),
     'v3': (70.0, 1.0),
     'v2': (50.0, 1.0),
+    # NVLink 4 on the H100 SXM: 900 GB/s a card both ways, 450 a
+    # direction (NVIDIA H100 data sheet); the latency is the generic GPU
+    # row's until calibration measures one
+    'h100': (450.0, 3.0),
     'gpu': (60.0, 3.0),
     'cpu': (10.0, 5.0),
 }
@@ -73,6 +79,9 @@ PEAKS_BY_KIND = {
     'v4': (275e12, 1228.0),
     'v3': (123e12, 900.0),
     'v2': (46e12, 700.0),
+    # H100 SXM5 (NVIDIA H100 data sheet): dense bf16 on the tensor cores,
+    # HBM3 at 3.35 TB/s
+    'h100': (989e12, 3350.0),
     'gpu': (125e12, 900.0),
     'cpu': (None, None),
 }

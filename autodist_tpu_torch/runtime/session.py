@@ -246,7 +246,8 @@ class Session:
             if p.state_sharded:
                 full[name] = ShardedGrad(
                     self._var_state[name], p.shard_axis, self._group,
-                    logical_dim=p.var.shape[p.shard_axis]).gather()
+                    logical_dim=p.var.shape[p.shard_axis],
+                    hier_groups=plan.gather_hier_groups(p)).gather()
         env = fe.Env(full, feeds, grad_sync_fn=plan.sync_gradients,
                      opt_state=self._opt_state, aux_state=self._aux_state)
         env.var_shards = dict(self._var_state)

@@ -1,0 +1,340 @@
+"""Rank sync/partition strategies for a model + resource spec — offline.
+
+The port's counterpart of ``tools/simulate.py``, with the same flags and
+the same ``--json`` record. Prints the simulator's ranked table
+(predicted step time, per-device peak bytes, collective count per
+candidate builder) WITHOUT running a single training step: the model is
+built on PyTorch's ``meta`` device (shapes only, no memory), so this
+works on any host::
+
+    python -m autodist_tpu_torch.simulator --model ncf
+    python -m autodist_tpu_torch.simulator --model lstm \
+        --resource-spec cluster.yml --budget-gb 8 --json
+
+Without ``--resource-spec`` a single-node spec is synthesized from
+``--devices`` / ``--device-type`` (topology hints then come from the
+per-type defaults; pass a YAML spec with a ``topology:`` block to price
+a real mesh).
+"""
+import argparse
+import json
+import sys
+
+
+def build_model(name):
+    """Model registry for the bench model set (shapes only — no steps).
+
+    Returns (model, optimizer_slots). The model lives on the ``meta``
+    device: its parameters have shapes and no storage.
+    """
+    import torch
+    meta = torch.device('meta')
+    if name == 'ncf':
+        from autodist_tpu_torch.models.ncf import NCF
+        return NCF(138493, 26744, mf_dim=64, mlp_dims=(256, 128, 64),
+                   device=meta), 2
+    if name == 'lstm':
+        from autodist_tpu_torch.models.rnn import LSTMLM
+        return LSTMLM(vocab=100000, dim=512, hidden=1024, n_layers=2,
+                      device=meta), 2
+    if name == 'tinylm':
+        from autodist_tpu_torch.models.transformer import (
+            TransformerConfig, TransformerLM)
+        return TransformerLM(TransformerConfig.tiny(dtype=torch.float32),
+                             device=meta), 2
+    if name == 'resnet':
+        from autodist_tpu_torch.models.vision import ResNet
+        return ResNet((1, 1), num_classes=10, dtype=torch.float32,
+                      device=meta), 1
+    raise SystemExit('unknown --model %r (ncf, lstm, tinylm, resnet)'
+                     % name)
+
+
+def build_resource_spec(args):
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    if args.resource_spec:
+        return ResourceSpec(resource_file=args.resource_spec)
+    n_nodes = max(1, args.nodes)
+    if args.devices % n_nodes:
+        raise SystemExit('--nodes %d must divide --devices %d'
+                         % (n_nodes, args.devices))
+    per = args.devices // n_nodes
+    key = {'tpu': 'tpus', 'gpu': 'gpus', 'cpu': 'cpus'}[args.device_type]
+    nodes = []
+    for i in range(n_nodes):
+        node = {'address': 'host%d' % i if n_nodes > 1 else 'localhost',
+                'cpus': [0], 'network_bandwidth': 100}
+        if i == 0:
+            node['chief'] = True
+        if args.device_type == 'cpu':
+            node['cpus'] = list(range(per))
+        else:
+            node[key] = list(range(per))
+        nodes.append(node)
+    return ResourceSpec(resource_info={'nodes': nodes})
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog='python -m autodist_tpu_torch.simulator',
+        description='Simulate strategy candidates (no training runs).')
+    p.add_argument('--model', default='tinylm',
+                   help='ncf | lstm | tinylm | resnet')
+    p.add_argument('--resource-spec', default='',
+                   help='YAML resource spec (else synthesized)')
+    p.add_argument('--devices', type=int, default=8,
+                   help='device count for the synthesized spec')
+    p.add_argument('--device-type', default='tpu',
+                   choices=('tpu', 'gpu', 'cpu'),
+                   help='device type for the synthesized spec')
+    p.add_argument('--replicas', type=int, default=0,
+                   help='override the replica count priced (default: '
+                        'the spec accelerator count)')
+    p.add_argument('--budget-gb', type=float, default=0,
+                   help='per-device memory budget; 0 = no pruning')
+    p.add_argument('--optimizer-slots', type=int, default=None,
+                   help='f32 slots per param (default per model: '
+                        '2 Adam-like, 1 momentum)')
+    p.add_argument('--calibrate-trace', default='',
+                   help='profiler trace dir to refine alpha-beta from')
+    p.add_argument('--ps-overlap', type=float, default=0.0,
+                   help='async-PS pull-ahead haircut in [0, 1): the '
+                        'fraction of PS param-phase wire time the '
+                        'pipelined data plane '
+                        '(AUTODIST_PS_PIPELINE_DEPTH>=2) hides; take it '
+                        'from a measured ps_stats overlap_frac. 0 '
+                        '(default) prices the serial depth-1 plane')
+    p.add_argument('--sparse-lookups', type=int, default=4096,
+                   help='expected embedding rows one replica looks up '
+                        'per step (batch-derived); sparse variables\' '
+                        'PS traffic is priced by touched rows, not '
+                        'full table size')
+    p.add_argument('--nodes', type=int, default=1,
+                   help='synthesize this many nodes (devices split '
+                        'evenly); >= 2 makes the spec multi-node so '
+                        'DCN pricing and hierarchical schedules engage')
+    p.add_argument('--hierarchical', action='store_true',
+                   help='print BOTH rankings: hierarchical-aware '
+                        '(two-level schedules where the cost model '
+                        'picks them) and flat-forced — the per-'
+                        'topology A/B the schedules are chosen by')
+    p.add_argument('--local-steps', default='auto',
+                   help='local-SGD window length for the PS(H=...) '
+                        'candidates: "auto" (default) enumerates '
+                        'H in {2, 4, 8, 16} next to the H=1 PS '
+                        'control; an explicit integer restricts the '
+                        'enumeration to that one window (1 = H=1 '
+                        'only, i.e. no PS(H=...) rows)')
+    p.add_argument('--serve-replicas', type=int, default=0,
+                   help='price a read-only serving fleet of this many '
+                        'replicas next to the ranking (0 = off): each '
+                        'replica pulls the dense model over DCN at '
+                        '--serve-poll-hz and row-cache misses fetch '
+                        'embedding rows on demand')
+    p.add_argument('--serve-poll-hz', type=float, default=2.0,
+                   help='snapshot poll cadence per replica (the '
+                        '1/AUTODIST_SERVE_POLL_S upper bound; only '
+                        'accepted polls move tensor bytes)')
+    p.add_argument('--serve-qps', type=float, default=0.0,
+                   help='fleet-aggregate lookup queries per second')
+    p.add_argument('--serve-rows-per-query', type=int, default=256,
+                   help='embedding rows touched per lookup query')
+    p.add_argument('--serve-row-bytes', type=int, default=256,
+                   help='bytes per embedding row (f32 cols x 4)')
+    p.add_argument('--serve-row-cache-hit', type=float, default=0.8,
+                   help='expected row-cache hit rate in [0, 1] '
+                        '(AUTODIST_SERVE_ROW_CACHE_ROWS / '
+                        'AUTODIST_SERVE_ROW_TTL_S sizing)')
+    p.add_argument('--serve-wire', default='f32',
+                   choices=('f32', 'bf16', 'i8'),
+                   help='wire dtype of the bulk snapshot pull '
+                        '(AUTODIST_SERVE_WIRE)')
+    p.add_argument('--schedule-dump', action='store_true',
+                   dest='schedule_dump',
+                   help='rank schedule-IR candidates (hand-written + '
+                        'synthesized) for one gradient bucket over '
+                        '--schedule-topo and print each program with '
+                        'per-step predicted times and per-tier byte '
+                        'totals — the WHY behind the winning schedule')
+    p.add_argument('--schedule-topo', default='',
+                   dest='schedule_topo',
+                   help='topology for --schedule-dump as per-host '
+                        'device counts, slices separated by "/" '
+                        '(e.g. "4,4/4,2" = 2 slices, the second with '
+                        'a 2-device straggler host). Default: one '
+                        'slice shaped like the resource spec')
+    p.add_argument('--schedule-bytes', type=int, default=0,
+                   dest='schedule_bytes',
+                   help='bucket size for --schedule-dump (default: '
+                        'the model\'s total dense gradient bytes)')
+    p.add_argument('--json', action='store_true',
+                   help='emit one JSON object instead of the table')
+    args = p.parse_args(argv)
+
+    from autodist_tpu_torch.simulator import search
+    from autodist_tpu_torch.simulator.calibrate import calibrate_from_trace
+    from autodist_tpu_torch.simulator.cost_model import CostModelParams
+    from autodist_tpu_torch.strategy.adapter import PytreeGraphItem
+
+    model, default_slots = build_model(args.model)
+    slots = args.optimizer_slots if args.optimizer_slots is not None \
+        else default_slots
+    rs = build_resource_spec(args)
+    gi = PytreeGraphItem(model)
+    params = CostModelParams.from_topology(rs.topology)
+    if not 0.0 <= args.ps_overlap < 1.0:
+        raise SystemExit('--ps-overlap must be in [0, 1); got %r'
+                         % args.ps_overlap)
+    params.ps_overlap_discount = args.ps_overlap
+    n = args.replicas or None
+    if args.calibrate_trace:
+        from autodist_tpu_torch.strategy.builders import replica_devices
+        params = calibrate_from_trace(
+            params, args.calibrate_trace,
+            n or len(replica_devices(rs)),
+            cross_node=rs.topology.multi_node)
+    budget = int(args.budget_gb * (1 << 30)) if args.budget_gb else None
+    if args.local_steps == 'auto':
+        local_hs = (2, 4, 8, 16)
+    else:
+        try:
+            h = int(args.local_steps)
+        except ValueError:
+            raise SystemExit('--local-steps must be "auto" or an '
+                             'integer >= 1; got %r' % args.local_steps)
+        if h < 1:
+            raise SystemExit('--local-steps must be >= 1; got %d' % h)
+        # 1 = just the H=1 PS control, no PS(H=...) rows
+        local_hs = () if h == 1 else (h,)
+    candidates = search.default_candidates(local_steps=local_hs)
+    feasible, infeasible = search.rank(
+        gi, rs, candidates=candidates, memory_budget_bytes=budget,
+        params=params, num_replicas=n, optimizer_slots=slots,
+        sparse_lookups_per_replica=args.sparse_lookups)
+    flat = None
+    if args.hierarchical:
+        # the flat-forced control ranking: nodes=1 prices every bucket
+        # as a flat ring regardless of the spec's node structure
+        flat = search.rank(
+            gi, rs, candidates=candidates, memory_budget_bytes=budget,
+            params=params, num_replicas=n, optimizer_slots=slots,
+            sparse_lookups_per_replica=args.sparse_lookups, nodes=1)
+
+    serving = None
+    if args.serve_replicas > 0:
+        from autodist_tpu_torch.simulator.cost_model import serve_wire_cost
+        import numpy as np
+        dense_bytes = sum(
+            int(np.prod(v.shape or (1,)))
+            * np.dtype(v.dtype).itemsize
+            for v in gi.trainable_var_op_to_var.values())
+        wire_comp = {'f32': None, 'bf16': 'HorovodCompressor',
+                     'i8': 'Int8RingCompressor'}[args.serve_wire]
+        serving = serve_wire_cost(
+            dense_bytes, params=params, replicas=args.serve_replicas,
+            poll_hz=args.serve_poll_hz, qps=args.serve_qps,
+            rows_per_query=args.serve_rows_per_query,
+            row_bytes=args.serve_row_bytes,
+            row_cache_hit_rate=args.serve_row_cache_hit,
+            compressor=wire_comp)
+        serving['wire'] = args.serve_wire
+
+    schedules = None
+    if args.schedule_dump:
+        import numpy as np
+        if args.schedule_topo:
+            try:
+                slices = tuple(
+                    tuple(int(g) for g in s.split(','))
+                    for s in args.schedule_topo.split('/'))
+            except ValueError:
+                raise SystemExit('--schedule-topo must look like '
+                                 '"4,4/4,2"; got %r'
+                                 % args.schedule_topo)
+        else:
+            per_node = rs.node_accelerator_devices or \
+                {a: [0] for a in rs.nodes}
+            slices = (tuple(len(v) for v in per_node.values()),)
+        topo = search.ScheduleTopo(slices=slices)
+        sbytes = args.schedule_bytes or sum(
+            int(np.prod(v.shape or (1,))) * np.dtype(v.dtype).itemsize
+            for v in gi.trainable_var_op_to_var.values())
+        schedules = (topo, sbytes) + tuple(search.rank_schedules(
+            sbytes, 'float32', topo, params,
+            staging_budget_bytes=budget))
+
+    def cand_json(feas, infeas):
+        return [dict(c.strategy.cost, feasible=True) for c in feas] + \
+            [{'builder': c.name, 'feasible': False, 'error': c.error}
+             for c in infeas]
+
+    if args.json:
+        out = {
+            'model': args.model,
+            'topology': repr(rs.topology),
+            'memory_budget_bytes': budget,
+            'candidates': cand_json(feasible, infeasible),
+        }
+        if flat is not None:
+            out['candidates_flat'] = cand_json(*flat)
+        if serving is not None:
+            out['serving'] = serving
+        if schedules is not None:
+            topo, sbytes, sf, si = schedules
+            out['schedules'] = {
+                'topo': [list(s) for s in topo.slices],
+                'bucket_bytes': sbytes,
+                'candidates': [
+                    {'name': c.name, 'rank': c.rank, 'feasible': True,
+                     'handwritten': c.handwritten,
+                     'predicted_s': c.predicted_s,
+                     'per_step_s': list(c.per_step_s),
+                     'tier_bytes': c.tier_bytes,
+                     'staging_bytes': c.staging_bytes,
+                     'verify_s': c.verify_s,
+                     'program': c.program.to_dict()} for c in sf] +
+                [{'name': c.name, 'feasible': False, 'error': c.error}
+                 for c in si],
+            }
+        print(json.dumps(out))
+        return 0
+    print('model=%s  vars=%d  %r  replicas=%d%s' % (
+        args.model, len(gi.trainable_var_op_to_var), rs.topology,
+        feasible[0].report.num_replicas if feasible else 0,
+        '  budget=%.1fGB' % args.budget_gb if budget else ''))
+    if flat is not None:
+        print('-- hierarchical-aware ranking '
+              '(two-level where the cost model picks it) --')
+    print(search.format_ranked_table(feasible, infeasible))
+    if flat is not None:
+        print('-- flat-forced ranking (every bucket a flat ring) --')
+        print(search.format_ranked_table(*flat))
+    if schedules is not None:
+        topo, sbytes, sf, si = schedules
+        from autodist_tpu_torch.parallel import schedule_ir as sir
+        from autodist_tpu_torch.simulator.calibrate import tier_links
+        links = tier_links(params)
+        if topo.links:
+            links.update(topo.links)
+        print('-- schedule-IR candidates: %.2f MiB bucket over '
+              'slices %s --' % (sbytes / (1 << 20),
+                                [list(s) for s in topo.slices]))
+        print(search.format_schedule_table(sf, si))
+        for c in sf:
+            print(sir.format_program(c.program, params, links=links))
+    if serving is not None:
+        print('serving: %d replica(s) @ %.1f polls/s on the %s wire  '
+              'snapshot %.2fMB/pull (%.1fms)  fleet %.2fMB/s '
+              '(rows %.2fMB/s)  = %.1f%% of one DCN link'
+              % (serving['replicas'], args.serve_poll_hz,
+                 serving['wire'],
+                 serving['snapshot_wire_bytes'] / 1e6,
+                 1e3 * serving['snapshot_pull_s'],
+                 serving['serve_bytes_per_s'] / 1e6,
+                 serving['row_bytes_per_s'] / 1e6,
+                 100.0 * serving['dcn_link_frac']))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

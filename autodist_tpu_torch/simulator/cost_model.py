@@ -1,13 +1,14 @@
 """Analytic α-β cost model for per-variable synchronizer choices.
 
-The port's copy of the part of the JAX package's
-``simulator/cost_model.py`` that ``parallel/plan.py`` decides through:
-the wire bytes of a bucket, the calibrated constants
-(``CostModelParams``), and the weight-update-sharding and hierarchical
-decisions. It imports neither jax nor torch; only module paths and the
-dtype-width lookup (``_itemsize``, which knows ``bfloat16``) differ. The whole-strategy prediction
-(``predict``, ``memory_footprint``) comes with ``AutoStrategy``
-(ROADMAP.md Queue 1: Simulator and AutoStrategy).
+The port's copy of the JAX package's ``simulator/cost_model.py``: the
+wire bytes of a bucket, the calibrated constants (``CostModelParams``),
+the weight-update-sharding and hierarchical decisions ``parallel/plan.py``
+makes through, the per-entry and schedule-IR pricing, and the
+whole-strategy prediction (``predict``, ``memory_footprint``) that
+``AutoStrategy`` ranks by. It imports neither jax nor torch (the static
+schedule comes from ``parallel/plan.py`` when a prediction asks for it);
+only module paths and the dtype-width lookup (``_itemsize``, which knows
+``bfloat16``) differ.
 
 Grounded in the PCCL formulation (per-process-group collective cost as
 α + β·bytes over link latency/bandwidth) and *Automatic Cross-Replica
@@ -24,8 +25,21 @@ Which (α, β) pair applies — ICI or DCN — comes from the
 :class:`~autodist_tpu_torch.resource_spec.Topology` hints: multi-node specs
 price collectives at the DCN link (DP reduction is the cross-boundary
 traffic; mesh.py keeps everything else on ICI).
+
+The schedule being priced is NOT re-derived here: it is the exact
+bucket/chunk layout the execution plan would emit, computed statically
+by :func:`autodist_tpu_torch.parallel.plan.static_collective_schedule` —
+same packing, same reverse-production ordering, same ZeRO chunking.
+Grad-sync buckets other than the final one are assumed to overlap
+backward compute and get an ``overlap_discount`` haircut; the
+last-emitted bucket (the FIRST layers' gradients, produced when no
+backward compute is left to hide behind) is always priced in full.
 """
-from dataclasses import dataclass, asdict
+from dataclasses import dataclass, field, asdict
+
+import numpy as np
+
+from autodist_tpu_torch.utils import logging
 
 
 def _itemsize(dtype):
@@ -234,6 +248,24 @@ def hierarchical_time(nbytes, n, nodes, params, ici_bytes=None):
     return t
 
 
+def hierarchical_half_time(nbytes, n, nodes, params, ici_bytes=None):
+    """Predicted seconds for ONE two-level HALF (a reduce-scatter or an
+    all-gather) over ``n`` devices in ``nodes`` node groups.
+
+    :func:`hierarchical_time` is phase-symmetric (each tier's
+    reduce-scatter and all-gather phases move the same bytes, and the
+    boundary HBM pass splits evenly between the two halves), so a half
+    is exactly half of the full two-level all-reduce — which keeps
+    RS + AG == AR, the same identity the flat formulas satisfy, and
+    means :func:`choose_hierarchical` is THE decision for halves too:
+    flat-half beats hier-half exactly when flat AR beats hier AR.
+    Used for the hierarchical ZeRO scatter/gather halves and the
+    weight-update-sharding schedule's bucket halves.
+    """
+    return 0.5 * hierarchical_time(nbytes, n, nodes, params,
+                                   ici_bytes=ici_bytes)
+
+
 #: f32 optimizer-slot tensors per parameter by captured optimizer name
 #: (autodist_tpu_torch.frontend.optimizers capture tuples). Used to size the
 #: freed-memory credit choose_update_sharding prices; unknown names
@@ -369,3 +401,529 @@ def choose_hierarchical(nbytes, dtype, compressor, n, nodes, params,
                              ici_bytes=ici_b) < flat
 
 
+#: fallback reasons already warned about this process — the decision
+#: is re-made per bucket, and one line per node SHAPE (not per call)
+#: is what an operator can read.
+_UNEQUAL_WARNED = set()
+
+
+def _warn_hier_fallback(reason):
+    if reason and reason not in _UNEQUAL_WARNED:
+        _UNEQUAL_WARNED.add(reason)
+        logging.warning('hierarchical schedule falls back to flat: %s',
+                        reason)
+
+
+def num_node_groups_with_reason(strategy=None, resource_spec=None,
+                                num_replicas=None):
+    """``(k, reason)``: the node-group count plus, when the host layout
+    forced the flat fallback, a one-line machine-readable reason naming
+    the node shape (e.g. ``unequal-hosts:hostA=4,hostB=2``). ``reason``
+    is None whenever the returned count is a genuine hierarchy (or the
+    mesh is single-host, where flat is not a degradation). The reason
+    rides the static schedule entries (``hier_fallback``) so a priced
+    flat win stays distinguishable from a layout that could not go
+    two-level — and :mod:`simulator.search` can still synthesize an
+    unequal-group IR schedule for exactly these shapes."""
+    from autodist_tpu_torch.const import ENV
+    forced = ENV.AUTODIST_HIERARCHY_NODES.val
+    if forced and forced >= 2:
+        n = int(num_replicas or 0)
+        if n and n % forced == 0 and n // forced >= 2:
+            return forced, None
+        return 1, 'forced-nodes:%d does not split n=%d' % (forced, n)
+    hosts = []
+    replicas = list(strategy.graph_config.replicas) if strategy and \
+        strategy.graph_config.replicas else []
+    if replicas:
+        hosts = [d.rsplit(':', 2)[0] for d in replicas]
+    elif resource_spec is not None:
+        per_node = resource_spec.node_accelerator_devices or \
+            {a: [a] for a in resource_spec.nodes}
+        hosts = [h for h, devs in per_node.items() for _ in devs]
+    if not hosts:
+        return 1, None
+    counts = {}
+    for h in hosts:
+        counts[h] = counts.get(h, 0) + 1
+    k = len(counts)
+    n = int(num_replicas or len(hosts))
+    if k <= 1:
+        return 1, None
+    shape = ','.join('%s=%d' % (h, c) for h, c in counts.items())
+    if len(set(counts.values())) != 1:
+        return 1, 'unequal-hosts:%s' % shape
+    if n % k:
+        return 1, 'replicas:%d not divisible by hosts:%d (%s)' \
+            % (n, k, shape)
+    return k, None
+
+
+def num_node_groups(strategy=None, resource_spec=None, num_replicas=None):
+    """Node-group count for hierarchical pricing: distinct hosts among
+    the strategy's replica devices (the same host-major order the mesh
+    builder lays devices out in), falling back to the spec's
+    accelerator-bearing node count. Returns 1 (flat) when the layout
+    is not an EQUAL split — every host must contribute the same number
+    of replica devices and that size must divide the replica count,
+    mirroring ``mesh.data_axis_node_groups``'s equal-group requirement
+    so pricing never assumes a two-level schedule the trace would
+    refuse to emit. The ``AUTODIST_HIERARCHY_NODES`` override takes
+    the same precedence it does at trace time — under the override the
+    emission groups by it regardless of the spec's host layout, and
+    pricing must describe the program that actually runs. A silent
+    degrade is indistinguishable from a priced flat win, so the flat
+    fallback logs a one-line warning naming the node shape (once per
+    shape; :func:`num_node_groups_with_reason` exposes the reason)."""
+    k, reason = num_node_groups_with_reason(strategy, resource_spec,
+                                            num_replicas)
+    _warn_hier_fallback(reason)
+    return k
+
+
+def entry_time(e, n, params, cross_node=False):
+    """Predicted seconds (pre-overlap) + wire bytes for ONE schedule
+    entry — the per-entry pricing :func:`predict` sums and the
+    roofline observatory's drift table compares achieved timings
+    against (:mod:`autodist_tpu_torch.telemetry.roofline`), factored out so
+    the two can never price the same entry differently.
+
+    Returns ``(seconds, wire_bytes)``. Two-level (``hier``) entries
+    ride :func:`hierarchical_time`/:func:`hierarchical_half_time`
+    (int8 buckets' intra phases at raw f32 bytes); compressed wires
+    pay the cast/quantize HBM passes on top.
+    """
+    wb = wire_bytes(e['bytes'], e['dtype'], e.get('compressor'))
+    hier = int(e.get('hier', 0))
+    alpha, beta = params.link(cross_node=cross_node)
+    if hier > 1 and e['kind'] == 'all_reduce':
+        # two-level schedule: ICI phases + DCN phase + boundary.
+        # int8 buckets quantize only at the tier boundary, so
+        # their intra phases move the raw f32 bytes on ICI.
+        ici_b = e['bytes'] \
+            if e.get('compressor') == 'Int8RingCompressor' else wb
+        t = hierarchical_time(wb, n, hier, params, ici_bytes=ici_b)
+    elif hier > 1 and e['kind'] in ('psum_scatter', 'all_gather'):
+        # a two-level ZeRO / update-sharding HALF: exactly half of
+        # the two-level all-reduce (phase symmetry), so the same
+        # choose_hierarchical decision applies
+        t = hierarchical_half_time(wb, n, hier, params)
+    else:
+        t = collective_time(e['kind'], wb, n, alpha, beta)
+    if wb < e['bytes']:   # compressor cast: two HBM passes per end
+        t += e['bytes'] * params.compress_s_per_byte
+    if e.get('compressor') == 'Int8RingCompressor':
+        # block quantization: max-abs scan + scale divide + the
+        # ring's per-hop requantization — extra HBM passes
+        t += e['bytes'] * params.quant_s_per_byte
+    return t, wb
+
+
+#: schedule-IR tier ladder, fastest link first (mirrors
+#: parallel.schedule_ir.TIER_ORDER — kept local to avoid importing the
+#: IR module at pricing time).
+_IR_TIER_ORDER = {'local': 0, 'ici': 1, 'host': 2, 'dcn': 3}
+
+
+def program_links(params, links=None):
+    """Per-tier ``(α, β)`` link constants for :func:`program_time`.
+
+    Two-link topologies map the IR's four tiers onto the calibrated
+    pair: ``ici`` rides the fast link, ``host`` and ``dcn`` the slow
+    one, ``local`` is free. A 3-level topology (distinct host- and
+    slice-crossing links) passes ``links`` overrides per tier —
+    :class:`simulator.search.ScheduleTopo` carries them."""
+    out = {'local': (0.0, 0.0),
+           'ici': params.link(cross_node=False),
+           'host': params.link(cross_node=True),
+           'dcn': params.link(cross_node=True)}
+    if links:
+        out.update(links)
+    return out
+
+
+def program_time(program, params, links=None, per_step=False):
+    """Predicted seconds for a schedule-IR :class:`Program`, priced
+    per step from the SAME α-β constants :func:`entry_time` uses —
+    for the hand-written shapes (flat ring, equal two-level, the
+    ZeRO/WUS halves) this reproduces :func:`collective_time` /
+    :func:`hierarchical_time` / :func:`hierarchical_half_time`
+    exactly, which is what lets synthesized programs rank against
+    legacy entries on one scale.
+
+    Per comm step the time is the MAX over its device groups (groups
+    run concurrently; the straggler group of an unequal split sets the
+    step's pace — waves are separate steps and sum sequentially).
+    Each adjacent pair of comm steps on DIFFERENT tiers charges half a
+    tier-boundary re-layout pass (``hier_boundary_s_per_byte`` on the
+    faster-tier step's bytes — two transitions recover the full
+    boundary term of :func:`hierarchical_time`). Requantize steps
+    charge the cast HBM passes (plus the quantization passes when an
+    int8 wire is involved) at half the per-entry rate each, so a
+    down+up pair prices exactly like the compressor charges in
+    :func:`entry_time`.
+
+    ``per_step=True`` returns ``(total, [seconds per comm step])`` —
+    the list excludes the boundary/requantize overheads (they are
+    between-step costs), so ``total >= sum(list)``.
+    """
+    link = program_links(params, links)
+    times = []
+    total = 0.0
+    prev_tier = None
+    prev_nbytes = 0.0
+    cur_wire = None
+    raw = float(program.meta.get('raw_bytes') or
+                program.elems * _itemsize(program.dtype))
+    for s in program.steps:
+        if s.op == 'requantize':
+            extra = 0.5 * raw * params.compress_s_per_byte
+            if 'i8' in (s.wire, cur_wire):
+                extra += 0.5 * raw * params.quant_s_per_byte
+            total += extra
+            cur_wire = s.wire
+            continue
+        if s.op not in ('reduce_scatter', 'all_reduce', 'all_gather'):
+            continue
+        alpha, beta = link[s.tier]
+        factor = 2.0 if s.op == 'all_reduce' else 1.0
+        t = 0.0
+        for g in s.groups:
+            gs = len(g)
+            if gs <= 1:
+                continue
+            t = max(t, factor * (gs - 1) * alpha +
+                    factor * (gs - 1) / gs * float(s.nbytes) * beta)
+        if prev_tier is not None and s.tier != prev_tier:
+            # tier boundary: half a re-layout HBM pass per crossing,
+            # charged on the faster tier's payload (the buffer that
+            # gets re-laid-out lives at the fast tier's width)
+            fast = s.nbytes if _IR_TIER_ORDER.get(s.tier, 1) < \
+                _IR_TIER_ORDER.get(prev_tier, 1) else prev_nbytes
+            total += 0.5 * float(fast) * params.hier_boundary_s_per_byte
+        prev_tier, prev_nbytes = s.tier, float(s.nbytes)
+        times.append(t)
+        total += t
+    return (total, times) if per_step else total
+
+
+def program_tier_bytes(program):
+    """Wire bytes a schedule-IR program moves per tier — the
+    worst-case single device's traffic (max over each step's groups,
+    the figure a link is actually sized against), summed over steps.
+    Ring accounting matches :func:`collective_time`: an all-reduce
+    moves ``2(g-1)/g`` of its payload, a half moves ``(g-1)/g``."""
+    out = {}
+    for s in program.steps:
+        if s.op not in ('reduce_scatter', 'all_reduce', 'all_gather'):
+            continue
+        factor = 2.0 if s.op == 'all_reduce' else 1.0
+        b = 0.0
+        for g in s.groups:
+            gs = len(g)
+            if gs <= 1:
+                continue
+            b = max(b, factor * (gs - 1) / gs * float(s.nbytes))
+        if b:
+            out[s.tier] = out.get(s.tier, 0.0) + b
+    return out
+
+
+def strategy_local_steps(strategy):
+    """The program-wide local-SGD window length H a strategy requests:
+    the min over its PS synchronizers' ``local_steps`` (mirroring
+    ``ExecutionPlan``'s mixed->min collapse — the step is one program,
+    so the tightest window applies), 1 when the strategy has no PS
+    vars. Legacy strategies (no ``local_steps`` attribute) read 1."""
+    hs = []
+    for node in strategy.node_config:
+        syncs = node.part_config if node.part_config \
+            else [node.synchronizer]
+        for s in syncs:
+            if getattr(s, 'kind', '') == 'PS':
+                hs.append(max(1, int(getattr(s, 'local_steps', 1)
+                                     or 1)))
+    return min(hs) if hs else 1
+
+
+def _ps_var_names(strategy):
+    """Names of variables synced through the PS plane (any shard)."""
+    out = set()
+    for node in strategy.node_config:
+        syncs = node.part_config if node.part_config \
+            else [node.synchronizer]
+        if any(getattr(s, 'kind', '') == 'PS' for s in syncs):
+            out.add(node.var_name)
+    return out
+
+
+def serve_wire_cost(dense_bytes, params=None, replicas=1, poll_hz=2.0,
+                    qps=0.0, rows_per_query=0, row_bytes=0,
+                    row_cache_hit_rate=0.0, compressor=None,
+                    dtype=np.float32):
+    """Serve-side wire model of the read-only replica fleet.
+
+    A serving replica costs the training plane exactly its wire
+    traffic (it holds no fence, votes in no gate): each replica pulls
+    the whole dense model once per accepted poll (``poll_hz``, the
+    ``AUTODIST_SERVE_POLL_S`` cadence upper bound — rejected polls
+    move counters, not tensors) and the fleet's row-cache MISSES
+    (``qps × rows_per_query × (1 − hit_rate)``) fetch embedding rows
+    on demand. Both ride the DCN link class — replicas live outside
+    the pod.
+
+    Returns a dict: ``snapshot_wire_bytes`` (one pull, after the
+    optional wire cast — the bf16/int8 tier halves/quarters the bulk
+    pull exactly like a push), ``snapshot_pull_s`` (α-β time of one
+    pull), ``snapshot_bytes_per_s`` / ``row_bytes_per_s`` /
+    ``serve_bytes_per_s`` (fleet aggregates), and ``dcn_link_frac`` —
+    the fraction of ONE DCN link's bandwidth the fleet consumes, the
+    number an operator sizes ``replicas × poll_hz`` against so serving
+    never eats the training cohort's sync budget.
+    """
+    params = params or CostModelParams()
+    snap_wire = wire_bytes(int(dense_bytes), dtype, compressor)
+    pull_s = params.alpha_dcn_s + snap_wire * params.beta_dcn_s_per_byte
+    snap_rate = float(replicas) * float(poll_hz) * snap_wire
+    miss_rows = float(qps) * float(rows_per_query) \
+        * max(0.0, 1.0 - float(row_cache_hit_rate))
+    row_rate = miss_rows * wire_bytes(int(row_bytes), dtype, compressor)
+    total = snap_rate + row_rate
+    return {
+        'replicas': int(replicas),
+        'snapshot_wire_bytes': snap_wire,
+        'snapshot_pull_s': pull_s,
+        'snapshot_bytes_per_s': snap_rate,
+        'row_bytes_per_s': row_rate,
+        'serve_bytes_per_s': total,
+        'dcn_link_frac': total * params.beta_dcn_s_per_byte,
+    }
+
+
+@dataclass
+class CostReport:
+    """Per-strategy prediction: step time, sync decomposition, memory."""
+    predicted_step_time_s: float = 0.0
+    sync_time_s: float = 0.0           # raw (no-overlap) collective sum
+    exposed_sync_time_s: float = 0.0   # after the overlap haircut
+    predicted_peak_bytes: int = 0
+    num_collectives: int = 0
+    num_replicas: int = 1
+    cross_node: bool = False
+    # local-SGD window length the priced strategy syncs at (H): PS wire
+    # terms above are per-STEP averages (the per-round cost / H)
+    local_steps: int = 1
+    # every priced schedule entry's IR program passed the shape
+    # algebra (schedule_ir.verify) — a False here means the prediction
+    # priced a schedule that loses or double-counts elements
+    schedule_verified: bool = False
+    memory: dict = field(default_factory=dict)
+    breakdown: list = field(default_factory=list)
+
+    def to_dict(self):
+        return asdict(self)
+
+    def summary(self):
+        """Compact dict for Strategy.cost / bench records."""
+        return {
+            'predicted_step_time_s': self.predicted_step_time_s,
+            'predicted_peak_bytes': self.predicted_peak_bytes,
+            'sync_time_s': self.sync_time_s,
+            'num_collectives': self.num_collectives,
+            'num_replicas': self.num_replicas,
+            'local_steps': self.local_steps,
+            'schedule_verified': self.schedule_verified,
+        }
+
+
+def memory_footprint(strategy, graph_item, num_replicas,
+                     optimizer_slots=2, schedule=None):
+    """Per-device peak-bytes estimate for a strategy.
+
+    Components: params + grads (param dtype), optimizer slots (f32,
+    ``optimizer_slots`` per param — 2 for Adam's mu/nu, 1 for momentum
+    SGD, 0 for plain SGD), and bucket staging (the largest grad bucket's
+    concat input + reduced output live simultaneously). Opt-slot bytes
+    are LAYOUT-aware: any variable whose schedule reduce-scatters its
+    gradient to a shard owner — ZeRO-sharded (partitioned PS) variables
+    AND weight-update-sharded AR buckets — keeps only 1/n of its slot
+    (and resident-grad) bytes per device, so budget pruning stops
+    rejecting sharded-update configs that actually fit. Every replica
+    still materializes the FULL gathered param for compute, which
+    params counts at full size.
+    """
+    from autodist_tpu_torch.parallel.plan import static_collective_schedule
+    n = max(1, int(num_replicas))
+    if schedule is None:
+        schedule = static_collective_schedule(strategy, graph_item, n)
+    sharded = set()
+    for e in schedule:
+        if e['kind'] in ('psum_scatter', 'sparse_scatter'):
+            sharded.update(e['members'])
+    params_b = grads_b = opt_b = 0
+    for var in graph_item.trainable_var_op_to_var.values():
+        itemsize = _itemsize(var.dtype)
+        size = int(np.prod(var.shape or (1,)))
+        nbytes = size * itemsize
+        frac = 1.0 / n if var.name in sharded and n > 1 else 1.0
+        # the gathered full param is live during compute regardless
+        params_b += nbytes
+        grads_b += int(nbytes * frac)
+        opt_b += int(size * _OPT_SLOT_ITEMSIZE * optimizer_slots * frac)
+    # staging: a multi-var bucket's concat input + collective output
+    # coexist — for the all-reduce buckets AND the update-sharding
+    # reduce-scatter buckets (same concat, scattered output)
+    max_bucket = max(
+        [e['bytes'] for e in schedule
+         if e['kind'] in ('all_reduce', 'psum_scatter')
+         and e['vars'] > 1] or [0])
+    staging_b = 2 * max_bucket
+    total = params_b + grads_b + opt_b + staging_b
+    return {'params_bytes': params_b, 'grads_bytes': grads_b,
+            'optimizer_bytes': opt_b, 'bucket_staging_bytes': staging_b,
+            'total_bytes': total}
+
+
+def predict(strategy, graph_item, resource_spec=None, params=None,
+            num_replicas=None, optimizer_slots=2,
+            sparse_lookups_per_replica=4096, nodes=None):
+    """Price a built strategy: predicted step time + per-device memory.
+
+    Args:
+        strategy: a built :class:`Strategy`.
+        graph_item: the GraphItem it was built against (only shapes and
+            sparsity are read — nothing runs).
+        resource_spec: supplies the topology (α-β defaults) and, when
+            ``num_replicas`` is not given, the replica count. Optional
+            when both ``params`` and ``num_replicas`` are passed.
+        params: :class:`CostModelParams` override (e.g. calibrated).
+        optimizer_slots: f32 slot tensors per param for the memory
+            estimate (2 = Adam, 1 = momentum, 0 = SGD).
+        nodes: node-group count for hierarchical (two-level) schedule
+            decisions; None derives it from the strategy's replica
+            hosts / the spec (``num_node_groups``). 1 forces flat-only
+            pricing.
+
+    Returns a :class:`CostReport`.
+    """
+    from autodist_tpu_torch.parallel.plan import static_collective_schedule
+    if num_replicas is None:
+        num_replicas = len(strategy.graph_config.replicas)
+        if not num_replicas and resource_spec is not None:
+            num_replicas = max(1, resource_spec.num_accelerators)
+    n = max(1, int(num_replicas))
+    cross_node = False
+    if params is None:
+        if resource_spec is None:
+            raise ValueError('predict() needs resource_spec or params')
+        params = CostModelParams.from_topology(resource_spec.topology)
+    if resource_spec is not None:
+        cross_node = resource_spec.topology.multi_node
+    hier_fallback = None
+    if nodes is None:
+        nodes, hier_fallback = num_node_groups_with_reason(
+            strategy, resource_spec, n)
+        _warn_hier_fallback(hier_fallback)
+
+    schedule = static_collective_schedule(
+        strategy, graph_item, n,
+        sparse_lookups_per_replica=sparse_lookups_per_replica,
+        nodes=nodes, params=params, hier_fallback=hier_fallback)
+    breakdown = []
+    sync = 0.0
+    # grad-phase buckets that ride the backward: all-reduce buckets
+    # AND the update-sharding reduce-scatter halves (the RS replaces
+    # an AR bucket in the same backward position, so it keeps the same
+    # overlap haircut — the exposure choose_update_sharding assumes:
+    # only the param all-gather is newly exposed)
+    grad_ar = [i for i, e in enumerate(schedule)
+               if e['phase'] == 'grad' and
+               (e['kind'] == 'all_reduce' or
+                (e.get('wus') and e['kind'] == 'psum_scatter'))]
+    last_grad_ar = grad_ar[-1] if grad_ar else -1
+    # local-SGD amortization (docs/design/local-sgd.md): PS-synced vars
+    # under an H-step window ship once per H steps, so their per-step
+    # wire price is the per-round cost / H plus the window-averaging
+    # HBM pass (amortized) plus the (H-1)-step divergence haircut.
+    # Only entries wholly made of PS vars amortize — AR buckets in a
+    # mixed (Parallax-style) strategy still sync every step.
+    local_h = strategy_local_steps(strategy)
+    ps_vars = _ps_var_names(strategy) if local_h > 1 else set()
+    exposed = 0.0
+    for i, e in enumerate(schedule):
+        t, wb = entry_time(e, n, params, cross_node=cross_node)
+        hier = int(e.get('hier', 0))
+        # grad buckets before the last-emitted one overlap backward
+        # compute; ZeRO scatters are conservatively priced in full.
+        # Param-phase traffic (the post-update re-gather — the static
+        # analog of the loose-mode next-step pull) takes the optional
+        # async-PS haircut so AutoStrategy predictions stay honest for
+        # PS strategies once the pipelined data plane hides that wire
+        # time (ps_overlap_discount defaults to 0 = serial plane).
+        overlappable = (i in grad_ar and i != last_grad_ar)
+        if overlappable:
+            t_exposed = t * (1.0 - params.overlap_discount)
+        elif e['phase'] == 'param' and params.ps_overlap_discount \
+                and not e.get('wus'):
+            # the weight-update-sharding param all-gather is an
+            # in-step SPMD collective after the optimizer update — the
+            # async-PS pipeline cannot hide it, so it is priced fully
+            # exposed (exactly the exposure choose_update_sharding
+            # weighs against the freed memory)
+            t_exposed = t * (1.0 - params.ps_overlap_discount)
+        else:
+            t_exposed = t
+        if local_h > 1 and e['members'] and \
+                all(m in ps_vars for m in e['members']):
+            # per-round wire / H, plus one averaging pass over the
+            # window delta (two HBM touches, amortized over the
+            # window) and the per-extra-step divergence haircut
+            win = e['bytes'] * params.compress_s_per_byte / local_h \
+                + (local_h - 1) * e['bytes'] \
+                * params.local_sgd_divergence_s_per_byte
+            t = t / local_h + win
+            t_exposed = t_exposed / local_h + win
+        sync += t
+        exposed += t_exposed
+        breakdown.append({
+            'kind': e['kind'], 'phase': e['phase'], 'vars': e['vars'],
+            'bytes': e['bytes'], 'wire_bytes': wb,
+            'hier': hier, 'wus': bool(e.get('wus')),
+            'time_s': t, 'exposed_time_s': t_exposed,
+            'members': e['members'][:4] + (
+                ['... %d more' % (len(e['members']) - 4)]
+                if len(e['members']) > 4 else []),
+        })
+    mem = memory_footprint(strategy, graph_item, n,
+                           optimizer_slots=optimizer_slots,
+                           schedule=schedule)
+    # re-derive each priced entry's IR program and run the shape
+    # algebra on it, so the prediction a strategy is selected by also
+    # certifies the schedule moves every element exactly once
+    from autodist_tpu_torch.parallel import schedule_ir as _sir
+    verified = True
+    for e in schedule:
+        try:
+            if _sir.verify(_sir.entry_program(e, n)):
+                verified = False
+                break
+        except ValueError:
+            verified = False
+            break
+    report = CostReport(
+        predicted_step_time_s=params.compute_time_s + exposed,
+        sync_time_s=sync,
+        exposed_sync_time_s=exposed,
+        predicted_peak_bytes=mem['total_bytes'],
+        num_collectives=len(schedule),
+        num_replicas=n,
+        cross_node=cross_node,
+        local_steps=local_h,
+        schedule_verified=verified,
+        memory=mem,
+        breakdown=breakdown)
+    logging.debug('cost_model.predict: %d collectives, sync=%.3gs '
+                  'exposed=%.3gs peak=%dB over n=%d',
+                  len(schedule), sync, exposed,
+                  mem['total_bytes'], n)
+    return report

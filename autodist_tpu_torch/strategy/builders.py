@@ -11,9 +11,12 @@ One-to-one with the reference's ``autodist/strategy/`` directory:
 - :class:`RandomAxisPartitionAR`— random_axis_partition_all_reduce_strategy.py:96-141
 - :class:`Parallax`             — parallax_strategy.py:38-70
 
-The cost-model-driven ``AutoStrategy`` selector waits for the port of
-the simulator's search (ROADMAP.md Queue 1: Simulator and AutoStrategy): it
-raises.
+plus the cost-model-driven selector (the upstream ``simulator/``
+package's role):
+
+- :class:`AutoStrategy` — simulates every candidate above with
+  :mod:`autodist_tpu_torch.simulator` and returns the predicted-cheapest
+  plan that fits the memory budget.
 
 Builders only *choose* per-variable synchronization/partitioning/placement;
 the lowering onto the data-parallel Trainer happens in
@@ -283,6 +286,123 @@ class RandomAxisPartitionAR(PartitionedAR):
         return _smallest_nontrivial_divisor(int(var.shape[axis])), axis
 
 
+class AutoStrategy(StrategyBuilder):
+    """Cost-model-driven selector: simulate, rank, pick (the tenth
+    builder — the reference paper's *automatic* strategy synthesis).
+
+    ``build()`` enumerates candidate strategies (every concrete builder
+    plus its chunk_size / compressor / partition knobs), prices each
+    with the α-β cost model over the resource spec's ICI/DCN topology
+    hints, prunes candidates whose predicted per-device peak bytes
+    exceed ``memory_budget_bytes``, and returns the cheapest remaining
+    plan. The prediction rides on ``Strategy.cost``.
+
+    Args:
+        memory_budget_bytes: per-device memory budget; candidates
+            predicted above it are pruned. None = no pruning.
+        optimizer_slots: f32 optimizer slot tensors per param for the
+            memory estimate (2 = Adam, 1 = momentum SGD, 0 = SGD).
+        candidates: override ``[(name, builder_factory)]`` list
+            (default :func:`simulator.search.default_candidates`).
+        cost_params: :class:`CostModelParams` override (e.g. from a
+            previous calibration).
+        trace_dir: optional profiler trace of a short real run; α-β
+            constants are refined from its collective timeline before
+            ranking (measured mode). Degrades to analytic constants
+            when the trace has no collectives (CPU fallback).
+        num_replicas: override the replica count the simulator prices
+            (default: the spec's accelerator count).
+        sparse_lookups_per_replica: expected embedding rows one replica
+            looks up per step — batch-derived (pass the per-replica
+            batch size, or batch x ids-per-example); prices sparse
+            variables' PS traffic by touched rows instead of full size.
+        drift_table: entry-labeled drift table from the roofline
+            observatory (``telemetry.roofline.drift_table``, or a
+            BENCH record's ``roofline.drift`` block — it carries the
+            samples). Preferred over ``trace_dir``: tiers are labeled
+            by schedule entry rather than the replica-groups
+            heuristic, and samples carry full buffer bytes, so the
+            refit β is exact for reduce-scatter/all-gather rows too
+            (``calibrate.calibrate_from_drift``).
+    """
+
+    def __init__(self, memory_budget_bytes=None, optimizer_slots=2,
+                 candidates=None, cost_params=None, trace_dir=None,
+                 num_replicas=None, sparse_lookups_per_replica=4096,
+                 drift_table=None):
+        self._budget = memory_budget_bytes
+        self._optimizer_slots = optimizer_slots
+        self._candidates = candidates
+        self._cost_params = cost_params
+        self._trace_dir = trace_dir
+        self._num_replicas = num_replicas
+        self._sparse_lookups = sparse_lookups_per_replica
+        # entry-labeled drift table from a previous run's roofline
+        # observatory (telemetry.roofline.drift_table): preferred over
+        # trace_dir — its samples are tier-labeled by schedule entry
+        # (not the replica-groups heuristic) and carry full buffer
+        # bytes (not HLO result shapes), so the refit β is exact for
+        # reduce-scatter/all-gather rows too
+        self._drift_table = drift_table
+        # populated by build() for audits / bench reporting
+        self.last_ranked = []
+        self.last_infeasible = []
+
+    def build(self, graph_item, resource_spec):
+        from autodist_tpu_torch.simulator import search
+        from autodist_tpu_torch.simulator.calibrate import (
+            calibrate_from_drift, calibrate_from_trace)
+        from autodist_tpu_torch.simulator.cost_model import CostModelParams
+
+        n = self._num_replicas
+        if n is None:
+            n = len(replica_devices(resource_spec))
+        params = self._cost_params or CostModelParams.from_topology(
+            resource_spec.topology)
+        if self._drift_table is not None:
+            from autodist_tpu_torch.simulator.cost_model import num_node_groups
+            k = num_node_groups(resource_spec=resource_spec,
+                                num_replicas=n)
+            params = calibrate_from_drift(
+                params, self._drift_table, n,
+                devices_per_node=n // k if k > 1 else n)
+        elif self._trace_dir:
+            from autodist_tpu_torch.simulator.cost_model import num_node_groups
+            k = num_node_groups(resource_spec=resource_spec,
+                                num_replicas=n)
+            params = calibrate_from_trace(
+                params, self._trace_dir, n,
+                cross_node=resource_spec.topology.multi_node,
+                devices_per_node=n // k if k > 1 else 0)
+        feasible, infeasible = search.rank(
+            graph_item, resource_spec, candidates=self._candidates,
+            memory_budget_bytes=self._budget, params=params,
+            num_replicas=n, optimizer_slots=self._optimizer_slots,
+            sparse_lookups_per_replica=self._sparse_lookups)
+        self.last_ranked = feasible
+        self.last_infeasible = infeasible
+        if not feasible:
+            detail = '; '.join('%s (%s)' % (c.name, c.error)
+                               for c in infeasible[:4])
+            if self._budget is not None and any(
+                    c.report is not None for c in infeasible):
+                msg = ('no candidate fits the %d-byte memory budget '
+                       'over %d replicas' % (self._budget, n))
+            else:
+                msg = ('every candidate failed to build over %d '
+                       'replicas' % n)
+            raise ValueError('AutoStrategy: %s: %s'
+                             % (msg, detail or 'no candidates'))
+        best = feasible[0]
+        logging.info('AutoStrategy picked %s (predicted step %.4g ms, '
+                     'peak %.1f MiB) over %d feasible / %d pruned',
+                     best.name,
+                     best.report.predicted_step_time_s * 1e3,
+                     best.report.predicted_peak_bytes / (1 << 20),
+                     len(feasible), len(infeasible))
+        return best.strategy
+
+
 class Parallax(StrategyBuilder):
     """Hybrid: dense vars → AllReduce, sparse vars → load-balanced PS
     (arXiv:1808.02621; parallax_strategy.py:38-70)."""
@@ -333,12 +453,3 @@ class Parallax(StrategyBuilder):
                         weight_update_sharding)))
                 dense_count += 1
         return s
-
-
-class AutoStrategy(StrategyBuilder):
-    """The simulator-driven selector: not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'AutoStrategy: the simulator search and calibration are not '
-            'ported yet (ROADMAP.md Queue 1: Simulator and AutoStrategy)')

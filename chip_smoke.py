@@ -52,7 +52,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    routes to; then the same at 3 heads (``gpt_small_head_dim_256``: head
    dim 256, the same attention work) and at 2 heads
    (``gpt_small_head_dim_384``), printed beside it;
-5b. ``gpt_small_moe8``, this slice's path: gpt_small with an MoE MLP in
+5a. ``auto_strategy``, this slice's path: gpt_small at the same
+   configuration placed by ``AutoStrategy`` (the default candidates on a
+   one-card spec naming the device, the card's memory as the budget)
+   through ``trainer_from_strategy``: the ranked table (at least 9
+   feasible, in order of predicted step), 3 steps at 24/12/12 launches,
+   the memory estimate at most the measured peak
+   (``roofline.memory_drift``), the step's MFU in (0, 1] and its regime
+   against the ``h100`` peak row (``roofline.cost_of``), and one
+   profiled step calibrated at one rank, which must give the analytic
+   constants back;
+5b. ``gpt_small_moe8``, the MoE path: gpt_small with an MoE MLP in
    every block (8 experts, top 2, capacity factor 2.0: Switch-Base's
    width with GShard's routing) at the same seq, batch and remat, 3 adamw
    steps through ``Trainer``: the first loss's cross-entropy near
@@ -83,11 +93,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    ``create_distributed_session()`` -> ``sess.run``) in a one-process
    NCCL group: the c0 linear regression of
    ``tests/integration/test_linear_regression.py`` under its 13 builder
-   entries (b after one step within 1e-5 of 0.01 * 4.17503, 2e-3 on the
-   bfloat16 wires); NCF at ``bench.py:bench_sparse``'s full width
-   (138,493 users, 26,744 items, GMF 64, MLP 256-128-64, batch 4096,
-   Adam 1e-3) written in DSL ops, 20 steps under PSLoadBalancing and 20
-   under AllReduce: finite losses, the first within 0.05 of ln 2, the
+   entries and ``AutoStrategy`` (b after one step within 1e-5 of 0.01 *
+   4.17503, 2e-3 on the bfloat16 wires); NCF at
+   ``bench.py:bench_sparse``'s full width (138,493 users, 26,744 items,
+   GMF 64, MLP 256-128-64, batch 4096, Adam 1e-3) written in DSL ops, 20
+   steps under PSLoadBalancing and 20 under AllReduce: finite losses, the
+   first within 0.05 of ln 2, the
    sparse (ids, rows) path engaged on the four tables, step time,
    examples/s and peak memory; and a small NCF on the card against the
    CPU (first 3 losses within 1e-4). The path runs no kernel of its
@@ -143,14 +154,16 @@ from autodist_tpu_torch.checkpoint.saver import CheckpointManager
 from autodist_tpu_torch.kernels import build
 from autodist_tpu_torch.kernels import conv_bn as cb
 from autodist_tpu_torch.kernels import flash_attention as fa
+from autodist_tpu_torch.kernels.work import attention as attention_work
+from autodist_tpu_torch.kernels.work import conv_bn as conv_bn_work
 from autodist_tpu_torch.models import core, vision
 from autodist_tpu_torch.models.ncf import NCF
 from autodist_tpu_torch.models.rnn import LSTMLM
 from autodist_tpu_torch.models.transformer import (TransformerConfig,
                                                    TransformerLM)
 from autodist_tpu_torch.parallel.axes import ParallelSpec
-from autodist_tpu_torch.strategy import (AllReduce, PartitionedPS,
-                                         PSLoadBalancing,
+from autodist_tpu_torch.strategy import (AllReduce, AutoStrategy,
+                                         PartitionedPS, PSLoadBalancing,
                                          trainer_from_strategy)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 on the tensor cores,
@@ -245,23 +258,6 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def attention_work(kernel, shape, dtype, causal):
-    """(FLOP, bytes) that this call needs: each input read once, each
-    output written once; causal work counts only the kept (q, k)
-    pairs."""
-    b, h, s, d = shape
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    # products of 2*D per pair; 'bwd' is dQ and dK/dV together
-    per_pair = {'fwd': 2, 'dq': 3, 'dkv': 4, 'bwd': 7}[kernel]
-    el = torch.tensor([], dtype=dtype).element_size()
-    tensors_in, rows_in, tensors_out, rows_out = {
-        'fwd': (3, 0, 1, 1), 'dq': (4, 2, 1, 0), 'dkv': (4, 2, 2, 0),
-        'bwd': (4, 2, 3, 0)}[kernel]
-    return (2 * d * pairs * per_pair,
-            b * h * s * d * el * (tensors_in + tensors_out) +
-            b * h * s * 4 * (rows_in + rows_out))
-
-
 def bound(kernel, shape, dtype, causal):
     """(ms, 'bytes' | 'operations'): the least time the card could take
     for this call (``attention_work`` at the card's peaks)."""
@@ -269,17 +265,6 @@ def bound(kernel, shape, dtype, causal):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         'operations' if t_ops >= t_bytes else 'bytes'
-
-
-def conv_bn_work(n, c_in, c_out, dtype, prologue, want_stats=True):
-    """(FLOP, bytes) of one K4 call: 2 N Cin Cout FLOP; bytes of x, W and
-    y once each, plus a and b (f32 [Cin]) with a prologue and s1, s2
-    (f32 [Cout]) with stats."""
-    el = torch.tensor([], dtype=dtype).element_size()
-    return 2 * n * c_in * c_out, \
-        (n * c_in + c_in * c_out + n * c_out) * el + \
-        (2 * c_in * 4 if prologue else 0) + (2 * c_out * 4 if want_stats
-                                             else 0)
 
 
 def bound_conv_bn(n, c_in, c_out, dtype, prologue, want_stats=True):
@@ -706,6 +691,124 @@ def gpt_small_phase(name, smi, profiling):
         profile_step(name, trainer, state, data, smi)
     del trainer, state
     torch.cuda.empty_cache()
+    return rec
+
+
+def one_card_spec(kind):
+    """A one-node spec of this process's card(s), its topology naming the
+    device ``kind`` (``torch.cuda.get_device_name()``; 'NVIDIA H100 80GB
+    HBM3' resolves to the 'h100' row of the peak and link tables)."""
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    return ResourceSpec(resource_info={
+        'nodes': [{'address': 'localhost', 'chief': True, 'cpus': [0],
+                   'gpus': [0], 'network_bandwidth': 100}],
+        'topology': {'device_kind': kind}})
+
+
+def ranked_rows(builder):
+    """The ranked table of an ``AutoStrategy`` build: one row a
+    candidate, feasible ones in rank order, then the pruned."""
+    rows = [{'rank': c.rank, 'name': c.name, 'feasible': True,
+             'predicted_step_s': c.predicted_step_time_s,
+             'predicted_peak_bytes': c.predicted_peak_bytes}
+            for c in builder.last_ranked]
+    return rows + [{'rank': None, 'name': c.name, 'feasible': False,
+                    'predicted_step_s': c.predicted_step_time_s,
+                    'predicted_peak_bytes': c.predicted_peak_bytes,
+                    'error': c.error} for c in builder.last_infeasible]
+
+
+def auto_strategy_phase(cfg, batch, seq, steps, device, kind, smi=None):
+    """``AutoStrategy`` over the default candidates, on a one-card spec
+    of ``kind`` with the card's memory as the budget, placing ``cfg``'s
+    TransformerLM through ``trainer_from_strategy`` (adamw 1e-4); then
+    ``steps`` steps on one batch. Checks: at least 9 feasible candidates,
+    sorted by predicted step; finite losses; the flash launches (on the
+    card, 2 forward and 1 dQ, 1 dK/dV a layer a step); the memory
+    estimate at most the measured peak (it leaves out activations); the
+    step's MFU in (0, 1] against the peak table's row for ``kind``
+    (``cost_of`` counts one more step); and one profiled step calibrated
+    at one rank, which must give the analytic constants back. Returns
+    the phase's record."""
+    from autodist_tpu_torch.simulator.calibrate import calibrate_from_trace
+    from autodist_tpu_torch.simulator.cost_model import CostModelParams
+    from autodist_tpu_torch.telemetry import roofline as rl
+    spec = one_card_spec(kind)
+    cuda = torch.device(device).type == 'cuda'
+    budget = torch.cuda.get_device_properties(0).total_memory if cuda \
+        else None
+    builder = AutoStrategy(memory_budget_bytes=budget)
+    trainer = trainer_from_strategy(
+        TransformerLM(cfg, device=device, seed=0), optim.adamw(1e-4),
+        builder, resource_spec=spec)
+    rows = ranked_rows(builder)
+    feasible = [r['predicted_step_s'] for r in rows if r['feasible']]
+    best = builder.last_ranked[0]
+    emit(phase='auto_strategy_ranked', device_kind=kind,
+         memory_budget_bytes=budget, picked=best.name, candidates=rows,
+         card=smi)
+    require(len(feasible) >= 9 and feasible == sorted(feasible),
+            'AutoStrategy ranked %d feasible candidates, expected at least '
+            '9 in order of predicted step: %s' % (len(feasible), feasible))
+    require(trainer.strategy is best.strategy and
+            trainer.strategy.cost['rank'] == 0,
+            'the trainer is not placed by the ranked pick %s' % best.name)
+
+    data = make_batch(cfg.vocab, batch, seq)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    state, losses, seconds = train_steps(trainer, data, steps)
+    launches, by_kernel = dict(fa.LAUNCHES), dict(fa.KERNEL_LAUNCHES)
+    measured = rl.memory_of(device)
+    memory = rl.memory_drift(measured, best.report.memory)
+    require(all(math.isfinite(x) for x in losses),
+            'auto_strategy loss not finite: %s' % losses)
+    per_step = {'fwd': 2 * cfg.n_layers, 'dq': cfg.n_layers,
+                'dkv': cfg.n_layers} if cuda else \
+        {'fwd': 0, 'dq': 0, 'dkv': 0}
+    require(launches == {k: steps * n for k, n in per_step.items()},
+            'auto_strategy launch counts %s, expected %s per step'
+            % (launches, per_step))
+    if cuda:
+        require(memory['estimated_total_bytes'] <=
+                memory['measured_total_bytes'],
+                'memory estimate %d B above the measured peak %d B'
+                % (memory['estimated_total_bytes'],
+                   memory['measured_total_bytes']))
+
+    step_s = float(np.median(seconds[1:])) if steps > 1 else seconds[0]
+    local = trainer.shard_batch(data)
+    cost = rl.cost_of(trainer.compile_step(state, local), state, local)
+    peak_flops, peak_hbm = spec.topology.peaks()
+    roof = rl.classify_regime(cost['flops'], cost['bytes_accessed'], step_s,
+                              peak_flops, peak_hbm)
+    require(roof['mfu'] is not None and 0 < roof['mfu'] <= 1,
+            'auto_strategy MFU %r against %s is not in (0, 1]'
+            % (roof['mfu'], kind))
+
+    params = CostModelParams.from_topology(spec.topology)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.profile(state, data, tmp, steps=1)
+        fitted = calibrate_from_trace(params, tmp, 1)
+    require(fitted == params and not fitted.calibrated,
+            'calibration at one rank changed the analytic constants: %s'
+            % fitted)
+    rec = dict(phase='auto_strategy', picked=best.name, seq=seq,
+               batch=batch, steps=steps, losses=losses,
+               step_seconds=seconds, tokens_per_s=batch * seq / step_s,
+               launches=launches, kernel_launches=by_kernel,
+               predicted_step_s=best.predicted_step_time_s,
+               predicted_peak_bytes=best.predicted_peak_bytes,
+               memory=memory, cost=cost, peaks=[peak_flops, peak_hbm],
+               mfu=roof['mfu'], hbm_frac=roof['hbm_frac'],
+               roofline_regime=roof['roofline_regime'],
+               calibrated=fitted.calibrated,
+               alpha_beta={'ici': params.link(cross_node=False),
+                           'dcn': params.link(cross_node=True)},
+               card=smi)
+    emit(**rec)
+    del trainer, state
     return rec
 
 
@@ -1147,8 +1250,8 @@ def small_moe_reference(devices=('cuda', 'cpu')):
 
 # -- the reference DSL path --------------------------------------------------
 # tests/integration/test_linear_regression.py's c0 program and its 13
-# builder entries: np seed 123, lr 0.01, W=5, b=0; after ONE SGD step
-# b == 0.01 * 4.17503 (1e-5, 2e-3 on the bf16-wire entries)
+# builder entries, and AutoStrategy: np seed 123, lr 0.01, W=5, b=0; after
+# ONE SGD step b == 0.01 * 4.17503 (1e-5, 2e-3 on the bf16-wire entries)
 EXPECTED_B = 0.01 * 4.17503
 C0_STRATEGIES = [
     ('AllReduce', lambda: ad.AllReduce(chunk_size=128)),
@@ -1167,6 +1270,7 @@ C0_STRATEGIES = [
     ('PartitionedAR', lambda: ad.PartitionedAR()),
     ('RandomAxisPartitionAR', lambda: ad.RandomAxisPartitionAR(seed=1)),
     ('Parallax', lambda: ad.Parallax()),
+    ('AutoStrategy', lambda: AutoStrategy()),
 ]
 # NCF at bench.py:bench_sparse's configuration (autodist_tpu/models/ncf.py
 # at ml-20m scale): 138,493 users, 26,744 items, GMF width 64, MLP
@@ -1819,6 +1923,13 @@ def main(argv):
                                    'step_seconds', 'peak_mem_gb')}
         for name, rec in gpt.items()})
 
+    # this slice's path: the simulator picks gpt_small's placement
+    auto = auto_strategy_phase(
+        TransformerConfig.gpt_small(dtype=torch.bfloat16, remat=True,
+                                    max_len=4096), 4, 4096, 3, 'cuda', kind,
+        smi)
+    torch.cuda.empty_cache()
+
     # this slice's path: gpt_small with MoE blocks, then the share of its
     # step the dense dispatch takes, then the rest of TransformerConfig's
     # options on the dense model
@@ -1905,7 +2016,7 @@ def main(argv):
         # 64 its launches (this slice's path) are the row's, both listed
         paths = {arm: gpt[arm]}
         if arm == 'gpt_small':
-            paths = {'gpt_small_moe8': moe, **paths}
+            paths = {'auto_strategy': auto, 'gpt_small_moe8': moe, **paths}
         for name in ('fwd', 'dq', 'dkv'):
             rec = main_path[name]
             by_path = {p: r['kernel_launches'].get(rec['cuda_kernel'], 0)

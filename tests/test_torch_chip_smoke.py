@@ -436,3 +436,19 @@ def test_batch_norm_phase_at_tiny_width(dtype):
         assert set(r['rel_err']) == {'y', 'dx', 'd_gamma', 'd_beta'}
         assert max(r['rel_err'].values()) <= chip_smoke.BN_TOL
     assert [s[-1] for s in chip_smoke.BN_SHAPES] == [256, 512, 1024, 2048]
+
+
+def test_auto_strategy_phase_at_tiny_width():
+    """The auto_strategy phase's checks at tiny width on the CPU, against
+    the H100 row: the ranked table, the trained pick, an MFU in (0, 1]
+    (tiny here: the CPU is not the card the peak describes) and the
+    one-rank calibration that gives the analytic constants back."""
+    from autodist_tpu_torch.models.transformer import TransformerConfig
+    cfg = TransformerConfig.tiny(dtype=torch.float32, max_len=512)
+    rec = chip_smoke.auto_strategy_phase(cfg, 2, 512, 2, 'cpu',
+                                         'NVIDIA H100 80GB HBM3')
+    assert rec['peaks'] == [989e12, 3.35e12]
+    assert rec['picked'] == 'AllReduce(RING)'   # the name breaks the tie
+    assert rec['calibrated'] is False
+    assert rec['memory']['available'] is False
+    assert rec['cost']['flops'] > 0 and rec['cost']['kernel_launches'] == 0

@@ -49,6 +49,7 @@ def jax_builder(name):
         'PartitionedAR': lambda: s.PartitionedAR(),
         'RandomAxisPartitionAR': lambda: s.RandomAxisPartitionAR(seed=1),
         'Parallax': lambda: s.Parallax(),
+        'AutoStrategy': lambda: s.AutoStrategy(),
     }[name]()
 
 

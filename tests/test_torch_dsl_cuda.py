@@ -6,7 +6,7 @@ jax, so it runs on a machine with the cards:
     python -m pytest --noconftest -m cuda tests/test_torch_dsl_cuda.py
 
 One process per card runs, in one NCCL group, the c0 matrix
-(``chip_smoke.c0_matrix``: the c0 program under its 13 builder entries)
+(``chip_smoke.c0_matrix``: the c0 program under its 14 builder entries)
 and a narrow NCF written in DSL ops (``chip_smoke.ncf_program``; 512
 users, 1024 items, GMF 16, MLP 64-32-16, batch 256, Adam 1e-3, 4 steps)
 under AllReduce, PSLoadBalancing, PartitionedPS, Parallax and
@@ -146,7 +146,7 @@ def runs(tmp_path_factory):
 @pytest.mark.cuda
 def test_nccl_dsl_c0_matrix_equals_one_card(runs):
     one, many = runs
-    assert len(one['c0']) == 13
+    assert len(one['c0']) == 14
     for name, (_, W1, b1) in one['c0'].items():
         tol = 2e-3 if 'hvd' in name else 1e-5
         for rank_res in many:

@@ -327,9 +327,10 @@ def test_ssh_coordinator_launch_raises_naming_its_queue_item():
 
 
 def test_saver_and_autostrategy_raise_naming_their_queue_items():
-    """AutoStrategy still raises, naming its queue item. Saver is ported
-    (tests/test_torch_checkpoint.py): it builds and registers itself on
-    the default graph, as the JAX Saver does."""
+    """Saver is ported (tests/test_torch_checkpoint.py): it builds and
+    registers itself on the default graph, as the JAX Saver does. So is
+    AutoStrategy (tests/test_torch_simulator.py): it builds, and builds a
+    strategy priced by the simulator."""
     from autodist_tpu_torch.checkpoint.saver import Saver
     from autodist_tpu_torch.frontend import graph as fe
     from autodist_tpu_torch.strategy import AutoStrategy
@@ -337,9 +338,12 @@ def test_saver_and_autostrategy_raise_naming_their_queue_items():
     graph = fe.get_default_graph()
     assert saver in graph.savers
     graph.savers.remove(saver)
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1: Simulator and AutoStrategy'):
-        AutoStrategy()
+    builder = AutoStrategy()
+    assert builder.last_ranked == [] and builder.last_infeasible == []
+    loss, W, b = cases.cs.run_linear_regression(cases.fresh(builder))
+    assert abs(b - cases.cs.EXPECTED_B) <= 1e-5
+    assert builder.last_ranked and \
+        builder.last_ranked[0].strategy.cost['rank'] == 0
 
 
 def test_relaxed_consistency_on_one_process_is_lock_step():

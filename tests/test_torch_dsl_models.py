@@ -4,7 +4,7 @@ DSL, against the JAX package.
 - c4 (``while_loop`` with ``max_iters``, trained through the loop), c6
   (a dynamic LSTM lifted as a function, Adam) and the conv/pool CNN of
   ``tests/integration/test_model_cases.py``: the JAX file's programs
-  give the single-device truth; the port runs each under all 13
+  give the single-device truth; the port runs each under all 14
   builder entries in one gloo group of 2 processes (rank r feeding
   replica r's share) and in this process at world 1. c6's loss reads
   the batch mean of the LSTM state, so its world-2 truth is the JAX

@@ -1,7 +1,8 @@
 """Gradient synchronization of the port's DSL path over a gloo group of
-2 processes, against the JAX package where the JAX tests compare
-numbers: bucketing (``tests/test_bucketing.py``), the schedule IR's
-lowering identity (``tests/test_schedule_ir.py``), the compressors
+2 processes (4 for the two-level schedules), against the JAX package
+where the JAX tests compare numbers: bucketing
+(``tests/test_bucketing.py``), the schedule IR's lowering identity
+(``tests/test_schedule_ir.py``), the compressors
 (``tests/test_compressor.py``), weight-update sharding
 (``tests/test_weight_update_sharding.py``) and the sparse (ids, rows)
 path (``tests/integration/test_sparse_embedding.py``).
@@ -45,6 +46,17 @@ def world2():
         ('comp', 'torch_dsl_cases:compressor_cases', {}),
         ('wus', 'torch_dsl_cases:wus_cases', {}),
         ('sparse', 'torch_dsl_cases:sparse_cases', {}),
+    ])
+
+
+@pytest.fixture(scope='module')
+def world4():
+    """The two-level cases, in one gloo group of 4 processes whose node
+    groups are [[0, 1], [2, 3]]."""
+    return run_group(4, [
+        ('two_level', 'torch_dsl_cases:two_level_lowering', {}),
+        ('choice', 'torch_dsl_cases:hierarchical_choice',
+         {'env': {'AUTODIST_HIERARCHY_NODES': 2}}),
     ])
 
 
@@ -172,33 +184,27 @@ def test_ir_lowering_bit_identical_to_the_collectives(world2):
             assert float(np.abs(ir - hand).max()) == 0.0, label
 
 
-def test_two_level_lowering_raises_naming_its_queue_item():
-    from autodist_tpu_torch.parallel import schedule_ir as sir
-    from autodist_tpu_torch.parallel.mesh import ReplicaGroup
-    prog = sir.bucket_program('all_reduce', 4 * 128, 'float32', None,
-                              'AUTO', 4, hier=2)
-    assert sir.verify(prog) == []
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1: Multi-node collectives'):
-        sir.execute(prog, torch.zeros(128), ReplicaGroup(4, 0))
+def test_two_level_lowering_raises_naming_its_queue_item(world4):
+    """A two-level IR program executes (the 'hier' lowering, over the
+    node and cross-node subgroups) and equals the flat program on the
+    same rows: bitwise, the rows being integer-valued."""
+    for ir, flat, tag, findings in world4['two_level']:
+        assert findings == [] and tag == 'hier'
+        assert np.array_equal(ir, flat)
 
 
-def test_hierarchical_choice_raises_naming_its_queue_item(monkeypatch):
+def test_hierarchical_choice_raises_naming_its_queue_item(world4):
     """A multi-node group whose cost model picks the two-level schedule
-    raises (never a quiet flat fallback)."""
-    from autodist_tpu_torch import AllReduce
-    from autodist_tpu_torch.frontend import graph as fe
-    from autodist_tpu_torch.parallel.mesh import ReplicaGroup
-    from autodist_tpu_torch.parallel.plan import ExecutionPlan
-    monkeypatch.setenv('AUTODIST_HIERARCHY_NODES', '2')
-    plan, sources = cases._plan_over([(64,), (32,)], AllReduce(
-        hierarchical='always'), 4)
-    plan = ExecutionPlan(plan.strategy, plan.graph_item, ReplicaGroup(4, 0))
-    assert plan.hier_groups == [[0, 1], [2, 3]]
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1: Multi-node collectives'):
-        plan.sync_gradients(sources, [torch.zeros(64), torch.zeros(32)],
-                            fe.Env({}, {}))
+    syncs over the node groups [[0, 1], [2, 3]] (never a quiet flat
+    fallback), and its gradients equal the flat plan's."""
+    for res in world4['choice']:
+        groups, hiers, synced = res['always']
+        assert groups == [[0, 1], [2, 3]]
+        assert hiers and all(h == 2 for h in hiers)
+        flat_groups, flat_hiers, flat = res['never']
+        assert flat_groups == groups and all(h == 0 for h in flat_hiers)
+        for a, b in zip(synced, flat):
+            assert np.array_equal(a, b)
 
 
 # -- compressors -------------------------------------------------------------

@@ -415,6 +415,42 @@ def ir_lowering(rank, world):
     return out
 
 
+def two_level_lowering(rank, world):
+    """A two-level all-reduce program over node groups [[0, 1], [2, 3]]
+    executed on this rank's row, beside the flat program on the same row:
+    (two-level, flat, the lowering's tag, verify findings)."""
+    from autodist_tpu_torch.parallel import schedule_ir as sir
+    from autodist_tpu_torch.parallel.mesh import ReplicaGroup
+    group = ReplicaGroup(world, rank)
+    x = torch.from_numpy(np.random.RandomState(21).randint(
+        -8, 8, (world, 128)).astype(np.float32)[rank])
+    prog = sir.bucket_program('all_reduce', 4 * 128, 'float32', None,
+                              'AUTO', world, hier=2)
+    flat = sir.bucket_program('all_reduce', 4 * 128, 'float32', None,
+                              'AUTO', world)
+    return (sir.execute(prog, x, group).numpy(),
+            sir.execute(flat, x, group).numpy(), sir.lowering_of(prog),
+            sir.verify(prog))
+
+
+def hierarchical_choice(rank, world):
+    """Under AUTODIST_HIERARCHY_NODES=2 (set by the caller), a plan whose
+    cost model picks two levels (hierarchical='always'): its node groups,
+    its bucket records, and its synced gradients beside a flat plan's."""
+    grads = [torch.from_numpy(np.random.RandomState(22 + i).randint(
+        -8, 8, (world,) + s).astype(np.float32)[rank])
+        for i, s in enumerate([(64,), (32,)])]
+    out = {}
+    for knob in ('always', 'never'):
+        plan, sources = _plan_over([(64,), (32,)],
+                                   ad.AllReduce(hierarchical=knob), world)
+        synced = plan.sync_gradients(sources, grads, fe.Env({}, {}))
+        out[knob] = (plan.hier_groups,
+                     [b['hier'] for b in plan.last_bucket_stats],
+                     [g.numpy() for g in synced])
+    return out
+
+
 def int8_ring(rank, world):
     from autodist_tpu_torch.parallel.compressor import int8_ring_all_reduce
     from autodist_tpu_torch.parallel.mesh import ReplicaGroup
