@@ -28,9 +28,15 @@ mean over the global batch:
   over the group inside the model (``core.mean_over_batch``), so the
   mean over the ranks is the global value.
 
-A user ``loss_fn`` is taken per rank and averaged over the ranks, which
-is the global value only for a loss that is a mean over equal slices.
-With one rank there is no collective.
+A user ``loss_fn`` (or a model's ``loss``) may return a pair ``(sum,
+count)``: the count is all-reduced first, each rank differentiates its
+sum over the global count (floored at 1), and the gradients are summed
+over the ranks, exactly as the built-in masked mean; so the loss is the
+global batch's, as the JAX ``loss_fn`` sees it through GSPMD. A scalar
+``loss_fn`` is taken per rank and averaged over the ranks, which is the
+global value only for a loss that is a mean over equal slices (a
+warning is logged once when one runs at dp > 1 on a batch with a
+``mask``). With one rank there is no collective.
 
 ``ParallelSpec.grad_accum`` splits the global batch into chunks of
 consecutive rows, as the JAX step does, and averages the chunks' losses
@@ -88,8 +94,9 @@ class Trainer:
         optimizer: ``params -> torch.optim.Optimizer`` (e.g.
             ``optim.adamw(1e-4)``).
         spec: :class:`ParallelSpec`; defaults to DP over every rank.
-        loss_fn: ``loss_fn(params, batch) -> scalar``; defaults to
-            ``model.loss``.
+        loss_fn: ``loss_fn(params, batch) -> scalar`` or ``(sum,
+            count)`` (the global mean over the group, see the module
+            docstring); defaults to ``model.loss``.
         process_group: the data-parallel group; defaults to the
             default group when ``torch.distributed`` is initialized.
     """
@@ -100,6 +107,7 @@ class Trainer:
         self.optimizer = optimizer
         self.spec = spec or ParallelSpec()
         self._loss_fn = loss_fn
+        self._warned_scalar = False
         self.group = process_group
         if dist.is_available() and dist.is_initialized():
             self.world = dist.get_world_size(process_group)
@@ -202,14 +210,25 @@ class Trainer:
         self._all_reduce(counts)
         return torch.clamp(counts, min=1)
 
+    def _pair_mean(self, total, count):
+        """This rank's part of a pair-form loss's global mean: its sum
+        over the group's count (all-reduced, floored at 1)."""
+        count = torch.as_tensor(count, dtype=torch.float32,
+                                device=self.device).detach().clone()
+        self._all_reduce(count)
+        return total / torch.clamp(count, min=1)
+
     def _chunk_loss(self, params, chunk, count, training):
         """(the loss this rank differentiates, the state updates its
-        forward recorded). With ``count`` (a global mask count) that is
-        this rank's masked sum over it, plus its share of the model's
-        aux loss; else the rank's mean loss. The forward runs under
-        ``model_mode`` with the data-parallel group. Under
-        ``remat='full'`` the forward runs again in the backward; the
-        state updates are those of the first run."""
+        forward recorded, whether the ranks' losses are summed). With
+        ``count`` (a global mask count) that is this rank's masked sum
+        over it, plus its share of the model's aux loss; with a loss
+        that returns ``(sum, count)``, its sum over the global count;
+        in both the ranks' parts are summed. Else the rank's mean loss,
+        which the ranks average. The forward runs under ``model_mode``
+        with the data-parallel group. Under ``remat='full'`` the forward
+        runs again in the backward; the state updates are those of the
+        first run."""
         def compute():
             if count is None:
                 return self.loss_for(params, chunk)
@@ -239,7 +258,17 @@ class Trainer:
             loss = checkpoint(run, use_reentrant=False)
         else:
             loss = run()
-        return loss, (recorded[0] if recorded else {})
+        summed = count is not None
+        if isinstance(loss, (tuple, list)):
+            loss, summed = self._pair_mean(*loss), True
+        elif not summed and self.world > 1 and 'mask' in chunk and \
+                not self._warned_scalar:
+            self._warned_scalar = True
+            logging.warning(
+                'Trainer: a scalar loss at dp=%d on a masked batch is the '
+                'mean of the ranks\' losses, not the global batch\'s; '
+                'return (sum, count) for the global mean', self.world)
+        return loss, (recorded[0] if recorded else {}), summed
 
     # -- the step ----------------------------------------------------------
     def _step(self, state, batch):
@@ -251,15 +280,15 @@ class Trainer:
         counts = self._mask_counts(chunks) if global_mask else None
         total, updates = None, {}
         for i, chunk in enumerate(chunks):
-            loss, updates = self._chunk_loss(
+            loss, updates, summed = self._chunk_loss(
                 params, chunk, None if counts is None else counts[i], True)
             loss.backward()
             loss = loss.detach()
             total = loss if total is None else total + loss
         loss = total / self.accum if self.accum > 1 else total
-        # the global masked mean sums the ranks' parts; a mean averages
-        # the ranks' means
-        ranks = 1 if global_mask else self.world
+        # a global mean sums the ranks' parts; a mean averages the
+        # ranks' means
+        ranks = 1 if summed else self.world
         grads = [p.grad for p in state.params.values() if p.grad is not None]
         if self.world > 1:
             self._all_reduce(grads, self.accum * ranks)
@@ -363,11 +392,12 @@ class Trainer:
         """Mean loss over ``batches`` in eval mode (BatchNorm on its
         running statistics), without updating the state.
 
-        With ``metrics_fn(params, batch) -> {name: scalar}`` returns
-        ``{'loss': ..., **means of metrics}`` instead of the bare loss.
-        Each batch's loss is the global one (see the module docstring);
-        a metric is each rank's value on its slice, averaged over the
-        ranks."""
+        With ``metrics_fn(params, batch) -> {name: scalar or (sum,
+        count)}`` returns ``{'loss': ..., **means of metrics}`` instead
+        of the bare loss. Each batch's loss is taken as in training (see
+        the module docstring); a pair metric is the global sum over the
+        global count, a scalar metric each rank's value on its slice,
+        averaged over the ranks."""
         params = self.model.params()
         totals, count = {}, 0
         for batch in batches:
@@ -376,19 +406,19 @@ class Trainer:
             counts = self._mask_counts([batch]) if global_mask else None
             with model_mode(training=False, group=self.group,
                             world=self.world):
-                loss, _ = self._chunk_loss(
+                loss, _, summed = self._chunk_loss(
                     params, batch, None if counts is None else counts[0],
                     False)
-                out = {'loss': loss.float()}
+                out = {'loss': (loss.float(), summed)}
                 if metrics_fn is not None:
-                    out.update({k: torch.as_tensor(v, dtype=torch.float32,
-                                                   device=self.device)
-                                for k, v in metrics_fn(params,
-                                                       batch).items()})
-            self._all_reduce(out['loss'], 1 if global_mask else self.world)
-            for name, val in out.items():
-                if name != 'loss':
-                    self._all_reduce(val, self.world)
+                    for k, v in metrics_fn(params, batch).items():
+                        pair = isinstance(v, (tuple, list))
+                        v = self._pair_mean(*v) if pair else v
+                        out[k] = (torch.as_tensor(
+                            v, dtype=torch.float32, device=self.device),
+                            pair)
+            for name, (val, summed) in out.items():
+                self._all_reduce(val, 1 if summed else self.world)
                 totals[name] = totals.get(name, 0.0) + float(val)
             count += 1
         means = {name: val / max(count, 1) for name, val in totals.items()}

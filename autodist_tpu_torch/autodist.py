@@ -35,6 +35,7 @@ from autodist_tpu_torch.runtime.session import Session
 from autodist_tpu_torch.strategy import base as strategy_base
 from autodist_tpu_torch.strategy.builders import PSLoadBalancing
 from autodist_tpu_torch.utils import logging
+from autodist_tpu_torch.utils import visualization as viz
 from autodist_tpu_torch.utils.device import resolve_device
 
 _DEFAULT_AUTODIST = {}
@@ -159,7 +160,13 @@ class AutoDist:
             # current device: each rank on its own card
             torch.cuda.set_device(device)
         world, rank = self._cluster.start(device.type)
+        # phase dumps (reference graph_transformer.py:62-90 logs the graph
+        # after each transform phase; AUTODIST_DUMP_GRAPHS gates ours)
+        viz.log_text('\n'.join(
+            repr(n) for n in self._original_graph_item.graph.nodes),
+            '0-original-capture')
         strategy = self._build_or_load_strategy(world, rank)
+        viz.log_text(strategy, '1-strategy')
         compiler = strategy_base.StrategyCompiler(self._original_graph_item)
         strategy = compiler.prune(strategy)
         if world > 1 and self._strategy_is_loose(strategy):
@@ -171,6 +178,7 @@ class AutoDist:
         compiler.set_device_resolver(resolver)
         compiled = compiler.compile(strategy)
         logging.debug('Compiled strategy: %s', compiled)
+        viz.log_text(compiled, '2-compiled-strategy')
         n = mesh_from_strategy(compiled, world)
         if n < world:
             raise ValueError(
@@ -180,7 +188,9 @@ class AutoDist:
         plan = ExecutionPlan(compiled, self._original_graph_item, group,
                              topology=self._resource_spec.topology,
                              ranks_per_node=resolver.ranks_per_node())
-        logging.debug(plan.describe())
+        described = plan.describe()
+        logging.debug(described)
+        viz.log_text(described, '3-execution-plan')
         self._transformed = (compiled, group, plan)
         self._built = True
 

@@ -13,7 +13,9 @@ checkpoint written by either package loads in the other:
 ``CheckpointManager`` keeps step-numbered checkpoints with retention,
 written synchronously or from a writer thread (``async_save``). The JAX
 package's ``orbax`` backend has no counterpart: orbax is not installed
-with the port, so ``backend='orbax'`` raises.
+with the port (and ``import orbax.checkpoint`` loads jax), so
+``backend='orbax'`` raises. ``SavedModelBuilder`` writes a servable
+bundle of the DSL session (:mod:`autodist_tpu_torch.checkpoint.export`).
 """
 import json
 import os
@@ -259,3 +261,81 @@ class Saver:
             sess.load_variable_value(name, tensors[name])
         logging.info('Restored %d variables from %s',
                      len(self._vars), save_path)
+
+
+class SavedModelBuilder:
+    """Export a servable bundle (reference saved_model_builder.py:24-64).
+
+    ``signature_def_map`` maps a signature name to ``(outputs, inputs)``:
+    ``outputs`` a fetch node (or list of them) from the captured graph,
+    ``inputs`` the placeholders it consumes. Each signature's forward
+    subgraph is re-traced through ``frontend.graph.evaluate`` as a pure
+    function of (params, *inputs) and exported with ``torch.export``
+    beside the variables, on the session's device
+    (:mod:`autodist_tpu_torch.checkpoint.export`): a fresh process
+    reloads and serves it with torch + numpy. A train op in a signature
+    raises. Without signatures only the variables and the metadata are
+    written. Every replica calls ``save`` (reading a sharded variable is
+    a collective); rank 0 of the default group writes.
+    """
+
+    def __init__(self, export_dir):
+        self.export_dir = export_dir
+        self._saved = False
+
+    def add_meta_graph_and_variables(self, sess, tags,
+                                     signature_def_map=None):
+        self._sess = sess
+        self._tags = list(tags)
+        self._signatures = signature_def_map or {}
+        return self
+
+    def save(self):
+        if self._saved:
+            raise RuntimeError('SavedModelBuilder.save called twice')
+        from autodist_tpu_torch.checkpoint.export import (FORMAT,
+                                                          export_servable)
+        from autodist_tpu_torch.frontend import graph as fe
+        sess = self._sess
+        names = sorted(sess._graph_item.graph.variables)
+        tree = {name: torch.as_tensor(sess.get_variable_value(name),
+                                      device=sess._device)
+                for name in names}
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_rank() != 0:
+            self._saved = True
+            return self.export_dir
+        for i, (sig_name, (outputs, inputs)) in \
+                enumerate(self._signatures.items()):
+            out_nodes = outputs if isinstance(outputs, (list, tuple)) \
+                else [outputs]
+            out_nodes = [o.read() if isinstance(o, fe.Variable) else o
+                         for o in out_nodes]
+            for o in out_nodes:
+                if isinstance(o, fe.ApplyGradients):
+                    raise ValueError(
+                        'signature %r exports a train op; servable '
+                        'signatures must be forward-only' % sig_name)
+            in_phs = list(inputs)
+
+            def make_fn(nodes, phs):
+                def fn(params, *feeds):
+                    env = fe.Env(dict(params), dict(zip(phs, feeds)))
+                    env.device = sess._device
+                    return [fe.evaluate(n, env) for n in nodes]
+                return fn
+
+            export_servable(
+                make_fn(out_nodes, in_phs), tree,
+                [(ph.shape, ph.dtype) for ph in in_phs],
+                self.export_dir, signature=sig_name, tags=self._tags,
+                input_names=[ph.name for ph in in_phs],
+                write_params=(i == 0))
+        if not self._signatures:
+            save_pytree(os.path.join(self.export_dir, 'variables'), tree)
+            meta = {'format': FORMAT, 'tags': self._tags, 'signatures': {}}
+            with open(os.path.join(self.export_dir, 'saved_model.json'),
+                      'w') as f:
+                json.dump(meta, f, indent=1, sort_keys=True)
+        self._saved = True
+        return self.export_dir

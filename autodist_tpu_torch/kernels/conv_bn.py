@@ -32,10 +32,18 @@ Beside the kernel lives its plain PyTorch version (``_fwd_plain``) with
 the same cast points: a tensor on the CPU goes to it; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES['conv_bn']`` counts kernel
 launches.
+
+The forward is the custom operator ``autodist_tpu_torch::conv_bn_fwd``
+(``torch.library``): its CUDA implementation is the kernel launch, its
+CPU implementation the plain version, and its fake implementation gives
+the shapes, so ``torch.export`` traces a model that reaches it and the
+exported program calls the same launch when it is served.
 """
 import ctypes
+from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from autodist_tpu_torch.kernels import build, work
 
@@ -79,9 +87,10 @@ def _pick_block_cout(c_out):
 # ---------------------------------------------------------------------------
 
 def _fwd_plain(x2d, w, a, b, relu, want_stats, out_dtype):
-    """(y in out_dtype, s1, s2 f32 [Cout]). The prologue runs in f32 and
-    rounds to x's dtype; the product of that and W (cast to x's dtype)
-    is taken in f32; s1/s2 come from the f32 product."""
+    """(y in out_dtype, s f32 [2, Cout]: the column sums s1 and s2). The
+    prologue runs in f32 and rounds to x's dtype; the product of that and
+    W (cast to x's dtype) is taken in f32; s1/s2 come from the f32
+    product."""
     xn = x2d
     if a is not None:
         xn = x2d.float() * a.float() + b.float()
@@ -90,11 +99,11 @@ def _fwd_plain(x2d, w, a, b, relu, want_stats, out_dtype):
         xn = xn.to(x2d.dtype)
     acc = xn.float() @ w.to(x2d.dtype).float()
     if want_stats:
-        s1, s2 = acc.sum(0), (acc * acc).sum(0)
+        s = torch.stack([acc.sum(0), (acc * acc).sum(0)])
     else:
-        s1 = s2 = torch.zeros(w.shape[1], dtype=torch.float32,
-                              device=x2d.device)
-    return acc.to(out_dtype), s1, s2
+        s = torch.zeros((2, w.shape[1]), dtype=torch.float32,
+                        device=x2d.device)
+    return acc.to(out_dtype), s
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +174,7 @@ def _fwd_cuda(x2d, w, a, b, relu, want_stats, out_dtype):
         part = None
         s = torch.zeros((2, c_out), dtype=torch.float32, device=dev)
     if n == 0:
-        return y, s[0], s[1]
+        return y, s
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.cb_fwd(
@@ -178,15 +187,32 @@ def _fwd_cuda(x2d, w, a, b, relu, want_stats, out_dtype):
     LAUNCHES['conv_bn'] += 1
     work.record(*work.conv_bn(n, c_in, c_out, x2d.dtype, a is not None,
                               want_stats))
-    return y, s[0], s[1]
+    return y, s
 
 
-def _fwd(x2d, w, a, b, relu, want_stats, out_dtype):
-    if x2d.device.type == 'cuda':
-        return _fwd_cuda(x2d, w, a, b, relu, want_stats, out_dtype)
-    if x2d.device.type == 'cpu':
-        return _fwd_plain(x2d, w, a, b, relu, want_stats, out_dtype)
-    raise ValueError('conv_bn: no path for device %s' % x2d.device)
+@torch.library.custom_op('autodist_tpu_torch::conv_bn_fwd',
+                         mutates_args=(), device_types='cpu')
+def conv_bn_fwd(x2d: torch.Tensor, w: torch.Tensor,
+                a: Optional[torch.Tensor], b: Optional[torch.Tensor],
+                relu: bool, want_stats: bool, out_dtype: torch.dtype
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, s [2, Cout]) of the forward: the kernel on the card (registered
+    below), the plain version on the CPU; no other device has a path."""
+    return _fwd_plain(x2d, w, a, b, relu, want_stats, out_dtype)
+
+
+@conv_bn_fwd.register_kernel('cuda')
+def _conv_bn_fwd_cuda(x2d, w, a, b, relu, want_stats, out_dtype):
+    return _fwd_cuda(x2d, w, a, b, relu, want_stats, out_dtype)
+
+
+@conv_bn_fwd.register_fake
+def _conv_bn_fwd_fake(x2d, w, a, b, relu, want_stats, out_dtype):
+    if not is_fake(x2d):   # a meta tensor is no device with a path
+        raise ValueError('conv_bn: no path for device %s' % x2d.device)
+    c_out = w.shape[1]
+    return (x2d.new_empty((x2d.shape[0], c_out), dtype=out_dtype),
+            x2d.new_empty((2, c_out), dtype=torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +238,8 @@ class _FusedPointwise(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, w, a, b, relu, want_stats, out_dtype):
-        y, s1, s2 = _fwd(x2d, w, a, b, relu, want_stats, out_dtype)
+        y, s = conv_bn_fwd(x2d, w, a, b, relu, want_stats, out_dtype)
+        s1, s2 = s[0], s[1]
         ctx.save_for_backward(x2d, w, a, b, y if want_stats else None)
         ctx.relu, ctx.want_stats = relu, want_stats
         if not want_stats:

@@ -36,11 +36,19 @@ Beside the kernels live their plain PyTorch versions (``_fwd_plain``,
 kernels' cast points and constants. A tensor on the CPU goes to them; a
 CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts kernel
 launches by name, ``KERNEL_LAUNCHES`` by the CUDA kernel that ran.
+
+The forward is the custom operator ``autodist_tpu_torch::flash_fwd``
+(``torch.library``): its CUDA implementation is the kernel launch, its
+CPU implementation the plain version, and its fake implementation gives
+the shapes, so ``torch.export`` traces a model that reaches it (the
+launch takes raw pointers, which a FakeTensor has not) and the exported
+program calls the same launch when it is served.
 """
 import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 import torch.nn.functional as F
 
 from autodist_tpu_torch.kernels import build, work
@@ -306,12 +314,28 @@ def _delta(do, o):
 # dispatch + autograd
 # ---------------------------------------------------------------------------
 
-def _fwd(q, k, v, causal, sm_scale):
-    if q.device.type == 'cuda':
-        return _fwd_cuda(q, k, v, causal, sm_scale)
-    if q.device.type == 'cpu':
-        return _fwd_plain(q, k, v, causal, sm_scale)
-    raise ValueError('flash_attention: no path for device %s' % q.device)
+@torch.library.custom_op('autodist_tpu_torch::flash_fwd', mutates_args=(),
+                         device_types='cpu')
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, sm_scale: float
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of the forward: the kernel on the card (registered
+    below), the plain version on the CPU; no other device has a path."""
+    return _fwd_plain(q, k, v, causal, sm_scale)
+
+
+@flash_fwd.register_kernel('cuda')
+def _flash_fwd_cuda(q, k, v, causal, sm_scale):
+    return _fwd_cuda(q, k, v, causal, sm_scale)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, sm_scale):
+    if not is_fake(q):   # a meta tensor is no device with a path
+        raise ValueError('flash_attention: no path for device %s' % q.device)
+    b, h, s, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s, 1),
+                                            dtype=torch.float32)
 
 
 def _bwd(q, k, v, o, lse, do, causal, sm_scale):
@@ -333,7 +357,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = _fwd(q, k, v, causal, sm_scale)
+        o, lse = flash_fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return o

@@ -8,7 +8,7 @@
 """
 from autodist_tpu_torch.models.core import (Dense, Embedding,  # noqa: F401
                                             LayerNorm, Mlp, Module,
-                                            ParamDef)
+                                            ParamDef, Sequential)
 from autodist_tpu_torch.models.moe import MoeMlp  # noqa: F401
 from autodist_tpu_torch.models.ncf import NCF  # noqa: F401
 from autodist_tpu_torch.models.rnn import LSTMLM  # noqa: F401

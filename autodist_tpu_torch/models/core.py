@@ -305,6 +305,25 @@ def apply_tree_updates(tree, updates):
     return tree
 
 
+class Sequential(Module):
+    """Compose modules; params keyed ``layer_000``, ``layer_001``, ...
+    (the JAX ``Sequential``'s keys). Each layer keeps its own device."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = list(layers)
+        for name, m in self.param_defs().items():
+            self.add_module(name, m)
+
+    def param_defs(self):
+        return {'layer_%03d' % i: m for i, m in enumerate(self.layers)}
+
+    def apply(self, params, x, **kw):
+        for i, m in enumerate(self.layers):
+            x = m.apply(params['layer_%03d' % i], x, **kw)
+        return x
+
+
 class Dense(Module):
     """y = x @ w + b, computed in ``dtype``."""
 

@@ -73,6 +73,7 @@ class Session:
         self._step_count = 0
         self._closed = False
         self._tel = _telemetry.get()
+        self._dumped = set()   # run signatures whose step was dumped
         self._step_walls = deque(maxlen=ENV.AUTODIST_TELEMETRY_MAX_SPANS.val)
         # graph-mutation guard (reference autodist.py:152-165); the
         # framework's own VariableRead nodes are not counted
@@ -226,6 +227,8 @@ class Session:
             getattr(options, 'trace_level', 0) > 0
         profiler = torch.profiler.profile() if tracing else \
             contextlib.nullcontext()
+        if ENV.AUTODIST_DUMP_GRAPHS.val:
+            self._dump_step(norm, feeds)
         with profiler, torch.no_grad():
             outs = self._step(norm, feeds)
         if tracing:
@@ -239,21 +242,51 @@ class Session:
         results = [self._contract(f, o) for f, o in zip(norm, outs)]
         return results[0] if single else results
 
-    def _step(self, fetch_nodes, feeds):
+    def _interpret(self, fetch_nodes, var_state, opt_state, aux_state,
+                   feeds):
+        """One step of the program on the given state, as a function of
+        it: (fetched values, the Env holding the updates)."""
         plan = self._plan
-        full = dict(self._var_state)
+        full = dict(var_state)
         for name, p in plan.var_plans.items():
             if p.state_sharded:
                 full[name] = ShardedGrad(
-                    self._var_state[name], p.shard_axis, self._group,
+                    var_state[name], p.shard_axis, self._group,
                     logical_dim=p.var.shape[p.shard_axis],
                     hier_groups=plan.gather_hier_groups(p)).gather()
         env = fe.Env(full, feeds, grad_sync_fn=plan.sync_gradients,
-                     opt_state=self._opt_state, aux_state=self._aux_state)
-        env.var_shards = dict(self._var_state)
+                     opt_state=opt_state, aux_state=aux_state)
+        env.var_shards = dict(var_state)
         env.plan = plan
         env.device = self._device
         outs = [fe._degrade(fe.evaluate(node, env)) for node in fetch_nodes]
+        return outs, env
+
+    def _dump_step(self, fetch_nodes, feeds):
+        """The step's ATen program at the first run of each signature
+        (fetches, feed shapes and dtypes), traced on FakeTensors: phase
+        ``4-lowered-step-<n>`` (reference '3-transformed' graph). Nothing
+        runs and the state is untouched."""
+        key = (tuple(id(n) for n in fetch_nodes),
+               tuple(sorted((ph.name, tuple(t.shape), str(t.dtype))
+                            for ph, t in feeds.items())))
+        if key in self._dumped:
+            return
+        self._dumped.add(key)
+        from autodist_tpu_torch.utils import visualization as viz
+
+        def step(var_state, opt_state, aux_state, feeds):
+            with torch.no_grad():
+                outs, env = self._interpret(fetch_nodes, var_state,
+                                            opt_state, aux_state, feeds)
+            return outs, env.updates
+        viz.log_program(step, (self._var_state, self._opt_state,
+                               self._aux_state, feeds),
+                        '4-lowered-step-%d' % len(self._dumped))
+
+    def _step(self, fetch_nodes, feeds):
+        outs, env = self._interpret(fetch_nodes, self._var_state,
+                                    self._opt_state, self._aux_state, feeds)
         self._var_state.update(env.updates)
         for uid, slots in env.opt_updates.items():
             self._opt_state[uid] = {**self._opt_state.get(uid, {}), **slots}

@@ -1,7 +1,9 @@
 """Bridge: reference-style strategies over the port's models.
 
 The counterpart of ``autodist_tpu/strategy/adapter.py``.
-:class:`PytreeGraphItem` adapts a port model's parameters to the
+:class:`FunctionalModel` wraps a user's own init and loss functions
+(over a nested dict of tensors) in the port's model protocol, so a
+third-party model trains under any builder. :class:`PytreeGraphItem` adapts a port model's parameters to the
 GraphItem interface the builders consume, naming each variable by its
 JAX pytree path (``'blocks/mlp/up/kernel'``), so every builder produces
 the same ``node_config`` in both packages.
@@ -16,12 +18,110 @@ there and here, and at dp > 1 it raises until the ZeRO/PS slice of the
 port.
 """
 import numpy as np
-
+import torch
 import torch.distributed as dist
+from torch import nn
 
 from autodist_tpu_torch.const import DEFAULT_CHUNK_SIZE
 from autodist_tpu_torch.models.weights import flatten_tree
 from autodist_tpu_torch.strategy.base import AllReduceSynchronizer
+from autodist_tpu_torch.utils.device import resolve_device
+
+
+class _Node(nn.Module):
+    """One level of a FunctionalModel's tree: its leaves as parameters,
+    its sub-dicts as child nodes, each under its key."""
+
+    def __init__(self, tree, device):
+        super().__init__()
+        self._keys = sorted(tree)
+        for k in self._keys:
+            if '.' in k or '/' in k:
+                raise ValueError('FunctionalModel: a tree key may hold '
+                                 'neither "." nor "/", got %r' % k)
+            v = tree[k]
+            if isinstance(v, dict):
+                self.add_module(k, _Node(v, device))
+            else:
+                self.register_parameter(k, nn.Parameter(
+                    torch.as_tensor(v).detach().to(device,
+                                                   torch.float32).clone()))
+
+    def tree(self):
+        return {k: getattr(self, k).tree() if isinstance(
+            getattr(self, k), _Node) else getattr(self, k)
+            for k in self._keys}
+
+
+class FunctionalModel(_Node):
+    """Zero-touch adapter for a user's own functional model.
+
+    The reference distributes unmodified user Keras/TF code by patching
+    TF (``autodist/patch.py:96-197``); the JAX package wraps a user's
+    ``init_fn`` and ``loss_fn`` over a param pytree. Here the same
+    arguments, over a nested dict of tensors:
+
+    - ``init_fn(generator) -> nested dict of tensors``, from a CPU
+      ``torch.Generator`` (called once here, with seed 0, for the
+      shapes; the Trainer's ``init(seed)`` calls it again);
+    - ``loss_fn(params, batch) -> scalar`` or ``(sum, count)``: the pair
+      is the global mean over the data-parallel group (see
+      :mod:`autodist_tpu_torch.api`);
+    - ``axes``: optional tree of logical-axis tuples, one entry a dim
+      (default: every leaf unannotated, replicated until a strategy
+      shards it);
+    - ``apply_fn(params, *inputs)``: optional, for serving and export.
+
+    The tree is held as nested modules under its own keys, so
+    ``state_dict`` keys are the JAX pytree paths with ``.`` for ``/``
+    and ``params()`` is the tree of the live ``nn.Parameter``s (f32
+    master weights on ``device``, the card unless the caller names
+    another). An unmodified ``torch.nn.Module`` trains through it with
+    ``torch.func.functional_call`` inside the user's own ``loss_fn``::
+
+        net = MyNet()
+        def loss_fn(params, batch):
+            flat = {'.'.join(p): v for p, v in flatten_tree(params)}
+            logits = torch.func.functional_call(net, flat, (batch['x'],))
+            return F.cross_entropy(logits, batch['y'].long())
+    """
+
+    def __init__(self, init_fn, loss_fn, axes=None, apply_fn=None,
+                 device=None):
+        dev = resolve_device(device)
+        super().__init__(init_fn(torch.Generator().manual_seed(0)), dev)
+        self._init_fn, self._loss_fn = init_fn, loss_fn
+        self._axes, self._apply_fn = axes, apply_fn
+
+    def params(self):
+        return self.tree()
+
+    def axes(self):
+        if self._axes is not None:
+            return self._axes
+
+        def unannotated(tree):
+            return {k: unannotated(v) if isinstance(v, dict)
+                    else (None,) * v.dim() for k, v in tree.items()}
+        return unannotated(self.params())
+
+    def has_state(self):
+        return False
+
+    def loss(self, params, batch):
+        return self._loss_fn(params, batch)
+
+    def apply(self, params, *inputs, **kwargs):
+        if self._apply_fn is None:
+            raise ValueError('FunctionalModel has no apply_fn')
+        return self._apply_fn(params, *inputs, **kwargs)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        """Fresh values from ``init_fn(generator)``, in place."""
+        fresh = dict(flatten_tree(self._init_fn(generator)))
+        for path, p in flatten_tree(self.params()):
+            p.copy_(torch.as_tensor(fresh[path]))
 
 
 class _VarLike:

@@ -43,10 +43,10 @@ from autodist_tpu_torch.utils import logging
 
 # -- step introspection (graceful None degradation) -----------------------
 
-#: callable key -> cached cost dict. Entries are evicted by a weakref
-#: finalizer on the callable (a bound method's owner); the cache is
-#: bounded in practice by the number of distinct step callables a
-#: process measures.
+#: (callable, argument signature) key -> cached cost dict. Entries are
+#: evicted by a weakref finalizer on the callable (a bound method's
+#: owner); the cache is bounded in practice by the number of distinct
+#: step callables and batch shapes a process measures.
 _COST_CACHE = {}
 _COST_LOCK = threading.Lock()
 
@@ -81,21 +81,34 @@ def _byte_counter():
     return _Bytes()
 
 
-def _cache_key(fn):
-    """(key, the object whose life bounds the entry): a bound method is
-    made anew at every attribute access, so it is keyed by its owner and
-    function."""
+def _signature(tree):
+    """The shape and dtype of every tensor or array leaf of ``tree`` (the
+    type of any other leaf): what a compilation would key a program on."""
+    from torch.utils._pytree import tree_leaves
+    return tuple((tuple(x.shape), str(x.dtype)) if hasattr(x, 'shape')
+                 and hasattr(x, 'dtype') else type(x).__name__
+                 for x in tree_leaves(tree))
+
+
+def _cache_key(fn, args, kwargs):
+    """(key, the object whose life bounds the entry): the callable
+    together with its arguments' signature (:func:`_signature`). A bound
+    method is made anew at every attribute access, so it is keyed by its
+    owner and function."""
+    sig = _signature((args, kwargs))
     owner = getattr(fn, '__self__', None)
     if owner is not None and hasattr(fn, '__func__'):
-        return (id(owner), id(fn.__func__)), owner
-    return (id(fn), None), fn
+        return (id(owner), id(fn.__func__), sig), owner
+    return (id(fn), None, sig), fn
 
 
 def cost_of(fn, *args, **kwargs):
     """FLOPs + bytes accessed of one call of a step callable, cached per
-    callable.
+    callable and argument signature (every tensor leaf's shape and
+    dtype, as a compilation keys its program).
 
-    The first call for ``fn`` RUNS ``fn(*args, **kwargs)`` once (a
+    The first call for ``fn`` at a signature RUNS ``fn(*args, **kwargs)``
+    once (a
     training step takes its step: the caller pays for it) under
     ``FlopCounterMode`` and a byte counter, and adds the work every
     hand-written kernel launch inside reports (``kernels/work.py``). On
@@ -104,10 +117,10 @@ def cost_of(fn, *args, **kwargs):
     way. Returns ``{'flops': float|None, 'bytes_accessed':
     float|None, 'kernel_launches': int}``; None when nothing was
     counted, or when counting failed (the step's own exception
-    propagates). Later calls with the same callable hit the cache and run
-    nothing.
+    propagates). Later calls with the same callable and signature hit
+    the cache and run nothing.
     """
-    key, owner = _cache_key(fn)
+    key, owner = _cache_key(fn, args, kwargs)
     with _COST_LOCK:
         hit = _COST_CACHE.get(key)
     if hit is not None:

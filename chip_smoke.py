@@ -116,6 +116,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the same init (losses within 1e-5 relative, the first within 0.5 of
    ln(vocab)); and both at tiny width on the card against the CPU (3
    Adam steps, losses within 1e-4);
+10b. this slice's paths. ``serve_gpt_small``: gpt_small at
+   bench_longctx's width (seq 4096, bf16) from a seeded init,
+   ``model.apply`` exported (``checkpoint/export.py``, tokens [None,
+   4096]), reloaded in a fresh process that imports torch, numpy and
+   ``autodist_tpu_torch.kernels`` (never jax) and served at batch 4 and
+   1: logits within 1e-2 of the eager logits' largest magnitude, K1
+   through its custom operator 12 times a request on
+   ``fwd_wgmma_kernel<bf16,64>``, ms a request and tokens/s served and
+   eager; ``serve_resnet101_fused``: ResNet-101 in eval under
+   ``AUTODIST_FUSED_CONV=1`` exported at a static batch of 256 (224 px,
+   bf16) and served the same way, K4 through its custom operator as
+   often as the eager forward launches it; ``imagenet_records``: two
+   batches of ResNet-101 records written with ``write_records``,
+   streamed by ``examples_torch/imagenet.py``'s ``record_stream``
+   through the native reader into 3 fused steps at bench_resnet101's
+   width (finite losses, images/s beside the synthetic arm's, the
+   stream's ``next`` timed, the files removed); ``functional_model``:
+   ``examples_torch/image_classifier.py``'s CNN through
+   ``FunctionalModel`` under the 8 builders, 5 steps each (losses equal
+   across builders within 1e-6, the first 3 within 1e-4 of the CPU);
+   ``dsl_saved_model``: ``examples_torch/serving.py`` on the card (the
+   served predictions within 0.1 of the ground truth);
 11. the card's line, the ``kernels`` line (K1-K4 of the main paths:
    K1-K3 at head dim 64, at 256 and at 384, each row with the CUDA
    kernel that ran and its launches in its own phase), and last
@@ -137,6 +159,7 @@ import json
 import math
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -365,10 +388,11 @@ def check_kernels(shape, causal, dtype, timed, smi):
                    for _ in range(4))
     scale = shape[-1] ** -0.5
     args = (q, k, v, causal, scale)
-    o, lse = fa._fwd_cuda(*args)
+    # the forward through its custom operator, as the main paths call it
+    o, lse = fa.flash_fwd(*args)
     delta = fa._delta(do, o)
     bwd_args = (q, k, v, do, lse, delta, causal, scale)
-    runs = {'fwd': (lambda: fa._fwd_cuda(*args),
+    runs = {'fwd': (lambda: fa.flash_fwd(*args),
                     lambda: fa._fwd_plain(*args)),
             'dq': (lambda: fa._dq_cuda(*bwd_args),
                    lambda: fa._dq_plain(*bwd_args)),
@@ -401,6 +425,8 @@ def check_kernels(shape, causal, dtype, timed, smi):
         if timed:
             rec.update(_times(name, *runs[name], q, k, v, do, causal,
                               scale))
+            if name == 'fwd':   # the launch without the operator around it
+                rec['direct_ms'] = cuda_ms(lambda: fa._fwd_cuda(*args), 10)
         rec['bound_ms'], rec['bound_by'] = bound(name, shape, dtype, causal)
         if timed:
             rec.update(rates(name, shape, dtype, causal, rec['ms']))
@@ -458,9 +484,10 @@ def _times(name, kernel, plain, q, k, v, do, causal, scale):
 
 
 def check_conv_bn(shape, dtype, smi):
-    """Phase 3 for one K4 shape: the kernel (through its wrapper) against
-    its plain version on the same inputs, then times: kernel, plain,
-    product only, and the bound. Returns the record."""
+    """Phase 3 for one K4 shape: the kernel (through its custom operator,
+    as the main paths call it) against its plain version on the same
+    inputs, then times: the operator, the direct launch, plain, product
+    only, and the bound. Returns the record."""
     n, c_in, c_out, relu, calls, x_shape, stride = shape
     gen = torch.Generator(device='cuda').manual_seed(3)
     x = torch.randn((n, c_in), generator=gen, device='cuda').to(dtype)
@@ -471,21 +498,22 @@ def check_conv_bn(shape, dtype, smi):
         a = torch.rand(c_in, generator=gen, device='cuda') + 0.5
         b = torch.randn(c_in, generator=gen, device='cuda')
     args = (x, w, a, b, relu, True, dtype)
-    y, s1, s2 = cb._fwd_cuda(*args)
-    py, p1, p2 = cb._fwd_plain(*args)
+    y, s = cb.conv_bn_fwd(*args)
+    py, ps = cb._fwd_plain(*args)
     torch.cuda.synchronize()
     tol = K4_TOL[dtype]
     errs, ok = [], True
-    for got, want, rel in ((y, py, tol['y']), (s1, p1, tol['s']),
-                           (s2, p2, tol['s'])):
+    for got, want, rel in ((y, py, tol['y']), (s[0], ps[0], tol['s']),
+                           (s[1], ps[1], tol['s'])):
         diff = float((got.float() - want.float()).abs().max())
         errs.append(diff)
         ok = ok and diff <= rel * float(want.float().abs().max())
-    del y, s1, s2, py, p1, p2
+    del y, s, py, ps
     wc = w.to(dtype)
     rec = {'max_abs_err': errs[0], 'max_abs_err_s1': errs[1],
            'max_abs_err_s2': errs[2],
-           'ms': cuda_ms(lambda: cb._fwd_cuda(*args), 10),
+           'ms': cuda_ms(lambda: cb.conv_bn_fwd(*args), 10),
+           'direct_ms': cuda_ms(lambda: cb._fwd_cuda(*args), 10),
            'plain_ms': cuda_ms(lambda: cb._fwd_plain(*args), 3),
            'product_only_ms': cuda_ms(lambda: torch.matmul(x, wc), 10),
            'library_ms': None}
@@ -556,7 +584,8 @@ def set_fused_gate(fused):
 
 def resnet101_run(trainer, batch, fused, smi, profiling):
     """3 sgd steps of ResNet-101 from a fresh init (seed 0) with the
-    fused gate on or off. Returns (state, first loss, K4 launches)."""
+    fused gate on or off. Returns (state, first loss, K4 launches,
+    images/s)."""
     set_fused_gate(fused)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -584,7 +613,7 @@ def resnet101_run(trainer, batch, fused, smi, profiling):
                   'nhwcToNchw' in k]
         require(not layout, 'layout-conversion kernels among the top '
                 'kernels: %s' % layout)
-    return state, losses[0], launches
+    return state, losses[0], launches, img_s
 
 
 def resnet101_ab(trainer, state, batch, smi, steps=4):
@@ -1522,7 +1551,8 @@ def check_head_dim(d, causal, dtype, smi):
     the three gradients against the plain versions at the true head dim,
     one launch of each kernel, by the CUDA kernel that the dispatch names
     (``fa.kernel_name``). Then each kernel's time at the padded
-    width (``_fwd_cuda`` etc., as the wrapper launches them), its plain
+    width (``flash_fwd``, ``_dq_cuda`` etc., as the wrapper launches
+    them), its plain
     version's and the library's at the true head dim, and the bound of
     the work at the true head dim; and the wrapper's whole forward (the
     pad copies and the slice included). Returns {kernel: record}."""
@@ -1554,10 +1584,10 @@ def check_head_dim(d, causal, dtype, smi):
     def pad(t):
         return F.pad(t, (0, width - d)).contiguous()
     qp, kp, vp, dop = (pad(t) for t in (q, k, v, do))
-    op, lsep = fa._fwd_cuda(qp, kp, vp, causal, scale)
+    op, lsep = fa.flash_fwd(qp, kp, vp, causal, scale)
     bwd = (qp, kp, vp, dop, lsep, fa._delta(dop, op), causal, scale)
     plain_bwd = (q, k, v, do, lse2, delta, causal, scale)
-    runs = {'fwd': (lambda: fa._fwd_cuda(qp, kp, vp, causal, scale),
+    runs = {'fwd': (lambda: fa.flash_fwd(qp, kp, vp, causal, scale),
                     lambda: fa._fwd_plain(q, k, v, causal, scale)),
             'dq': (lambda: fa._dq_cuda(*bwd),
                    lambda: fa._dq_plain(*plain_bwd)),
@@ -1863,6 +1893,368 @@ def small_sparse_reference():
                 'CPU: %r vs %r' % (name, losses['cuda'], losses['cpu']))
 
 
+# ---------------------------------------------------------------------------
+# servable export, the record loader and the zero-touch adapter
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+EXAMPLES = os.path.join(ROOT, 'examples_torch')
+# served outputs against eager ones: |served - eager| <= SERVE_REL *
+# max|eager| (bf16: the same kernels and products, but a program traced by
+# torch.export may fuse or order the elementwise passes otherwise)
+SERVE_REL = 1e-2
+SERVE_REPS = 3
+# image_classifier's CNN: losses across the 8 builders at dp = 1, and the
+# card against the CPU (f32, TF32 off: sums in another order)
+FUNCTIONAL_STEPS, FUNCTIONAL_CPU_STEPS = 5, 3
+FUNCTIONAL_BUILDER_REL, FUNCTIONAL_CPU_REL = 1e-6, 1e-4
+
+# The serving process: the port's ``load_servable`` (which imports
+# ``autodist_tpu_torch.kernels`` when the bundle's program calls them),
+# with torch and numpy and no jax; it serves each input file, counting
+# the kernels' launches a request.
+_SERVE = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+from autodist_tpu_torch.checkpoint.export import load_servable
+from autodist_tpu_torch.kernels import conv_bn, flash_attention
+
+bundle, out_dir, device, reps = sys.argv[1], sys.argv[2], sys.argv[3], \
+    int(sys.argv[4])
+names = sys.argv[5:]
+serve = load_servable(bundle, device=device)
+
+
+def sync():
+    if device != 'cpu':
+        torch.cuda.synchronize()
+
+
+report = {}
+for name in names:
+    x = torch.from_numpy(np.load(os.path.join(out_dir, name + '.npy')))
+    x = x.to(device)
+    for c in (flash_attention, conv_bn):
+        c.reset_launches()
+    out = serve(x)
+    sync()
+    rec = {'flash_fwd': dict(flash_attention.KERNEL_LAUNCHES),
+           'conv_bn': conv_bn.LAUNCHES['conv_bn']}
+    torch.save(out.cpu(), os.path.join(out_dir, name + '.served.pt'))
+    del out
+    seconds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        serve(x)
+        sync()
+        seconds.append(time.perf_counter() - t0)
+    rec['seconds'] = seconds
+    report[name] = rec
+if 'jax' in sys.modules:
+    raise SystemExit('the serving process imported jax')
+report['port_modules'] = sum(1 for m in sys.modules
+                             if m.split('.')[0] == 'autodist_tpu_torch')
+print(json.dumps(report))
+'''
+
+
+def serve_fresh(bundle, inputs, device, tmp, reps=SERVE_REPS):
+    """Serve ``bundle`` on each of ``inputs`` ({name: numpy array}) in a
+    fresh process on ``device``. Returns (its report, {name: served
+    output as a CPU tensor})."""
+    for name, x in inputs.items():
+        np.save(os.path.join(tmp, name + '.npy'), x)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, '-c', _SERVE, bundle, tmp, device, str(reps),
+         *inputs], capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=600)
+    require(proc.returncode == 0, 'the serving process failed:\n%s'
+            % proc.stderr[-4000:])
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    outs = {name: torch.load(os.path.join(tmp, name + '.served.pt'))
+            for name in inputs}
+    for name in inputs:
+        os.remove(os.path.join(tmp, name + '.served.pt'))
+    return report, outs
+
+
+def eager_serve(fn, params, x, reps, device):
+    """(output, seconds of each timed request) of ``fn(params, x)`` in
+    this process, without grad."""
+    def sync():
+        if torch.device(device).type == 'cuda':
+            torch.cuda.synchronize()
+    with torch.no_grad():
+        out = fn(params, x)
+        sync()
+        seconds = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(params, x)
+            sync()
+            seconds.append(time.perf_counter() - t0)
+    return out, seconds
+
+
+def compare_served(served, eager):
+    """(max |served - eager|, max |eager|, bitwise equal)."""
+    served = served.to(eager.device)
+    return (float((served.float() - eager.float()).abs().max()),
+            float(eager.float().abs().max()), bool(torch.equal(served, eager)))
+
+
+def serve_gpt_small_phase(cfg, batches, device, tmp, smi=None):
+    """``cfg`` (gpt_small at bench_longctx's width on the card) from a
+    seeded init: ``model.apply`` exported with tokens [None, S], reloaded
+    in a fresh process and served at each batch in ``batches`` (the
+    symbolic batch). The served logits within ``SERVE_REL`` of the eager
+    logits' largest magnitude; on the card each request runs K1 through
+    its custom operator, once a layer, on the wgmma kernel. Returns the
+    record."""
+    from autodist_tpu_torch.checkpoint.export import export_servable
+    cuda = torch.device(device).type == 'cuda'
+    seq = cfg.max_len
+    model = TransformerLM(cfg, device=device, seed=0)
+    params = model.params()
+    bundle = os.path.join(tmp, 'gpt_small')
+    t0 = time.perf_counter()
+    export_servable(model.apply, params, [((None, seq), np.int32)], bundle)
+    export_s = time.perf_counter() - t0
+    inputs = {'b%d' % b: make_batch(cfg.vocab, b, seq, seed=9)['tokens']
+              for b in batches}
+    report, served = serve_fresh(bundle, inputs, device, tmp)
+    d = cfg.dim // cfg.n_heads
+    want_kernel = {fa.kernel_name('fwd', cfg.dtype, d): cfg.n_layers} \
+        if cuda else None
+    rec = dict(phase='serve_gpt_small', dim=cfg.dim, n_layers=cfg.n_layers,
+               n_heads=cfg.n_heads, seq=seq, vocab=cfg.vocab,
+               dtype=str(cfg.dtype).replace('torch.', ''),
+               export_seconds=export_s, port_modules=report['port_modules'],
+               requests={})
+    for name, tokens in inputs.items():
+        b = tokens.shape[0]
+        fa.reset_launches()
+        eager, eager_s = eager_serve(
+            model.apply, params, torch.from_numpy(tokens).to(device),
+            SERVE_REPS, device)
+        eager_launches = {k: n // (SERVE_REPS + 1)
+                          for k, n in fa.KERNEL_LAUNCHES.items()}
+        err, scale, bitwise = compare_served(served.pop(name), eager)
+        del eager
+        served_ms = 1e3 * float(np.median(report[name]['seconds']))
+        eager_ms = 1e3 * float(np.median(eager_s))
+        rec['requests'][name] = dict(
+            batch=b, max_abs_err=err, max_abs_logit=scale, bitwise=bitwise,
+            served_ms=served_ms, eager_ms=eager_ms,
+            served_tokens_per_s=b * seq / served_ms * 1e3,
+            eager_tokens_per_s=b * seq / eager_ms * 1e3,
+            served_launches=report[name]['flash_fwd'],
+            eager_launches=eager_launches)
+        require(err <= SERVE_REL * scale, 'served gpt_small logits at batch '
+                '%d are %.4g from eager (largest %.4g)' % (b, err, scale))
+        if cuda:
+            require(report[name]['flash_fwd'] == want_kernel,
+                    'served gpt_small ran %s a request, expected %s'
+                    % (report[name]['flash_fwd'], want_kernel))
+    if smi is not None:
+        emit(card=smi, **rec)
+    del model, params
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def serve_resnet_phase(model, batch, hw, device, tmp, train_launches=None,
+                       smi=None):
+    """``model`` in eval under ``AUTODIST_FUSED_CONV=1``, exported at a
+    static batch (the fused gate branches on the row count, which a
+    symbolic batch would meet as a guard), reloaded in a fresh process
+    and served on one batch: the outputs within ``SERVE_REL`` of eager;
+    on the card K4 runs through its custom operator, as many times a
+    request as the eager forward launches it (``train_launches``: a
+    training step's, for the record). Returns the record."""
+    from autodist_tpu_torch.checkpoint.export import export_servable
+    cuda = torch.device(device).type == 'cuda'
+    set_fused_gate(True)
+
+    def infer(params, images):
+        with core.model_mode(training=False):
+            return model.apply(params, images)
+    params = model.params()
+    bundle = os.path.join(tmp, 'resnet')
+    t0 = time.perf_counter()
+    export_servable(infer, params, [((batch, hw, hw, 3), np.float32)],
+                    bundle)
+    export_s = time.perf_counter() - t0
+    images = make_images(batch, hw, 1000, seed=5)['images']
+    report, served = serve_fresh(bundle, {'images': images}, device, tmp)
+    cb.reset_launches()
+    eager, eager_s = eager_serve(infer, params,
+                                 torch.from_numpy(images).to(device),
+                                 SERVE_REPS, device)
+    eager_launches = cb.LAUNCHES['conv_bn'] // (SERVE_REPS + 1)
+    set_fused_gate(False)
+    err, scale, bitwise = compare_served(served['images'], eager)
+    served_ms = 1e3 * float(np.median(report['images']['seconds']))
+    eager_ms = 1e3 * float(np.median(eager_s))
+    rec = dict(phase='serve_resnet101_fused', batch=batch, px=hw,
+               static_batch=True, export_seconds=export_s,
+               max_abs_err=err, max_abs_logit=scale, bitwise=bitwise,
+               served_ms=served_ms, eager_ms=eager_ms,
+               served_images_per_s=batch / served_ms * 1e3,
+               eager_images_per_s=batch / eager_ms * 1e3,
+               served_k4_launches=report['images']['conv_bn'],
+               eager_k4_launches=eager_launches,
+               train_step_k4_launches=train_launches,
+               port_modules=report['port_modules'])
+    if smi is not None:
+        emit(card=smi, **rec)
+    require(err <= SERVE_REL * scale, 'served ResNet logits are %.4g from '
+            'eager (largest %.4g)' % (err, scale))
+    if cuda:
+        require(eager_launches > 0 and
+                report['images']['conv_bn'] == eager_launches,
+                'served ResNet launched K4 %s times a request, eager %d'
+                % (report['images']['conv_bn'], eager_launches))
+    del eager, served
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _example(name):
+    """``examples_torch/<name>.py`` as a module."""
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    return __import__(name)
+
+
+def imagenet_records_phase(model, batch, hw, n_batches, steps, device, tmp,
+                           synthetic_images_per_s=None, smi=None):
+    """``n_batches`` batches of records (f32 NHWC images, int32 labels)
+    written with ``write_records``, streamed by ``examples_torch/
+    imagenet.py``'s ``record_stream`` through the native reader
+    (``native=True``: a failed build fails the phase) into ``steps``
+    fused training steps of ``model`` (sgd 0.1 momentum 0.9 under
+    ``trainer_from_strategy(..., AllReduce())``): finite losses, images/s
+    beside the synthetic arm's, each ``next`` of the stream timed; on the
+    card K4 launches as in the synthetic arm. The files are removed at
+    the end. Returns the record."""
+    from autodist_tpu_torch.data.loader import write_records
+    example = _example('imagenet')
+    cuda = torch.device(device).type == 'cuda'
+    data = tempfile.mkdtemp(dir=tmp)
+    try:
+        rng = np.random.RandomState(6)
+        n = batch * n_batches
+        t0 = time.perf_counter()
+        write_records(os.path.join(data, 'images.records'),
+                      rng.rand(n, hw, hw, 3).astype(np.float32))
+        write_records(os.path.join(data, 'labels.records'),
+                      rng.randint(0, model.head.out_dim, (n,))
+                      .astype(np.int32))
+        write_s = time.perf_counter() - t0
+        set_fused_gate(True)
+        trainer = trainer_from_strategy(model, optim.sgd(0.1, momentum=0.9),
+                                        AllReduce())
+        stream = example.record_stream(data, batch, hw, native=True)
+        require(stream is not None, 'record_stream found no records')
+        state = trainer.init(seed=0)
+        cb.reset_launches()
+        losses, waits, seconds = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            b = next(stream)
+            waits.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            state, m = trainer.step(state, b)
+            losses.append(float(m['loss']))
+            seconds.append(time.perf_counter() - t0)
+        stream.close()
+        launches = cb.LAUNCHES['conv_bn']
+        set_fused_gate(False)
+    finally:
+        shutil.rmtree(data)
+    step_s = float(np.median(seconds[1:]))
+    wall_s = float(np.median(np.add(seconds, waits)[1:]))
+    rec = dict(phase='imagenet_records', batch=batch, px=hw,
+               record_bytes=hw * hw * 3 * 4, batches_written=n_batches,
+               write_seconds=write_s, steps=steps, losses=losses,
+               step_seconds=seconds, next_batch_ms=[1e3 * w for w in waits],
+               images_per_s=batch / wall_s,
+               images_per_s_step_only=batch / step_s,
+               synthetic_images_per_s=synthetic_images_per_s,
+               k4_launches=launches, files_removed=not os.path.exists(data))
+    if smi is not None:
+        emit(card=smi, **rec)
+    require(all(math.isfinite(x) for x in losses),
+            'ResNet loss from records not finite')
+    require(rec['files_removed'], 'the record files were left behind')
+    if cuda:
+        require(launches == steps * RESNET_K4_PER_STEP,
+                'ResNet-101 from records launched K4 %d times in %d steps'
+                % (launches, steps))
+    del trainer, state
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def functional_model_phase(device, smi=None):
+    """``examples_torch/image_classifier.py``'s CNN (an unmodified
+    ``torch.nn`` module through ``FunctionalModel`` and
+    ``torch.func.functional_call``) under every builder through
+    ``trainer_from_strategy`` on ``device``, ``FUNCTIONAL_STEPS`` Adam
+    steps each from one init: the losses agree across the builders
+    (one replica: the same step), and the first
+    ``FUNCTIONAL_CPU_STEPS`` match the same run on the CPU. Returns the
+    record."""
+    example = _example('image_classifier')
+    losses = {b: example.train(b, FUNCTIONAL_STEPS, device)
+              for b in example.BUILDERS}
+    cpu = example.train('AllReduce', FUNCTIONAL_CPU_STEPS, 'cpu')
+    ref = losses['AllReduce']
+    spread = max(abs(x - y) / abs(y) for run in losses.values()
+                 for x, y in zip(run, ref))
+    cpu_err = max(abs(x - y) / abs(y) for x, y in zip(ref, cpu))
+    rec = dict(phase='functional_model', device=str(device),
+               builders=list(losses), steps=FUNCTIONAL_STEPS,
+               losses=losses, cpu_losses=cpu, builder_rel_spread=spread,
+               cpu_rel_err=cpu_err)
+    if smi is not None:
+        emit(card=smi, **rec)
+    require(all(math.isfinite(x) for run in losses.values() for x in run),
+            'FunctionalModel loss not finite')
+    require(spread <= FUNCTIONAL_BUILDER_REL, 'FunctionalModel losses differ '
+            'across builders by %.3g relative' % spread)
+    require(cpu_err <= FUNCTIONAL_CPU_REL, 'FunctionalModel on %s differs '
+            'from the CPU by %.3g relative' % (device, cpu_err))
+    return rec
+
+
+def dsl_saved_model_phase(device, tmp, smi=None):
+    """``examples_torch/serving.py`` end to end on ``device``: the DSL
+    linear model under PSLoadBalancing, ``SavedModelBuilder``,
+    ``load_servable``, three served predictions within the example's
+    tolerance of the ground truth. Returns the record."""
+    example = _example('serving')
+    from autodist_tpu_torch import autodist as ad_mod
+    ad_mod._DEFAULT_AUTODIST.clear()
+    loss, out, want = example.run(os.path.join(tmp, 'dsl_saved_model'),
+                                  device=device)
+    err = float(np.abs(out - want).max())
+    rec = dict(phase='dsl_saved_model', device=str(device), final_loss=loss,
+               served=out[:, 0].tolist(), truth=want[:, 0].tolist(),
+               max_abs_err=err, tol=example.TOLERANCE)
+    if smi is not None:
+        emit(card=smi, **rec)
+    require(err < example.TOLERANCE, 'the served DSL model is %.4f from the '
+            'ground truth' % err)
+    return rec
+
+
 def main(argv):
     profiling = '--profile' in argv
     if not torch.cuda.is_available():
@@ -1969,10 +2361,10 @@ def main(argv):
         vision.ResNet.resnet101(dtype=torch.bfloat16, seed=0),
         optim.sgd(0.1, momentum=0.9), AllReduce())
     batch = make_images(RESNET_BATCH, 224, 1000, seed=4)
-    _, first_fused, k4_launches = resnet101_run(trainer, batch, True, smi,
-                                                profiling)
-    state, first_plain, _ = resnet101_run(trainer, batch, False, smi,
-                                          profiling)
+    _, first_fused, k4_launches, fused_img_s = resnet101_run(
+        trainer, batch, True, smi, profiling)
+    state, first_plain, _, _ = resnet101_run(trainer, batch, False, smi,
+                                             profiling)
     resnet101_ab(trainer, state, batch, smi)
     del trainer, state
     torch.cuda.empty_cache()
@@ -2003,6 +2395,23 @@ def main(argv):
     torch.cuda.empty_cache()
     small_sparse_reference()
 
+    # this slice's paths: serving (train, export, reload in a fresh
+    # process, serve), records through the native reader into training,
+    # the zero-touch adapter, and the DSL's servable bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        served = serve_gpt_small_phase(
+            TransformerConfig.gpt_small(dtype=torch.bfloat16, max_len=4096),
+            (4, 1), 'cuda', tmp, smi)
+        served_resnet = serve_resnet_phase(
+            vision.ResNet.resnet101(dtype=torch.bfloat16, seed=0),
+            RESNET_BATCH, 224, 'cuda', tmp, RESNET_K4_PER_STEP, smi)
+        records = imagenet_records_phase(
+            vision.ResNet.resnet101(dtype=torch.bfloat16, seed=0),
+            RESNET_BATCH, 224, 2, 3, 'cuda', tmp, fused_img_s, smi)
+        functional_model_phase('cuda', smi)
+        dsl_saved_model_phase('cuda', tmp, smi)
+    torch.cuda.empty_cache()
+
     # K1-K3 at each head dim's main-path shape, with the launches of the
     # phase that gives the kernels that shape
     kernels = []
@@ -2021,6 +2430,12 @@ def main(argv):
             rec = main_path[name]
             by_path = {p: r['kernel_launches'].get(rec['cuda_kernel'], 0)
                        for p, r in paths.items()}
+            if arm == 'gpt_small' and name == 'fwd':
+                # the served gpt_small (forward only): launches of its
+                # first request (batch 4), as the serving process read them
+                first = next(iter(served['requests'].values()))
+                by_path['serve_gpt_small'] = first['served_launches'].get(
+                    rec['cuda_kernel'], 0)
             row = flash_row(name, rec, next(iter(by_path.values())), shape,
                             suffix)
             row['launches_by_path'] = by_path
@@ -2043,7 +2458,11 @@ def main(argv):
         'shape': 'launch-weighted mean per launch over the %d ResNet-101 '
                  'main-path shapes (batch %d)' % (len(RESNET_K4),
                                                   RESNET_BATCH),
-        'dtype': 'bfloat16'})
+        'dtype': 'bfloat16',
+        'launches_by_path': {
+            'resnet101': k4_launches,
+            'imagenet_records': records['k4_launches'],
+            'serve_resnet101_fused': served_resnet['served_k4_launches']}})
     print(smi, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -452,3 +452,131 @@ def test_auto_strategy_phase_at_tiny_width():
     assert rec['calibrated'] is False
     assert rec['memory']['available'] is False
     assert rec['cost']['flops'] > 0 and rec['cost']['kernel_launches'] == 0
+
+
+# -- this slice's phases: servable export, records, the adapter ---------------
+NEW_PHASES = ('serve_gpt_small_phase', 'serve_resnet_phase',
+              'imagenet_records_phase', 'functional_model_phase',
+              'dsl_saved_model_phase')
+
+
+def _main_call_lines():
+    """{function name: first line main() calls it on}, and the line of
+    the card's line (``print(smi, ...)``)."""
+    import ast
+    import inspect
+    tree = ast.parse(inspect.getsource(chip_smoke))
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == 'main')
+    calls, card_line = {}, None
+    for node in ast.walk(main):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+            calls.setdefault(node.func.id, node.lineno)
+            if node.func.id == 'print' and node.args and \
+                    isinstance(node.args[0], ast.Name) and \
+                    node.args[0].id == 'smi':
+                card_line = node.lineno
+    return calls, card_line
+
+
+def test_new_phases_run_in_main_after_phase_10_and_before_the_card_line():
+    calls, card_line = _main_call_lines()
+    assert card_line is not None
+    for name in NEW_PHASES:
+        assert name in calls, name
+        assert calls['small_sparse_reference'] < calls[name] < card_line, \
+            name
+
+
+def test_new_phases_name_their_kernels():
+    """The serving phases check K1 and K4 by the launch counters of the
+    serving process, the records phase K4 by the training step's count,
+    and the kernels line carries each path's launches."""
+    import inspect
+    src = {name: inspect.getsource(getattr(chip_smoke, name))
+           for name in NEW_PHASES}
+    assert "fa.kernel_name('fwd'" in src['serve_gpt_small_phase']
+    assert "['flash_fwd']" in src['serve_gpt_small_phase']
+    assert "['conv_bn']" in src['serve_resnet_phase']
+    assert 'RESNET_K4_PER_STEP' in src['imagenet_records_phase']
+    assert 'native=True' in src['imagenet_records_phase']
+    main = inspect.getsource(chip_smoke.main)
+    for path in ('serve_gpt_small', 'imagenet_records',
+                 'serve_resnet101_fused'):
+        assert "'%s'" % path in main, path
+    assert 'flash_attention.reset_launches' not in chip_smoke._SERVE
+    assert 'c.reset_launches()' in chip_smoke._SERVE
+
+
+def _imports(source, path='<string>'):
+    import ast
+    for node in ast.walk(ast.parse(source, path)):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                not node.level:
+            yield node.module
+
+
+def test_chip_smoke_and_examples_import_no_jax():
+    import glob
+    import os
+    files = [chip_smoke.__file__] + sorted(glob.glob(os.path.join(
+        os.path.dirname(chip_smoke.__file__), 'examples_torch', '*.py')))
+    assert len(files) == 5
+    for path in files:
+        with open(path) as f:
+            mods = set(_imports(f.read(), path))
+        assert not {m.split('.')[0] for m in mods} & \
+            {'jax', 'jaxlib', 'autodist_tpu'}, (path, mods)
+    # the serving process: torch, numpy, the port's load_servable and its
+    # kernels' launch counters
+    served = {m.split('.')[0] for m in _imports(chip_smoke._SERVE)}
+    assert served == {'json', 'os', 'sys', 'time', 'numpy', 'torch',
+                      'autodist_tpu_torch'}
+    assert {m for m in _imports(chip_smoke._SERVE)
+            if m.startswith('autodist_tpu_torch')} == \
+        {'autodist_tpu_torch.checkpoint.export', 'autodist_tpu_torch.kernels'}
+    assert 'load_servable(bundle, device=device)' in chip_smoke._SERVE
+    assert 'torch.export.load' not in chip_smoke._SERVE
+
+
+def test_serve_gpt_small_phase_at_tiny_width(tmp_path):
+    """The flash arm (S 512) of a tiny LM exported, served in a fresh
+    process at batches 2 and 1, and held to eager (the CPU's plain
+    versions: the same bits)."""
+    from autodist_tpu_torch.models.transformer import TransformerConfig
+    rec = chip_smoke.serve_gpt_small_phase(
+        TransformerConfig.tiny(dtype=torch.float32, max_len=512), (2, 1),
+        'cpu', str(tmp_path))
+    assert set(rec['requests']) == {'b2', 'b1'}
+    for req in rec['requests'].values():
+        assert req['max_abs_err'] <= chip_smoke.SERVE_REL * \
+            req['max_abs_logit']
+        assert req['served_tokens_per_s'] > 0
+
+
+def test_serve_resnet_phase_at_tiny_width(tmp_path):
+    from autodist_tpu_torch.models import vision
+    rec = chip_smoke.serve_resnet_phase(
+        vision.ResNet((1, 1), num_classes=10, device='cpu'), 4, 32, 'cpu',
+        str(tmp_path))
+    assert rec['static_batch'] and rec['max_abs_err'] <= \
+        chip_smoke.SERVE_REL * rec['max_abs_logit']
+
+
+def test_imagenet_records_phase_at_tiny_width(tmp_path):
+    from autodist_tpu_torch.models import vision
+    rec = chip_smoke.imagenet_records_phase(
+        vision.ResNet((1, 1), num_classes=10, device='cpu'), 4, 32, 2, 3,
+        'cpu', str(tmp_path))
+    assert len(rec['losses']) == 3 and rec['files_removed']
+    assert len(rec['next_batch_ms']) == 3
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_functional_model_and_dsl_saved_model_phases_on_the_cpu(tmp_path):
+    rec = chip_smoke.functional_model_phase('cpu')
+    assert len(rec['losses']) == 8 and rec['builder_rel_spread'] == 0.0
+    rec = chip_smoke.dsl_saved_model_phase('cpu', str(tmp_path))
+    assert rec['max_abs_err'] < rec['tol']

@@ -273,14 +273,14 @@ def test_conv_bn_kernel_matches_plain_on_card(shape, c_out, stride,
     if prologue is None:
         a = b = None
     relu = prologue == 'relu'
-    y, s1, s2 = cb._fwd_cuda(x, w, a, b, relu, True, dt)
-    y2, t1, t2 = cb._fwd_plain(x, w, a, b, relu, True, dt)
+    y, (s1, s2) = cb._fwd_cuda(x, w, a, b, relu, True, dt)
+    y2, (t1, t2) = cb._fwd_plain(x, w, a, b, relu, True, dt)
     torch.cuda.synchronize()
     _close_to_max(y, y2, 1e-5 if dtype == 'float32' else 1e-2)
     _close_to_max(s1, t1, 1e-5)
     _close_to_max(s2, t2, 1e-5)
-    y3, z1, z2 = cb._fwd_cuda(x, w, a, b, relu, False, dt)
-    assert not z1.any() and not z2.any()
+    y3, z = cb._fwd_cuda(x, w, a, b, relu, False, dt)
+    assert not z.any()
     torch.testing.assert_close(y3, y, rtol=0, atol=0)
 
 
@@ -298,8 +298,8 @@ def test_conv_bn_kernel_zeroes_the_padding_after_the_prologue():
                   for t in _conv_inputs((40, 24), 256, 8))
     x = x.to(torch.bfloat16)
     b = torch.ones(24, device='cuda')
-    y, s1, s2 = cb._fwd_cuda(x, w, a, b, True, True, torch.bfloat16)
-    acc, _, _ = cb._fwd_plain(x, w, a, b, True, True, torch.float32)
+    y, (s1, s2) = cb._fwd_cuda(x, w, a, b, True, True, torch.bfloat16)
+    acc, _ = cb._fwd_plain(x, w, a, b, True, True, torch.float32)
     torch.cuda.synchronize()
     _close_to_max(y, acc.to(torch.bfloat16), 1e-2)
     _close_to_max(s1, acc.sum(0), 1e-5)
@@ -397,3 +397,98 @@ def test_head_dims_above_256_match_plain_on_card(head_dim, causal, dtype):
     torch.testing.assert_close(lse, lse2, atol=1e-5, rtol=1e-5)
     for a, b in zip(outs, want):
         torch.testing.assert_close(a.float(), b.float(), atol=t_g, rtol=t_g)
+
+
+# -- the forward kernels as torch.library custom operators --------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_custom_ops_launch_the_kernels_and_match_plain(dtype):
+    """``autodist_tpu_torch::flash_fwd`` and ``::conv_bn_fwd`` on CUDA
+    tensors launch the kernels (one launch each on the counters) and
+    give what the direct launch gives, bit for bit; the plain versions
+    within the tolerances of the direct tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to('cuda', dt)
+               for x in _inputs((2, 2, 256, 64), 11, 3))
+    fa.reset_launches()
+    o, lse = torch.ops.autodist_tpu_torch.flash_fwd(q, k, v, True, 0.125)
+    assert fa.LAUNCHES['fwd'] == 1
+    o_direct, lse_direct = fa._fwd_cuda(q, k, v, True, 0.125)
+    assert torch.equal(o, o_direct) and torch.equal(lse, lse_direct)
+    o2, lse2 = fa._fwd_plain(q, k, v, True, 0.125)
+    tol = 1e-5 if dtype == 'float32' else 2e-2
+    torch.testing.assert_close(o.float(), o2.float(), atol=tol, rtol=tol)
+
+    x, w, a, b = (torch.from_numpy(t).cuda()
+                  for t in _conv_inputs((4, 8, 8, 64), 128, 12))
+    x, w = x.to(dt), w.to(dt)
+    cb.reset_launches()
+    y, s = torch.ops.autodist_tpu_torch.conv_bn_fwd(
+        x.reshape(-1, 64), w, a, b, True, True, dt)
+    assert cb.LAUNCHES['conv_bn'] == 1
+    y_d, s_d = cb._fwd_cuda(x.reshape(-1, 64), w, a, b, True, True, dt)
+    assert torch.equal(y, y_d) and torch.equal(s, s_d)
+    assert s.shape == (2, 128)
+
+
+@pytest.mark.cuda
+def test_torch_export_of_k1_and_k4_serves_through_the_kernels(tmp_path):
+    """A TransformerLM at S 512 (the flash arm) and a small ResNet under
+    ``AUTODIST_FUSED_CONV=1`` in eval, exported on the card with a
+    symbolic batch (the ResNet at a static one) and served from the
+    saved program: the served outputs equal eager ones (bf16: within
+    1e-2 of the largest magnitude) and the serve launches the kernels;
+    the LM's bundle served on the CPU too."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    import os
+    from autodist_tpu_torch.checkpoint.export import (export_servable,
+                                                      load_servable)
+    from autodist_tpu_torch.models import core, vision
+    from autodist_tpu_torch.models.transformer import (TransformerConfig,
+                                                       TransformerLM)
+    lm = TransformerLM(TransformerConfig.tiny(dtype=torch.bfloat16,
+                                              max_len=512), seed=0)
+    export_servable(lm.apply, lm.params(), [((None, 512), np.int32)],
+                    str(tmp_path / 'lm'))
+    tokens = np.random.RandomState(0).randint(0, 256, (3, 512),
+                                              dtype=np.int32)
+    serve = load_servable(str(tmp_path / 'lm'))
+    fa.reset_launches()
+    got = serve(tokens)
+    assert fa.LAUNCHES['fwd'] == lm.cfg.n_layers
+    with torch.no_grad():
+        want = lm.apply(lm.params(), torch.from_numpy(tokens).cuda())
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2 * scale
+    # the bundle traced on the card, served on the CPU (the program moved,
+    # the plain version behind the operator)
+    on_cpu = load_servable(str(tmp_path / 'lm'), device='cpu')(tokens)
+    assert on_cpu.device.type == 'cpu'
+    assert float((on_cpu.float() - want.float().cpu()).abs().max()) <= \
+        1e-2 * scale
+
+    os.environ['AUTODIST_FUSED_CONV'] = '1'
+    try:
+        net = vision.ResNet((1, 1), num_classes=10, dtype=torch.bfloat16,
+                            seed=0)
+
+        def infer(params, images):
+            with core.model_mode(training=False):
+                return net.apply(params, images)
+        images = np.random.RandomState(1).randn(8, 32, 32, 3).astype(
+            np.float32)
+        export_servable(infer, net.params(), [((8, 32, 32, 3), np.float32)],
+                        str(tmp_path / 'resnet'))
+        cb.reset_launches()
+        got = load_servable(str(tmp_path / 'resnet'))(images)
+        assert cb.LAUNCHES['conv_bn'] > 0
+        with torch.no_grad():
+            want = infer(net.params(), torch.from_numpy(images).cuda())
+    finally:
+        os.environ.pop('AUTODIST_FUSED_CONV')
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2 * scale

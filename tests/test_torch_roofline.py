@@ -140,6 +140,37 @@ def test_cost_of_caches_a_bound_method_by_its_owner():
     assert Trainer.calls == 1
 
 
+def test_cost_of_follows_the_batch_shape_of_one_step_callable():
+    """``Trainer.compile_step`` hands back the same bound method for every
+    batch, so a cache keyed by the callable alone gave [8, 32] the cost
+    of [2, 32] (4.7186e7 FLOP both times, where a cleared cache gives
+    1.8874e8 at [8, 32]). Keyed on the arguments' shapes and dtypes too,
+    the FLOPs follow the batch (4x, exactly: every product scales with
+    the rows); a repeat at one shape still runs nothing."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.api import Trainer
+    from autodist_tpu_torch.models.transformer import (TransformerConfig,
+                                                       TransformerLM)
+    tr = Trainer(TransformerLM(TransformerConfig.tiny(), device='cpu'),
+                 optim.sgd(0.1))
+    state = tr.init(seed=0)
+    rng = np.random.RandomState(0)
+
+    def batch(b):
+        return tr.shard_batch({k: rng.randint(0, 256, (b, 32),
+                                              dtype=np.int32)
+                               for k in ('tokens', 'targets')})
+    small, large = batch(2), batch(8)
+    first = rl.cost_of(tr.compile_step(state, small), state, small)
+    second = rl.cost_of(tr.compile_step(state, large), state, large)
+    assert first['flops'] == pytest.approx(4.7186e7, rel=1e-4)
+    assert second['flops'] == pytest.approx(1.8874e8, rel=1e-4)
+    assert second['flops'] == 4 * first['flops']
+    steps = state.step
+    again = rl.cost_of(tr.compile_step(state, large), state, large)
+    assert again == second and state.step == steps
+
+
 def test_cost_of_counts_cpu_attention_once():
     """On the CPU flash attention runs its plain version: the counter
     sees those products (the scores and P·V forward, their gradients in
@@ -262,9 +293,9 @@ def _schedules(n=8, n_vars=6, dim=64, chunk=2):
                                                PytreeGraphItem as JaxGI)
     from autodist_tpu_torch.parallel.plan import static_collective_schedule
     from autodist_tpu_torch.strategy import AllReduce, PytreeGraphItem
-    from torch_sim_cases import _Shapes
+    from torch_sim_cases import shapes_model
     shapes = {'v%02d' % i: (dim, dim) for i in range(n_vars)}
-    gi = PytreeGraphItem(_Shapes(shapes))
+    gi = PytreeGraphItem(shapes_model(shapes))
     jgi = JaxGI(FunctionalModel(
         lambda rng: {k: jnp.zeros(s, jnp.float32)
                      for k, s in shapes.items()}, lambda p, b: 0.0))

@@ -12,7 +12,8 @@ global batch for 3 steps; the losses and params must match the same 3
 steps on one card with the whole batch. Three models: a Transformer
 whose attention takes the flash kernels (S = 512), under adamw, without
 a loss mask and with one that leaves the ranks unequal numbers of
-counted tokens (the loss is the global masked mean); the same with MoE
+counted tokens (the loss is the global masked mean), and with that mask
+through a user ``loss_fn`` returning ``(sum, count)``; the same with MoE
 blocks (4 experts, aux weight 1.0, remat), whose load-balance loss takes
 its first-choice fractions over the global batch; and a small
 ResNet through the fused conv + BatchNorm kernel
@@ -72,10 +73,18 @@ if kind.startswith('lm') or kind == 'moe':
     cfg = TransformerConfig.tiny(dtype=torch.float32, dim=128, n_heads=2,
                                  max_len=512, **extra)
     model = TransformerLM(cfg, device=device, seed=rank)
-    trainer = Trainer(model, optim.adamw(1e-4))
+    loss_fn = None
+    if kind == 'lm_pair':
+        # a user loss_fn of the masked mean in the (sum, count) form: the
+        # Trainer takes the global mean, so dp = N equals one card
+        def loss_fn(params, b):
+            nll = model.per_token_loss(params, b)
+            mask = b['mask'].to(nll.dtype)
+            return (nll * mask).sum(), mask.sum()
+    trainer = Trainer(model, optim.adamw(1e-4), loss_fn=loss_fn)
     batch = {'tokens': rng.randint(0, cfg.vocab, (8, 512), dtype=np.int32),
              'targets': rng.randint(0, cfg.vocab, (8, 512), dtype=np.int32)}
-    if kind == 'lm_masked':
+    if kind in ('lm_masked', 'lm_pair'):
         # rows 0-1 counted only up to column 4: the ranks hold unequal
         # numbers of counted tokens, and the loss is the global mean
         batch['mask'] = np.ones((8, 512), np.float32)
@@ -117,6 +126,7 @@ def _launch(world, out, port, kind):
 @pytest.mark.parametrize('kind,atol', [
     pytest.param('lm', 1e-5, id='lm'),
     pytest.param('lm_masked', 1e-5, id='lm_masked'),
+    pytest.param('lm_pair', 1e-5, id='lm_pair'),
     pytest.param('moe', 1e-5, id='moe'),
     pytest.param('resnet', 1e-4, id='resnet')])
 def test_nccl_dp_equals_one_card(tmp_path, kind, atol):

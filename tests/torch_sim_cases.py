@@ -17,28 +17,23 @@ NODE_GROUPS = [[0, 1], [2, 3]]
 META = torch.device('meta')
 
 
-class _Shapes(torch.nn.Module):
-    """A model of named f32 parameters (shapes only) for
-    ``PytreeGraphItem``: what the JAX tests build with
-    ``FunctionalModel``."""
+def shapes_model(shapes):
+    """A ``FunctionalModel`` of named f32 parameters (shapes only, on the
+    meta device) for ``PytreeGraphItem``: what the JAX tests build with
+    their ``FunctionalModel``."""
+    from autodist_tpu_torch.strategy.adapter import FunctionalModel
 
-    def __init__(self, shapes):
-        super().__init__()
-        self._shapes = dict(shapes)
-        for k, s in self._shapes.items():
-            self.register_parameter(k, torch.nn.Parameter(
-                torch.empty(s, device=META)))
+    def init_fn(generator):
+        return {k: torch.empty(s, device=META) for k, s in shapes.items()}
 
-    def params(self):
-        return {k: getattr(self, k) for k in self._shapes}
-
-    def axes(self):
-        return {k: (None,) * len(s) for k, s in self._shapes.items()}
+    def loss_fn(params, batch):
+        raise NotImplementedError('a shapes-only model has no loss')
+    return FunctionalModel(init_fn, loss_fn, device=META)
 
 
 def make_gi(shapes):
     from autodist_tpu_torch.strategy.adapter import PytreeGraphItem
-    return PytreeGraphItem(_Shapes(shapes))
+    return PytreeGraphItem(shapes_model(shapes))
 
 
 def make_rs(n=8, device='tpus', topology=None, nodes=1, cls=None):

@@ -97,25 +97,55 @@ def flat(tree):
     return {'/'.join(p): v for p, v in flatten_tree(tree)}
 
 
+def masked_loss(model, form):
+    """A user ``loss_fn`` of the masked mean ``sum(nll * mask) /
+    max(sum(mask), 1)`` over ``model.per_token_loss``: ``form='pair'``
+    returns ``(sum, count)`` (the Trainer takes the global mean),
+    ``'scalar'`` the rank's own masked mean."""
+    def loss_fn(params, batch):
+        nll = model.per_token_loss(params, batch)
+        mask = batch['mask'].to(nll.dtype)
+        if form == 'pair':
+            return (nll * mask).sum(), mask.sum()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return loss_fn
+
+
+def masked_metric(model):
+    """``metrics_fn`` with the pair form: the masked NLL's (sum, count)."""
+    def metrics_fn(params, batch):
+        nll = model.per_token_loss(params, batch)
+        mask = batch['mask'].to(nll.dtype)
+        return {'masked_nll': ((nll * mask).sum(), mask.sum())}
+    return metrics_fn
+
+
 def make_trainer(kind, opt=('adam', 1e-3), spec=None, builder=None,
-                 tied=False, momentum=None):
+                 tied=False, momentum=None, loss=None):
     model = make_model(kind, tied)
     kw = {} if momentum is None else {'momentum': momentum}
     optimizer = getattr(optim, opt[0])(opt[1], **kw)
     spec = ParallelSpec(**(spec or {}))
+    loss_fn = None if loss is None else masked_loss(model, loss)
     if builder is None:
-        return Trainer(model, optimizer, spec=spec)
+        return Trainer(model, optimizer, spec=spec, loss_fn=loss_fn)
     return strategy.trainer_from_strategy(
         model, optimizer, getattr(strategy, builder)(), spec=spec)
 
 
 def train(rank, world, kind, init, batches, eval_batches=None, **kw):
     """Steps over the global ``batches`` from the JAX-layout ``init``:
-    {'losses', 'params' (flat, JAX paths), 'eval' (when asked)}."""
+    {'losses', 'params' (flat, JAX paths), 'eval' (when asked; with a
+    ``loss`` form, ``evaluate``'s dict with the pair ``masked_nll``
+    metric), 'warned' (the scalar-loss warning was logged)}."""
     trainer = make_trainer(kind, **kw)
     state = trainer.init(params=init)
     losses = [float(trainer.step(state, b)[1]['loss']) for b in batches]
-    out = {'losses': losses, 'params': flat(trainer.get_params(state))}
+    out = {'losses': losses, 'params': flat(trainer.get_params(state)),
+           'warned': trainer._warned_scalar}
     if eval_batches is not None:
-        out['eval'] = trainer.evaluate(state, eval_batches)
+        metrics = None if kw.get('loss') is None else \
+            masked_metric(trainer.model)
+        out['eval'] = trainer.evaluate(state, eval_batches,
+                                       metrics_fn=metrics)
     return out
