@@ -15,21 +15,35 @@ chief (rank 0) builds and serializes the strategy and broadcasts it to
 the other ranks, which deserialize it — never each its own (a
 ``RandomAxisPartitionAR`` or a strategy id would differ). Every rank
 then lowers it to the same execution plan.
+
+A strategy whose synchronizers are all relaxed-consistency PS
+(``staleness > 0`` or ``sync=False``) runs in loose mode across several
+processes (JAX ``autodist.py:337-347``): every process runs its own
+program on its own device, with no group across the workers, and the
+variables live on the native coord service
+(:class:`~autodist_tpu_torch.runtime.loose_session.LooseSession`). The
+control plane that carries it (:meth:`AutoDist._ensure_control_plane`)
+also carries the strategy from the chief to the workers whenever the
+run names its coord service (``AUTODIST_COORD_SERVICE_ADDR``) and no
+group is formed yet.
 """
 import atexit
+import base64
+import json
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from autodist_tpu_torch.const import ENV
+from autodist_tpu_torch.const import DEFAULT_COORD_PORT, ENV
 from autodist_tpu_torch.frontend import graph as fe
 from autodist_tpu_torch.graph_item import GraphItem
 from autodist_tpu_torch.parallel.mesh import ReplicaGroup, mesh_from_strategy
 from autodist_tpu_torch.parallel.plan import ExecutionPlan
 from autodist_tpu_torch.resource_spec import ResourceSpec
-from autodist_tpu_torch.runtime.cluster import Cluster, world_and_rank
+from autodist_tpu_torch.runtime.cluster import (Cluster, is_local_address,
+                                               world_and_rank)
 from autodist_tpu_torch.runtime.device_resolver import DeviceResolver
 from autodist_tpu_torch.runtime.session import Session
 from autodist_tpu_torch.strategy import base as strategy_base
@@ -97,6 +111,7 @@ class AutoDist:
             os.environ.get(ENV.AUTODIST_PROCESS_ID.name) is not None or \
             os.environ.get('WORLD_SIZE') is not None or \
             (dist.is_available() and dist.is_initialized())
+        self._coord = None   # coord-service client (loose mode)
         self._fn_cache = {}
 
     # -- capture -----------------------------------------------------------
@@ -113,19 +128,79 @@ class AutoDist:
             self._original_graph_item, self._resource_spec)
 
     def _build_or_load_strategy(self, world, rank):
-        """The chief builds and serializes the strategy and broadcasts
-        it; the other ranks deserialize what it sent."""
+        """The chief builds and serializes the strategy and sends it to
+        the other ranks — over the coord service when the control plane
+        is up, else over the group — and they deserialize what it sent
+        (JAX ``autodist.py:109-142``)."""
         self._original_graph_item.prepare()
         s = None
+        ns = ENV.AUTODIST_RUN_ID.val
         if rank == 0:
             s = self.build_strategy()
             s.serialize()
-        if world > 1:
-            box = [s.to_dict() if rank == 0 else None]
-            dist.broadcast_object_list(box, src=0)
-            if rank:
-                s = strategy_base.Strategy.from_dict(box[0])
+        if world == 1:
+            return s
+        if self._coord is not None:
+            if rank == 0:
+                blob = base64.b64encode(json.dumps(
+                    s.to_dict()).encode()).decode()
+                self._coord.set('strategy/%s/blob' % ns, blob)
+                self._coord.set('strategy/%s/id' % ns, s.id)
+                return s
+            self._coord.wait_key('strategy/%s/id' % ns, timeout_s=120.0)
+            blob = self._coord.get('strategy/%s/blob' % ns)
+            return strategy_base.Strategy.from_dict(
+                json.loads(base64.b64decode(blob).decode()))
+        box = [s.to_dict() if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        if rank:
+            s = strategy_base.Strategy.from_dict(box[0])
         return s
+
+    def _ensure_control_plane(self, rank, world):
+        """Bring up, or connect to, the native coord service and the PS
+        endpoints of this host (JAX ``autodist.py:161-305``). The chief
+        starts the service when its address names this host; every
+        process connects. Processes that a launcher started together
+        meet at an init barrier after the chief has cleared a reused
+        service's strategy keys, so no worker reads a stale one."""
+        if self._coord is not None:
+            return
+        from autodist_tpu_torch.runtime import coord_client as cc
+        nodes = list(self._resource_spec.nodes)
+        addr = ENV.AUTODIST_COORD_SERVICE_ADDR.val or \
+            '%s:%d' % (self._resource_spec.chief, DEFAULT_COORD_PORT)
+        host, port = addr.rsplit(':', 1)
+        all_local = all(is_local_address(n) for n in nodes)
+        bind = '127.0.0.1' if all_local else '0.0.0.0'
+        if rank == 0 and (host == self._resource_spec.chief or
+                          is_local_address(host)):
+            proc = cc.ensure_service(int(port), bind=bind)
+            if proc is not None and not self._ext_launched:
+                # the chief owns a service it started for a run nobody
+                # launched; otherwise the launcher owns its lifetime
+                atexit.register(proc.terminate)
+        # an all-local run binds loopback, so every process dials it
+        self._coord = cc.connect_with_retry(
+            ('127.0.0.1' if all_local else host, int(port)))
+        for ep_host, ep_port in cc.ps_endpoints():
+            if is_local_address(ep_host):
+                proc = cc.ensure_service(ep_port, bind=bind)
+                if proc is not None and not self._ext_launched:
+                    atexit.register(proc.terminate)
+        if not self._ext_launched:
+            return
+        ns = ENV.AUTODIST_RUN_ID.val
+        if rank == 0:
+            self._coord.delete('strategy/%s/id' % ns)
+            self._coord.delete('strategy/%s/blob' % ns)
+        self._coord.barrier('ctrl/init/%s' % ns, world, timeout_s=120.0)
+
+    def _uses_control_plane(self, world):
+        """True when the strategy travels over the coord service: a run
+        of several processes that names its service and has no group."""
+        return world > 1 and bool(ENV.AUTODIST_COORD_SERVICE_ADDR.val) \
+            and not (dist.is_available() and dist.is_initialized())
 
     @staticmethod
     def _strategy_is_loose(strategy):
@@ -159,7 +234,10 @@ class AutoDist:
             # NCCL (and broadcast_object_list on it) works on the
             # current device: each rank on its own card
             torch.cuda.set_device(device)
-        world, rank = self._cluster.start(device.type)
+        if self._uses_control_plane(world):
+            self._ensure_control_plane(rank, world)
+        else:
+            world, rank = self._cluster.start(device.type)
         # phase dumps (reference graph_transformer.py:62-90 logs the graph
         # after each transform phase; AUTODIST_DUMP_GRAPHS gates ours)
         viz.log_text('\n'.join(
@@ -168,26 +246,40 @@ class AutoDist:
         strategy = self._build_or_load_strategy(world, rank)
         viz.log_text(strategy, '1-strategy')
         compiler = strategy_base.StrategyCompiler(self._original_graph_item)
+        # prune before the mode decision: nodes of variables this graph
+        # does not have must not decide it
         strategy = compiler.prune(strategy)
-        if world > 1 and self._strategy_is_loose(strategy):
-            raise NotImplementedError(
-                'relaxed-consistency PS strategy (staleness > 0 or '
-                'sync=False) across %d processes: loose mode and its PS '
-                'data plane are not ported yet (ROADMAP.md Queue 1: '
-                'Loose-mode PS plane)' % world)
-        compiler.set_device_resolver(resolver)
+        loose = world > 1 and self._strategy_is_loose(strategy)
+        if loose:
+            # independent processes around the coord service's PS; the
+            # strategy's devices stay as it names them
+            from autodist_tpu_torch.runtime.loose_session import \
+                check_policy
+            check_policy()
+            logging.info('Relaxed-consistency PS strategy: loose '
+                         'multi-process mode (process %d of %d)', rank,
+                         world)
+            self._ensure_control_plane(rank, world)
+            group = ReplicaGroup(1, 0, None, device)
+        else:
+            if self._coord is not None:
+                world, rank = self._cluster.start(device.type)
+            compiler.set_device_resolver(resolver)
         compiled = compiler.compile(strategy)
         logging.debug('Compiled strategy: %s', compiled)
         viz.log_text(compiled, '2-compiled-strategy')
-        n = mesh_from_strategy(compiled, world)
-        if n < world:
-            raise ValueError(
-                'the strategy places %d replicas but the run has %d '
-                'processes; start one process per replica' % (n, world))
-        group = ReplicaGroup(n, rank, None, device)
+        if not loose:
+            n = mesh_from_strategy(compiled, world)
+            if n < world:
+                raise ValueError(
+                    'the strategy places %d replicas but the run has %d '
+                    'processes; start one process per replica'
+                    % (n, world))
+            group = ReplicaGroup(n, rank, None, device)
         plan = ExecutionPlan(compiled, self._original_graph_item, group,
                              topology=self._resource_spec.topology,
-                             ranks_per_node=resolver.ranks_per_node())
+                             ranks_per_node=None if loose else
+                             resolver.ranks_per_node(), loose=loose)
         described = plan.describe()
         logging.debug(described)
         viz.log_text(described, '3-execution-plan')
@@ -215,7 +307,13 @@ class AutoDist:
         if not self.is_built():
             self._build()
         _, _, plan = self._transformed
-        self._session = Session(self._original_graph_item, plan)
+        if plan.loose:
+            from autodist_tpu_torch.runtime.loose_session import \
+                LooseSession
+            self._session = LooseSession(self._original_graph_item, plan,
+                                         self._coord)
+        else:
+            self._session = Session(self._original_graph_item, plan)
         atexit.register(self._session.close)
         return self._session
 

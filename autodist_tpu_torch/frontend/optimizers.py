@@ -46,6 +46,12 @@ class Optimizer:
     # are.
     lazy_rows = False
 
+    # The PS-side update rule of a shared optimizer (loose mode,
+    # ``shared_optimizer=True``): ``{'rule', 'params'}`` for the coord
+    # service's BSTEP, or None when the service has no such rule (the
+    # slots then stay on the worker).
+    ps_step_params = None
+
     def __init__(self, name=None, _capture=None):
         self.uid = 'opt_%d' % next(_UID)
         self.name = name or type(self).__name__
@@ -159,6 +165,11 @@ class SGD(_Sgd, Optimizer):
             {'momentum': momentum, 'nesterov': nesterov}))
         self._lr, self._momentum = learning_rate, momentum or 0.0
         self._nesterov = nesterov
+        if not nesterov and isinstance(learning_rate, (int, float)):
+            # BSTEP sgd: vel = m*vel + g; w -= lr*vel (optax's trace)
+            self.ps_step_params = {
+                'rule': 'sgd',
+                'params': [float(learning_rate), float(momentum)]}
 
     def init_leaf(self, value):
         return self._sgd_init(value)
@@ -208,6 +219,12 @@ class Adam(_AdamRule, Optimizer):
             {'beta_1': beta_1, 'beta_2': beta_2, 'epsilon': epsilon}))
         self._lr, self._b1, self._b2, self._eps = (learning_rate, beta_1,
                                                    beta_2, epsilon)
+        if type(self) is Adam and isinstance(learning_rate, (int, float)):
+            # BSTEP adam: optax.adam with a PS-resident step index
+            self.ps_step_params = {
+                'rule': 'adam',
+                'params': [float(learning_rate), float(beta_1),
+                           float(beta_2), float(epsilon)]}
 
     def init_leaf(self, value):
         return self._adam_init(value)
@@ -283,6 +300,11 @@ class Adagrad(Optimizer):
         self._lr, self._acc0, self._eps = (learning_rate,
                                            initial_accumulator_value,
                                            epsilon)
+        if isinstance(learning_rate, (int, float)):
+            self.ps_step_params = {
+                'rule': 'adagrad',
+                'params': [float(learning_rate), float(epsilon),
+                           float(initial_accumulator_value)]}
 
     def init_leaf(self, value):
         return {'sum_of_squares': torch.full_like(value, self._acc0)}

@@ -662,6 +662,10 @@ class VarPlan:
         self.sparse_synced = False   # set at trace time by sync_gradients
         self.staleness = getattr(self.sync, 'staleness', 0)
         self.sync_mode = getattr(self.sync, 'sync', True)
+        # local-SGD window length H (PSSynchronizer.local_steps); AR
+        # synchronizers carry 1 (every step)
+        self.local_steps = max(
+            1, int(getattr(self.sync, 'local_steps', 1) or 1))
         if self.is_ar:
             self.compressor = comp.create(self.sync.compressor, var.name)
             self.group = self.sync.group
@@ -717,16 +721,22 @@ class ExecutionPlan:
     ``group`` is the :class:`~autodist_tpu_torch.parallel.mesh.
     ReplicaGroup` this process is one replica of; ``ranks_per_node``
     the resource spec's node sizes in rank order (the two-level
-    schedules' node groups)."""
+    schedules' node groups). ``loose`` marks a process of the loose
+    PS plane (JAX ``plan.py:737-880``): its group is its own one
+    replica, its variables live on the coord service's PS, and the
+    gate and local-SGD fields below say how it syncs."""
 
     def __init__(self, strategy, graph_item, group, topology=None,
-                 ranks_per_node=None):
+                 ranks_per_node=None, loose=False):
         from autodist_tpu_torch.parallel.mesh import data_axis_node_groups
         from autodist_tpu_torch.simulator.cost_model import CostModelParams
         self.strategy = strategy
         self.graph_item = graph_item
         self.group = group
         self.num_replicas = group.size
+        # a loose process runs its own program: no group across workers
+        self.loose = loose
+        self.num_processes = 1 if loose else group.size
         self.topology = topology
         self.hier_groups = data_axis_node_groups(
             group, forced_nodes=ENV.AUTODIST_HIERARCHY_NODES.val,
@@ -751,7 +761,7 @@ class ExecutionPlan:
                 logging.debug('Variable %s missing from strategy; '
                               'defaulting to AllReduce', name)
             plan = VarPlan(var, node)
-            if plan.is_ps and len(var.shape) > 0:
+            if plan.is_ps and len(var.shape) > 0 and not loose:
                 ax = plan.shard_axis
                 n = self.num_replicas
                 if var.shape[ax] >= n and plan.num_shards > 1:
@@ -793,17 +803,57 @@ class ExecutionPlan:
         # bytes); the entry ids round-trip to static_collective_schedule
         self.last_bucket_stats = []
         self._entry_id_counts = {}
+        # loose-mode gate: any sync=True var demands its staleness
+        # bound; the program-wide gate enforces the tightest one (the
+        # step is one program)
+        sync_stale = [p.staleness for p in self.var_plans.values()
+                      if p.sync_mode]
+        self.gate_enabled = bool(sync_stale)
+        self.gate_staleness = min(sync_stale) if sync_stale else 0
         relaxed = [p for p in self.var_plans.values()
                    if p.staleness > 0 or not p.sync_mode]
-        if relaxed:
+        if relaxed and not loose:
             # lock-step replicas satisfy any staleness bound; the
-            # relaxed-consistency PS plane is ROADMAP Queue 1: Loose-mode
-            # PS plane
+            # relaxed-consistency plane engages only for multi-process
+            # runs of an all-relaxed PS strategy
             logging.warning(
                 'Strategy requests relaxed consistency (async/stale) for '
                 '%d vars; lock-step execution is synchronous, which is a '
                 'valid (staleness=0) schedule of the requested bound.',
                 len(relaxed))
+        self.local_steps = self._local_steps(loose)
+
+    def _local_steps(self, loose):
+        """The program-wide local-SGD window H (JAX ``plan.py:850-880``):
+        the tightest of the PS vars' requests, ``AUTODIST_LOCAL_STEPS``
+        over it; 1 with a shared optimizer (the PS update takes per-step
+        gradients) or outside loose mode (lock-step replicas sync every
+        step)."""
+        ps_h = [p.local_steps for p in self.var_plans.values() if p.is_ps]
+        h = min(ps_h) if ps_h else 1
+        if ps_h and len(set(ps_h)) > 1:
+            logging.warning(
+                'Strategy requests mixed local_steps %s across PS vars; '
+                'the step is one program, so the tightest window (%d) '
+                'applies to all of them.', sorted(set(ps_h)), h)
+        env_h = ENV.AUTODIST_LOCAL_STEPS.val
+        if env_h > 0:
+            h = env_h
+        if h > 1 and any(
+                p.is_ps and getattr(p.sync, 'shared_optimizer', False)
+                for p in self.var_plans.values()):
+            logging.warning(
+                'local_steps=%d is incompatible with shared_optimizer '
+                '(the PS-resident update consumes per-step deltas, not '
+                'window-averaged parameter deltas); clamping to 1.', h)
+            h = 1
+        if h > 1 and not loose:
+            logging.warning(
+                'local_steps=%d requested but execution is not loose-'
+                'mode; lock-step execution syncs every step (H=1 is the '
+                'only schedule of this program).', h)
+            h = 1
+        return h
 
     def plan_for(self, var):
         name = var if isinstance(var, str) else var.name

@@ -11,12 +11,27 @@ Identity comes from ``AUTODIST_PROCESS_ID`` / ``AUTODIST_NUM_PROCESSES``
 or, under ``torchrun``, from ``RANK`` / ``WORLD_SIZE``. A process group
 the caller initialized already is used as it is.
 """
+import ipaddress
 import os
+import socket
 
 import torch.distributed as dist
 
 from autodist_tpu_torch.const import DEFAULT_JAX_COORD_PORT, ENV
 from autodist_tpu_torch.utils import logging
+
+
+def is_local_address(address):
+    """True for this host's names (JAX ``cluster.py:22-55``, reference
+    utils/network.py:22-57): ``localhost``, ``0.0.0.0``, a literal
+    loopback IP, or this host's name. Unlike the JAX copy it asks no
+    resolver: a name it cannot tell from this host's own is remote."""
+    if address in ('localhost', '0.0.0.0', socket.gethostname()):
+        return True
+    try:
+        return ipaddress.ip_address(address).is_loopback
+    except ValueError:
+        return False
 
 
 def process_identity():

@@ -19,8 +19,11 @@ same program.
   this replica's shard, gathered at the start of every run; the aux
   state (error-feedback residuals) is this replica's own.
 
-Loose mode (the relaxed-consistency PS plane) is ROADMAP.md Queue 1's
-"Loose-mode PS plane" item; checkpointing came with the Trainer's
+Loose mode (the relaxed-consistency PS plane) is
+:class:`~autodist_tpu_torch.runtime.loose_session.LooseSession`, which
+runs this session's step between its pulls and pushes through the
+hooks :meth:`Session._extra_fetches`, :meth:`Session._before_step` and
+:meth:`Session._after_step`; checkpointing came with the Trainer's
 (``checkpoint/saver.py``).
 """
 import contextlib
@@ -223,14 +226,16 @@ class Session:
         # a run is a training step only if it executes an optimizer
         # update; fetch-only runs do not advance the step count
         is_train = any(isinstance(f, fe.ApplyGradients) for f in norm)
+        all_fetches = norm + self._extra_fetches(norm)
         tracing = options is not None and \
             getattr(options, 'trace_level', 0) > 0
         profiler = torch.profiler.profile() if tracing else \
             contextlib.nullcontext()
         if ENV.AUTODIST_DUMP_GRAPHS.val:
-            self._dump_step(norm, feeds)
+            self._dump_step(all_fetches, feeds)
+        context = self._before_step(is_train)
         with profiler, torch.no_grad():
-            outs = self._step(norm, feeds)
+            outs = self._step(all_fetches, feeds)
         if tracing:
             os.makedirs(options.trace_dir, exist_ok=True)
             path = os.path.join(options.trace_dir, 'step_%d_rank_%d.json'
@@ -239,8 +244,24 @@ class Session:
             logging.info('Profiler trace written to %s', path)
         if is_train:
             self._step_count += 1
+            self._after_step(outs, context)
         results = [self._contract(f, o) for f, o in zip(norm, outs)]
         return results[0] if single else results
+
+    # step hooks: the lock-step session fetches nothing extra and syncs
+    # inside the step; the loose session pulls before it and pushes
+    # after it
+    def _extra_fetches(self, norm):
+        """Nodes the step computes beside the user's fetches."""
+        return []
+
+    def _before_step(self, is_train):
+        """Runs before the step; returns what :meth:`_after_step` needs."""
+        return None
+
+    def _after_step(self, outs, context):
+        """Runs after a train step (``outs`` holds every fetch's value,
+        the extra fetches last)."""
 
     def _interpret(self, fetch_nodes, var_state, opt_state, aux_state,
                    feeds):

@@ -20,10 +20,13 @@ Chrome-trace JSON ``torch.profiler`` writes (``Trainer.profile`` leaves
   ``record_param_comms`` or the ``nccl:*`` / ``gloo:*`` annotations;
 - :func:`bucket_report` joins an execution plan's emitted buckets with
   the trace's collective time; :func:`format_breakdown` renders a
-  breakdown.
-
-The loose-mode reports of the JAX module (``ps_*``, ``health_*``) belong
-to the PS plane the port does not have yet.
+  breakdown;
+- the loose PS plane's reports read ``LooseSession.ps_stats``:
+  :func:`ps_overlap_report` (the pipeline's hidden and exposed wire
+  time), :func:`ps_sparse_report` (the row-sparse counters) and
+  :func:`ps_wire_report` (bytes by direction and endpoint). The JAX
+  module's ``health_*`` reports wait for the membership machinery
+  (ROADMAP.md Queue 1, "Loose-mode PS plane", its second half).
 """
 import glob
 import gzip
@@ -385,6 +388,115 @@ def collective_timeline(trace_dir, expected_collectives=0):
             'in %s parsed to ZERO collective rows — check that the trace '
             'covered a synced step', expected_collectives, trace_dir)
     return rows
+
+
+def ps_overlap_report(ps_stats):
+    """Attribute the loose-mode PS data plane's wire time to the
+    critical path vs the background pipeline.
+
+    ``ps_stats`` is :attr:`LooseSession.ps_stats` (whose ``pipeline`` block
+    carries the per-train-step phase averages). Wire seconds recorded
+    by the transfer/pipeline threads count as *hidden* except for the
+    portion the main thread measurably blocked on (joins of the
+    background push and of the prefetched pull) — that exposed share is
+    the only wire time a step actually pays, and ``overlap_frac`` is
+    the hidden fraction. At depth 1 every wire second is exposed by
+    construction (overlap_frac == 0).
+
+    Returns ``{'depth', 'train_steps', 'pull_s', 'step_s', 'push_s',
+    'wire_s', 'exposed_wire_s', 'hidden_wire_s', 'overlap_frac'}``
+    (per-step seconds), or ``{}`` when the session never trained in
+    loose mode.
+    """
+    pipe = (ps_stats or {}).get('pipeline') or {}
+    if not pipe.get('train_steps'):
+        # zero-train-step snapshot (eval-only session, or a report
+        # taken before the first gated step landed): nothing to
+        # attribute — and nothing to divide by
+        return {}
+    # every field defaulted: a partial stats payload degrades to zeros
+    pull_s = pipe.get('pull_s', 0.0)
+    push_s = pipe.get('push_s', 0.0)
+    wire = pull_s + push_s
+    exposed = min(pipe.get('exposed_wait_s', 0.0), wire)
+    overlap = pipe.get('overlap_frac')
+    if overlap is None:
+        overlap = (1.0 - exposed / wire) if wire > 0 else 0.0
+    return {
+        'depth': pipe.get('depth', 1),
+        'train_steps': pipe['train_steps'],
+        'pull_s': pull_s,
+        'step_s': pipe.get('step_s', 0.0),
+        'push_s': push_s,
+        'wire_s': wire,
+        'exposed_wire_s': exposed,
+        'hidden_wire_s': max(0.0, wire - exposed),
+        'overlap_frac': overlap,
+    }
+
+
+def ps_sparse_report(ps_stats):
+    """The row-sparse PS plane's counters plus derived ratios.
+
+    ``ps_stats`` is :attr:`LooseSession.ps_stats`; its ``sparse`` block
+    counts sparse pushes, rows pushed, dense bytes avoided, zero-push
+    skips and row/full proxy refreshes.
+    Adds ``avoided_frac`` — the fraction of would-have-been wire bytes
+    the sparse plane (and the zero-delta skip) saved: avoided /
+    (avoided + bytes actually moved). Returns ``{}`` when the session
+    kept no sparse counters (non-loose, or pre-sparse-plane stats)."""
+    sparse = dict((ps_stats or {}).get('sparse') or {})
+    if not sparse:
+        return {}
+    moved = (ps_stats or {}).get('bytes', 0)
+    avoided = sparse.get('dense_bytes_avoided', 0)
+    sparse['avoided_frac'] = (
+        avoided / float(avoided + moved) if avoided + moved else 0.0)
+    return sparse
+
+
+def format_ps_sparse(report):
+    """Human-readable rendering of :func:`ps_sparse_report`."""
+    if not report:
+        return '(no sparse-plane counters)'
+    return ('sparse pushes %d (%d rows)  zero-skips %d  refreshes '
+            '%d row / %d full  avoided %.1f MB (%.0f%% of would-be '
+            'wire)' % (report.get('sparse_pushes', 0),
+                       report.get('rows_pushed', 0),
+                       report.get('zero_push_skips', 0),
+                       report.get('row_refreshes', 0),
+                       report.get('full_refreshes', 0),
+                       report.get('dense_bytes_avoided', 0) / 1e6,
+                       100.0 * report.get('avoided_frac', 0.0)))
+
+
+def ps_wire_report(ps_stats):
+    """The PS plane's bytes by direction and endpoint: ``{'push_bytes',
+    'pull_bytes', 'bytes_per_endpoint', 'seconds', 'mb_per_s'}``, plus
+    ``push_pull_ratio``; ``{}`` without loose-mode traffic. The i8 wire
+    shrinks pushes only, so comparisons of wires read ``push_bytes``."""
+    stats = ps_stats or {}
+    if not stats.get('bytes'):
+        return {}
+    push, pull = stats.get('push_bytes', 0), stats.get('pull_bytes', 0)
+    return {'push_bytes': push, 'pull_bytes': pull,
+            'bytes_per_endpoint': list(stats.get('bytes_per_endpoint', [])),
+            'seconds': stats.get('seconds', 0.0),
+            'mb_per_s': stats.get('mb_per_s', 0.0),
+            'push_pull_ratio': push / float(pull) if pull else 0.0}
+
+
+def format_ps_overlap(report):
+    """Human-readable rendering of :func:`ps_overlap_report`."""
+    if not report:
+        return '(no loose-mode train steps)'
+    return ('depth=%d steps=%d  per-step: pull %.1fms | step %.1fms | '
+            'push %.1fms  wire %.1fms (%.1fms exposed)  overlap %.0f%%'
+            % (report['depth'], report['train_steps'],
+               report['pull_s'] * 1e3, report['step_s'] * 1e3,
+               report['push_s'] * 1e3, report['wire_s'] * 1e3,
+               report['exposed_wire_s'] * 1e3,
+               100.0 * report['overlap_frac']))
 
 
 def format_breakdown(report, top_n=10, name_width=100):

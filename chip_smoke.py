@@ -138,6 +138,26 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    across builders within 1e-6, the first 3 within 1e-4 of the CPU);
    ``dsl_saved_model``: ``examples_torch/serving.py`` on the card (the
    served predictions within 0.1 of the ground truth);
+10c. this slice's path, the loose PS plane: NCF at the same full width
+   under ``PS(staleness=2)`` with LazyAdam (whose untouched rows stay
+   put, so the tables' pushes are row-sparse), the variables on the
+   native coord service built from the checkout. ``loose_single``: one
+   worker (``single_process_loose_env``) 6 steps at pipeline depth 1 and
+   6 at depth 2 on the f32 wire: depth 2's losses and tables equal
+   depth 1's bit for bit, depth 1's losses within 1e-5 of the lock-step
+   DSL run's (PSLoadBalancing, the same seeds). ``loose_pair``: two
+   worker processes (``chip_smoke.py --loose-worker``) on the card
+   sharing the service and two PS endpoints, 20 steps each at depth 2
+   on the f32 wire and again on the i8 push wire, each on a new batch
+   every step and again on one batch a worker: examples/s, median
+   step, bytes pulled a step and pushed a push, the sparse plane's
+   counters, overlap, the seconds at the gate, the largest lag, and
+   the idle share of two profiled steps, per worker; finite losses, the
+   first within 0.05 of ln 2, no lag beyond 2, every table on the PS
+   equal to each worker's fresh pull after both pushed their last; on
+   one batch the last 5 losses below the first and every table the
+   initial values plus both workers' decoded pushes; i8's first push
+   3.5-4.1x below f32's at the same bytes a pull;
 11. the card's line, the ``kernels`` line (K1-K4 of the main paths:
    K1-K3 at head dim 64, at 256 and at 384, each row with the CUDA
    kernel that ran and its launches in its own phase), and last
@@ -1406,11 +1426,12 @@ def ncf_batch(cfg, seed):
             rng.randint(0, 2, (n,)).astype(np.float32))
 
 
-def ncf_program(autodist, init, lr=1e-3):
+def ncf_graph(autodist, init, lr=1e-3, optimizer=None):
     """NCF written in DSL ops (``autodist_tpu/models/ncf.py``'s GMF and
     MLP towers, stable sigmoid BCE) under ``autodist``'s scope, trained
-    by Adam. Returns (session, feeds (users, items, labels), loss,
-    train_op)."""
+    by ``optimizer(lr)`` (Adam by default; LazyAdam keeps the loose
+    plane's table pushes row-sparse). Returns (feeds (users, items,
+    labels), loss, train_op)."""
     with autodist.scope():
         users = ad.placeholder(shape=[None], dtype=np.int32, name='users')
         items = ad.placeholder(shape=[None], dtype=np.int32, name='items')
@@ -1432,9 +1453,15 @@ def ncf_program(autodist, init, lr=1e-3):
             ad.ops.matmul(both, v['head/kernel']) + v['head/bias'], (-1,))
         loss = ad.ops.reduce_mean(ad.ops.sigmoid_cross_entropy_with_logits(
             labels=labels, logits=logits))
-        train_op = ad.optimizers.Adam(lr).minimize(loss)
-        sess = autodist.create_distributed_session()
-    return sess, (users, items, labels), loss, train_op
+        train_op = (optimizer or ad.optimizers.Adam)(lr).minimize(loss)
+    return (users, items, labels), loss, train_op
+
+
+def ncf_program(autodist, init, lr=1e-3, optimizer=None):
+    """:func:`ncf_graph` and its session: (session, feeds, loss,
+    train_op)."""
+    feeds, loss, train_op = ncf_graph(autodist, init, lr, optimizer)
+    return autodist.create_distributed_session(), feeds, loss, train_op
 
 
 NCF_TABLES = ('mf_user', 'mf_item', 'mlp_user', 'mlp_item')
@@ -1451,13 +1478,15 @@ def sparse_route_marked(plan):
             for t in NCF_TABLES}
 
 
-def ncf_train(builder, device, cfg, steps, seed=0, rank=0, world=1):
+def ncf_train(builder, device, cfg, steps, seed=0, rank=0, world=1,
+              optimizer=None):
     """``steps`` NCF steps through the DSL: (losses, step seconds, the
     execution plan, ``step(batch_seed)`` running one more). Each step's
     batch is this process's share of batch ``seed + 1 + step``; the loss
     is fetched (a host read) every step."""
     autodist = fresh_autodist(builder, device, world)
-    sess, feeds, loss, train_op = ncf_program(autodist, ncf_init(cfg, seed))
+    sess, feeds, loss, train_op = ncf_program(autodist, ncf_init(cfg, seed),
+                                              optimizer=optimizer)
 
     def step(batch_seed):
         batch = [local_slice(x, rank, world)
@@ -1533,6 +1562,474 @@ def dsl_phase(smi, profiling):
                 'the CPU: %r vs %r' % (small['cuda'], small['cpu']))
     finally:
         dist.destroy_process_group()
+
+
+# -- the loose PS plane ------------------------------------------------------
+# NCF at NCF_FULL under PS(staleness=2), each worker its own process with
+# its own program, the variables on the coord service's PS; LazyAdam keeps
+# the tables' pushes row-sparse (plain Adam moves every row)
+LOOSE_STALENESS = 2
+LOOSE_SINGLE_STEPS = 6
+LOOSE_PAIR_STEPS = 20
+# the pair's two kinds of run, each on both wires. 'fresh': worker pid
+# takes batch 1000 * (pid + 1) + step, a new batch every step, as training
+# does; its times, bytes and the growth of its pushes are the phase's
+# readings. 'one_batch': every step on the fresh run's first batch.
+# ncf_batch's labels are random, so only a batch seen before can be
+# fitted: this run holds the losses to falling. It also adds up what each
+# worker pushed and holds the PS's tables to the initial values plus both
+# workers' sums.
+LOOSE_PAIR_KINDS = ('fresh', 'one_batch')
+LOOSE_PROFILED = (16, 17)   # fresh pair steps run under the profiler
+LOOSE_REL = 1e-5            # loose depth 1 against the lock-step run
+# f32's first push over i8's. The first push carries no error-feedback
+# residual, so this is the wire's own compression; a later i8 push also
+# carries every row whose residual is not zero, and on new batches these
+# rows add up (PERF.md, Open questions)
+I8_PUSH_RATIO = (3.5, 4.1)
+
+
+def start_services(n):
+    """``n`` coord services of this run's own on free local ports
+    (``loose_harness.start_service``, built from the checkout's
+    ``native/coord_service.cc``): [(port, process)]."""
+    from autodist_tpu_torch.utils.loose_harness import start_service
+    services = []
+    try:
+        for _ in range(n):
+            services.append(start_service())
+    except BaseException:
+        stop_services(services)
+        raise
+    return services
+
+
+def stop_services(services):
+    from autodist_tpu_torch.utils.loose_harness import stop_service
+    for port, proc in services:
+        stop_service(port, proc)
+
+
+def loose_single_run(cfg, steps, device, port, depth):
+    """One loose worker alone (``single_process_loose_env``): ``steps``
+    NCF steps on batches ``1..steps`` at pipeline ``depth``, f32 wire.
+    Returns (losses, step seconds, {variable: its PS value}, ps_stats)."""
+    from autodist_tpu_torch.utils.loose_harness import \
+        single_process_loose_env
+    with single_process_loose_env(port, depth) as session_sees_one:
+        autodist = fresh_autodist(ad.PS(staleness=LOOSE_STALENESS), device)
+        feeds, loss, train_op = ncf_graph(autodist, ncf_init(cfg),
+                                          optimizer=ad.optimizers.LazyAdam)
+        autodist._build()
+        session_sees_one()
+        sess = autodist.create_distributed_session()
+        require(type(sess).__name__ == 'LooseSession',
+                'the single worker is not in loose mode')
+        losses, seconds = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(sess.run(
+                [loss, train_op], dict(zip(feeds, ncf_batch(cfg, i + 1))))[0]))
+            seconds.append(time.perf_counter() - t0)
+        tables = {name: sess.get_variable_value(name)
+                  for name in sorted(autodist._original_graph_item.graph
+                                     .variables)}
+        stats = sess.ps_stats
+        sess.close()
+    return losses, seconds, tables, stats
+
+
+def loose_single_phase(cfg, steps, device, smi=None):
+    """``loose_single``: depth 2's losses and final tables equal depth
+    1's bit for bit, and depth 1's losses are the lock-step DSL run's
+    (PSLoadBalancing, the same seeds and optimizer) within LOOSE_REL."""
+    services = start_services(1)
+    try:
+        runs = {depth: loose_single_run(cfg, steps, device, services[0][0],
+                                        depth) for depth in (1, 2)}
+    finally:
+        stop_services(services)
+    lock, lock_s, _, _ = ncf_train(ad.PSLoadBalancing(), device, cfg, steps,
+                                   optimizer=ad.optimizers.LazyAdam)
+    (l1, s1, t1, st1), (l2, s2, t2, st2) = runs[1], runs[2]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l1, lock))
+    same_tables = all(np.array_equal(t1[n], t2[n]) for n in t1)
+    emit(phase='loose_single', steps=steps, batch=cfg['batch'],
+         staleness=LOOSE_STALENESS, losses_depth1=l1, losses_depth2=l2,
+         losses_lockstep=lock, max_rel_vs_lockstep=rel, tol=LOOSE_REL,
+         depth2_bitwise=l1 == l2 and same_tables,
+         median_step_s={'depth1': float(np.median(s1[1:])),
+                        'depth2': float(np.median(s2[1:])),
+                        'lockstep': float(np.median(lock_s[1:]))},
+         pipeline={'depth1': st1['pipeline'], 'depth2': st2['pipeline']},
+         pull_bytes_per_step=st1['pull_bytes'] / steps,
+         push_bytes_per_step=st1['push_bytes'] / steps, card=smi)
+    require(l1 == l2, 'loose depth 2 losses differ from depth 1: %r vs %r'
+            % (l2, l1))
+    require(same_tables, 'loose depth 2 tables differ from depth 1')
+    require(rel <= LOOSE_REL, 'loose depth 1 is %.3g from the lock-step '
+            'run: %r vs %r' % (rel, l1, lock))
+    return runs
+
+
+def _tap_pushes(sess, shapes=None):
+    """Record what this worker pushes. Each push of the session (one at
+    a time, on the pipeline thread at depth 2) leaves its wire bytes and
+    the rows it pushed row-sparse in ``pushes``. With ``shapes`` ({PS
+    key: the variable's shape}), every frame the client sends is decoded
+    as the service decodes it (``wire_roundtrip`` / ``rows_roundtrip``)
+    and added up per key in ``totals``: [sum (f64), sum of magnitudes
+    (f64), adds, the rows touched]. Returns (pushes, totals, [the count
+    of optimizer steps sent to the PS, which would move it past what
+    the totals hold])."""
+    import threading
+
+    from autodist_tpu_torch.runtime import coord_client as cc
+    pushes, totals, vsteps, lock = [], {}, [0], threading.Lock()
+    push = sess._push_ps_deltas
+
+    def push_logged(*args, **kwargs):
+        b0, r0 = sess._ps_push_bytes, sess._sparse_stats['rows_pushed']
+        out = push(*args, **kwargs)
+        pushes.append({'bytes': sess._ps_push_bytes - b0,
+                       'rows': sess._sparse_stats['rows_pushed'] - r0})
+        return out
+
+    sess._push_ps_deltas = push_logged
+    if shapes is None:
+        return pushes, totals, vsteps
+
+    def add(key, idx, values):
+        with lock:
+            require(key in shapes, 'a push to %s, no variable of the '
+                    'program' % key)
+            shape = shapes[key]
+            if key not in totals:
+                totals[key] = [np.zeros(shape, np.float64),
+                               np.zeros(shape, np.float64), 0,
+                               np.zeros(shape[0], bool)]
+            t = totals[key]
+            if idx is None:
+                values = values.reshape(shape)
+                t[0] += values
+                t[1] += np.abs(values)
+                t[3][:] = True
+            else:
+                np.add.at(t[0], idx, values)
+                np.add.at(t[1], idx, np.abs(values))
+                t[3][idx] = True
+            t[2] += 1
+
+    vmadd, vmsadd, vstep = (cc.CoordClient.vmadd, cc.CoordClient.vmsadd,
+                            cc.CoordClient.vstep)
+
+    def vmadd_tapped(client, items, wire=None):
+        for key, delta in items:
+            add(key, None, cc.wire_roundtrip(delta, wire))
+        return vmadd(client, items, wire=wire)
+
+    def vmsadd_tapped(client, items, wire=None):
+        for key, idx, rows in items:
+            add(key, np.asarray(idx, np.int64), cc.rows_roundtrip(rows, wire))
+        return vmsadd(client, items, wire=wire)
+
+    def vstep_tapped(client, *args, **kwargs):
+        vsteps[0] += 1
+        return vstep(client, *args, **kwargs)
+
+    cc.CoordClient.vmadd = vmadd_tapped
+    cc.CoordClient.vmsadd = vmsadd_tapped
+    cc.CoordClient.vstep = vstep_tapped
+    return pushes, totals, vsteps
+
+
+def loose_worker(args):
+    """One worker of ``loose_pair`` (``chip_smoke.py --loose-worker
+    JSON``), started with the launcher's environment: NCF under
+    PS(staleness=2) with LazyAdam, on a new batch every step (``fresh``,
+    the steps in LOOSE_PROFILED under the profiler) or on one batch
+    (``one_batch``, adding up what it pushes into ``<out>/<pid>.sums.*``);
+    then, between the launcher's barriers, a fresh pull of every table
+    into ``<out>/<pid>.npz``; its record in ``<out>/<pid>.json``."""
+    from autodist_tpu_torch.runtime import coord_client as cc
+    pid = int(os.environ['AUTODIST_PROCESS_ID'])
+    cfg, device, out = args['cfg'], args['device'], args['out']
+    fresh = args['kind'] == 'fresh'
+    init = ncf_init(cfg)
+    autodist = fresh_autodist(ad.PS(staleness=LOOSE_STALENESS), device)
+    sess, feeds, loss, train_op = ncf_program(
+        autodist, init, optimizer=ad.optimizers.LazyAdam)
+    require(type(sess).__name__ == 'LooseSession',
+            'pair worker %d is not in loose mode' % pid)
+    names = sorted(autodist._original_graph_item.graph.variables)
+    keys = {name: sess._key('var/%s' % name) for name in names}
+    pushes, totals, vsteps = _tap_pushes(
+        sess, None if fresh else {keys[n]: init[n].shape for n in names})
+    cuda = torch.device(device).type == 'cuda'
+
+    def step(i):
+        seed = 1000 * (pid + 1) + (i if fresh else 0)
+        feed = dict(zip(feeds, ncf_batch(cfg, seed)))
+        return float(sess.run([loss, train_op], feed)[0])
+
+    losses, seconds, busy, wall = [], [], 0.0, 0.0
+    for i in range(args['steps']):
+        if cuda and fresh and i in LOOSE_PROFILED:
+            value, w, by_name = _profiled(lambda: step(i))
+            busy += sum(by_name.values()) / 1e3
+            wall += w
+        else:
+            t0 = time.perf_counter()
+            value = step(i)
+            seconds.append(time.perf_counter() - t0)
+        losses.append(value)
+    # a read lands this worker's last push (depth 2 keeps it in flight),
+    # so the stats and the totals hold every push, and the barrier below
+    # says every push has landed
+    sess.get_variable_value(names[0])
+    stats = sess.ps_stats
+    sums = {}
+    for i, (key, (total, mag, adds, touched)) in enumerate(totals.items()):
+        idx = np.flatnonzero(touched)
+        sums[key] = [i, adds]
+        np.savez(os.path.join(out, '%d.sums.%d.npz' % (pid, i)), idx=idx,
+                 total=total[idx], mag=mag[idx])
+    with open(os.path.join(out, '%d.meta.json' % pid), 'w') as f:
+        json.dump({name: [list(sess._ps_addrs[
+            sess._shard_endpoints(name, 1)[0]]), keys[name]]
+            for name in names}, f)
+    coord = cc.connect_with_retry(autodist._coord.address)
+    coord.barrier(args['trained'], args['parties'], timeout_s=300.0)
+    np.savez(os.path.join(out, '%d.npz' % pid),
+             **{name: sess.get_variable_value(name) for name in names})
+    coord.barrier(args['read'], args['parties'], timeout_s=300.0)
+    sess.close()
+    with open(os.path.join(out, '%d.json' % pid), 'w') as f:
+        json.dump({'losses': losses, 'step_seconds': seconds,
+                   'ps_stats': stats, 'pushes': pushes, 'sums': sums,
+                   'ps_optimizer_steps': vsteps[0],
+                   'profiled_busy_s': busy, 'profiled_wall_s': wall}, f)
+    return 0
+
+
+def _composed_share(cfg, out, workers, placement, on_ps):
+    """Hold every variable on the PS to its initial value plus what the
+    workers pushed (their ``sums``): elementwise within (adds + 1) f32
+    roundings of the magnitudes summed, the service adding in its own
+    order. Returns the largest error as a share of its bound."""
+    init = ncf_init(cfg)
+    sums = []
+    for pid in range(workers):
+        with open(os.path.join(out, '%d.json' % pid)) as f:
+            rec = json.load(f)
+        require(rec['ps_optimizer_steps'] == 0, 'worker %d stepped an '
+                'optimizer on the PS' % pid)
+        sums.append(rec['sums'])
+    worst = 0.0
+    for name, (_, key) in placement.items():
+        want = init[name].astype(np.float64)
+        mag, adds = np.abs(want), 0
+        for pid, worker in enumerate(sums):
+            if key not in worker:
+                continue
+            i, n = worker[key]
+            part = np.load(os.path.join(out, '%d.sums.%d.npz' % (pid, i)))
+            want[part['idx']] += part['total']
+            mag[part['idx']] += part['mag']
+            adds += n
+        require(adds > 0, 'no worker pushed %s' % name)
+        bound = (adds + 1) * 2.0 ** -24 * mag
+        share = np.abs(on_ps[name].reshape(want.shape) - want) / \
+            np.maximum(bound, 1e-45)
+        require(share.max() <= 1.0, '%s on the PS is not its initial '
+                'value plus the workers\' pushes: %.3g of the bound off'
+                % (name, share.max()))
+        worst = max(worst, float(share.max()))
+    return worst
+
+
+def loose_pair_run(cfg, steps, device, services, wire, kind, tmp,
+                   workers=2):
+    """``workers`` loose workers (``loose_worker``; worker r on card r
+    modulo the cards) of ``kind`` sharing the coord service and two PS
+    endpoints, at pipeline depth 2 on ``wire``. The launcher reads every
+    table straight off the PS between the workers' barriers and holds it
+    against each worker's fresh pull and, after a one-batch run, against
+    the initial values plus what the workers pushed. Returns (the
+    workers' records, that check's largest error as a share of its
+    bound, or None)."""
+    from autodist_tpu_torch.runtime import coord_client as cc
+    run = 'loose-%s-%s-%d' % (kind, wire, os.getpid())
+    out = os.path.join(tmp, run)
+    os.makedirs(out)
+    args = {'cfg': cfg, 'device': device, 'steps': steps, 'out': out,
+            'kind': kind, 'trained': 'smoke/%s/trained' % run,
+            'read': 'smoke/%s/read' % run, 'parties': workers + 1}
+    env = dict(os.environ, AUTODIST_NUM_PROCESSES=str(workers),
+               AUTODIST_COORD_SERVICE_ADDR='127.0.0.1:%d' % services[0][0],
+               AUTODIST_PS_ENDPOINTS=','.join(
+                   '127.0.0.1:%d' % port for port, _ in services[1:]),
+               AUTODIST_PS_PIPELINE_DEPTH='2', AUTODIST_PS_WIRE_DTYPE=wire,
+               AUTODIST_RUN_ID=run,
+               # the workers split the host's cores: torch's threads of
+               # several processes on all of them spin against each other
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) //
+                                       workers)))
+    logs = [open(os.path.join(out, '%d.log' % pid), 'w')
+            for pid in range(workers)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--loose-worker',
+         json.dumps(args)], env=dict(env, AUTODIST_PROCESS_ID=str(pid)),
+        stdout=logs[pid], stderr=subprocess.STDOUT)
+        for pid in range(workers)]
+    try:
+        coord = cc.connect_with_retry(('127.0.0.1', services[0][0]))
+        coord.barrier(args['trained'], workers + 1, timeout_s=600.0)
+        with open(os.path.join(out, '0.meta.json')) as f:
+            placement = json.load(f)
+        on_ps = {}
+        for name, (addr, key) in placement.items():
+            client = cc.CoordClient(tuple(addr))
+            on_ps[name] = client.vget(key)
+            client.close()
+        coord.barrier(args['read'], workers + 1, timeout_s=600.0)
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    recs = []
+    for pid, p in enumerate(procs):
+        with open(os.path.join(out, '%d.log' % pid)) as f:
+            log = f.read()
+        require(p.returncode == 0, 'loose pair worker %d (%s, %s wire) '
+                'exited %s:\n%s' % (pid, kind, wire, p.returncode,
+                                     log[-3000:]))
+        with open(os.path.join(out, '%d.json' % pid)) as f:
+            recs.append(json.load(f))
+        pulled = np.load(os.path.join(out, '%d.npz' % pid))
+        for name, value in on_ps.items():
+            require(np.array_equal(pulled[name].reshape(-1), value),
+                    'worker %d pulled %s unlike the PS holds it (%s, %s '
+                    'wire)' % (pid, name, kind, wire))
+    composed = None if kind == 'fresh' else \
+        _composed_share(cfg, out, workers, placement, on_ps)
+    return recs, composed
+
+
+def _pair_record(cfg, steps, pid, rec):
+    st, pipe = rec['ps_stats'], rec['ps_stats']['pipeline']
+    step_s = float(np.median(rec['step_seconds']))
+    pulls = pipe['train_steps'] + pipe['discarded_prefetches']
+    return {
+        'pid': pid, 'losses': rec['losses'],
+        'examples_per_s': cfg['batch'] / step_s, 'median_step_s': step_s,
+        'pull_bytes_per_step': st['pull_bytes'] / steps,
+        'push_bytes_per_step': st['push_bytes'] / steps,
+        'pull_bytes_per_pull': st['pull_bytes'] / pulls,
+        'push_bytes_by_push': [p['bytes'] for p in rec['pushes']],
+        'rows_by_push': [p['rows'] for p in rec['pushes']],
+        'bytes_per_endpoint': st['bytes_per_endpoint'],
+        'sparse_pushes': st['sparse']['sparse_pushes'],
+        'zero_push_skips': st['sparse']['zero_push_skips'],
+        'overlap_frac': pipe['overlap_frac'],
+        'pull_s': pipe['pull_s'], 'push_s': pipe['push_s'],
+        'step_s': pipe['step_s'], 'exposed_wait_s': pipe['exposed_wait_s'],
+        'gate_s': pipe['gate_s'], 'max_lag': pipe['max_lag'],
+        'discarded_prefetches': pipe['discarded_prefetches'],
+        'idle_share': 1 - rec['profiled_busy_s'] / rec['profiled_wall_s']
+        if rec['profiled_wall_s'] else None}
+
+
+def loose_pair_phase(cfg, steps, device, smi=None, wires=('f32', 'i8'),
+                     workers=2):
+    """``loose_pair``: two workers on one card (or ``workers``, one a
+    card where there are as many cards), each ``steps`` steps at depth
+    2, of each kind on each wire. Per worker: examples/s, step time,
+    bytes a step and a push, the sparse plane's counters, overlap, gate
+    wait, the largest lag and the profiled steps' idle share. Every run:
+    finite losses, the first near ln 2, no lag beyond the staleness, the
+    PS's tables equal to a fresh pull. One batch: the last 5 losses
+    below the first, and the PS's tables the initial values plus what
+    both workers pushed. Fresh: i8's first push 3.5-4.1x smaller than
+    f32's at the same bytes a pull. Returns {kind: {wire: [record]},
+    'push_ratio_*': ...}."""
+    services = start_services(3)
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for kind in LOOSE_PAIR_KINDS:
+                for wire in wires:
+                    runs[kind, wire] = loose_pair_run(
+                        cfg, steps, device, services, wire, kind, tmp,
+                        workers)
+    finally:
+        stop_services(services)
+    summary = {kind: {} for kind in LOOSE_PAIR_KINDS}
+    for (kind, wire), (recs, composed) in runs.items():
+        records = summary[kind][wire] = [
+            _pair_record(cfg, steps, pid, rec) for pid, rec in enumerate(recs)]
+        for r in records:
+            pid, losses = r['pid'], r['losses']
+            require(all(math.isfinite(x) for x in losses),
+                    'loose pair worker %d (%s) loss not finite' % (pid, kind))
+            require(abs(losses[0] - math.log(2)) < 0.05,
+                    'loose pair worker %d (%s) first loss %.4f is not near '
+                    'ln 2' % (pid, kind, losses[0]))
+            require(r['max_lag'] <= LOOSE_STALENESS,
+                    'loose pair worker %d (%s) ran %d steps ahead of the '
+                    'slowest' % (pid, kind, r['max_lag']))
+            require(len(r['push_bytes_by_push']) == steps,
+                    'loose pair worker %d (%s) pushed %d times in %d steps'
+                    % (pid, kind, len(r['push_bytes_by_push']), steps))
+            if kind == 'one_batch':
+                require(np.mean(losses[-5:]) < losses[0],
+                        'loose pair worker %d: the last 5 losses %r on its '
+                        'one batch are not below the first %.4f'
+                        % (pid, losses[-5:], losses[0]))
+        if kind == 'fresh':
+            emit(phase='loose_pair', wire=wire, batches='a new batch a step',
+                 steps=steps, batch=cfg['batch'], staleness=LOOSE_STALENESS,
+                 depth=2, workers=records, tables_equal_fresh_pull=True,
+                 card=smi)
+        else:
+            emit(phase='loose_pair_one_batch', wire=wire,
+                 batches='one batch a worker, every step', steps=steps,
+                 batch=cfg['batch'], workers=[
+                     {k: r[k] for k in ('pid', 'losses', 'max_lag',
+                                        'push_bytes_per_step',
+                                        'push_bytes_by_push')}
+                     for r in records],
+                 tables_equal_fresh_pull=True,
+                 composed_err_share_of_bound=composed, card=smi)
+    if 'f32' in wires and 'i8' in wires:
+        f32, i8 = summary['fresh']['f32'], summary['fresh']['i8']
+        first = [f['push_bytes_by_push'][0] / q['push_bytes_by_push'][0]
+                 for f, q in zip(f32, i8)]
+        by_push = [[a / b for a, b in zip(f['push_bytes_by_push'],
+                                          q['push_bytes_by_push'])]
+                   for f, q in zip(f32, i8)]
+        whole = {kind: [sum(f['push_bytes_by_push']) /
+                        sum(q['push_bytes_by_push'])
+                        for f, q in zip(summary[kind]['f32'],
+                                        summary[kind]['i8'])]
+                 for kind in LOOSE_PAIR_KINDS}
+        emit(phase='loose_pair_wires', push_ratio_first=first,
+             bounds=I8_PUSH_RATIO, push_ratio_by_push_fresh=by_push,
+             push_ratio_whole_run=whole, card=smi)
+        for f, q, ratio in zip(f32, i8, first):
+            require(I8_PUSH_RATIO[0] <= ratio <= I8_PUSH_RATIO[1],
+                    'the first i8 push is %.3fx below f32\'s, not within %r'
+                    % (ratio, I8_PUSH_RATIO))
+            require(f['pull_bytes_per_pull'] == q['pull_bytes_per_pull'],
+                    'the i8 wire changed the bytes a pull')
+        summary['push_ratio_first'] = first
+        summary['push_ratio_by_push_fresh'] = by_push
+        summary['push_ratio_whole_run'] = whole
+    return summary
 
 
 # -- head dims beside 64 ------------------------------------------------------
@@ -2256,6 +2753,8 @@ def dsl_saved_model_phase(device, tmp, smi=None):
 
 
 def main(argv):
+    if argv[:1] == ['--loose-worker']:
+        return loose_worker(json.loads(argv[1]))
     profiling = '--profile' in argv
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2411,6 +2910,12 @@ def main(argv):
         functional_model_phase('cuda', smi)
         dsl_saved_model_phase('cuda', tmp, smi)
     torch.cuda.empty_cache()
+
+    # this slice's path: the loose PS plane, one worker alone, then two
+    # worker processes on the card
+    loose_single_phase(NCF_FULL, LOOSE_SINGLE_STEPS, 'cuda', smi)
+    torch.cuda.empty_cache()
+    loose_pair_phase(NCF_FULL, LOOSE_PAIR_STEPS, 'cuda', smi)
 
     # K1-K3 at each head dim's main-path shape, with the launches of the
     # phase that gives the kernels that shape

@@ -580,3 +580,60 @@ def test_functional_model_and_dsl_saved_model_phases_on_the_cpu(tmp_path):
     assert len(rec['losses']) == 8 and rec['builder_rel_spread'] == 0.0
     rec = chip_smoke.dsl_saved_model_phase('cpu', str(tmp_path))
     assert rec['max_abs_err'] < rec['tol']
+
+
+# -- the loose PS plane ----------------------------------------------------
+# a width at which the i8 wire's headers are small beside the rows (the
+# phase holds its push 3.5-4.1x below f32's, as at NCF_FULL)
+LOOSE_TWIN = {'users': 4096, 'items': 2048, 'mf_dim': 64,
+              'mlp': (128, 64, 32), 'batch': 256}
+
+
+def test_loose_phases_run_in_main_before_the_card_line():
+    calls, card_line = _main_call_lines()
+    assert calls['dsl_saved_model_phase'] < calls['loose_single_phase'] \
+        < calls['loose_pair_phase'] < card_line
+
+
+def test_loose_single_phase_at_tiny_width():
+    """One loose worker at depths 1 and 2 and the lock-step run: depth 2
+    bitwise equal to depth 1, depth 1's losses the lock-step run's."""
+    runs = chip_smoke.loose_single_phase(chip_smoke.NCF_SMALL, 3, 'cpu')
+    assert runs[1][0] == runs[2][0]
+    assert runs[2][3]['pipeline']['depth'] == 2
+    assert runs[1][3]['pull_bytes'] == 3 * sum(
+        v.size * 4 for v in runs[1][2].values())
+
+
+def test_loose_pair_phase_at_small_width():
+    """Two loose worker processes (``chip_smoke.py --loose-worker``) of
+    each kind on each wire: the phase's requirements hold (the one-batch
+    runs' tables on the PS are the initial values plus both workers'
+    pushes), its records carry what it emits, and on new batches the
+    i8 pushes grow (rows whose error-feedback residual is not zero ride
+    every later push) while f32's stay near the first."""
+    summary = chip_smoke.loose_pair_phase(LOOSE_TWIN, 10, 'cpu')
+    for kind in chip_smoke.LOOSE_PAIR_KINDS:
+        for wire in ('f32', 'i8'):
+            assert [r['pid'] for r in summary[kind][wire]] == [0, 1]
+            for r in summary[kind][wire]:
+                assert r['max_lag'] <= chip_smoke.LOOSE_STALENESS
+                assert len(r['push_bytes_by_push']) == 10
+                assert r['idle_share'] is None
+                assert r['pull_bytes_per_pull'] == \
+                    summary['fresh']['f32'][r['pid']]['pull_bytes_per_pull']
+    # every table pushes row-sparse every step, and the last push landed
+    # before the stats were read; on new batches f32 still does
+    for r in summary['one_batch']['f32'] + summary['one_batch']['i8'] + \
+            summary['fresh']['f32']:
+        assert r['sparse_pushes'] == 4 * 10
+    for r in summary['fresh']['f32']:
+        sizes = r['push_bytes_by_push']
+        assert max(sizes) < 1.2 * min(sizes)
+    for r in summary['fresh']['i8']:
+        sizes = r['push_bytes_by_push']
+        assert sizes[-1] > 2 * sizes[0] and r['rows_by_push'][1] > \
+            r['rows_by_push'][0]
+    lo, hi = chip_smoke.I8_PUSH_RATIO
+    assert all(lo <= x <= hi for x in summary['push_ratio_first'])
+    assert all(x < lo for x in summary['push_ratio_whole_run']['fresh'])

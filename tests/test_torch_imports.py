@@ -1,12 +1,13 @@
 """The port stands alone: no jax, no module of the JAX package.
 
-A subprocess in which ``jax`` and ``autodist_tpu`` cannot be imported
-imports the port and ``chip_smoke.py`` and trains one step of a
-Transformer and one of a small ResNet through the fused conv + BatchNorm
-kernel's module on the CPU, one c0 step through the DSL
-(``autodist_tpu_torch.AutoDist``), and NCF and LSTMLM through ``fit``
-with prefetch and a checkpoint, restored into a fresh trainer;
-an AST scan finds no import of either in any of the port's files. The
+A subprocess in which ``jax``, ``autodist_tpu`` and ``ml_dtypes`` cannot
+be imported imports the port and ``chip_smoke.py`` and trains one step
+of a Transformer and one of a small ResNet through the fused conv +
+BatchNorm kernel's module on the CPU, one c0 step through the DSL
+(``autodist_tpu_torch.AutoDist``), NCF and LSTMLM through ``fit`` with
+prefetch and a checkpoint, restored into a fresh trainer, and two loose
+NCF steps on the bf16 wire; an AST scan finds no import of any of them
+in any of the port's files. The
 scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
 name, never by prefix.
 """
@@ -16,11 +17,11 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ('jax', 'jaxlib', 'autodist_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'autodist_tpu', 'ml_dtypes')
 
 _NO_JAX = r'''
 import sys
-for name in ('jax', 'jaxlib', 'autodist_tpu'):
+for name in ('jax', 'jaxlib', 'autodist_tpu', 'ml_dtypes'):
     sys.modules[name] = None      # any import of them now raises
 import torch
 import autodist_tpu_torch
@@ -70,8 +71,19 @@ for model, batch in (
                                   prefetch=2, checkpoint_manager=mgr)
         assert len(hist['loss']) == 2 and mgr.all_steps() == [2]
         assert trainer.restore_state(mgr, state)[1] == 2
+# the loose plane on the bf16 wire, which the JAX client takes from
+# ml_dtypes: one worker, two steps at pipeline depth 2
+services = chip_smoke.start_services(1)
+os.environ['AUTODIST_PS_WIRE_DTYPE'] = 'bf16'
+try:
+    losses, _, _, stats = chip_smoke.loose_single_run(
+        chip_smoke.NCF_SMALL, 2, 'cpu', services[0][0], 2)
+    assert len(losses) == 2 and stats['pull_bytes'] % 2 == 0
+finally:
+    chip_smoke.stop_services(services)
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in
-                ('jax', 'jaxlib', 'autodist_tpu') and sys.modules[m])
+                ('jax', 'jaxlib', 'autodist_tpu', 'ml_dtypes') and
+                sys.modules[m])
 assert not leaked, leaked
 print('OK')
 '''

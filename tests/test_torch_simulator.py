@@ -362,16 +362,36 @@ def test_trainer_profile_timeline_and_calibration(world2):
     gradients (the Trainer all-reduces them as one flat bucket, over the
     default group) and one for the loss, each counted once a step, each
     row's time the least over the ranks (so both ranks read the same
-    rows); their two sizes fit a finite α and a positive β."""
+    rows). The fit is held on what does not depend on the host's clock:
+    the traced rows, timed by a known α and β, give that α and β back;
+    the fit of the measured times is either a finite α >= 0 with a
+    positive β, or, where a loaded CPU timed the 4-byte all-reduce
+    slower than the gradients' (a non-positive β), the analytic
+    constants kept. The fit of measured NCCL times is
+    ``tests/test_torch_simulator_cuda.py``'s."""
     assert world2['profile'][0] == world2['profile'][1]
+    base = CostModelParams()
     for rows, grad_bytes, (fitted, alpha, beta) in world2['profile']:
         assert sorted((kind, nbytes, ranks, count)
                       for kind, nbytes, ranks, _, count in rows) == \
             [('all-reduce', 4, None, 3), ('all-reduce', grad_bytes, None, 3)]
         assert all(ns > 0 for *_, ns, _ in rows)
-        assert fitted
-        assert math.isfinite(alpha) and alpha >= 0
-        assert math.isfinite(beta) and beta > 0
+        want_alpha, want_beta = 5e-6, 4e-11
+        timed = [_row(kind, nbytes,
+                      collective_time('all_reduce', nbytes, 2, want_alpha,
+                                      want_beta), count=count, ranks=ranks)
+                 for kind, nbytes, ranks, _, count in rows]
+        params = calibrate.calibrate_from_timeline(base, timed, 2)
+        assert params.calibrated
+        assert params.alpha_ici_s == pytest.approx(want_alpha, rel=1e-3)
+        assert params.beta_ici_s_per_byte == pytest.approx(want_beta,
+                                                           rel=1e-3)
+        if fitted:
+            assert math.isfinite(alpha) and alpha >= 0
+            assert math.isfinite(beta) and beta > 0
+        else:
+            assert (alpha, beta) == (base.alpha_ici_s,
+                                     base.beta_ici_s_per_byte)
 
 
 # -- the simulate CLI ---------------------------------------------------------

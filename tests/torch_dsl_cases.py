@@ -8,6 +8,8 @@ batch (``chip_smoke.local_slice``), which is the share of the global
 batch the JAX package's replica ``rank`` sees. This module imports no
 jax.
 """
+import os
+
 import numpy as np
 import torch
 
@@ -105,11 +107,16 @@ def ef_residual(rank, world):
 
 def loose_raises(rank, world):
     """The message a relaxed-consistency PS strategy across processes
-    raises with (loose mode is not ported)."""
+    raises with under a peer-failure policy of the loose plane's second
+    half (membership changes are not ported); it raises before any
+    coord service is brought up."""
+    os.environ['AUTODIST_PEER_FAILURE_POLICY'] = 'exclude'
     try:
         cs.run_linear_regression(fresh(ad.PS(staleness=2), world))
     except NotImplementedError as e:
         return str(e)
+    finally:
+        del os.environ['AUTODIST_PEER_FAILURE_POLICY']
     return None
 
 
@@ -300,7 +307,6 @@ def sync(rank, world, shapes, builder, cap, dtype='float32', spy=False):
     """One ``sync_gradients`` over this rank's gradients: (synced
     values as f32 numpy, last_bucket_stats, reduce calls' sizes, the
     static schedule of the strategy)."""
-    import os
     from autodist_tpu_torch.parallel import plan as plan_mod
     from autodist_tpu_torch.parallel.plan import static_collective_schedule
     os.environ['AUTODIST_BUCKET_BYTES'] = str(cap)
@@ -356,7 +362,6 @@ def bucket_cases(rank, world):
 def trained_bitwise(rank, world):
     """The CNN and c6 trained at world 2 with the default bucket cap and
     with AUTODIST_BUCKET_BYTES=1 (every gradient its own collective)."""
-    import os
     out = {}
     for cap in ('default', '1'):
         if cap == '1':

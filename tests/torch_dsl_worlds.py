@@ -45,10 +45,13 @@ def run_group(world, cases, timeout=300):
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [REPO, HERE, os.environ.get('PYTHONPATH', '')]),
             OMP_NUM_THREADS='1')
-        port = str(free_port())
+        # the group meets at a file of this run, not at a port probed
+        # here: another process may take a probed port before rank 0
+        # binds it
+        store = 'file://' + os.path.join(tmp, 'store')
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(r), str(world),
-             port, spec, out], env=env, stdout=subprocess.PIPE,
+             store, spec, out], env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT) for r in range(world)]
         logs = []
         try:
@@ -77,7 +80,7 @@ def run_group(world, cases, timeout=300):
     return results
 
 
-def _child(rank, world, port, spec, out):
+def _child(rank, world, store, spec, out):
     import importlib
     from datetime import timedelta
 
@@ -85,7 +88,7 @@ def _child(rank, world, port, spec, out):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group('gloo', init_method='tcp://127.0.0.1:' + port,
+    dist.init_process_group('gloo', init_method=store,
                             world_size=world, rank=rank,
                             timeout=timedelta(seconds=120))
     with open(spec, 'rb') as f:
