@@ -31,6 +31,7 @@ import atexit
 import base64
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -194,7 +195,37 @@ class AutoDist:
         if rank == 0:
             self._coord.delete('strategy/%s/id' % ns)
             self._coord.delete('strategy/%s/blob' % ns)
-        self._coord.barrier('ctrl/init/%s' % ns, world, timeout_s=120.0)
+            # a previous run's marker would let this run's workers skip
+            # the barrier and read the keys mid-delete
+            self._coord.delete('ctrl/init-done/%s' % ns)
+            self._coord.barrier('ctrl/init/%s' % ns, world,
+                                timeout_s=120.0)
+            # a supervised replacement started after a crash must not
+            # block on a barrier its cohort already passed
+            self._coord.set('ctrl/init-done/%s' % ns, '1')
+        elif ENV.AUTODIST_ELASTIC_JOIN.val:
+            # a live joiner starts after the rendezvous and is no party
+            # the chief counted: it waits for the marker instead
+            self._coord.wait_key('ctrl/init-done/%s' % ns, timeout_s=120.0)
+        else:
+            # a fresh member and a replacement look alike here: try the
+            # barrier, and between bounded slices look for the marker
+            # (JAX ``autodist.py:258-287``; 2 s slices, where the JAX
+            # package's are 10 s, bound a replacement's wait)
+            deadline = time.time() + 120.0
+            while True:
+                try:
+                    self._coord.barrier(
+                        'ctrl/init/%s' % ns, world,
+                        timeout_s=min(2.0, max(1.0,
+                                               deadline - time.time())))
+                    break
+                except TimeoutError:
+                    if self._coord.get('ctrl/init-done/%s' % ns) \
+                            is not None:
+                        break
+                    if time.time() >= deadline:
+                        raise
 
     def _uses_control_plane(self, world):
         """True when the strategy travels over the coord service: a run
@@ -253,9 +284,6 @@ class AutoDist:
         if loose:
             # independent processes around the coord service's PS; the
             # strategy's devices stay as it names them
-            from autodist_tpu_torch.runtime.loose_session import \
-                check_policy
-            check_policy()
             logging.info('Relaxed-consistency PS strategy: loose '
                          'multi-process mode (process %d of %d)', rank,
                          world)
@@ -311,7 +339,8 @@ class AutoDist:
             from autodist_tpu_torch.runtime.loose_session import \
                 LooseSession
             self._session = LooseSession(self._original_graph_item, plan,
-                                         self._coord)
+                                         self._coord,
+                                         resource_spec=self._resource_spec)
         else:
             self._session = Session(self._original_graph_item, plan)
         atexit.register(self._session.close)

@@ -1,0 +1,204 @@
+"""``ServingFleet`` — N replicas, one refresh loop each, zero votes
+(the counterpart of ``autodist_tpu/serving/fleet.py``).
+
+The harness half of the serving tier: owns the replica threads (one
+``serve_loop`` per replica: poll the published floor at the
+``AUTODIST_SERVE_POLL_S`` cadence, refresh the dense snapshot when it
+advanced, beat the serve-plane heartbeat), round-robins query traffic
+across replicas, aggregates ``serve_stats`` for
+``profiling.health_report``, and plugs into the existing
+:class:`~autodist_tpu_torch.runtime.coordinator.AutoscaleController`
+unchanged: :meth:`metrics` is a ``metrics_source``, :meth:`scale_up`
+is a ``scale_up`` callable, and :func:`serving_autoscale_policy`
+turns serve QPS/latency pressure into replica growth the same way the
+training policy turns step-time pressure into worker growth.
+
+Replicas here are threads, not processes: every replica is already a
+full independent client of the coord service (its own two sockets,
+its own non-voting admit ordinal, its own caches), so the process
+boundary adds nothing the tests need — and a REAL
+deployment runs one ``ServingReplica`` per process with exactly the
+same code, pointed at the same namespace.
+"""
+import itertools
+import threading
+import time
+
+from autodist_tpu_torch.serving.replica import ServingReplica, _percentile
+from autodist_tpu_torch.utils import logging
+
+
+def serve_loop(replica, stop_event, poll_s=None, beat_every_s=1.0):
+    """One replica's background duty cycle: snapshot poll + heartbeat
+    until ``stop_event`` is set. Query traffic does NOT flow through
+    here — lookups run on caller threads against the replica's lock.
+    Errors are logged and retried next cycle: a flaky poll must not
+    kill the replica while its last good snapshot is still
+    servable."""
+    poll_s = replica.poll_s if poll_s is None else poll_s
+    last_beat = 0.0
+    while not stop_event.is_set():
+        try:
+            replica.refresh()
+            now = time.monotonic()
+            if now - last_beat >= beat_every_s:
+                replica.beat()
+                last_beat = now
+        except OSError as e:
+            logging.warning('%s: serve poll failed (%s); retrying',
+                            replica.name, e)
+        stop_event.wait(poll_s)
+
+
+def serving_autoscale_policy(qps_per_replica_target=None,
+                             p99_target_ms=None, grow_by=1):
+    """Autoscale policy factory for the replica fleet — the serving
+    twin of ``coordinator.autoscale_policy``: grow when per-replica
+    QPS exceeds ``qps_per_replica_target`` or the fleet's p99 lookup
+    latency exceeds ``p99_target_ms`` (either signal suffices; unset
+    signals are ignored). Returns ``policy(metrics, current_world) ->
+    desired | None`` for an ``AutoscaleController`` whose
+    ``metrics_source`` is :meth:`ServingFleet.metrics` and whose
+    ``scale_up`` is :meth:`ServingFleet.scale_up`."""
+    def policy(metrics, current_world):
+        replicas = metrics.get('serve_replicas') or current_world or 1
+        qps = metrics.get('serve_qps')
+        p99 = metrics.get('serve_p99_ms')
+        if qps_per_replica_target is not None and qps is not None \
+                and qps / max(1, replicas) > qps_per_replica_target:
+            return current_world + grow_by
+        if p99_target_ms is not None and p99 is not None \
+                and p99 > p99_target_ms:
+            return current_world + grow_by
+        return None
+    return policy
+
+
+class ServingFleet:
+    """A fleet of :class:`ServingReplica` threads over one training
+    namespace. ``replica_kwargs`` are forwarded to every replica
+    (``dense_vars``, ``sparse_vars``, ``address``, bounds, ...)."""
+
+    def __init__(self, ns, **replica_kwargs):
+        self._ns = ns
+        self._kwargs = replica_kwargs
+        self.replicas = []
+        self._threads = []
+        self._stops = []
+        self._rr = itertools.count()
+        self._grow_lock = threading.Lock()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    # -- growth ------------------------------------------------------------
+    def add_replica(self, connect_deadline_s=30.0):
+        """Admit + start one replica (non-voting; the training cohort
+        neither waits for it nor ever learns its name)."""
+        replica = ServingReplica(self._ns, **self._kwargs)
+        replica.connect(deadline_s=connect_deadline_s)
+        stop = threading.Event()
+        t = threading.Thread(target=serve_loop, args=(replica, stop),
+                             name='serve-%s' % replica.name,
+                             daemon=True)
+        with self._grow_lock:
+            self.replicas.append(replica)
+            self._stops.append(stop)
+            self._threads.append(t)
+        t.start()
+        return replica
+
+    def scale_up(self, n=1):
+        """``AutoscaleController``'s ``scale_up`` contract: launch
+        ``n`` more replicas, return the list actually started (a
+        failed admit stops the batch — the controller records what
+        launched, not what was asked)."""
+        started = []
+        for _ in range(max(0, int(n))):
+            try:
+                started.append(self.add_replica())
+            except (OSError, RuntimeError) as e:
+                logging.warning('serving scale_up stopped at %d/%d: %s',
+                                len(started), n, e)
+                break
+        return started
+
+    def live_replicas(self):
+        """Replica count with a live serve thread — the controller's
+        ``live_world`` resync hook."""
+        return sum(1 for t in self._threads if t.is_alive())
+
+    # -- query plane -------------------------------------------------------
+    def lookup(self, table, indices):
+        """Round-robin a lookup across replicas."""
+        if not self.replicas:
+            raise RuntimeError('ServingFleet has no replicas '
+                               '(add_replica/scale_up first)')
+        replica = self.replicas[next(self._rr) % len(self.replicas)]
+        return replica.lookup(table, indices)
+
+    def refresh_all(self):
+        """Force one synchronous snapshot poll on every replica —
+        deterministic alternative to waiting out the poll cadence
+        (tests)."""
+        return [r.refresh() for r in self.replicas]
+
+    # -- stats / autoscale wiring ------------------------------------------
+    def metrics(self):
+        """``AutoscaleController`` ``metrics_source`` sample: the
+        serving pressure signals, named so the training policy's
+        signals (``step_time_s``, ``queue_depth``) never collide."""
+        per = [r.serve_stats() for r in self.replicas]
+        return {
+            'serve_replicas': len(per),
+            'serve_qps': sum(s['qps'] for s in per),
+            'serve_p99_ms': max((s['lookup_p99_ms'] for s in per),
+                                default=0.0),
+            'serve_staleness_steps': max(
+                (s['staleness_steps'] for s in per), default=0),
+        }
+
+    def stats(self):
+        """Aggregated fleet stats for ``profiling.health_report``'s
+        ``serving`` section."""
+        per = [r.serve_stats() for r in self.replicas]
+        samples = []
+        for r in self.replicas:
+            samples.extend(r._lookup_ms)
+        return {
+            'replicas': len(per),
+            'qps': sum(s['qps'] for s in per),
+            'lookups': sum(s['lookups'] for s in per),
+            'lookup_p50_ms': _percentile(samples, 50),
+            'lookup_p99_ms': _percentile(samples, 99),
+            'staleness_steps': max((s['staleness_steps'] for s in per),
+                                   default=0),
+            'staleness_max_steps': max(
+                (s['staleness_max_steps'] for s in per), default=0),
+            'staleness_bound_steps': max(
+                (s['staleness_bound_steps'] for s in per), default=0),
+            'staleness_violations': sum(
+                s['staleness_violations'] for s in per),
+            'mixed_version_reads': sum(
+                s['mixed_version_reads'] for s in per),
+            'snapshot_pulls': sum(s['snapshot_pulls'] for s in per),
+            'snapshot_retries': sum(s['snapshot_retries'] for s in per),
+            'row_cache_hit_rate': (
+                sum(s['row_cache_hit_rate'] for s in per) / len(per)
+                if per else 0.0),
+            'wire_bytes': sum(s['wire_bytes'] for s in per),
+            'per_replica': per,
+        }
+
+    def stop(self, timeout_s=10.0):
+        """Stop every serve loop and close every connection. Safe to
+        call twice; never raises on a half-dead replica."""
+        for stop in self._stops:
+            stop.set()
+        for t in self._threads:
+            t.join(timeout=timeout_s)
+        for r in self.replicas:
+            r.close()

@@ -1,0 +1,108 @@
+"""LRU + TTL row cache for the serving tier's sparse embedding plane
+(a copy of ``autodist_tpu/serving/row_cache.py``).
+
+Dense variables refresh as whole-model snapshots (replica.py), but an
+embedding table is exactly the variable a full pull cannot afford —
+the NCF table is the model's bulk, and lookups touch a few thousand
+rows per query batch. Hot rows therefore live here: keyed
+``(table, row)``, evicted LRU past the capacity, expired past the TTL
+so training's pushes keep reaching served values, and flushed
+wholesale on every dense snapshot version bump (a row cached against
+snapshot step S served next to step S' dense weights would be the
+sparse flavor of a mixed-version read).
+
+Accounting is part of the contract, not a debugging afterthought:
+``hits``/``misses``/``evictions``/``expirations``/``invalidations``
+feed ``serve_stats`` -> ``profiling.health_report``.
+"""
+import collections
+import time
+
+from autodist_tpu_torch.const import ENV
+
+
+class RowCache:
+    """LRU row cache with per-entry TTL.
+
+    ``capacity_rows``/``ttl_s`` default from the
+    ``AUTODIST_SERVE_ROW_CACHE_ROWS`` / ``AUTODIST_SERVE_ROW_TTL_S``
+    knobs; ``clock`` is injectable (tests drive TTL expiry without
+    sleeping). Values are stored as-is (numpy rows); the cache never
+    copies — callers must not mutate returned rows.
+    """
+
+    def __init__(self, capacity_rows=None, ttl_s=None, clock=None):
+        self.capacity_rows = (ENV.AUTODIST_SERVE_ROW_CACHE_ROWS.val
+                              if capacity_rows is None
+                              else int(capacity_rows))
+        if self.capacity_rows < 1:
+            raise ValueError('RowCache capacity must be >= 1; got %d'
+                             % self.capacity_rows)
+        self.ttl_s = (ENV.AUTODIST_SERVE_ROW_TTL_S.val
+                      if ttl_s is None else float(ttl_s))
+        self._clock = clock or time.monotonic
+        # (table, row) -> (value, stamp); OrderedDict end = most recent
+        self._entries = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.expirations = 0
+        self.invalidations = 0
+
+    def __len__(self):
+        return len(self._entries)
+
+    def get(self, table, row):
+        """The cached row, or None (miss). An entry past the TTL is a
+        miss AND an expiration — it is dropped here so the caller's
+        re-fetch re-inserts it with a fresh stamp."""
+        key = (table, int(row))
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        value, stamp = entry
+        if self._clock() - stamp > self.ttl_s:
+            del self._entries[key]
+            self.expirations += 1
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        self.hits += 1
+        return value
+
+    def put(self, table, row, value):
+        """Insert/refresh one row; evicts the least-recently-used
+        entry past capacity."""
+        key = (table, int(row))
+        if key in self._entries:
+            self._entries.move_to_end(key)
+        self._entries[key] = (value, self._clock())
+        while len(self._entries) > self.capacity_rows:
+            self._entries.popitem(last=False)
+            self.evictions += 1
+
+    def invalidate_all(self):
+        """Flush every entry — the dense-snapshot version bump hook.
+        Counted separately from expirations: a bump flushing 60k warm
+        rows and a TTL quietly expiring them are different stories."""
+        n = len(self._entries)
+        self._entries.clear()
+        if n:
+            self.invalidations += 1
+        return n
+
+    @property
+    def hit_rate(self):
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def stats(self):
+        return {'rows': len(self._entries),
+                'capacity_rows': self.capacity_rows,
+                'ttl_s': self.ttl_s,
+                'hits': self.hits, 'misses': self.misses,
+                'evictions': self.evictions,
+                'expirations': self.expirations,
+                'invalidations': self.invalidations,
+                'hit_rate': self.hit_rate}

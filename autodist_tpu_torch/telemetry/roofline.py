@@ -238,9 +238,9 @@ class RooflineTracker:
     The cost count is the caller's (cached per callable via
     :func:`cost_of`); the per-sample work here is arithmetic plus one
     bounded-deque append. ``flight`` is a recorder with
-    ``record(name, **fields)`` for the regression events (the JAX
-    package's flight recorder, which the port does not have yet); None
-    logs them only.
+    ``record(name, **fields)`` for the regression events (default: the
+    process's flight recorder, :func:`~autodist_tpu_torch.telemetry.
+    flight.recorder`).
     """
 
     def __init__(self, peak_flops=None, peak_hbm_bps=None, every=None,
@@ -253,6 +253,9 @@ class RooflineTracker:
             from autodist_tpu_torch.telemetry import core as _core
             tel = _core.get()
         self._tel = tel
+        if flight is None:
+            from autodist_tpu_torch.telemetry import flight as _flight
+            flight = _flight.recorder()
         self._flight = flight
         self.worker = worker
         self.regression_frac = float(regression_frac)
@@ -300,12 +303,11 @@ class RooflineTracker:
                 base = statistics.median(self._baseline)
                 if base > 0 and rec['mfu'] < self.regression_frac * base:
                     self.regressions += 1
-                    if self._flight is not None:
-                        self._flight.record(
-                            'mfu_regression', worker=self.worker,
-                            step=int(step), mfu=rec['mfu'],
-                            baseline_mfu=round(base, 6),
-                            regime=rec['roofline_regime'])
+                    self._flight.record(
+                        'mfu_regression', worker=self.worker,
+                        step=int(step), mfu=rec['mfu'],
+                        baseline_mfu=round(base, 6),
+                        regime=rec['roofline_regime'])
                     if self._tel.enabled:
                         self._tel.count('roofline/mfu_regressions')
                     logging.warning(

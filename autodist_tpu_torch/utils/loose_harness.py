@@ -8,9 +8,7 @@ same data plane either way. The tests and ``chip_smoke.py`` both ride
 this helper, so the dance lives in one place. :func:`start_service` and
 :func:`stop_service` give such a harness a coord service of its own.
 
-:func:`ack_staged_swaps` of the JAX module (the epoch-swap ack of a
-simulated peer) waits for the epoch swap (ROADMAP.md Queue 1,
-"Loose-mode PS plane", its second half).
+:func:`ack_staged_swaps` is the epoch-swap ack of a simulated peer.
 """
 import os
 import socket
@@ -115,3 +113,30 @@ def stop_service(port, proc, timeout=10.0):
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait(timeout=timeout)
+
+
+def ack_staged_swaps(client, ns, worker, seen):
+    """One poll of the epoch-swap handshake for a SIMULATED peer.
+
+    Call from the simulated peer's publish loop.  ``seen`` is a
+    mutable set of generations this peer already acked (owned by the
+    caller so the helper stays stateless).  Any newly staged
+    generation is acked unconditionally — a bare-client peer has no
+    mesh to validate the plan against, and these harness peers exist
+    to exercise the chief's staging/arming machinery, not the
+    validator.  Returns ``(gen, boundary)`` of the latest armed
+    generation (``(0, 0)`` if none) so a caller that wants to stop
+    publishing near the boundary can.
+    """
+    from autodist_tpu_torch.runtime import swap_keys
+    gen = swap_keys.current_gen(client, ns)
+    if gen <= 0:
+        return 0, 0
+    if gen not in seen:
+        # plan may already be cancelled by the time we look; only a
+        # visible payload earns an ack (matches the real peer, which
+        # keys every decision off the plan's presence)
+        if swap_keys.read_plan(client, ns, gen) is not None:
+            swap_keys.write_ack(client, ns, gen, worker)
+            seen.add(gen)
+    return gen, swap_keys.read_boundary(client, ns, gen)

@@ -24,9 +24,12 @@ Chrome-trace JSON ``torch.profiler`` writes (``Trainer.profile`` leaves
 - the loose PS plane's reports read ``LooseSession.ps_stats``:
   :func:`ps_overlap_report` (the pipeline's hidden and exposed wire
   time), :func:`ps_sparse_report` (the row-sparse counters) and
-  :func:`ps_wire_report` (bytes by direction and endpoint). The JAX
-  module's ``health_*`` reports wait for the membership machinery
-  (ROADMAP.md Queue 1, "Loose-mode PS plane", its second half).
+  :func:`ps_wire_report` (bytes by direction and endpoint);
+- :func:`health_report` and :func:`format_health` read
+  ``LooseSession.health_stats`` (membership, exclusions, rejoins,
+  joins, replans), with the injected faults of a
+  :class:`~autodist_tpu_torch.utils.faultline.FaultLine`, the decisions
+  of an ``AutoscaleController`` and a ``ServingFleet``'s stats.
 """
 import glob
 import gzip
@@ -513,3 +516,206 @@ def format_breakdown(report, top_n=10, name_width=100):
         lines.append('  %8.2f ms x%-4d %s'
                      % (ns / 1e6, cnt, name[:name_width]))
     return '\n'.join(lines)
+
+
+def health_report(health_stats, faultline=None, autoscale=None,
+                  serving=None):
+    """Recovery + elasticity observability: one record per run of
+    everything the elastic machinery did — so every recovery AND every
+    membership change is auditable, not anecdotal.
+
+    ``health_stats`` is :attr:`Session.health_stats` (policy, fencing
+    generation, membership epoch, live world size, missed beats,
+    exclusions, rejoins, recovery wall times, observed joins, the
+    session's own admit record when it live-JOINed, the chief's
+    strategy re-rank decisions, auto-checkpoints). ``faultline`` is an
+    armed :class:`~autodist_tpu_torch.utils.faultline.FaultLine` (or its
+    ``events`` list) whose injected faults are attached — join-path
+    faults (the ``join_*`` kinds) are also counted separately, so a
+    chaos run's report pairs "what was injected on the admit handshake"
+    with "what membership did about it". ``autoscale`` is an
+    :class:`~autodist_tpu_torch.runtime.coordinator.AutoscaleController` (or
+    its ``decisions`` list): decisions taken and skipped ride the
+    report. Connection-retry counts come from the process-wide
+    ``coord_client.RETRY_STATS``. ``serving`` is a
+    :class:`~autodist_tpu_torch.serving.ServingFleet` (or its
+    :meth:`~autodist_tpu_torch.serving.ServingFleet.stats` dict): the
+    read-only replica fleet's serve stats (QPS, lookup latency
+    percentiles, snapshot staleness, row-cache hit rate, wire bytes)
+    ride the same record — train-while-serve runs audit both planes
+    in one place.
+
+    Returns ``{}`` when the session never ran in loose mode (no
+    recovery machinery to report on).
+    """
+    from autodist_tpu_torch.runtime.coord_client import RETRY_STATS
+    hs = dict(health_stats or {})
+    if not hs:
+        return {}
+    events = faultline if isinstance(faultline, (list, tuple)) \
+        else getattr(faultline, 'events', [])
+    decisions = autoscale if isinstance(autoscale, (list, tuple)) \
+        else list(getattr(autoscale, 'decisions', ()))
+    recovery = list(hs.get('recovery_wall_s', ()))
+    admitted = hs.get('admitted')
+    return {
+        'policy': hs.get('policy', 'fail'),
+        'generation': hs.get('generation', 0),
+        'epoch': hs.get('epoch', 0),
+        'epoch_bumps': hs.get('epoch_bumps', 0),
+        'num_workers': hs.get('num_workers', 1),
+        'world': hs.get('world', hs.get('num_workers', 1)),
+        'active_workers': hs.get('active_workers',
+                                 hs.get('num_workers', 1)),
+        'missed_beats': hs.get('missed_beats', 0),
+        # per-entry dict() snapshots: the session mutates these entry
+        # dicts in place from its background threads (a replan entry
+        # grows 'migration' fields when _execute_replan lands), and a
+        # report consumer iterating a half-joined entry mid-mutation
+        # must at worst see a stale copy, never a dict changing size
+        # under it
+        'exclusions': [dict(e) for e in hs.get('exclusions', ())],
+        'rejoins': list(hs.get('rejoins', ())),
+        'restarts_observed': len(hs.get('rejoins', ())),
+        'recovery_wall_s': recovery,
+        'max_recovery_wall_s': max(recovery) if recovery else 0.0,
+        # elastic scale-up: joins this process OBSERVED (epoch at
+        # admission), its own admit record (wall time) if it joined,
+        # and the chief's predicted-vs-kept re-rank decisions
+        'joins': [dict(j) for j in hs.get('joins', ())],
+        'admitted': dict(admitted) if admitted else None,
+        'admit_wall_s': (admitted or {}).get('admit_wall_s', 0.0),
+        'replans': [dict(r) for r in hs.get('replans', ())],
+        'autoscale': {
+            'decisions': decisions,
+            'taken': sum(1 for d in decisions
+                         if d.get('action') == 'scale_up'),
+            # deliberate skips and infrastructure failures are
+            # DIFFERENT audit outcomes — never lump them
+            'skipped': sum(1 for d in decisions
+                           if d.get('action') == 'skipped'),
+            'failed': sum(1 for d in decisions
+                          if d.get('action') == 'failed'),
+        },
+        # online performance sentry (telemetry/monitor.py): rolling
+        # cohort stats, active straggler verdicts with phase
+        # attribution (exclude candidates under policy=advise), the
+        # slowdown/recovered transition audit and the recalibration
+        # trajectory. {} when the chief ran no monitor.
+        'perf': dict(hs.get('perf') or {}),
+        'auto_checkpoints': hs.get('auto_checkpoints', 0),
+        # read-only serving tier (serving/): {} when no replica fleet
+        # was attached to the run
+        'serving': dict(serving if isinstance(serving, dict)
+                        else (serving.stats() if serving is not None
+                              else {})),
+        'connect_retries': RETRY_STATS['connect_retries'],
+        'injected_faults': [
+            {'kind': e['kind'], 'line': e.get('line', '')}
+            for e in events],
+        'injected_join_faults': sum(
+            1 for e in events if e['kind'].startswith('join_')),
+    }
+
+
+def format_health(report):
+    """Human-readable rendering of :func:`health_report`."""
+    if not report:
+        return '(no loose-mode session: nothing to report)'
+    lines = ['policy=%s generation=%d epoch=%d  membership %d/%d '
+             '(world %d)'
+             % (report['policy'], report['generation'], report['epoch'],
+                report['active_workers'], report['num_workers'],
+                report.get('world', report['num_workers']))]
+    lines.append('  missed beats: %d   connect retries: %d   '
+                 'auto-checkpoints: %d'
+                 % (report['missed_beats'], report['connect_retries'],
+                    report['auto_checkpoints']))
+    if report.get('admitted'):
+        adm = report['admitted']
+        lines.append('  joined as %s at epoch %d (admit %.3fs, adopted '
+                     'step %d)' % (adm.get('worker'),
+                                   adm.get('epoch', -1),
+                                   adm.get('admit_wall_s', 0.0),
+                                   adm.get('adopted_step', 0)))
+    for j in report.get('joins', ()):
+        lines.append('  observed join: %s at epoch %d'
+                     % (j.get('worker'), j.get('epoch', -1)))
+    for r in report.get('replans', ()):
+        if r.get('migrated'):
+            # a half-joined entry (snapshot taken between the
+            # migrated flag and the migration detail landing) degrades
+            # to placeholders, never a crash
+            mig = r.get('migration') or {}
+            status = ' [MIGRATED to %s in %.3fs via reshard %s]' % (
+                mig.get('builder', '?'), mig.get('wall_s') or 0.0,
+                (mig.get('reshard') or {}).get('kinds', {}))
+        elif r.get('migration_error'):
+            status = ' [migration failed: %s]' % r['migration_error']
+        elif r.get('migration_skipped'):
+            status = ' [migration skipped: %s]' % r['migration_skipped']
+        elif r.get('migration_staged'):
+            status = ' [migration staged: %s]' % r['migration_staged']
+        else:
+            status = ''
+        lines.append('  replan @world=%d: predicted %s vs kept %s%s%s'
+                     % (r.get('world', -1),
+                        r.get('predicted', '?'),
+                        r.get('kept') or '(hand-picked)',
+                        ' [error: %s]' % r['error']
+                        if r.get('error') else '', status))
+    auto = report.get('autoscale') or {}
+    if auto.get('decisions'):
+        lines.append('  autoscale: %d taken / %d skipped / %d failed'
+                     % (auto.get('taken', 0), auto.get('skipped', 0),
+                        auto.get('failed', 0)))
+    srv = report.get('serving') or {}
+    if srv.get('replicas'):
+        lines.append(
+            '  serving: %d replica(s)  %.0f qps  lookup p50 %.2fms '
+            'p99 %.2fms  staleness %d/%d steps  row-cache hit %.0f%%  '
+            'wire %.1fMB'
+            % (srv.get('replicas', 0), srv.get('qps', 0.0),
+               srv.get('lookup_p50_ms', 0.0),
+               srv.get('lookup_p99_ms', 0.0),
+               srv.get('staleness_steps', 0),
+               srv.get('staleness_bound_steps', 0),
+               100.0 * srv.get('row_cache_hit_rate', 0.0),
+               srv.get('wire_bytes', 0) / 1e6))
+        if srv.get('staleness_violations'):
+            lines.append('    STALENESS VIOLATIONS: %d snapshot(s) '
+                         'served beyond the bound'
+                         % srv['staleness_violations'])
+    perf = report.get('perf') or {}
+    if perf.get('workers'):
+        lines.append(
+            '  perf: cohort step %.1fms over %d workers  (%d slowdown '
+            '/ %d recovered, %d recalibration(s), policy=%s)'
+            % (1e3 * perf.get('step_time_s', 0.0),
+               len(perf['workers']), perf.get('slowdowns', 0),
+               perf.get('recoveries', 0),
+               len(perf.get('recalibrations', ())),
+               perf.get('policy', '?')))
+        for v in perf.get('verdicts', ()):
+            lines.append(
+                '    straggler %s: %s %.1fms vs %.1fms — %d%% of '
+                'excess in %s ⇒ %s%s'
+                % (v.get('worker'), v.get('statistic', '?'),
+                   1e3 * v.get('stat_s', 0.0),
+                   1e3 * v.get('baseline_s', 0.0),
+                   int(100 * (v.get('phase_shares') or {}).get(
+                       v.get('attributed_phase'), 0.0)),
+                   v.get('attributed_phase'),
+                   v.get('classification'),
+                   ' [exclude candidate]'
+                   if v.get('exclude_candidate') else ''))
+    for ex in report['exclusions']:
+        lines.append('  excluded %s at epoch %d'
+                     % (ex.get('worker'), ex.get('epoch', -1)))
+    for w, s in zip(report['rejoins'], report['recovery_wall_s']):
+        lines.append('  %s rejoined after %.1fs' % (w, s))
+    for f in report['injected_faults']:
+        lines.append('  injected: %s (%s)' % (f['kind'], f['line']))
+    return '\n'.join(lines)
+
+

@@ -2032,6 +2032,694 @@ def loose_pair_phase(cfg, steps, device, smi=None, wires=('f32', 'i8'),
     return summary
 
 
+# -- the loose plane's membership half ------------------------------------------
+# NCF at the pair's width under PS(staleness=2) with LazyAdam, a new batch a
+# step, f32 wire, depth 2, every worker a process of its own
+# (``chip_smoke.py --elastic-worker``) on one card. Five runs:
+#   grow     two workers; a third is admitted once both published
+#            ELASTIC_JOIN_AT (they wait for it there); with
+#            AUTODIST_EXECUTE_REPLAN the chief re-ranks for world 3 and
+#            the three apply the staged migration at one armed boundary
+#   exclude  three workers; a FaultPlan kills p2 at its publish of
+#            ELASTIC_KILL_AT; policy exclude; the survivors finish
+#   restart  two workers under WorkerSupervisor; p1 is killed at its
+#            publish of ELASTIC_KILL_AT and respawned (no fault plan)
+#   swap     two workers; the chief requests a swap to
+#            UnevenPartitionedPS(staleness=2) after ELASTIC_SWAP_AT steps
+#            (PartitionedPS would split ml-20m's 138493 users, a prime,
+#            into 138493 shards), so every table changes geometry
+#   serve    two workers train while a ServingFleet of two readers in the
+#            launcher answers ELASTIC_SERVE_ROWS-row lookups and forwards
+ELASTIC_STEPS = 15
+ELASTIC_JOIN_AT = 5
+ELASTIC_KILL_AT = 6
+ELASTIC_SWAP_AT = 5
+ELASTIC_SWAP_TRAIN = 10     # steps the swap run trains past its boundary
+ELASTIC_SERVE_ROWS = 4096
+ELASTIC_ENV = {'AUTODIST_HEARTBEAT_TIMEOUT': '2',
+               'AUTODIST_PS_PIPELINE_DEPTH': '2',
+               'AUTODIST_PS_WIRE_DTYPE': 'f32'}
+ELASTIC_RUNS = ('grow', 'exclude', 'restart', 'swap', 'serve')
+
+
+def _elastic_kill_hook():
+    """Arm ``AUTODIST_FAULT_PLAN`` (a kill_worker of mode ``raise``) so
+    that the process dies hard (``os._exit(137)``, no cleanup, no done
+    marker) on whichever thread publishes the planned step, after it
+    wrote the kill's wall time beside its record."""
+    from autodist_tpu_torch.runtime.coord_client import CoordClient
+    from autodist_tpu_torch.utils.faultline import FaultLine, InjectedFault
+    fl = FaultLine.from_env(worker='p%s' % os.environ['AUTODIST_PROCESS_ID'])
+    if not fl.plan.faults:
+        return None
+    fl.install()
+    hook = CoordClient.fault_hook
+
+    def dying_hook(client, line, payload):
+        try:
+            return hook(client, line, payload)
+        except InjectedFault:
+            path = os.environ['CHIP_SMOKE_KILL_FILE']
+            with open(path, 'w') as f:
+                json.dump({'killed_at': fl.events[-1]['time'],
+                           'line': fl.events[-1]['line']}, f)
+            os._exit(137)
+
+    CoordClient.fault_hook = dying_hook
+    return fl
+
+
+def swap_strategy(graph_item):
+    """UnevenPartitionedPS(staleness=2) over a spec of two PS hosts (a
+    one-host spec leaves every variable whole)."""
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    spec = ResourceSpec(resource_info={'nodes': [
+        {'address': 'localhost', 'gpus': [0], 'chief': True,
+         'network_bandwidth': 100},
+        {'address': '127.0.0.1', 'gpus': [0], 'network_bandwidth': 100}]})
+    return ad.UnevenPartitionedPS(staleness=LOOSE_STALENESS).build(
+        graph_item, spec)
+
+
+def _tap_rekey(sess, rec):
+    """Wrap the chief's re-key: right after it stores the old keys'
+    values under the new keys, read both key sets back and record
+    whether they agree with each other and with what was stored, bit
+    for bit (every member's pushes before the boundary landed first,
+    and none after it can land before the ready marker)."""
+    real = sess._store_var_parts
+
+    def store(values):
+        real(values)
+        new, _ = sess._fetch_var_parts(list(values))
+        same_new = all(np.array_equal(sess._merged(n, new[n]),
+                                      np.asarray(v))
+                       for n, v in values.items())
+        same_old = all(np.array_equal(sess._coord.vget(
+            sess._key('var/%s' % n), shape=np.asarray(v).shape),
+            np.asarray(v)) for n, v in values.items())
+        rec['rekey'] = {'vars': sorted(values), 'bytes': int(sum(
+            np.asarray(v).nbytes for v in values.values())),
+            'new_keys_equal': same_new, 'old_keys_equal': same_old,
+            'shards': {n: len(sess._shard_info(n)[1]) for n in values}}
+
+    sess._store_var_parts = store
+
+
+def elastic_worker(args):
+    """One worker of a ``loose_elastic`` run (``chip_smoke.py
+    --elastic-worker JSON``): NCF at ``args['cfg']``, batch
+    ``1000 * (pid + 1) + step`` at each step, until its step count
+    reaches ``args['steps']``; its record (steps with wall times,
+    health, swap events) in ``<out>/<name>.g<generation>.json``."""
+    from autodist_tpu_torch.runtime import coord_client as cc
+    pid = int(os.environ['AUTODIST_PROCESS_ID'])
+    run, cfg, out = args['run'], args['cfg'], args['out']
+    joiner = os.environ.get('AUTODIST_ELASTIC_JOIN') == '1'
+    _elastic_kill_hook()
+    addr = os.environ['AUTODIST_COORD_SERVICE_ADDR'].rsplit(':', 1)
+    ctl = cc.connect_with_retry((addr[0], int(addr[1])))
+    run_id = os.environ['AUTODIST_RUN_ID']
+    if joiner:
+        # joins once every cohort member published ELASTIC_JOIN_AT
+        ctl.wait_key('strategy/%s/id' % run_id, timeout_s=300.0)
+        ns = ctl.get('strategy/%s/id' % run_id)
+        deadline = time.time() + 300.0
+        while min(ctl.incr('%s/step/p%d' % (ns, i), 0)
+                  for i in range(args['cohort'])) < args['join_at']:
+            require(time.time() < deadline, 'the cohort never reached '
+                    'step %d' % args['join_at'])
+            time.sleep(0.05)
+    autodist = fresh_autodist(ad.PS(staleness=LOOSE_STALENESS),
+                              args['device'])
+    sess, feeds, loss, train_op = ncf_program(
+        autodist, ncf_init(cfg), optimizer=ad.optimizers.LazyAdam)
+    require(type(sess).__name__ == 'LooseSession',
+            'elastic worker %d is not in loose mode' % pid)
+    name = sess._worker_name
+    rec = {'pid': pid, 'worker': name, 'generation': sess._generation,
+           'start_step': sess.step_count, 'steps': []}
+    if run == 'swap' and sess._is_chief:
+        _tap_rekey(sess, rec)
+    entry = None
+
+    def migrated():
+        return any(e.get('migrated') for e in sess._health['replans'])
+
+    # the grow run trains on until its migration applied (the re-rank
+    # and the handshake take their own time)
+    while sess.step_count < args['steps'] or (
+            run == 'grow' and not migrated() and
+            sess.step_count < 4 * args['steps']):
+        s = sess.step_count + 1
+        if run == 'swap' and sess._is_chief and entry is None and \
+                s > args['swap_at']:
+            entry = sess.request_strategy_swap(swap_strategy(
+                autodist._original_graph_item))
+        feed = dict(zip(feeds, ncf_batch(cfg, 1000 * (pid + 1) + s)))
+        t0 = time.time()
+        value = float(sess.run([loss, train_op], feed)[0])
+        rec['steps'].append({'step': s, 't0': t0, 't1': time.time(),
+                             'loss': value,
+                             'parties': sess._active_workers()})
+        if run == 'grow' and not joiner and s == args['join_at']:
+            deadline = time.time() + 300.0
+            while ctl.incr(sess._key('join/world'), 0) <= args['cohort']:
+                require(time.time() < deadline, 'no worker joined')
+                time.sleep(0.02)
+    sess.get_variable_value(sorted(sess._graph_item.graph.variables)[0])
+    if entry is not None:
+        rec['swap_entry'] = dict(entry)
+    rec['health'] = sess.health_stats
+    rec['flight'] = [e for e in sess._flight.events()
+                     if e['kind'].startswith('swap_')]
+    if args.get('barrier'):
+        # the launcher reads the plane while it is quiet
+        ctl.barrier(args['barrier'] + '/trained', args['parties'],
+                    timeout_s=300.0)
+        ctl.barrier(args['barrier'] + '/read', args['parties'],
+                    timeout_s=300.0)
+    sess.close()
+    ctl.close()
+    with open(os.path.join(out, '%s.g%d.json' % (name, rec['generation'])),
+              'w') as f:
+        json.dump(rec, f, default=lambda o: o.item() if hasattr(o, 'item')
+                  else repr(o))
+    return 0
+
+
+def _elastic_env(services, run_id, workers, extra=None):
+    return dict(os.environ, AUTODIST_NUM_PROCESSES=str(workers),
+                AUTODIST_COORD_SERVICE_ADDR='127.0.0.1:%d' % services[0][0],
+                AUTODIST_RUN_ID=run_id,
+                OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 3)),
+                **ELASTIC_ENV, **(extra or {}))
+
+
+class _ElasticRun:
+    """The launcher of one ``loose_elastic`` run: its coord service, the
+    worker processes it started (each logging to ``<out>/<tag>.log``),
+    and the records they left."""
+
+    def __init__(self, run, cfg, device, tmp, steps, **args):
+        self.run = run
+        self.run_id = 'elastic-%s-%d' % (run, os.getpid())
+        self.out = os.path.join(tmp, self.run_id)
+        os.makedirs(self.out)
+        self.args = dict(args, run=run, cfg=cfg, device=device,
+                         out=self.out, steps=steps)
+        self.services = start_services(1)
+        self.procs = []
+        self.logs = []
+
+    def spawn(self, pid, env, tag=None):
+        tag = tag or 'p%d' % pid
+        log = open(os.path.join(self.out, '%s.log' % tag), 'a')
+        self.logs.append(log)
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--elastic-worker',
+             json.dumps(self.args)],
+            env=dict(env, AUTODIST_PROCESS_ID=str(pid),
+                     CHIP_SMOKE_KILL_FILE=os.path.join(
+                         self.out, '%s.kill.json' % tag)),
+            stdout=log, stderr=subprocess.STDOUT)
+        self.procs.append((tag, proc))
+        return proc
+
+    def client(self):
+        from autodist_tpu_torch.runtime import coord_client as cc
+        return cc.connect_with_retry(('127.0.0.1', self.services[0][0]))
+
+    def ns(self, client, timeout_s=300.0):
+        client.wait_key('strategy/%s/id' % self.run_id, timeout_s=timeout_s)
+        return client.get('strategy/%s/id' % self.run_id)
+
+    def wait(self, timeout=600):
+        for tag, p in self.procs:
+            try:
+                p.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                pass
+
+    def log(self, tag):
+        with open(os.path.join(self.out, '%s.log' % tag)) as f:
+            return f.read()
+
+    def require_exit(self, tag, proc, code=0):
+        require(proc.returncode == code, 'loose_elastic %s: %s exited %s, '
+                'not %s:\n%s' % (self.run, tag, proc.returncode, code,
+                                 self.log(tag)[-3000:]))
+
+    def record(self, worker, generation=0):
+        with open(os.path.join(self.out, '%s.g%d.json'
+                               % (worker, generation))) as f:
+            return json.load(f)
+
+    def kill_time(self, tag):
+        with open(os.path.join(self.out, '%s.kill.json' % tag)) as f:
+            return json.load(f)['killed_at']
+
+    def close(self):
+        for _, p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in self.logs:
+            log.close()
+        stop_services(self.services)
+
+
+def _examples_per_s(cfg, steps):
+    walls = [s['t1'] - s['t0'] for s in steps]
+    return cfg['batch'] / float(np.median(walls)) if walls else None
+
+
+def _kill_plan(worker, step):
+    from autodist_tpu_torch.utils.faultline import FaultPlan
+    return FaultPlan([{'kind': 'kill_worker', 'worker': worker,
+                       'step': step, 'mode': 'raise'}], seed=13).to_json()
+
+
+def elastic_grow(cfg, device, tmp, steps, smi=None, workers=2):
+    """``workers`` start, one more joins (see above)."""
+    r = _ElasticRun('grow', cfg, device, tmp, steps,
+                    join_at=ELASTIC_JOIN_AT, cohort=workers)
+    world = workers + 1
+    try:
+        env = _elastic_env(r.services, r.run_id, workers,
+                           {'AUTODIST_EXECUTE_REPLAN': '1',
+                            'AUTODIST_PEER_FAILURE_POLICY': 'exclude'})
+        for pid in range(workers):
+            r.spawn(pid, env)
+        r.spawn(workers, dict(env, AUTODIST_ELASTIC_JOIN='1'),
+                tag='joiner')
+        r.wait()
+        for tag, p in r.procs:
+            r.require_exit(tag, p)
+        recs = [r.record('p%d' % i) for i in range(world)]
+    finally:
+        r.close()
+    joiner = recs[-1]
+    require(joiner['health']['joining'] and joiner['start_step'] ==
+            joiner['health']['admitted']['adopted_step'] >= ELASTIC_JOIN_AT,
+            'the joiner did not start at the published step: %r'
+            % joiner['health'].get('admitted'))
+    boundaries, applied = set(), set()
+    per_worker = []
+    for rec in recs:
+        h = rec['health']
+        require(h['world'] == world and h['active_workers'] == world,
+                '%s ended with world %d, %d active' % (
+                    rec['worker'], h['world'], h['active_workers']))
+        after = [s for s in rec['steps']
+                 if s['step'] > joiner['start_step'] + 1]
+        require(after and all(s['parties'] == world for s in after),
+                '%s gated on fewer than %d parties after the join'
+                % (rec['worker'], world))
+        migrated = [e for e in h['replans'] if e.get('migrated')]
+        require(len(migrated) == 1, '%s applied %d migrations: %r' % (
+            rec['worker'], len(migrated), h['replans']))
+        boundaries.add(migrated[0]['swap']['boundary'])
+        applied.update(e['step'] for e in rec['flight']
+                       if e['kind'] == 'swap_apply')
+        before = [s for s in rec['steps'] if s['step'] <= ELASTIC_JOIN_AT
+                  and s['step'] > rec['start_step'] + 1]
+        per_worker.append({
+            'worker': rec['worker'], 'start_step': rec['start_step'],
+            'examples_per_s_before_join': _examples_per_s(cfg, before),
+            'examples_per_s_after_join': _examples_per_s(cfg, after),
+            'losses': [s['loss'] for s in rec['steps']]})
+    chief = recs[0]['health']['replans']
+    require(len(chief) == 1 and chief[0]['world'] == world and
+            chief[0].get('predicted') and not chief[0].get('error'),
+            'the chief recorded no re-rank for world %d: %r'
+            % (world, chief))
+    require(len(boundaries) == 1 and applied == boundaries,
+            'the members applied at %r, boundaries %r' % (applied,
+                                                          boundaries))
+    for rec in recs:
+        require(all(math.isfinite(s['loss']) for s in rec['steps']),
+                '%s: a loss is not finite' % rec['worker'])
+    out = dict(phase='loose_elastic', run='grow', steps=steps,
+               batch=cfg['batch'], cohort=[workers, world],
+               join_at=ELASTIC_JOIN_AT,
+               admit_wall_s=joiner['health']['admitted']['admit_wall_s'],
+               replan={k: chief[0].get(k) for k in (
+                   'world', 'kept', 'predicted', 'predicted_step_time_s',
+                   'migration_staged', 'cost_constants')},
+               boundary=boundaries.pop(), migration_wall_s=[
+                   [e for e in rec['health']['replans']
+                    if e.get('migrated')][0]['migration']['wall_s']
+                   for rec in recs],
+               workers=per_worker)
+    emit(card=smi, **out)
+    return out
+
+
+def elastic_exclude(cfg, device, tmp, steps, smi=None, workers=3):
+    """``workers`` start, the last is killed (see above)."""
+    from autodist_tpu_torch.runtime import coord_client as cc
+    r = _ElasticRun('exclude', cfg, device, tmp, steps)
+    last = workers - 1
+    victim_name = 'p%d' % last
+    try:
+        env = _elastic_env(r.services, r.run_id, workers,
+                           {'AUTODIST_PEER_FAILURE_POLICY': 'exclude'})
+        for pid in range(last):
+            r.spawn(pid, env)
+        victim = r.spawn(last, dict(env, AUTODIST_FAULT_PLAN=_kill_plan(
+            victim_name, ELASTIC_KILL_AT)))
+        # the victim's writer connection, bound to its generation before
+        # the kill: the connection a zombie would keep
+        zombie = r.client()
+        ns = r.ns(zombie)
+        deadline = time.time() + 300.0
+        while zombie.incr('%s/step/%s' % (ns, victim_name), 0) == 0:
+            require(time.time() < deadline, 'the victim never started')
+            time.sleep(0.05)
+        zombie.fence('fence/%s/%s' % (ns, victim_name), 0)
+        r.wait()
+        r.require_exit(victim_name, victim, 137)
+        for tag, p in r.procs[:last]:
+            r.require_exit(tag, p)
+        try:
+            zombie.vadd('%s/var/head/bias' % ns, np.ones(1, np.float32))
+            fenced = False
+        except cc.FencedWriteError:
+            fenced = True
+        zombie.close()
+        killed_at = r.kill_time(victim_name)
+        recs = [r.record('p%d' % i) for i in range(last)]
+    finally:
+        r.close()
+    require(fenced, 'a write through %s\'s kept connection was accepted'
+            % victim_name)
+    survivors = []
+    for rec in recs:
+        h = rec['health']
+        require(len(rec['steps']) == steps and h['active_workers'] == last,
+                '%s: %d steps, %d active' % (
+                    rec['worker'], len(rec['steps']), h['active_workers']))
+        require(h['excluded'] == [victim_name], '%s excluded %r'
+                % (rec['worker'], h['excluded']))
+        after = [s for s in rec['steps'] if s['t1'] > killed_at]
+        require(after, '%s took no step after the kill' % rec['worker'])
+        stalled = max(after, key=lambda s: s['t1'] - s['t0'])
+        survivors.append({
+            'worker': rec['worker'],
+            'kill_to_next_step_s': after[0]['t1'] - killed_at,
+            # the step the gate held until p2's exclusion
+            'kill_to_unblocked_s': stalled['t1'] - killed_at,
+            'longest_step_after_kill_s': stalled['t1'] - stalled['t0'],
+            'examples_per_s_before_kill': _examples_per_s(cfg, [
+                s for s in rec['steps'] if s['t1'] < killed_at][1:]),
+            'examples_per_s_after_exclusion': _examples_per_s(
+                cfg, after[2:]),
+            'epoch': h['epoch']})
+    out = dict(phase='loose_elastic', run='exclude', steps=steps,
+               batch=cfg['batch'], workers=workers, victim=victim_name,
+               kill_at=ELASTIC_KILL_AT,
+               heartbeat_timeout_s=float(ELASTIC_ENV[
+                   'AUTODIST_HEARTBEAT_TIMEOUT']),
+               zombie_write_refused=fenced,
+               kill_to_survivors_next_step_s=min(
+                   w['kill_to_next_step_s'] for w in survivors),
+               kill_to_survivors_unblocked_s=max(
+                   w['kill_to_unblocked_s'] for w in survivors),
+               survivors=survivors)
+    emit(card=smi, **out)
+    return out
+
+
+def elastic_restart(cfg, device, tmp, steps, smi=None):
+    from autodist_tpu_torch.runtime.coordinator import WorkerSupervisor
+    r = _ElasticRun('restart', cfg, device, tmp, steps)
+    sup = None
+    try:
+        env = _elastic_env(r.services, r.run_id, 2,
+                           {'AUTODIST_PEER_FAILURE_POLICY': 'restart'})
+        r.spawn(0, env)
+        incarnations = []
+
+        def spawn():
+            # a CUDA context does not survive fork: a fresh interpreter;
+            # the replacement carries no fault plan
+            extra = {} if incarnations else {
+                'AUTODIST_FAULT_PLAN': _kill_plan('p1', ELASTIC_KILL_AT)}
+            incarnations.append(len(incarnations))
+            return r.spawn(1, dict(env, **extra),
+                           tag='p1.%d' % (len(incarnations) - 1))
+
+        fence_client = r.client()
+        gave_up = []
+
+        def fence():
+            fence_client.incr('fence/%s/p1' % r.ns(fence_client), 1)
+
+        sup = WorkerSupervisor('p1', spawn, policy='restart',
+                               max_restarts=1, fence=fence,
+                               on_give_up=gave_up.append).start()
+        r.wait()
+        sup.join(timeout=300.0)
+        fence_client.close()
+        require(not gave_up and sup.restarts == 1,
+                'the supervisor gave up (%r) after %d restarts'
+                % (gave_up, sup.restarts))
+        r.require_exit('p1.0', r.procs[1][1], 137)
+        r.require_exit('p0', r.procs[0][1])
+        r.require_exit('p1.1', r.procs[2][1])
+        killed_at = r.kill_time('p1.0')
+        chief, reborn = r.record('p0'), r.record('p1', 1)
+    finally:
+        if sup is not None:
+            sup.terminate()
+        r.close()
+    h = chief['health']
+    require(reborn['generation'] == 1 and reborn['health']['rejoining'],
+            'the replacement did not rejoin under generation 1')
+    require(reborn['start_step'] == ELASTIC_KILL_AT - 1,
+            'the replacement resumed at %d, not at the published %d'
+            % (reborn['start_step'], ELASTIC_KILL_AT - 1))
+    require(len(chief['steps']) == steps and h['rejoins'] == ['p1'] and
+            len(h['recovery_wall_s']) == 1,
+            'the chief: %d steps, rejoins %r' % (len(chief['steps']),
+                                                 h['rejoins']))
+    out = dict(phase='loose_elastic', run='restart', steps=steps,
+               batch=cfg['batch'], kill_at=ELASTIC_KILL_AT,
+               recovery_wall_s=h['recovery_wall_s'][0],
+               kill_to_chief_next_step_s=[
+                   s['t1'] for s in chief['steps'] if s['t1'] > killed_at][0]
+               - killed_at,
+               replacement={'generation': reborn['generation'],
+                            'start_step': reborn['start_step'],
+                            'steps': len(reborn['steps'])},
+               chief_losses=[s['loss'] for s in chief['steps']])
+    emit(card=smi, **out)
+    return out
+
+
+def elastic_swap(cfg, device, tmp, steps, smi=None):
+    r = _ElasticRun('swap', cfg, device, tmp, steps,
+                    swap_at=ELASTIC_SWAP_AT)
+    try:
+        env = _elastic_env(r.services, r.run_id, 2,
+                           {'AUTODIST_EXECUTE_REPLAN': '1'})
+        for pid in range(2):
+            r.spawn(pid, env)
+        r.wait()
+        for tag, p in r.procs:
+            r.require_exit(tag, p)
+        recs = [r.record('p%d' % i) for i in range(2)]
+    finally:
+        r.close()
+    chief = recs[0]
+    entry = chief['swap_entry']
+    require(entry.get('migrated'), 'the swap was not applied: %r' % entry)
+    boundary = entry['swap']['boundary']
+    applied = []
+    for rec in recs:
+        mig = [e for e in rec['health']['replans'] if e.get('migrated')]
+        require(len(mig) == 1, '%s applied %d swaps' % (rec['worker'],
+                                                       len(mig)))
+        applied.extend(e['step'] for e in rec['flight']
+                       if e['kind'] == 'swap_apply')
+        past = [s for s in rec['steps'] if s['step'] >= boundary]
+        require(len(past) >= steps - boundary and all(
+            math.isfinite(s['loss']) for s in rec['steps']),
+                '%s: %d steps past the boundary' % (rec['worker'],
+                                                    len(past)))
+    require(applied == [boundary, boundary], 'applied at %r, boundary %d'
+            % (applied, boundary))
+    rekey = chief.get('rekey') or {}
+    require(rekey.get('new_keys_equal') and rekey.get('old_keys_equal'),
+            'the re-keyed tables differ from the old keys: %r' % rekey)
+    require(all(rekey['shards'][t] > 1 for t in NCF_TABLES),
+            'a table kept its geometry: %r' % rekey.get('shards'))
+    walls = {e['kind']: e['wall'] for e in chief['flight']}
+    out = dict(phase='loose_elastic', run='swap', steps=steps,
+               batch=cfg['batch'], swap_at=ELASTIC_SWAP_AT,
+               builder='UnevenPartitionedPS(staleness=%d)'
+               % LOOSE_STALENESS, boundary=boundary,
+               stage_to_arm_s=walls['swap_arm'] - walls['swap_stage'],
+               stage_to_ready_s=walls['swap_apply'] - walls['swap_stage'],
+               apply_wall_s=[
+                   [e for e in rec['health']['replans']
+                    if e.get('migrated')][0]['migration']['wall_s']
+                   for rec in recs],
+               rekeyed_bytes=rekey['bytes'], rekeyed_vars=len(rekey['vars']),
+               table_shards={t: rekey['shards'][t] for t in NCF_TABLES},
+               losses={rec['worker']: [s['loss'] for s in rec['steps']]
+                       for rec in recs})
+    emit(card=smi, **out)
+    return out
+
+
+def ncf_forward(values, users, items, rows):
+    """NCF's logits (``ncf_graph``'s towers) from a serving snapshot's
+    dense variables and the looked-up embedding rows."""
+    dev = values['head/bias'].device
+    t = {k: torch.as_tensor(v, device=dev) for k, v in rows.items()}
+    gmf = t['mf_user'] * t['mf_item']
+    y = torch.cat([t['mlp_user'], t['mlp_item']], dim=-1)
+    i = 0
+    while 'mlp_%d/kernel' % i in values:
+        y = torch.relu(y @ values['mlp_%d/kernel' % i] +
+                       values['mlp_%d/bias' % i])
+        i += 1
+    both = torch.cat([gmf, y], dim=-1)
+    return (both @ values['head/kernel'] + values['head/bias']).reshape(-1)
+
+
+def elastic_serve(cfg, device, tmp, steps, smi=None):
+    from autodist_tpu_torch.runtime.loose_session import \
+        live_members_on_plane
+    from autodist_tpu_torch.serving import ServingFleet
+    init = ncf_init(cfg)
+    dense = {n: v.shape for n, v in init.items() if n not in NCF_TABLES}
+    sparse = {n: init[n].shape for n in NCF_TABLES}
+    r = _ElasticRun('serve', cfg, device, tmp, steps, barrier=None,
+                    parties=3)
+    r.args['barrier'] = 'smoke/%s' % r.run_id
+    fleet = None
+    try:
+        env = _elastic_env(r.services, r.run_id, 2)
+        for pid in range(2):
+            r.spawn(pid, env)
+        ctl = r.client()
+        ns = r.ns(ctl)
+        fleet = ServingFleet(ns, address=('127.0.0.1', r.services[0][0]),
+                             dense_vars=dense, sparse_vars=sparse,
+                             device=device, poll_s=0.05)
+        fleet.add_replica(connect_deadline_s=300.0)
+        killed = fleet.add_replica(connect_deadline_s=300.0)
+        rng = np.random.RandomState(7)
+        n = min(ELASTIC_SERVE_ROWS, cfg['users'], cfg['items'])
+        forwards = 0
+        members_before = None
+        # serve while the cohort trains: until both pass the kill point,
+        # one reader is closed mid-run, then until they finish
+        while True:
+            steps_now = [ctl.incr('%s/step/p%d' % (ns, i), 0)
+                         for i in range(2)]
+            if min(steps_now) >= steps:
+                break
+            if members_before is None and min(steps_now) >= 1:
+                members_before = live_members_on_plane(ctl, ns)
+            users = rng.randint(0, cfg['users'], n).astype(np.int32)
+            items = rng.randint(0, cfg['items'], n).astype(np.int32)
+            rows = {t: fleet.lookup(t, users if 'user' in t else items)
+                    for t in NCF_TABLES}
+            snap = fleet.replicas[forwards % len(fleet.replicas)]
+            if snap.snapshot is not None and snap._data is not None:
+                logits = snap.forward(ncf_forward, users, items, rows)
+                require(bool(torch.isfinite(logits).all()),
+                        'a served forward is not finite')
+                forwards += 1
+            if killed in fleet.replicas and min(steps_now) >= steps // 2:
+                # a reader dies mid-run
+                fleet._stops[fleet.replicas.index(killed)].set()
+                killed.close()
+                fleet.replicas.remove(killed)
+        members_after = live_members_on_plane(ctl, ns)
+        ctl.barrier(r.args['barrier'] + '/trained', 3, timeout_s=300.0)
+        # the plane is quiet: pin, look up, and hold both to the PS
+        live = fleet.replicas[0]
+        live.refresh()
+        floor = live.published_floor()
+        require(live.snapshot.step == floor, 'the pinned step %d is not '
+                'the floor %d' % (live.snapshot.step, floor))
+        users = rng.randint(0, cfg['users'], n).astype(np.int32)
+        items = rng.randint(0, cfg['items'], n).astype(np.int32)
+        exact = True
+        for t in NCF_TABLES:
+            ids = users if 'user' in t else items
+            got = live.lookup(t, ids)
+            table = ctl.vget('%s/var/%s' % (ns, t), shape=sparse[t])
+            exact = exact and np.array_equal(got, table[ids])
+        for name, shape in dense.items():
+            exact = exact and np.array_equal(
+                live.snapshot.values[name].cpu().numpy(),
+                ctl.vget('%s/var/%s' % (ns, name), shape=shape))
+        stats = fleet.stats()
+        ctl.barrier(r.args['barrier'] + '/read', 3, timeout_s=300.0)
+        ctl.close()
+        r.wait()
+        for tag, p in r.procs:
+            r.require_exit(tag, p)
+        recs = [r.record('p%d' % i) for i in range(2)]
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        r.close()
+    require(exact, 'served rows or dense values differ from the PS')
+    require(members_before == members_after == (2, 2, 0),
+            'membership moved with the readers: %r -> %r'
+            % (members_before, members_after))
+    for rec in recs:
+        require(len(rec['steps']) == steps and
+                rec['health']['active_workers'] == 2,
+                '%s took %d steps' % (rec['worker'], len(rec['steps'])))
+    require(forwards > 0, 'no forward was served')
+    out = dict(phase='loose_elastic', run='serve', steps=steps,
+               batch=cfg['batch'], rows_per_lookup=n, readers=2,
+               lookups=stats['lookups'], forwards=forwards,
+               lookup_p50_ms=stats['lookup_p50_ms'],
+               lookup_p99_ms=stats['lookup_p99_ms'],
+               row_cache_hit_rate=stats['row_cache_hit_rate'],
+               staleness_steps=stats['staleness_steps'],
+               staleness_max_steps=stats['staleness_max_steps'],
+               snapshot_pulls=stats['snapshot_pulls'],
+               rows_equal_pinned_step=exact,
+               membership=list(members_after),
+               worker_steps=[len(rec['steps']) for rec in recs],
+               examples_per_s=[_examples_per_s(cfg, rec['steps'][1:])
+                               for rec in recs])
+    emit(card=smi, **out)
+    return out
+
+
+def loose_elastic_phase(cfg, steps, device, smi=None, runs=ELASTIC_RUNS,
+                        workers=None):
+    """``loose_elastic``: the membership half of the loose plane, one
+    run of each of ``runs`` (see above); ``workers`` (grow's cohort, the
+    exclude run's start) resizes the grow and exclude runs. Returns
+    {run: its record}."""
+    fns = {'grow': elastic_grow, 'exclude': elastic_exclude,
+           'restart': elastic_restart, 'swap': elastic_swap,
+           'serve': elastic_serve}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in runs:
+            n = steps if run != 'swap' else \
+                ELASTIC_SWAP_AT + LOOSE_STALENESS + 2 + ELASTIC_SWAP_TRAIN
+            kw = {'workers': workers[run]} if workers and run in workers \
+                else {}
+            t0 = time.time()
+            out[run] = fns[run](cfg, device, tmp, n, smi, **kw)
+            out[run]['seconds'] = time.time() - t0
+    return out
+
+
 # -- head dims beside 64 ------------------------------------------------------
 # B, H, S of the flash_head_dims phase, and the head dims it runs: 80 and
 # 96 run padded to 128 (the wgmma kernels in bf16), 160 padded to 256 and
@@ -2755,6 +3443,8 @@ def dsl_saved_model_phase(device, tmp, smi=None):
 def main(argv):
     if argv[:1] == ['--loose-worker']:
         return loose_worker(json.loads(argv[1]))
+    if argv[:1] == ['--elastic-worker']:
+        return elastic_worker(json.loads(argv[1]))
     profiling = '--profile' in argv
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2916,6 +3606,9 @@ def main(argv):
     loose_single_phase(NCF_FULL, LOOSE_SINGLE_STEPS, 'cuda', smi)
     torch.cuda.empty_cache()
     loose_pair_phase(NCF_FULL, LOOSE_PAIR_STEPS, 'cuda', smi)
+    # this slice's path: the membership half of the loose plane (joins,
+    # exclusion, supervised restart, the epoch swap, serving readers)
+    loose_elastic_phase(NCF_FULL, ELASTIC_STEPS, 'cuda', smi)
 
     # K1-K3 at each head dim's main-path shape, with the launches of the
     # phase that gives the kernels that shape

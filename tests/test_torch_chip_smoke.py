@@ -637,3 +637,53 @@ def test_loose_pair_phase_at_small_width():
     lo, hi = chip_smoke.I8_PUSH_RATIO
     assert all(lo <= x <= hi for x in summary['push_ratio_first'])
     assert all(x < lo for x in summary['push_ratio_whole_run']['fresh'])
+
+
+# -- the loose plane's membership half -----------------------------------
+def test_loose_elastic_runs_in_main_after_the_pair_before_the_card_line():
+    calls, card_line = _main_call_lines()
+    assert calls['loose_pair_phase'] < calls['loose_elastic_phase'] \
+        < card_line
+
+
+def test_loose_elastic_phase_at_tiny_width():
+    """The five runs of ``loose_elastic`` (grow, exclude, restart, swap,
+    serve), each in worker processes of ``chip_smoke.py
+    --elastic-worker``, at NCF_SMALL on the CPU: their requirements hold
+    (three parties after the join and one armed boundary for all three
+    members, p2 excluded and its kept connection fenced, the replacement
+    under generation 1 at the published step, every table re-keyed bit
+    for bit at the swap's boundary, the served rows and dense values
+    equal to the PS at the pinned step), and their records carry what
+    the card's run prints."""
+    out = chip_smoke.loose_elastic_phase(chip_smoke.NCF_SMALL,
+                                         chip_smoke.ELASTIC_STEPS, 'cpu')
+    assert list(out) == list(chip_smoke.ELASTIC_RUNS)
+    grow = out['grow']
+    assert grow['replan']['world'] == 3 and grow['replan']['predicted']
+    assert [w['start_step'] for w in grow['workers']] == \
+        [0, 0, grow['workers'][2]['start_step']]
+    assert grow['workers'][2]['start_step'] >= chip_smoke.ELASTIC_JOIN_AT
+    assert all(w['examples_per_s_after_join'] > 0 for w in grow['workers'])
+    exc = out['exclude']
+    assert exc['zombie_write_refused'] is True
+    # the survivors' gate held until the exclusion: a heartbeat window
+    assert exc['kill_to_survivors_unblocked_s'] >= \
+        exc['heartbeat_timeout_s'] * 0.5
+    rst = out['restart']
+    assert rst['replacement']['generation'] == 1
+    assert rst['replacement']['start_step'] == chip_smoke.ELASTIC_KILL_AT - 1
+    assert rst['recovery_wall_s'] > 0
+    swap = out['swap']
+    init = chip_smoke.ncf_init(chip_smoke.NCF_SMALL)
+    assert swap['rekeyed_vars'] >= len(chip_smoke.NCF_TABLES)
+    assert swap['rekeyed_bytes'] >= sum(init[t].nbytes
+                                        for t in chip_smoke.NCF_TABLES)
+    assert min(swap['table_shards'].values()) > 1
+    assert 0 < swap['stage_to_arm_s'] <= swap['stage_to_ready_s']
+    srv = out['serve']
+    assert srv['rows_equal_pinned_step'] and srv['membership'] == [2, 2, 0]
+    assert srv['worker_steps'] == [chip_smoke.ELASTIC_STEPS] * 2
+    assert srv['lookups'] > 0 and srv['forwards'] > 0
+    assert 0 <= srv['row_cache_hit_rate'] <= 1
+

@@ -10,6 +10,7 @@ NaN, ±inf and rounding ties — the port encodes bf16 itself, without
 ``ml_dtypes``.
 """
 import os
+import select
 import threading
 import time
 
@@ -183,13 +184,21 @@ def test_vmget_retries_version_skew_between_chunks(coord, monkeypatch):
         if self is c and line.startswith('BGET skew/k'):
             seen.append(line)
             if len(seen) == 2 and not fired:
+                # vget writes both chunk requests before it reads a
+                # reply, and the service serves each connection on its
+                # own thread: hold the second request until the first
+                # chunk's reply is on the socket (the first chunk was
+                # served at the old version), then land the push, so the
+                # skew falls between the two chunk reads by construction
+                ready, _, _ = select.select([self._sock], [], [], 30.0)
+                assert ready, 'first chunk reply never arrived'
                 fired.append(True)
                 pusher.vadd('skew/k', np.ones(10, np.float32))
         return real_send(self, line, payload)
 
     monkeypatch.setattr(pcc.CoordClient, '_send_frame', send_with_one_push)
     np.testing.assert_array_equal(c.vget('skew/k', shape=(10,)), base + 1)
-    assert len(seen) > 2
+    assert fired and len(seen) > 2
 
 
 def test_stall_timeout_env_knob(coord, monkeypatch):

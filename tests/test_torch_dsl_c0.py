@@ -103,7 +103,7 @@ def world2():
         ('uneven_pad', 'torch_dsl_cases:matrix_regression',
          {'builder': 'UnevenPartitionedPS', 'd': 13}),
         ('ef', 'torch_dsl_cases:ef_residual', {}),
-        ('loose', 'torch_dsl_cases:loose_raises', {}),
+        ('loose', 'torch_dsl_cases:loose_policies', {}),
         ('load', 'torch_dsl_cases:load_roundtrip', {}),
     ])
 
@@ -244,9 +244,20 @@ def test_error_feedback_residual_is_per_replica(world2):
 
 
 def test_loose_mode_raises_naming_its_queue_item(world2):
-    for msg in world2['loose']:
-        assert msg is not None and \
-            'ROADMAP.md Queue 1: Loose-mode PS plane' in msg
+    """c0 at world 2 in loose mode (PS(staleness=2)), the ranks taking
+    their steps in turn: under the exclude policy, with no fault, each
+    rank's loss and the PS's W and b after both pushes equal the fail
+    run's bit for bit, and rank 0's loss is the lock-step c0 loss of
+    its share (it pulled the initial values)."""
+    runs = world2['loose']
+    for rank, run in enumerate(runs):
+        fail, exclude = run['fail'], run['exclude']
+        assert fail[:2] == ('LooseSession', 'fail')
+        assert exclude[:2] == ('LooseSession', 'exclude')
+        assert exclude[2:] == fail[2:], rank
+    # both pushes are on the PS, and both ranks read the same values
+    assert runs[0]['fail'][3:] == runs[1]['fail'][3:]
+    assert runs[0]['fail'][4] != 0.0
 
 
 def test_load_and_get_variable_value_of_sharded_state(world2):

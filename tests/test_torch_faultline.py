@@ -1,0 +1,379 @@
+"""The port's faultline (``autodist_tpu_torch/utils/faultline.py``)
+against ``tests/test_faultline.py``: FaultPlan validation, serialization
+and seeded generation, and every FaultLine fault kind fired at its exact
+protocol point through the port client's send hook, against a coord
+service of this module's own. Beside them: ``FaultPlan.random`` gives
+the JAX package's JSON for the same seed, and ``kill_worker`` fires at
+the exact published step when the publish comes from a loose session's
+depth-2 pipeline thread.
+"""
+import shutil
+import threading
+import time
+
+import numpy as np
+import pytest
+
+pytestmark = [
+    pytest.mark.chaos,
+    pytest.mark.skipif(shutil.which('g++') is None,
+                       reason='g++ unavailable'),
+]
+
+
+@pytest.fixture(scope='module')
+def coord():
+    from autodist_tpu_torch.runtime.coord_client import CoordClient
+    from autodist_tpu_torch.utils.loose_harness import (start_service,
+                                                        stop_service)
+    port, proc = start_service()
+    yield lambda **kw: CoordClient(('127.0.0.1', port), **kw)
+    stop_service(port, proc)
+
+
+@pytest.fixture(autouse=True)
+def _no_leaked_hook():
+    """A test that fails mid-FaultLine must not poison later tests."""
+    yield
+    from autodist_tpu_torch.runtime.coord_client import CoordClient
+    CoordClient.fault_hook = None
+
+
+@pytest.mark.parametrize('seed', [0, 7, 42, 1234])
+def test_random_plan_json_equals_the_jax_plan(seed):
+    from autodist_tpu.utils import faultline as jfl
+    from autodist_tpu_torch.utils import faultline as tfl
+    assert tfl.FAULT_KINDS == jfl.FAULT_KINDS
+    workers = ['p0', 'p1', 'p2']
+    for kinds in (('kill_worker',), tfl.FAULT_KINDS):
+        port = tfl.FaultPlan.random(seed, workers, 12, kinds=kinds)
+        jax = jfl.FaultPlan.random(seed, workers, 12, kinds=kinds)
+        assert port.to_json() == jax.to_json()
+        # and each package reads the other's plan
+        assert tfl.FaultPlan.from_json(jax.to_json()).faults == \
+            port.faults
+
+
+def test_kill_worker_fires_from_the_pipeline_thread(coord):
+    """At pipeline depth 2 the step publish rides the pipeline thread's
+    own connection: kill_worker(mode=raise) fires on that thread at
+    exactly the planned step, after the step's push landed and before
+    its publish, and the error surfaces on the next run."""
+    from autodist_tpu_torch.runtime.coord_client import CoordClient
+    from autodist_tpu_torch.utils.faultline import (FaultLine, FaultPlan,
+                                                    InjectedFault)
+    from test_torch_loose_session import _serial_ground_truth, port_session
+    port = coord().address[1]
+    plan = FaultPlan([{'kind': 'kill_worker', 'worker': 'p0',
+                       'step': 3, 'mode': 'raise'}])
+    threads = []
+    with FaultLine(plan, worker='p0') as fl:
+        hook = CoordClient.fault_hook
+
+        def tracing_hook(client, line, payload):
+            parts = line.split()
+            if parts[0] == 'INCR' and parts[1].endswith('/step/p0') \
+                    and parts[2] != '0':
+                threads.append(threading.current_thread().name)
+            return hook(client, line, payload)
+
+        CoordClient.fault_hook = tracing_hook
+        with port_session(port, 2) as (sess, train_op, x, _, W0, feed):
+            for _ in range(3):
+                sess.run(train_op, {x: feed})
+            with pytest.raises(InjectedFault, match='killed at step 3'):
+                sess.run(train_op, {x: feed})
+            published = sess.peer_step(0)
+            on_ps = coord().vget(sess._key('var/W'), shape=W0.shape)
+        CoordClient.fault_hook = hook
+    assert [e['kind'] for e in fl.events] == ['kill_worker']
+    # the three step publishes all came from the pipeline thread
+    assert threads[:3] == ['autodist-ps-xfer-0'] * 3
+    assert published == 2
+    # one worker, so the PS holds the serial walk of all three steps:
+    # step 3's push landed before its publish was cut
+    np.testing.assert_allclose(on_ps, _serial_ground_truth(W0, feed, 3),
+                               rtol=2e-4, atol=2e-5)
+
+
+# -- FaultPlan ---------------------------------------------------------------
+
+def test_plan_validates_kinds_and_fields():
+    from autodist_tpu_torch.utils.faultline import FaultPlan
+    with pytest.raises(ValueError, match='unknown fault kind'):
+        FaultPlan([{'kind': 'meteor_strike'}])
+    with pytest.raises(ValueError, match='missing field'):
+        FaultPlan([{'kind': 'kill_worker', 'worker': 'p1'}])
+    with pytest.raises(ValueError, match='1-based'):
+        FaultPlan([{'kind': 'drop_conn', 'match': 'BADD', 'at': 0}])
+
+
+def test_plan_json_round_trip_and_env(monkeypatch, tmp_path):
+    from autodist_tpu_torch.utils.faultline import FaultPlan
+    plan = FaultPlan([{'kind': 'kill_worker', 'worker': 'p2',
+                       'step': 3, 'mode': 'raise'}], seed=11)
+    again = FaultPlan.from_json(plan.to_json())
+    assert again.seed == 11 and again.faults == plan.faults
+    monkeypatch.setenv('AUTODIST_FAULT_PLAN', plan.to_json())
+    assert FaultPlan.from_env().faults == plan.faults
+    p = tmp_path / 'plan.json'
+    p.write_text(plan.to_json())
+    monkeypatch.setenv('AUTODIST_FAULT_PLAN', '@%s' % p)
+    assert FaultPlan.from_env().faults == plan.faults
+    monkeypatch.delenv('AUTODIST_FAULT_PLAN')
+    assert FaultPlan.from_env().faults == []
+
+
+def test_seeded_plans_are_deterministic():
+    from autodist_tpu_torch.utils.faultline import FAULT_KINDS, FaultPlan
+    a = FaultPlan.random(42, ['p0', 'p1', 'p2'], 10, kinds=FAULT_KINDS)
+    b = FaultPlan.random(42, ['p0', 'p1', 'p2'], 10, kinds=FAULT_KINDS)
+    assert a.to_json() == b.to_json()
+    c = FaultPlan.random(43, ['p0', 'p1', 'p2'], 10, kinds=FAULT_KINDS)
+    assert a.to_json() != c.to_json()
+    assert len(a.faults) == len(FAULT_KINDS)
+
+
+# -- FaultLine hook kinds ----------------------------------------------------
+
+def test_kill_worker_fires_at_exact_published_step(coord):
+    """kill_worker(mode=raise) fires the moment the worker's published
+    step counter would reach the planned step — not before."""
+    from autodist_tpu_torch.utils.faultline import (FaultLine, FaultPlan,
+                                              InjectedFault)
+    c = coord()
+    plan = FaultPlan([{'kind': 'kill_worker', 'worker': 'p1',
+                       'step': 3, 'mode': 'raise'}])
+    with FaultLine(plan, worker='p1') as fl:
+        c.publish_step('p1', 1, prefix='kf/step/')
+        c.publish_step('p1', 2, prefix='kf/step/')
+        with pytest.raises(InjectedFault, match='killed at step 3'):
+            c.publish_step('p1', 3, prefix='kf/step/')
+    # step 3 was never published (the fault fired before the frame)
+    assert c.incr('kf/step/p1', 0) == 2
+    assert [e['kind'] for e in fl.events] == ['kill_worker']
+
+
+def test_kill_worker_ignores_clean_close_release(coord):
+    """The CLEAN_CLOSE_STEP release (Session.close, or a survivor's
+    _exclude_peer publishing on the victim's behalf) satisfies any
+    'total >= step' bound but is NOT training progress: an unfired
+    kill_worker must not treat it as the worker reaching its death
+    step — it would kill a cleanly-finishing worker (or the SURVIVOR
+    doing the excluding) mid-shutdown."""
+    from autodist_tpu_torch.runtime.coord_client import CLEAN_CLOSE_STEP
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    c = coord()
+    plan = FaultPlan([{'kind': 'kill_worker', 'worker': 'p1',
+                       'step': 10, 'mode': 'raise'}])
+    with FaultLine(plan, worker='p1') as fl:
+        c.publish_step('p1', 2, prefix='kc/step/')   # run ends early
+        # clean close / exclusion release: must pass through unharmed
+        c.publish_step('p1', CLEAN_CLOSE_STEP, prefix='kc/step/')
+    assert c.incr('kc/step/p1', 0) == CLEAN_CLOSE_STEP
+    assert fl.events == []
+
+
+def test_drop_conn_at_nth_matching_frame(coord):
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    c = coord()
+    v = np.ones(8, np.float32)
+    plan = FaultPlan([{'kind': 'drop_conn', 'match': 'BADD dc/x',
+                       'at': 2}])
+    with FaultLine(plan) as fl:
+        c.vadd('dc/x', v)                      # 1st matching frame: ok
+        with pytest.raises(OSError, match='faultline: dropped'):
+            c.vadd('dc/x', v)                  # 2nd: dropped
+    assert len(fl.events) == 1
+    # the value reflects exactly one landed push
+    np.testing.assert_array_equal(coord().vget('dc/x', shape=(8,)), v)
+
+
+def test_close_conn_is_peer_visible(coord):
+    """close_conn kills the socket: the NEXT use of the same client
+    fails too (a real severed connection, not just one lost call)."""
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    c = coord()
+    plan = FaultPlan([{'kind': 'close_conn', 'match': 'SET cc/k'}])
+    with FaultLine(plan):
+        with pytest.raises(OSError, match='faultline: closed'):
+            c.set('cc/k', '1')
+    with pytest.raises(OSError):
+        c.ping()
+    assert coord().get('cc/k') is None
+
+
+def test_delay_conn_delays_matching_frame(coord):
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    c = coord()
+    c.vset('dl/x', np.ones(4, np.float32))
+    plan = FaultPlan([{'kind': 'delay_conn', 'match': 'BGET dl/x',
+                       'seconds': 0.4}])
+    with FaultLine(plan) as fl:
+        t0 = time.monotonic()
+        got = c.vget('dl/x', shape=(4,))
+        dt = time.monotonic() - t0
+    np.testing.assert_array_equal(got, np.ones(4, np.float32))
+    assert dt >= 0.4
+    assert fl.events[0]['kind'] == 'delay_conn'
+
+
+def test_torn_frame_leaves_died_mid_push_wreckage(coord, monkeypatch):
+    """torn_frame rewrites a whole-tensor push as an unfinished opening
+    chunk and kills the writer: a reader must surface the stalled-odd-
+    version error (the died-mid-push signature) instead of torn data,
+    and the writer's connection is dead afterwards."""
+    from autodist_tpu_torch.runtime.coord_client import CoordClient
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    monkeypatch.setattr(CoordClient, 'STALL_TIMEOUT_S', 0.3)
+    monkeypatch.setenv('AUTODIST_PS_TORN_RETRIES', '5')
+    w = coord()
+    reader = coord()
+    plan = FaultPlan([{'kind': 'torn_frame', 'match': 'BSET tf/x'}])
+    with FaultLine(plan) as fl:
+        w.vset('tf/x', np.arange(6, dtype=np.float32))  # torn mid-push
+        with pytest.raises(OSError, match='dead'):
+            w.vset('tf/x', np.arange(6, dtype=np.float32))
+    with pytest.raises(OSError, match='mid-flight'):
+        reader.vget('tf/x', shape=(12,))
+    assert fl.events[0]['kind'] == 'torn_frame'
+
+
+def test_disconnect_aborts_open_sequence(coord, monkeypatch):
+    """When the torn writer's connection actually DIES (process crash
+    closes the socket — the exclude/restart policies' died-mid-push
+    case), the service aborts its open sequence at disconnect: readers
+    proceed past even parity with the partial data (absorbed by the
+    staleness model) instead of wedging until a DELNS."""
+    from autodist_tpu_torch.runtime.coord_client import CoordClient
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    monkeypatch.setattr(CoordClient, 'STALL_TIMEOUT_S', 0.3)
+    w = coord()
+    reader = coord()
+    plan = FaultPlan([{'kind': 'torn_frame', 'match': 'BSET dc/x'}])
+    with FaultLine(plan):
+        w.vset('dc/x', np.arange(6, dtype=np.float32))  # torn mid-push
+    w.close()                    # the writer process is gone
+    deadline = time.time() + 5.0
+    while True:                  # service thread observes the EOF
+        try:
+            got = reader.vget('dc/x', shape=(12,))
+            break
+        except OSError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.05)
+    np.testing.assert_array_equal(got[:6],
+                                  np.arange(6, dtype=np.float32))
+    np.testing.assert_array_equal(got[6:], np.zeros(6, np.float32))
+
+
+def test_stalled_writer_is_slow_but_alive(coord, monkeypatch):
+    """stalled_writer holds a continuation chunk: a concurrent reader
+    sees the in-flight write (odd parity) but the generous stall window
+    keeps it waiting and the final assembly is exact — the
+    slow-but-alive case the stall timeout must NOT kill."""
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    monkeypatch.setenv('AUTODIST_PS_CHUNK_BYTES', '20')  # 5 f32/chunk
+    w = coord()
+    reader = coord()
+    val = np.arange(10, dtype=np.float32)
+    w.vset('sw/x', val)
+    plan = FaultPlan([{'kind': 'stalled_writer', 'match': 'BSET sw/x',
+                       'seconds': 0.5}])
+    got = {}
+
+    def read_during_stall():
+        time.sleep(0.15)   # land inside the writer's stall
+        got['val'] = reader.vget('sw/x', shape=(10,))
+
+    t = threading.Thread(target=read_during_stall)
+    with FaultLine(plan) as fl:
+        t.start()
+        t0 = time.monotonic()
+        w.vset('sw/x', val * 2)
+        stalled_for = time.monotonic() - t0
+        t.join(timeout=10.0)
+    assert stalled_for >= 0.5
+    assert fl.events[0]['kind'] == 'stalled_writer'
+    # the reader never saw a half-applied mix: old or new, whole
+    assert (np.array_equal(got['val'], val) or
+            np.array_equal(got['val'], val * 2))
+    np.testing.assert_array_equal(coord().vget('sw/x', shape=(10,)),
+                                  val * 2)
+
+
+def test_join_drop_fires_on_admit_claim(coord):
+    """join_drop defaults its match to the admit handshake's world-
+    claim frames ('join/'): the claim INCR raises OSError and nothing
+    lands — a dropped handshake, not a half-admitted ghost."""
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    c = coord()
+    plan = FaultPlan([{'kind': 'join_drop'}])
+    with FaultLine(plan) as fl:
+        with pytest.raises(OSError, match='join-handshake'):
+            c.incr('jd/join/world', 1)
+    assert fl.events[0]['kind'] == 'join_drop'
+    # the frame never hit the wire: the claim did not land
+    assert coord().incr('jd/join/world', 0) == 0
+
+
+def test_join_delay_delays_the_claim(coord):
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    c = coord()
+    plan = FaultPlan([{'kind': 'join_delay', 'seconds': 0.4}])
+    with FaultLine(plan) as fl:
+        t0 = time.monotonic()
+        assert c.incr('jl/join/world', 1) == 1
+        dt = time.monotonic() - t0
+    assert dt >= 0.4
+    assert fl.events[0]['kind'] == 'join_delay'
+
+
+def test_join_kill_mid_admit_windows_are_benign(coord, monkeypatch):
+    """join_kill(mode=raise) against the REAL admit handshake, in both
+    death windows. Before the epoch bump (killed at the slot claim):
+    an INVISIBLE leaked ordinal with no step counter — nothing of it
+    can reach any gate. After the bump (killed at the step publish): a
+    VISIBLE member with no step/beat, exactly the shape the never-beat
+    exclusion rule cleans up (full-stack in test_chaos_recovery). The
+    ordering guarantees there is no third shape — an invisible frozen
+    step counter would stall gates with no recovery path."""
+    from autodist_tpu_torch.runtime.loose_session import admit_worker
+    from autodist_tpu_torch.utils.faultline import (FaultLine, FaultPlan,
+                                              InjectedFault)
+    c = coord()
+    ns = 'jk'
+    c.set(ns + '/session/init-done', '1')
+    c.incr(ns + '/join/world', 2)
+    c.publish_step('p0', 4, prefix=ns + '/step/')
+    c.publish_step('p1', 4, prefix=ns + '/step/')
+    # window 1: killed AT the claim (2nd join/ frame = the +1 INCR):
+    # the claim never lands, nothing observable anywhere
+    plan = FaultPlan([{'kind': 'join_kill', 'mode': 'raise', 'at': 2}])
+    with FaultLine(plan, worker='px') as fl:
+        with pytest.raises(InjectedFault, match='mid-admit'):
+            admit_worker(coord(), ns)
+    assert fl.events[0]['kind'] == 'join_kill'
+    assert c.incr(ns + '/join/world', 0) == 2
+    assert c.incr(ns + '/epoch', 0) == 0
+    # window 2: killed at the step-adoption publish — AFTER the epoch
+    # bump: the claim landed and the member is visible, with no step
+    # counter and no beat (the excludable never-beat shape)
+    plan = FaultPlan([{'kind': 'join_kill', 'mode': 'raise',
+                       'match': ns + '/step/p2'}])
+    with FaultLine(plan) as fl:
+        with pytest.raises(InjectedFault, match='mid-admit'):
+            admit_worker(coord(), ns)
+    assert fl.events[0]['kind'] == 'join_kill'
+    assert c.incr(ns + '/join/world', 0) == 3
+    assert c.incr(ns + '/epoch', 0) == 1
+    assert c.incr(ns + '/step/p2', 0) == 0
+    assert c.incr('hb/%s/p2' % ns, 0) == 0
+
+
+def test_single_faultline_per_process():
+    from autodist_tpu_torch.utils.faultline import FaultLine, FaultPlan
+    with FaultLine(FaultPlan()):
+        with pytest.raises(RuntimeError, match='already installed'):
+            FaultLine(FaultPlan()).install()

@@ -5,9 +5,11 @@ be imported imports the port and ``chip_smoke.py`` and trains one step
 of a Transformer and one of a small ResNet through the fused conv +
 BatchNorm kernel's module on the CPU, one c0 step through the DSL
 (``autodist_tpu_torch.AutoDist``), NCF and LSTMLM through ``fit`` with
-prefetch and a checkpoint, restored into a fresh trainer, and two loose
-NCF steps on the bf16 wire; an AST scan finds no import of any of them
-in any of the port's files. The
+prefetch and a checkpoint, restored into a fresh trainer, two loose
+NCF steps on the bf16 wire, and imports the membership half's modules
+and round-trips a staged swap plan (whose pickle names the JAX
+package's classes) through them; an AST scan finds no import of any of
+them in any of the port's files. The
 scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
 name, never by prefix.
 """
@@ -81,6 +83,27 @@ try:
     assert len(losses) == 2 and stats['pull_bytes'] % 2 == 0
 finally:
     chip_smoke.stop_services(services)
+# the membership half: a staged plan names the JAX package's classes and
+# decodes into the port's without importing it
+from autodist_tpu_torch.parallel import reshard
+from autodist_tpu_torch.runtime import coordinator, swap_keys
+from autodist_tpu_torch.runtime.loose_session import admit_worker
+from autodist_tpu_torch.serving import RowCache, ServingFleet
+from autodist_tpu_torch.strategy.base import (PSSynchronizer, Strategy,
+                                              StrategyNode)
+from autodist_tpu_torch.telemetry import flight
+from autodist_tpu_torch.utils import faultline, profiling
+strat = Strategy('nojax')
+strat.node_config.append(StrategyNode(
+    var_name='w', synchronizer=PSSynchronizer(staleness=2)))
+payload = swap_keys.encode_plan(1, 2, strat)
+assert '"gen":1' in payload
+_, _, back = swap_keys.decode_plan(payload)
+assert type(back) is Strategy and back.to_dict() == strat.to_dict()
+plan = faultline.FaultPlan.random(3, ['p0', 'p1'], 5,
+                                  kinds=faultline.FAULT_KINDS)
+assert len(plan.faults) == len(faultline.FAULT_KINDS)
+flight.recorder().record('nojax', ok=True)
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                 ('jax', 'jaxlib', 'autodist_tpu', 'ml_dtypes') and
                 sys.modules[m])

@@ -15,6 +15,15 @@ it runs on the card's machine:
 
 With ``--basetemp=DIR`` the phase's records land in
 ``DIR/<test>/loose_pair_four.json``.
+
+The membership half across four cards (``chip_smoke``'s
+``loose_elastic`` grow and exclude runs, worker r on card r): three
+workers start and a fourth is admitted once they published step 5, after
+which every member's gate counts four parties and the four apply the
+chief's staged migration at one armed boundary; four workers start and
+p3 is killed at its publish of step 6 under the exclude policy, the
+three survivors finish their 15 steps, and a write through p3's kept
+connection is refused. Records in ``DIR/<test>/loose_elastic_four.json``.
 """
 import json
 import os
@@ -43,3 +52,22 @@ def test_loose_pair_four_workers_one_per_card(tmp_path):
             assert all(r['max_lag'] <= cs.LOOSE_STALENESS
                        for r in summary[kind][wire])
     assert len(summary['push_ratio_first']) == 4
+
+
+@pytest.mark.cuda
+def test_loose_elastic_grow_and_exclude_across_four_cards(tmp_path):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip('needs four CUDA cards')
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    out = cs.loose_elastic_phase(cs.NCF_FULL, cs.ELASTIC_STEPS, 'cuda',
+                                 runs=('grow', 'exclude'),
+                                 workers={'grow': 3, 'exclude': 4})
+    with open(tmp_path / 'loose_elastic_four.json', 'w') as f:
+        json.dump(out, f)
+    grow, exc = out['grow'], out['exclude']
+    assert grow['cohort'] == [3, 4] and len(grow['workers']) == 4
+    assert grow['replan']['world'] == 4
+    assert exc['victim'] == 'p3' and len(exc['survivors']) == 3
+    assert exc['zombie_write_refused'] is True
+

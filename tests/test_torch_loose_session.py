@@ -260,10 +260,19 @@ def test_depth2_records_overlap(coord_port):
                                                     ps_wire_report)
     with port_session(coord_port, 2, dim=256) as (
             sess, train_op, x, _, W0, feed):
+        def host_tail():
+            # long against the wire by construction: it lasts until the
+            # background push and pull-ahead are done, however slowly a
+            # loaded host schedules that thread
+            while not sess._inflight.done():
+                time.sleep(0.005)
+            time.sleep(0.01)
+
         sess.run(train_op, {x: feed})
         for _ in range(4):
-            time.sleep(0.05)                    # the host's tail
+            host_tail()
             sess.run(train_op, {x: feed})
+        host_tail()
         sess.get_variable_value('W')
         stats = sess.ps_stats
     rep = ps_overlap_report(stats)
@@ -310,14 +319,31 @@ def test_get_variable_value_drains_pipeline(coord_port):
                                    rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize('policy', ['exclude', 'restart'])
-def test_membership_policies_wait_for_the_second_half(coord_port,
-                                                      monkeypatch, policy):
+@pytest.mark.parametrize('policy', ['fail', 'exclude', 'restart'])
+def test_membership_policy_health_matches_jax(coord_port, monkeypatch,
+                                               policy):
+    """Every peer-failure policy starts (none raises any more), and a
+    port session's health record has the JAX session's keys and values
+    after the same two steps alone; the report renders the policy."""
+    from autodist_tpu_torch.utils.profiling import (format_health,
+                                                    health_report)
     monkeypatch.setenv('AUTODIST_PEER_FAILURE_POLICY', policy)
-    with pytest.raises(NotImplementedError,
-                       match='Loose-mode PS plane, its second half'):
-        with port_session(coord_port, 1):
-            pass
+    monkeypatch.setenv('AUTODIST_HEARTBEAT_TIMEOUT', '1')
+    got = {}
+    for name, session in (('port', port_session), ('jax', jax_session)):
+        with session(coord_port, 2) as (sess, train_op, x, _, W0, feed):
+            for _ in range(2):
+                sess.run(train_op, {x: feed})
+            got[name] = sess.health_stats
+    port, jax = got['port'], got['jax']
+    assert set(port) == set(jax)
+    for key in ('policy', 'generation', 'epoch', 'world', 'num_workers',
+                'active_workers', 'missed_beats', 'exclusions', 'rejoins',
+                'joins', 'replans', 'excluded', 'rejoining', 'joining'):
+        assert port[key] == jax[key], key
+    assert port['policy'] == policy
+    text = format_health(health_report(port))
+    assert text.startswith('policy=%s generation=0 epoch=0' % policy)
 
 
 def test_plan_loose_fields():

@@ -255,13 +255,20 @@ def test_tracker_records_mfu_regression():
     assert tr.regressions == 1
     ev = [e for e in flight.events if e['kind'] == 'mfu_regression'][0]
     assert ev['worker'] == 'p7' and ev['step'] == 7
-    # without a flight recorder the regression is counted and logged
+    # without a recorder of its own the regression lands in the
+    # process's flight recorder
+    from autodist_tpu_torch.telemetry import flight as fl
+    fl.reset()
     quiet = rl.RooflineTracker(peak_flops=1e14, every=1,
                                tel=Telemetry(enabled=False))
     for s in range(1, 7):
         quiet.observe_step(s, 1.0, cost=cost)
     quiet.observe_step(7, 4.0, cost=cost)
     assert quiet.regressions == 1 and quiet.snapshot()['samples'] == 7
+    ev = [e for e in fl.recorder().events()
+          if e['kind'] == 'mfu_regression']
+    assert len(ev) == 1 and ev[0]['step'] == 7
+    fl.reset()
 
 
 def test_memory_drift_classes_and_unavailable_path():

@@ -1,0 +1,640 @@
+"""The port's serving tier (``autodist_tpu_torch/serving``) against
+``tests/test_serving.py``: the LRU+TTL row cache under a fake clock, the
+read-only client mode, the non-voting reader admit, epoch-consistent
+snapshot pulls against a live trainer, and the fleet harness; the
+replicas hold their snapshots as CPU tensors here (``device='cpu'``).
+
+Beside them: the port's read-only verb set is the JAX client's, a port
+replica and a JAX replica pin the same snapshot bit for bit, and a real
+port loose session brackets its rounds with the snapshot parity a JAX
+reader pins. The live tests run on a coord service of this module's own;
+the emulated trainer drives the session's publish path with raw clients.
+Every comparison is bit for bit.
+"""
+import shutil
+import threading
+
+import numpy as np
+import pytest
+
+HAVE_GXX = shutil.which('g++') is not None
+
+
+# -- row cache (pure, no service) -----------------------------------------
+
+class _FakeClock:
+    def __init__(self):
+        self.t = 100.0
+
+    def __call__(self):
+        return self.t
+
+
+def test_row_cache_ttl_expiry_is_miss_and_expiration():
+    """An entry past the TTL is dropped at get() time and counted as
+    BOTH a miss and an expiration — the re-fetch re-inserts it with a
+    fresh stamp, so training's pushes keep reaching served values."""
+    from autodist_tpu_torch.serving import RowCache
+    clk = _FakeClock()
+    cache = RowCache(capacity_rows=8, ttl_s=5.0, clock=clk)
+    row = np.arange(4, dtype=np.float32)
+    cache.put('emb', 3, row)
+    np.testing.assert_array_equal(cache.get('emb', 3), row)
+    clk.t += 5.1
+    assert cache.get('emb', 3) is None
+    assert cache.expirations == 1
+    assert cache.misses == 1
+    assert cache.hits == 1
+    assert len(cache) == 0
+    # re-insert: fresh stamp, alive again
+    cache.put('emb', 3, row)
+    clk.t += 4.9
+    assert cache.get('emb', 3) is not None
+
+
+def test_row_cache_capacity_evicts_lru_not_hot():
+    """Past capacity the LEAST-recently-used row goes; a get() is a
+    touch, so the hot row survives insertions that evict its cohort."""
+    from autodist_tpu_torch.serving import RowCache
+    clk = _FakeClock()
+    cache = RowCache(capacity_rows=3, ttl_s=60.0, clock=clk)
+    for r in (0, 1, 2):
+        cache.put('emb', r, np.float32([r]))
+    cache.get('emb', 0)          # touch: 0 becomes most-recent
+    cache.put('emb', 3, np.float32([3]))   # evicts 1 (LRU), not 0
+    assert cache.evictions == 1
+    assert cache.get('emb', 0) is not None
+    assert cache.get('emb', 1) is None
+    assert cache.get('emb', 2) is not None
+    assert len(cache) == 3
+
+
+def test_row_cache_accounting_and_invalidate():
+    """hits/misses/hit_rate track exactly; invalidate_all flushes
+    wholesale and is counted apart from expirations (a snapshot bump
+    flushing warm rows and a TTL quietly expiring them are different
+    stories)."""
+    from autodist_tpu_torch.serving import RowCache
+    cache = RowCache(capacity_rows=16, ttl_s=60.0, clock=_FakeClock())
+    assert cache.get('emb', 0) is None            # miss
+    cache.put('emb', 0, np.float32([0]))
+    assert cache.get('emb', 0) is not None        # hit
+    assert cache.get('emb', 1) is None            # miss
+    assert cache.hit_rate == pytest.approx(1.0 / 3.0)
+    n = cache.invalidate_all()
+    assert n == 1 and cache.invalidations == 1
+    assert cache.expirations == 0
+    assert len(cache) == 0
+    assert cache.invalidate_all() == 0            # empty flush: no count
+    assert cache.invalidations == 1
+    stats = cache.stats()
+    assert stats['hits'] == 1 and stats['misses'] == 2
+    assert stats['capacity_rows'] == 16
+
+
+def test_row_cache_rejects_zero_capacity():
+    from autodist_tpu_torch.serving import RowCache
+    with pytest.raises(ValueError):
+        RowCache(capacity_rows=0)
+
+
+def test_percentile_nearest_rank():
+    from autodist_tpu_torch.serving.replica import _percentile
+    assert _percentile([], 99) == 0.0
+    assert _percentile([5.0], 50) == 5.0
+    xs = list(range(1, 102))
+    assert _percentile(xs, 50) == 51     # exact median of 1..101
+    assert _percentile(xs, 0) == 1
+    assert _percentile(xs, 100) == 101
+    assert _percentile([3.0, 1.0, 2.0], 50) == 2.0   # order-free
+
+
+# -- read-only client mode (pure parts) -----------------------------------
+
+def test_read_only_blocked_covers_fence():
+    """FENCE is blocked even though it mutates no tensor: a read-only
+    connection must never take writer generations."""
+    from autodist_tpu_torch.runtime.coord_client import READ_ONLY_BLOCKED
+    assert 'FENCE' in READ_ONLY_BLOCKED
+    for verb in ('SET', 'DEL', 'DELNS', 'INCR', 'BSET', 'BADD',
+                 'BSADD', 'BSTEP'):
+        assert verb in READ_ONLY_BLOCKED, verb
+
+
+# -- autoscale policy (pure) ----------------------------------------------
+
+def test_serving_autoscale_policy_triggers():
+    from autodist_tpu_torch.serving import serving_autoscale_policy
+    pol = serving_autoscale_policy(qps_per_replica_target=100.0,
+                                   p99_target_ms=50.0, grow_by=2)
+    # under both targets: no growth
+    assert pol({'serve_replicas': 2, 'serve_qps': 150.0,
+                'serve_p99_ms': 10.0}, 2) is None
+    # per-replica QPS pressure
+    assert pol({'serve_replicas': 2, 'serve_qps': 300.0,
+                'serve_p99_ms': 10.0}, 2) == 4
+    # latency pressure alone suffices
+    assert pol({'serve_replicas': 2, 'serve_qps': 10.0,
+                'serve_p99_ms': 80.0}, 2) == 4
+    # missing signals are ignored, not guessed
+    assert pol({}, 3) is None
+    nop = serving_autoscale_policy()
+    assert nop({'serve_qps': 1e9, 'serve_p99_ms': 1e9}, 1) is None
+
+
+# -- health report formatting (pure) --------------------------------------
+
+def test_health_report_serving_section():
+    from autodist_tpu_torch.utils import profiling
+    srv = {'replicas': 2, 'qps': 120.0, 'lookup_p50_ms': 1.2,
+           'lookup_p99_ms': 4.5, 'staleness_steps': 1,
+           'staleness_bound_steps': 8, 'staleness_violations': 0,
+           'row_cache_hit_rate': 0.75, 'wire_bytes': 3 << 20}
+    hs = {'policy': 'fail'}   # health_report is loose-mode-only
+    report = profiling.health_report(hs, serving=srv)
+    assert report['serving']['replicas'] == 2
+    text = profiling.format_health(report)
+    assert 'serving: 2 replica(s)' in text
+    assert 'STALENESS' not in text
+    srv['staleness_violations'] = 3
+    text = profiling.format_health(profiling.health_report(
+        hs, serving=srv))
+    assert 'STALENESS VIOLATIONS' in text
+    # no fleet: section stays silent
+    assert 'serving:' not in profiling.format_health(
+        profiling.health_report(hs))
+
+
+# -- live coord service ----------------------------------------------------
+
+@pytest.fixture(scope='module')
+def coord():
+    if not HAVE_GXX:
+        pytest.skip('g++ unavailable')
+    from autodist_tpu_torch.utils.loose_harness import (start_service,
+                                                        stop_service)
+    port, proc = start_service()
+    yield port
+    stop_service(port, proc)
+
+
+class _Trainer:
+    """Raw-client emulation of the loose session's publish path: the
+    seqlock round (``LooseSession._snap_round_open/_close``) around pushes
+    and ``publish_step`` — one writer ordinal on the plane."""
+
+    def __init__(self, port, ns, ordinal=0):
+        from autodist_tpu_torch.runtime.coord_client import CoordClient
+        self.c = CoordClient(('127.0.0.1', port))
+        self.ns = ns
+        self.worker = 'p%d' % ordinal
+        self.step = 0
+
+    def init_plane(self, dense, sparse=None):
+        """Claim the ordinal, seed the variables, raise init-done —
+        the admit legality condition readers wait on."""
+        self.c.incr('%s/join/world' % self.ns, 1)
+        for name, arr in dense.items():
+            self.c.vset('%s/var/%s' % (self.ns, name), arr)
+        for name, arr in (sparse or {}).items():
+            self.c.vset('%s/var/%s' % (self.ns, name), arr)
+        self.c.set('%s/session/init-done' % self.ns, '1')
+
+    def _snap_key(self):
+        return '%s/snap/%s' % (self.ns, self.worker)
+
+    def open_round(self):
+        if self.c.incr(self._snap_key(), 1) & 1 == 0:
+            self.c.incr(self._snap_key(), 1)   # normalize stale odd
+
+    def close_round(self):
+        if self.c.incr(self._snap_key(), 1) & 1:
+            self.c.incr(self._snap_key(), 1)
+
+    def publish(self, step=None):
+        self.step = self.step + 1 if step is None else step
+        self.c.publish_step(self.worker, self.step,
+                            prefix='%s/step/' % self.ns)
+
+    def round(self, dense=None, sparse_add=None):
+        """One full publish round: parity odd -> pushes -> publish ->
+        parity even."""
+        self.open_round()
+        for name, arr in (dense or {}).items():
+            self.c.vset('%s/var/%s' % (self.ns, name), arr)
+        for name, (idx, rows) in (sparse_add or {}).items():
+            self.c.vsadd('%s/var/%s' % (self.ns, name), idx, rows)
+        self.publish()
+        self.close_round()
+
+    def close(self):
+        self.c.close()
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+def test_read_only_client_blocks_every_mutating_verb(coord):
+    """each mutating command raises ReadOnlyViolation
+    LOCALLY (no wire round trip to find out), delta-0 INCR (the
+    plane's counter read, fence-exempt in the service for the same
+    reason) and all reads pass."""
+    from autodist_tpu_torch.runtime.coord_client import (CoordClient,
+                                                   ReadOnlyViolation)
+    w = CoordClient(('127.0.0.1', coord))
+    ro = CoordClient(('127.0.0.1', coord), read_only=True)
+    try:
+        w.vset('rotest/var/v', np.arange(6, dtype=np.float32))
+        w.set('rotest/k', 'x')
+        w.incr('rotest/ctr', 7)
+        # every blocked verb, via its client-side surface
+        t = np.zeros(4, np.float32)
+        for call in (lambda: ro.set('rotest/k', 'y'),
+                     lambda: ro.delete('rotest/k'),
+                     lambda: ro.delete_namespace('rotest/'),
+                     lambda: ro.incr('rotest/ctr', 1),
+                     lambda: ro.incr('rotest/ctr', -1),
+                     lambda: ro.vset('rotest/var/v', t),
+                     lambda: ro.vadd('rotest/var/v', t),
+                     lambda: ro.vsadd('rotest/var/v',
+                                      np.int32([0]), t.reshape(1, 4)),
+                     lambda: ro.fence('fence/rotest/p0', 1),
+                     lambda: ro.publish_step('p9', 3,
+                                             prefix='rotest/step/')):
+            with pytest.raises(ReadOnlyViolation):
+                call()
+        # reads and delta-0 counter reads pass
+        assert ro.get('rotest/k') == 'x'
+        assert ro.incr('rotest/ctr', 0) == 7
+        got = ro.vmget([('rotest/var/v', (6,))])[0]
+        np.testing.assert_array_equal(got,
+                                      np.arange(6, dtype=np.float32))
+        ro.ping()   # raises if anything but PONG comes back
+        # nothing leaked through: the counter is untouched
+        assert w.incr('rotest/ctr', 0) == 7
+    finally:
+        w.close()
+        ro.close()
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+def test_admit_reader_is_invisible_to_membership(coord):
+    """Readers claim serve/world ordinals and heartbeat on the serve
+    prefix — live_members_on_plane (the quorum/exclusion definition)
+    must not move by one bit."""
+    from autodist_tpu_torch.runtime.coord_client import CoordClient
+    from autodist_tpu_torch.runtime.loose_session import (admit_reader,
+                                              live_members_on_plane)
+    ns = 'adminv'
+    tr = _Trainer(coord, ns)
+    ctl = CoordClient(('127.0.0.1', coord))
+    try:
+        tr.init_plane({'w': np.ones(3, np.float32)})
+        before = live_members_on_plane(tr.c, ns)
+        a0 = admit_reader(ctl, ns, wait_init_s=5.0)
+        a1 = admit_reader(ctl, ns, wait_init_s=5.0)
+        assert (a0['reader'], a1['reader']) == ('r0', 'r1')
+        assert a1['serve_world'] == 2
+        assert live_members_on_plane(tr.c, ns) == before == (1, 1, 0)
+        # the serve heartbeat landed on the serve prefix only
+        assert ctl.beat_count('serve/%s/r0' % ns) >= 1
+        assert ctl.beat_count('%s/r0' % ns) == 0
+    finally:
+        tr.close()
+        ctl.close()
+
+
+def _mk_replica(port, ns, **kw):
+    from autodist_tpu_torch.serving import ServingReplica
+    kw.setdefault('address', ('127.0.0.1', port))
+    kw.setdefault('device', 'cpu')
+    return ServingReplica(ns, **kw).connect(deadline_s=10.0)
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+def test_snapshot_pull_is_epoch_consistent_and_bit_exact(coord):
+    """The seqlock protocol end to end: the replica pulls the
+    published state bit-exactly, refuses to pull mid-round (odd
+    parity), and never regresses to an older floor."""
+    ns = 'snapbit'
+    tr = _Trainer(coord, ns)
+    w1 = np.random.RandomState(0).randn(8, 3).astype(np.float32)
+    w2 = np.random.RandomState(1).randn(5).astype(np.float32)
+    replica = None
+    try:
+        tr.init_plane({'a': w1, 'b': w2})
+        tr.round(dense={'a': w1, 'b': w2})          # publish step 1
+        replica = _mk_replica(coord, ns,
+                              dense_vars={'a': w1.shape, 'b': w2.shape},
+                              poll_s=0.01, snapshot_retries=3)
+        assert replica.refresh() is True
+        assert replica.snapshot.step == 1
+        np.testing.assert_array_equal(replica.snapshot.values['a'], w1)
+        np.testing.assert_array_equal(replica.snapshot.values['b'], w2)
+        assert replica.refresh() is False            # no new floor
+        # mid-round: parity odd, the replica must keep the old
+        # snapshot (retries exhaust, zero torn bytes accepted)
+        tr.open_round()
+        tr.c.vset('%s/var/a' % ns, w1 * 2)
+        assert replica.refresh() is False
+        assert replica.snapshot.step == 1
+        np.testing.assert_array_equal(replica.snapshot.values['a'], w1)
+        assert replica.snapshot_rejects >= 1
+        # round completes: the new state is served, bit-exact
+        tr.c.vset('%s/var/b' % ns, w2 * 3)
+        tr.publish()
+        tr.close_round()
+        assert replica.refresh() is True
+        assert replica.snapshot.step == 2
+        np.testing.assert_array_equal(replica.snapshot.values['a'],
+                                      w1 * 2)
+        np.testing.assert_array_equal(replica.snapshot.values['b'],
+                                      w2 * 3)
+        assert replica.snapshot_pulls == 2
+        assert replica.wire_bytes > 0
+        # forward() runs against the pinned view
+        tot = replica.forward(
+            lambda vals: float(vals['a'].sum() + vals['b'].sum()))
+        assert tot == pytest.approx(float((w1 * 2).sum()
+                                          + (w2 * 3).sum()))
+    finally:
+        tr.close()
+        if replica is not None:
+            replica.close()
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+def test_crashed_writer_grows_staleness_never_blocks(coord):
+    """A writer dying mid-round leaves its parity odd: the replica
+    keeps serving the previous snapshot and GRADES itself against the
+    staleness bound (the documented trade — a reader never blocks
+    training, training's failure handling bounds reader staleness)."""
+    ns = 'snapstale'
+    tr = _Trainer(coord, ns)
+    w = np.ones(4, np.float32)
+    replica = None
+    try:
+        tr.init_plane({'w': w})
+        tr.round(dense={'w': w})                     # step 1
+        replica = _mk_replica(coord, ns, dense_vars={'w': w.shape},
+                              snapshot_retries=2, staleness_bound=0)
+        assert replica.refresh() is True
+        # the writer opens round 2, publishes step 2, then "crashes"
+        # before closing: parity stuck odd, floor advanced
+        tr.open_round()
+        tr.c.vset('%s/var/w' % ns, w * 9)
+        tr.publish()
+        assert replica.refresh() is False
+        assert replica.snapshot.step == 1            # old state held
+        np.testing.assert_array_equal(replica.snapshot.values['w'], w)
+        assert replica.staleness_steps == 1
+        assert replica.staleness_max_steps == 1
+        assert replica.staleness_violations >= 1     # bound was 0
+        stats = replica.serve_stats()
+        assert stats['staleness_steps'] == 1
+        assert stats['staleness_bound_steps'] == 0
+    finally:
+        tr.close()
+        if replica is not None:
+            replica.close()
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+def test_row_lookup_bit_exact_after_sparse_push_and_bump(coord):
+    """hot rows served from cache are
+    bit-exact against a direct vmgetrows after a concurrent sparse
+    push, because the dense snapshot bump flushes the cache."""
+    ns = 'rowbit'
+    tr = _Trainer(coord, ns)
+    table = np.arange(32, dtype=np.float32).reshape(16, 2)
+    dense = np.float32([1.0])
+    replica = None
+    try:
+        tr.init_plane({'d': dense}, sparse={'emb': table})
+        tr.round()                                   # publish step 1
+        replica = _mk_replica(coord, ns, dense_vars={'d': dense.shape},
+                              sparse_vars={'emb': table.shape},
+                              poll_s=0.01)
+        replica.refresh()
+        idx = np.int32([3, 7, 3, 11])
+        got = replica.lookup('emb', idx)
+        np.testing.assert_array_equal(got, table[idx])
+        # warm: same rows now hit the cache (3 unique rows fetched,
+        # one repeat already deduped on the first call)
+        got = replica.lookup('emb', idx)
+        np.testing.assert_array_equal(got, table[idx])
+        assert replica.row_cache.hits > 0
+        # a sparse push lands inside the next round; the snapshot
+        # bump flushes the cache so served rows track the plane
+        delta = np.full((2, 2), 0.5, np.float32)
+        tr.round(sparse_add={'emb': (np.int32([3, 7]), delta)})
+        assert replica.refresh() is True
+        assert replica.row_cache.invalidations >= 1
+        got = replica.lookup('emb', idx)
+        expect = table.copy()
+        expect[[3, 7]] += 0.5
+        np.testing.assert_array_equal(got, expect[idx])
+        # ground truth: a direct uncached read off the plane
+        direct = tr.c.vgetrows('%s/var/emb' % ns,
+                               np.unique(idx), table.shape[1])
+        np.testing.assert_array_equal(direct,
+                                      expect[np.unique(idx)])
+        assert replica.rows_served == 12
+        assert replica.serve_stats()['lookup_p99_ms'] >= 0.0
+    finally:
+        tr.close()
+        if replica is not None:
+            replica.close()
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+def test_fleet_serves_while_training_and_reader_death_is_free(coord):
+    """The acceptance shape in miniature: a trainer keeps publishing
+    while a 2-replica fleet refreshes and answers; killing one
+    replica mid-service neither stalls the trainer nor dents
+    membership, and the fleet's stats aggregate for format_health."""
+    from autodist_tpu_torch.runtime.loose_session import live_members_on_plane
+    from autodist_tpu_torch.serving import ServingFleet
+    from autodist_tpu_torch.utils import profiling
+    ns = 'fleetns'
+    tr = _Trainer(coord, ns)
+    table = np.arange(24, dtype=np.float32).reshape(12, 2)
+    w = np.zeros(6, np.float32)
+    try:
+        tr.init_plane({'w': w}, sparse={'emb': table})
+        tr.round(dense={'w': w + 1})
+        with ServingFleet(ns, address=('127.0.0.1', coord),
+                          dense_vars={'w': w.shape},
+                          sparse_vars={'emb': table.shape},
+                          poll_s=0.01, device='cpu') as fleet:
+            r0 = fleet.add_replica(connect_deadline_s=10.0)
+            r1 = fleet.add_replica(connect_deadline_s=10.0)
+            assert (r0.name, r1.name) == ('r0', 'r1')
+            assert fleet.live_replicas() == 2
+            fleet.refresh_all()
+            # interleave training and serving
+            stop = threading.Event()
+            def trainer_loop():
+                while not stop.is_set():
+                    tr.round(dense={'w': w + tr.step + 2})
+            t = threading.Thread(target=trainer_loop, daemon=True)
+            t.start()
+            try:
+                for _ in range(20):
+                    out = fleet.lookup('emb', np.int32([1, 5, 9]))
+                    np.testing.assert_array_equal(
+                        out, table[np.int32([1, 5, 9])])
+                fleet.refresh_all()
+            finally:
+                stop.set()
+                t.join(timeout=10)
+            # a replica dies mid-service: the trainer keeps going and
+            # the membership plane never knew the reader existed
+            r1.close()
+            before = tr.step
+            tr.round(dense={'w': w})
+            assert tr.step == before + 1
+            assert live_members_on_plane(tr.c, ns) == (1, 1, 0)
+            # the survivor still serves
+            out = fleet.replicas[0].lookup('emb', np.int32([2]))
+            np.testing.assert_array_equal(out, table[np.int32([2])])
+            stats = fleet.stats()
+            assert stats['replicas'] == 2
+            assert stats['lookups'] >= 21
+            assert stats['mixed_version_reads'] == 0
+            assert stats['snapshot_pulls'] >= 2
+            metrics = fleet.metrics()
+            assert metrics['serve_replicas'] == 2
+            assert 'serve_qps' in metrics
+            text = profiling.format_health(
+                profiling.health_report({'policy': 'fail'},
+                                        serving=fleet.stats()))
+            assert 'serving: 2 replica(s)' in text
+    finally:
+        tr.close()
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+def test_fleet_scale_up_via_autoscale_contract(coord):
+    """ServingFleet.scale_up honors the AutoscaleController contract:
+    returns the list actually started, and live_replicas resyncs."""
+    from autodist_tpu_torch.serving import ServingFleet
+    ns = 'fleetgrow'
+    tr = _Trainer(coord, ns)
+    try:
+        tr.init_plane({'w': np.zeros(2, np.float32)})
+        tr.round()
+        with ServingFleet(ns, address=('127.0.0.1', coord),
+                          dense_vars={'w': (2,)}, poll_s=0.01,
+                          device='cpu') as fleet:
+            started = fleet.scale_up(2)
+            assert len(started) == 2
+            assert fleet.live_replicas() == 2
+            assert [r.name for r in started] == ['r0', 'r1']
+    finally:
+        tr.close()
+
+
+def test_read_only_blocked_set_is_the_jax_set():
+    from autodist_tpu.runtime.coord_client import \
+        READ_ONLY_BLOCKED as JAX_BLOCKED
+    from autodist_tpu_torch.runtime.coord_client import READ_ONLY_BLOCKED
+    assert set(READ_ONLY_BLOCKED) == set(JAX_BLOCKED)
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+def test_port_and_jax_replicas_pin_the_same_snapshot(coord):
+    from autodist_tpu.serving import ServingReplica as JaxReplica
+    ns = 'snapboth'
+    tr = _Trainer(coord, ns)
+    a = np.random.RandomState(3).randn(6, 4).astype(np.float32)
+    table = np.random.RandomState(4).randn(10, 3).astype(np.float32)
+    port_r = jax_r = None
+    try:
+        tr.init_plane({'a': a}, sparse={'emb': table})
+        tr.round(dense={'a': a * 2})
+        port_r = _mk_replica(coord, ns, dense_vars={'a': a.shape},
+                             sparse_vars={'emb': table.shape})
+        jax_r = JaxReplica(ns, dense_vars={'a': a.shape},
+                           sparse_vars={'emb': table.shape},
+                           address=('127.0.0.1', coord)).connect(
+                               deadline_s=10.0)
+        assert port_r.refresh() and jax_r.refresh()
+        assert port_r.snapshot.step == jax_r.snapshot.step == 1
+        np.testing.assert_array_equal(
+            port_r.snapshot.values['a'].numpy(), jax_r.snapshot.values['a'])
+        idx = np.int32([0, 9, 4, 4])
+        np.testing.assert_array_equal(port_r.lookup('emb', idx),
+                                      jax_r.lookup('emb', idx))
+        # the two readers took consecutive serve ordinals
+        assert {port_r.name, jax_r.name} == {'r0', 'r1'}
+    finally:
+        tr.close()
+        for r in (port_r, jax_r):
+            if r is not None:
+                r.close()
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+@pytest.mark.parametrize('depth', [1, 2])
+def test_port_session_rounds_carry_snapshot_parity(coord, depth):
+    """A real port loose session brackets every push-and-publish round
+    with its parity counter: after each landed step the counter is
+    even and has moved by two, and a JAX reader pins the session's
+    published step with W equal to the PS copy bit for bit."""
+    from autodist_tpu.serving import ServingReplica as JaxReplica
+    from autodist_tpu_torch.runtime.coord_client import CoordClient
+    from test_torch_loose_session import port_session
+    c = CoordClient(('127.0.0.1', coord))
+    with port_session(coord, depth) as (sess, train_op, x, _, W0, feed):
+        reader = JaxReplica(sess._ns, dense_vars={'W': W0.shape},
+                            address=('127.0.0.1', coord)).connect(
+                                deadline_s=10.0)
+        try:
+            parities = []
+            for step in range(1, 4):
+                sess.run(train_op, {x: feed})
+                w = sess.get_variable_value('W')   # the round landed
+                parities.append(c.incr(sess._key('snap/p0'), 0))
+                assert reader.refresh() is True
+                assert reader.snapshot.step == step
+                np.testing.assert_array_equal(
+                    reader.snapshot.values['W'], w)
+            assert parities == [2, 4, 6]
+        finally:
+            reader.close()
+    c.close()
+
+
+@pytest.mark.skipif(not HAVE_GXX, reason='g++ unavailable')
+def test_refresh_racing_close_raises_the_connection_error(coord):
+    """A refresh that waits on the replica's lock while another thread
+    closes it raises the connection error the serve loop retries on,
+    not an AttributeError on the closed client (which killed the serve
+    thread)."""
+    import time
+    ns = 'racens'
+    tr = _Trainer(coord, ns)
+    try:
+        tr.init_plane({'w': np.ones(2, np.float32)})
+        tr.round()
+        replica = _mk_replica(coord, ns, dense_vars={'w': (2,)})
+        errors = []
+
+        def refresh():
+            try:
+                replica.refresh()
+            except Exception as e:  # noqa: BLE001 - inspected below
+                errors.append(e)
+
+        replica._lock.acquire()
+        t = threading.Thread(target=refresh)
+        t.start()
+        time.sleep(0.2)          # the refresh now waits on the lock
+        clients = (replica._data, replica._ctl)
+        replica._data = replica._ctl = None      # close() under the lock
+        replica._lock.release()
+        t.join(timeout=10.0)
+        for c in clients:
+            c.close()
+        assert len(errors) == 1 and isinstance(errors[0], OSError), errors
+    finally:
+        tr.close()

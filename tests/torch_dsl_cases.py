@@ -105,19 +105,58 @@ def ef_residual(rank, world):
     return autodist._session._aux_state['compressor/W']['residual'].numpy()
 
 
-def loose_raises(rank, world):
-    """The message a relaxed-consistency PS strategy across processes
-    raises with under a peer-failure policy of the loose plane's second
-    half (membership changes are not ported); it raises before any
-    coord service is brought up."""
-    os.environ['AUTODIST_PEER_FAILURE_POLICY'] = 'exclude'
+def loose_policies(rank, world):
+    """c0 under PS(staleness=2) in loose mode across the group, once
+    under each of the ``fail`` and ``exclude`` peer-failure policies
+    with no fault: {policy: (session type, health policy, loss, W, b)}.
+    Rank 0 takes its step first and its push lands before rank 1 pulls,
+    so both runs make the same pushes in the same order; W and b are
+    read off the PS after both. Rank 0 starts a coord service of its own
+    on a free port and shuts it down after."""
+    import torch.distributed as dist
+    from autodist_tpu_torch.runtime.coord_client import CoordClient
+    from torch_dsl_worlds import free_port
+    box = [free_port() if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    knobs = ('AUTODIST_COORD_SERVICE_ADDR', 'AUTODIST_PEER_FAILURE_POLICY')
+    os.environ['AUTODIST_COORD_SERVICE_ADDR'] = '127.0.0.1:%d' % box[0]
+    np.random.seed(123)
+    inputs = np.random.randn(1000)
+    noises = np.random.randn(1000)
+    outputs = inputs * 3.0 + 2.0 + noises
+    out = {}
     try:
-        cs.run_linear_regression(fresh(ad.PS(staleness=2), world))
-    except NotImplementedError as e:
-        return str(e)
+        for policy in ('fail', 'exclude'):
+            os.environ['AUTODIST_PEER_FAILURE_POLICY'] = policy
+            autodist = fresh(ad.PS(staleness=2), world)
+            with autodist.scope():
+                x = ad.placeholder(shape=[None], dtype=np.float32, name='x')
+                y = ad.placeholder(shape=[None], dtype=np.float32, name='y')
+                W = ad.Variable(5.0, name='W')
+                b = ad.Variable(0.0, name='b')
+                loss = ad.ops.reduce_mean(ad.ops.square(W * x + b - y))
+                train_op = ad.optimizers.SGD(0.01).minimize(loss, [W, b])
+                sess = autodist.create_distributed_session()
+            feed = {x: cs.local_slice(inputs, rank, world),
+                    y: cs.local_slice(outputs, rank, world)}
+            for turn in range(world):
+                if turn == rank:
+                    loss_val = float(sess.run([loss, train_op], feed)[0])
+                    sess.get_variable_value('W')    # the push landed
+                dist.barrier()
+            out[policy] = (type(sess).__name__,
+                           sess.health_stats['policy'], loss_val,
+                           float(sess.get_variable_value('W')),
+                           float(sess.get_variable_value('b')))
+            dist.barrier()
+            sess.close()
     finally:
-        del os.environ['AUTODIST_PEER_FAILURE_POLICY']
-    return None
+        for k in knobs:
+            os.environ.pop(k, None)
+        dist.barrier()
+        if rank == 0:
+            CoordClient(('127.0.0.1', box[0])).shutdown()
+    return out
 
 
 # -- test_model_cases.py: c4, c6, CNN --------------------------------------
