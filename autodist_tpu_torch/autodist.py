@@ -26,6 +26,17 @@ control plane that carries it (:meth:`AutoDist._ensure_control_plane`)
 also carries the strategy from the chief to the workers whenever the
 run names its coord service (``AUTODIST_COORD_SERVICE_ADDR``) and no
 group is formed yet.
+
+Who starts the processes: a launcher (``python -m
+autodist_tpu_torch.launch``, torchrun, or the caller setting
+``AUTODIST_PROCESS_ID`` / ``AUTODIST_NUM_PROCESSES``), or the chief
+itself. A spec of more than one node in a process no launcher started
+makes that process the chief, rank 0 of one process per node: it
+brings up the coord service, builds and serializes the strategy, and
+re-runs its own script on every other node over ssh
+(:class:`~autodist_tpu_torch.runtime.coordinator.Coordinator`, JAX
+``autodist.py:306-320``). Those workers (``AUTODIST_WORKER`` set) load
+the strategy the chief shipped by ``AUTODIST_STRATEGY_ID``.
 """
 import atexit
 import base64
@@ -113,6 +124,7 @@ class AutoDist:
             os.environ.get('WORLD_SIZE') is not None or \
             (dist.is_available() and dist.is_initialized())
         self._coord = None   # coord-service client (loose mode)
+        self._coordinator = None   # the chief's ssh launcher
         self._fn_cache = {}
 
     # -- capture -----------------------------------------------------------
@@ -141,6 +153,11 @@ class AutoDist:
             s.serialize()
         if world == 1:
             return s
+        if rank and ENV.AUTODIST_STRATEGY_ID.val:
+            # a worker the chief launched: the chief shipped the file
+            # (JAX ``autodist.py:133-136``)
+            return strategy_base.Strategy.deserialize(
+                ENV.AUTODIST_STRATEGY_ID.val)
         if self._coord is not None:
             if rank == 0:
                 blob = base64.b64encode(json.dumps(
@@ -189,7 +206,10 @@ class AutoDist:
                 proc = cc.ensure_service(ep_port, bind=bind)
                 if proc is not None and not self._ext_launched:
                     atexit.register(proc.terminate)
-        if not self._ext_launched:
+        if not self._ext_launched or ENV.AUTODIST_STRATEGY_ID.val:
+            # the chief that launches its own workers and the workers it
+            # launched (they carry the strategy's id) meet at no init
+            # barrier: the workers start after the chief passed here
             return
         ns = ENV.AUTODIST_RUN_ID.val
         if rank == 0:
@@ -248,15 +268,29 @@ class AutoDist:
             return False
         return all(s.staleness > 0 or not s.sync for s in ps)
 
+    def _launches_workers(self):
+        """True in the chief of a spec of more than one node that no
+        launcher started: it launches the other processes itself."""
+        return len(list(self._resource_spec.nodes)) > 1 and \
+            not self._ext_launched and not ENV.AUTODIST_WORKER.val
+
+    def _setup(self, strategy):
+        """The chief's worker launch (JAX ``autodist.py:306-320``): a
+        :class:`Coordinator` re-runs this script on every other node,
+        before a lock-step run forms its group (the group forms only
+        once every rank dials in); its ``terminate`` runs at exit."""
+        from autodist_tpu_torch.runtime.coordinator import Coordinator
+        self._coordinator = Coordinator(strategy, self._resource_spec,
+                                        self._cluster)
+        self._coordinator.launch_clients()
+        atexit.register(self._coordinator.terminate)
+
     def _build(self):
-        nodes = list(self._resource_spec.nodes)
-        if len(nodes) > 1 and not self._ext_launched:
-            raise NotImplementedError(
-                'a spec of %d nodes asks the chief to launch the workers '
-                'over ssh: the Coordinator launch is not ported yet '
-                '(ROADMAP.md Queue 1: Loose-mode PS plane); start one '
-                'process per device yourself (AUTODIST_PROCESS_ID / '
-                'AUTODIST_NUM_PROCESSES, or torchrun)' % len(nodes))
+        launching = self._launches_workers()
+        if launching:
+            from autodist_tpu_torch.runtime.coordinator import \
+                claim_chief_identity
+            claim_chief_identity(self._resource_spec)
         world, rank = world_and_rank()
         resolver = DeviceResolver(self._resource_spec, world,
                                   self._device.type)
@@ -265,7 +299,7 @@ class AutoDist:
             # NCCL (and broadcast_object_list on it) works on the
             # current device: each rank on its own card
             torch.cuda.set_device(device)
-        if self._uses_control_plane(world):
+        if launching or self._uses_control_plane(world):
             self._ensure_control_plane(rank, world)
         else:
             world, rank = self._cluster.start(device.type)
@@ -276,6 +310,8 @@ class AutoDist:
             '0-original-capture')
         strategy = self._build_or_load_strategy(world, rank)
         viz.log_text(strategy, '1-strategy')
+        if launching:
+            self._setup(strategy)
         compiler = strategy_base.StrategyCompiler(self._original_graph_item)
         # prune before the mode decision: nodes of variables this graph
         # does not have must not decide it

@@ -95,6 +95,13 @@ def _from_bf16_bits(raw):
             << 16).view(np.float32)
 
 
+#: commands that block at the service until a condition holds (the
+#: staleness gate's MINWAIT, WAITGE, BARRIER): their spans are
+#: ``rpc_wait``, not ``rpc``, so the cohort monitor never takes a wait
+#: for a link sample
+_WAIT_CMDS = frozenset(('BARRIER', 'MINWAIT', 'WAITGE'))
+
+
 class FencedWriteError(OSError):
     """A write was rejected because this connection's fencing
     generation has been superseded — this process was declared dead
@@ -523,6 +530,7 @@ class CoordClient:
         self._sock = socket.create_connection(address, timeout=timeout)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._buf = b''
+        self._rx_bytes = 0   # reply payload bytes read (rpc_batch spans)
         self._handshake()
         # per-operation timeout for the ESTABLISHED connection (the
         # connect `timeout` stays snappy for probes/handshake); the
@@ -644,8 +652,11 @@ class CoordClient:
         if not self._tel.enabled:
             self._send_frame(line, payload)
             return self._read_reply_line()
-        with self._tel.span('rpc', cmd=line.split(' ', 1)[0],
-                            bytes=self._payload_nbytes(payload)):
+        cmd = line.split(' ', 1)[0]
+        # a command that waits at the service for a condition measures
+        # the wait, not the link: it is no sample of the link's cost
+        with self._tel.span('rpc_wait' if cmd in _WAIT_CMDS else 'rpc',
+                            cmd=cmd, bytes=self._payload_nbytes(payload)):
             self._send_frame(line, payload)
             return self._read_reply_line()
 
@@ -668,6 +679,7 @@ class CoordClient:
                           for _, _, p in frames))
         else:
             span = _telemetry._NULL_SPAN
+        rx0 = self._rx_bytes
         with span:
             outstanding = []
             for token, line, payload in frames:
@@ -677,6 +689,10 @@ class CoordClient:
                     on_reply(outstanding.pop(0))
             while outstanding:
                 on_reply(outstanding.pop(0))
+            if span is not _telemetry._NULL_SPAN:
+                # the replies' payloads were read inside the span: a
+                # batched pull is a transfer of those bytes
+                span.tags['bytes'] += self._rx_bytes - rx0
 
     def _read_exact(self, nbytes):
         """Read exactly ``nbytes`` of reply payload (after a VAL header)."""
@@ -696,7 +712,9 @@ class CoordClient:
                 chunk = chunk[:nbytes]
             parts.append(chunk)
             nbytes -= len(chunk)
-        return b''.join(parts)
+        out = b''.join(parts)
+        self._rx_bytes += len(out)
+        return out
 
     # -- primitives --------------------------------------------------------
     def ping(self):

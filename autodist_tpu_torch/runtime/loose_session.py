@@ -39,6 +39,17 @@ live peers' acks, arms a commit boundary and has every member apply it
 there (the chief re-keys the PS copies whose geometry changed). Control
 events go to the process's flight recorder
 (:mod:`autodist_tpu_torch.telemetry.flight`).
+
+With ``AUTODIST_TELEMETRY`` on, every worker pushes its drained span
+records (``staleness_gate``, ``pull_vars``, ``push_deltas``,
+``pipeline_wait``, ``step`` and the per-RPC spans) to the run's
+``telemetry/`` namespace every ``AUTODIST_TELEMETRY_PUSH_EVERY`` train
+steps on a background lane (JAX ``session.py:2072-2172``). The chief
+runs the :class:`~autodist_tpu_torch.telemetry.monitor.CohortMonitor`
+over them (straggler verdicts, the ``perf`` section of
+:attr:`LooseSession.health_stats`, and the link constants its re-rank
+prices with), exports the cohort's Chrome trace at close, and purges the
+namespace at init and at close.
 """
 import os
 import threading
@@ -55,8 +66,14 @@ from autodist_tpu_torch.runtime import swap_keys
 from autodist_tpu_torch.runtime.cluster import (is_local_address,
                                                world_and_rank)
 from autodist_tpu_torch.runtime.session import Session, to_numpy
+from autodist_tpu_torch.telemetry import aggregate as _aggregate
 from autodist_tpu_torch.telemetry import flight as _flight
 from autodist_tpu_torch.utils import logging
+
+
+#: the longest the depth-2 pipeline waits for the next step's staleness
+#: bound before it pulls ahead anyway (``LooseSession._prefetch_gate``)
+_PREFETCH_GATE_S = 2.0
 
 
 def _close_quietly(client):
@@ -399,6 +416,10 @@ class LooseSession(Session):
             # the rendezvous, and force the elastic world counter back
             # to the launch quorum (admits wait for init-done)
             coord.delete(self._key('session/init-done'))
+            # a crashed previous run's span batches: left in place, the
+            # per-worker batch counters would hand this run's collector
+            # sequence numbers that decode to the dead run's spans
+            coord.delete_namespace(self._key('telemetry/'))
             swap_keys.purge_all(coord, self._ns)
             cur = coord.incr(self._key('join/world'), 0)
             if cur != self._num_workers:
@@ -453,6 +474,7 @@ class LooseSession(Session):
         self._window_base = None
         self._pipe = None
         self._inflight = None
+        self._inflight_step = 0      # the train step the job pushes
         self._stashed_prefetch = None
         self._init_ps_endpoints(plan)
         depth = ENV.AUTODIST_PS_PIPELINE_DEPTH.val
@@ -485,6 +507,52 @@ class LooseSession(Session):
         # cohort can grow, and a joiner judges this process by its beat
         if ENV.AUTODIST_HEARTBEAT_TIMEOUT.val:
             self._start_heartbeats()
+        self._init_telemetry_plane()
+
+    def _init_telemetry_plane(self):
+        """The span push's background lane (made at the first push), the
+        chief's :class:`CohortMonitor` (JAX ``session.py:524-551``: only
+        the chief sees the whole cohort's spans, and with telemetry off
+        nobody pushes any) and, under ``AUTODIST_ROOFLINE``, this
+        worker's :class:`RooflineTracker` (``:553-590``), whose records
+        reach the monitor (the chief's directly, the others' as
+        ``roofline`` events in their span batches)."""
+        self._tel_pipe = None
+        self._tel_push_handle = None
+        self._tel_carry = []         # records of a step still pushing
+        self._tel_pushed_bytes = 0
+        self.trace_path = None      # the chief's exported cohort trace
+        self._monitor = None
+        self._recalibrate_every = ENV.AUTODIST_RECALIBRATE_EVERY.val
+        self._last_recalibrate_step = 0
+        if self._is_chief and self._tel.enabled and \
+                ENV.AUTODIST_STRAGGLER_POLICY.val != 'off':
+            from autodist_tpu_torch.telemetry.monitor import CohortMonitor
+            self._monitor = CohortMonitor(
+                client=self._coord, ns=self._ns,
+                workers=lambda: ['p%d' % i for i in self._live_members()],
+                flight=self._flight,
+                # our own batches are tapped at drain time, never
+                # fetched back off the wire
+                local_worker=self._worker_name)
+        self._roofline_tracker = None
+        self._roofline_costs = {}
+        self._last_step_cost = None
+        self._last_exec_wall = 0.0
+        if ENV.AUTODIST_ROOFLINE.val:
+            from autodist_tpu_torch.telemetry.roofline import \
+                RooflineTracker
+            if self._resource_spec is not None:
+                peak_flops, peak_hbm = self._resource_spec.topology.peaks()
+            else:
+                forced = ENV.AUTODIST_ROOFLINE_PEAKS.val
+                peak_flops = forced.get('flops')
+                peak_hbm = forced.get('hbm_gbps')
+                peak_hbm = peak_hbm * 1e9 if peak_hbm else None
+            self._roofline_tracker = RooflineTracker(
+                peak_flops=peak_flops, peak_hbm_bps=peak_hbm,
+                tel=self._tel, flight=self._flight,
+                worker=self._worker_name)
 
     def _set_plan_sets(self, plan):
         """The variable sets a plan decides: proxy variables (reference
@@ -508,6 +576,11 @@ class LooseSession(Session):
     # -- identity and membership -------------------------------------------
     def _key(self, suffix):
         return '%s/%s' % (self._ns, suffix)
+
+    @property
+    def _span_worker(self):
+        # every loose worker's replica group is its own, of rank 0
+        return self._worker_name
 
     def peer_step(self, process_id):
         """Another worker's published completed-step counter (0 if none)."""
@@ -983,24 +1056,109 @@ class LooseSession(Session):
 
     def _step(self, fetch_nodes, feeds):
         t0 = time.perf_counter()
-        outs = super()._step(fetch_nodes, feeds)
+        if self._roofline_tracker is None:
+            outs = super()._step(fetch_nodes, feeds)
+        else:
+            outs = self._costed_step(fetch_nodes, feeds)
+        self._last_exec_wall = time.perf_counter() - t0
         with self._stats_lock:
-            self._ps_phase['step_s'] += time.perf_counter() - t0
+            self._ps_phase['step_s'] += self._last_exec_wall
         return outs
+
+    def _costed_step(self, fetch_nodes, feeds):
+        """The step, counted by ``roofline.cost_of`` the first time a
+        program (these fetches at these feed shapes) runs: that call
+        takes the step under the counters, the later ones reuse the
+        count (JAX ``session.py:2624-2659`` counts once per compile)."""
+        key = (tuple(id(n) for n in fetch_nodes),
+               tuple(sorted((id(ph), tuple(v.shape), str(v.dtype))
+                            for ph, v in feeds.items())))
+        if key in self._roofline_costs:
+            self._last_step_cost = self._roofline_costs[key]
+            return Session._step(self, fetch_nodes, feeds)
+        from autodist_tpu_torch.telemetry import roofline as _roofline
+        box = []
+        self._last_step_cost = self._roofline_costs[key] = \
+            _roofline.cost_of(lambda: box.append(
+                Session._step(self, fetch_nodes, feeds)))
+        return box[0]
 
     # -- run: the swap boundary and the zombie dump ----------------------
     def run(self, fetches, feed_dict=None, options=None):
         """:meth:`Session.run`; a ``FencedWriteError`` surfacing here
         means this process is a zombie, and the flight recorder dumps
-        before the error propagates."""
+        before the error propagates. An executed train step feeds the
+        roofline tracker and the chief's monitor (JAX
+        ``session.py:2436-2452``)."""
+        before = self._step_count
         try:
-            return super().run(fetches, feed_dict, options)
+            results = super().run(fetches, feed_dict, options)
         except cc.FencedWriteError:
             self._flight.record('fenced_write_error',
                                 worker=self._worker_name,
                                 step=self._step_count)
             self._flight.dump('fenced_write_error')
             raise
+        if self._step_count > before:
+            wall = self._step_walls[-1]
+            if self._roofline_tracker is not None:
+                # the wall beyond the step's own execution is the gate,
+                # pull and push wire time: the regime's comms share
+                comms = max(0.0, wall - self._last_exec_wall) \
+                    if self._last_exec_wall else None
+                rec = self._roofline_tracker.observe_step(
+                    self._step_count, wall, cost=self._last_step_cost,
+                    comms_s=comms)
+                if rec is not None and self._monitor is not None:
+                    self._monitor.observe_roofline(self._worker_name, rec)
+            if self._monitor is not None:
+                self._monitor.observe_step(self._worker_name,
+                                           self._step_count, wall)
+            # after the step's own span, before the chief's poll: the
+            # chief's monitor then holds every phase of its recent steps
+            self._maybe_push_telemetry(self._coord, self._step_count)
+            if self._monitor is not None:
+                self._maybe_poll_monitor()
+        return results
+
+    @property
+    def monitor(self):
+        """The chief's :class:`~autodist_tpu_torch.telemetry.monitor.
+        CohortMonitor` (None off-chief, with telemetry off, or under
+        ``AUTODIST_STRAGGLER_POLICY=off``). Its :meth:`metrics` is the
+        ``metrics_source`` of ``Coordinator.autoscaler``."""
+        return self._monitor
+
+    def _maybe_poll_monitor(self):
+        """The chief's monitor cadence (JAX ``session.py:2466-2497``):
+        poll the cohort's new span batches every
+        ``AUTODIST_TELEMETRY_PUSH_EVERY`` steps (batches land on that
+        cadence) and refit the link constants every
+        ``AUTODIST_RECALIBRATE_EVERY`` steps. Never fatal."""
+        mon = self._monitor
+        every = max(1, ENV.AUTODIST_TELEMETRY_PUSH_EVERY.val or 8)
+        if self._step_count % every:
+            return
+        try:
+            mon.poll()
+            if self._recalibrate_every and \
+                    self._step_count - self._last_recalibrate_step >= \
+                    self._recalibrate_every:
+                from autodist_tpu_torch.simulator.cost_model import \
+                    CostModelParams
+                rs = self._resource_spec
+                base = CostModelParams.from_topology(rs.topology) \
+                    if rs is not None else CostModelParams()
+                cross = rs.topology.multi_node if rs is not None \
+                    else False
+                if mon.recalibrate(base, num_replicas=max(2, self._world),
+                                   cross_node=cross,
+                                   step=self._step_count) is not None:
+                    self._last_recalibrate_step = self._step_count
+        except Exception as e:  # noqa: BLE001 - advisory plane
+            logging.warning('cohort monitor poll at step %d failed: '
+                            '%s: %s', self._step_count,
+                            type(e).__name__, e)
 
     def _run_fetches(self, fetches, feed_dict=None, options=None):
         """A staged re-plan, and an armed epoch swap whose boundary this
@@ -1019,9 +1177,11 @@ class LooseSession(Session):
         simulator (the port's ``AutoStrategy``) and record the
         predicted-vs-kept decision (JAX ``session.py:988-1064``). With
         ``AUTODIST_EXECUTE_REPLAN`` a migratable re-plan (the PS family,
-        the relaxed flags kept) is staged through the epoch swap. The
-        port runs no cohort monitor yet, so the re-rank prices with the
-        analytic link constants. Never fatal."""
+        the relaxed flags kept) is staged through the epoch swap. Once
+        the chief's monitor has refit the link constants from live
+        traffic, the re-rank prices with those (``cost_constants:
+        'measured'``, with the ``cost_alpha_beta`` it used), else with
+        the analytic ones. Never fatal."""
         entry = {'world': world,
                  'kept': dict(getattr(self._plan.strategy, 'cost', None)
                               or {}).get('builder', ''),
@@ -1033,8 +1193,15 @@ class LooseSession(Session):
             else:
                 from autodist_tpu_torch.strategy.builders import \
                     AutoStrategy
-                entry['cost_constants'] = 'analytic'
-                auto = AutoStrategy(num_replicas=world)
+                params = self._monitor.calibrated_params() \
+                    if self._monitor is not None else None
+                entry['cost_constants'] = \
+                    'measured' if params is not None else 'analytic'
+                if params is not None:
+                    a, b = params.link(cross_node=rs.topology.multi_node)
+                    entry['cost_alpha_beta'] = {
+                        'alpha_s': a, 'beta_s_per_byte': b}
+                auto = AutoStrategy(num_replicas=world, cost_params=params)
                 best = auto.build(self._graph_item, rs)
                 cost = dict(getattr(best, 'cost', None) or {})
                 entry['predicted'] = cost.get('builder', '')
@@ -1055,7 +1222,8 @@ class LooseSession(Session):
                     ' — staging the migration' if execute else
                     ' (AUTODIST_EXECUTE_REPLAN off: audit only)')
                 if execute:
-                    mig = self._build_migratable_strategy(world, rs)
+                    mig = self._build_migratable_strategy(world, rs,
+                                                          params=params)
                     if mig is None:
                         entry['migration_skipped'] = \
                             'no PS-family candidate for this strategy'
@@ -1592,15 +1760,29 @@ class LooseSession(Session):
             return stash
         self._inflight = None
         t0 = time.perf_counter()
+        record = None
         try:
-            return job.result()
+            record = job.result()
+            return record
         finally:
-            blocked = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            blocked = t1 - t0
             with self._stats_lock:
                 self._ps_phase['exposed_wait_s'] += blocked
-            self._tel.record_span('pipeline_wait', t0, blocked,
+            # the wait's share that the job spent pushing or at the next
+            # step's gate is charged to those spans (push_deltas,
+            # staleness_gate): the pipeline's own is the rest (publish,
+            # the pull-ahead), so a slow push reads as push
+            rec = record or {}
+            charged = max(0.0, min(t1, rec.get('push_end', t0)) - t0)
+            if rec.get('gate'):
+                g0, g1 = rec['gate']
+                charged += max(0.0, min(t1, g1) - max(t0, g0))
+            own = max(0.0, blocked - charged)
+            self._tel.record_span('pipeline_wait', t1 - own, own,
                                   step=self._step_count + 1,
-                                  worker=self._worker_name)
+                                  worker=self._worker_name,
+                                  blocked_s=blocked)
 
     def _drain_pipeline(self, keep_prefetch=False):
         """Join any in-flight work before a user-facing read or write; a
@@ -1630,6 +1812,7 @@ class LooseSession(Session):
                 scale = 1.0 / max(1, len(self._live_members()))
         else:
             step = self._step_count
+        tstep = self._step_count
         shared_names = {name for name, *_ in self._shared_spec}
         tensors = {name: self._var_state[name] for name in pulled
                    if name not in shared_names}
@@ -1657,15 +1840,20 @@ class LooseSession(Session):
         # the LIVE membership (joins in, exclusions out): the floor must
         # range over every worker the next gate counts
         members = self._live_members()
+        bound = step + 1 - self._plan.gate_staleness \
+            if self._plan.gate_enabled and len(members) > 1 else 0
 
         def job(client):
             # the round is bracketed by snapshot parity, so a serving
             # reader never accepts a pull that straddles it
             self._snap_round_open(client, worker)
             self._push_ps_deltas(pulled, afters, shared, scale=scale)
+            push_end = time.perf_counter()
             client.publish_step(worker, step, prefix=prefix)
             self._snap_round_close(client, worker)
             self._flight.record('step_publish', worker=worker, step=step)
+            gate = self._prefetch_gate(client, prefix, bound, len(members),
+                                       step + 1)
             # a peer's counter moves only after its push landed, so the
             # pull below sees every push published by now: run() drops
             # the prefetch when this floor is below the next gate's bound
@@ -1674,9 +1862,35 @@ class LooseSession(Session):
             names = self._pull_to_fetch()
             parts, wire_s = self._fetch_var_parts(names)
             return {'names': names, 'parts': parts, 'wire_s': wire_s,
-                    'peer_floor': floor}
+                    'peer_floor': floor, 'push_end': push_end,
+                    'gate': gate}
 
+        self._inflight_step = tstep
         self._inflight = self._pipe.submit(0, job)
+
+    def _prefetch_gate(self, client, prefix, bound, parties, gate_at):
+        """The next step's staleness bound, waited for on the pipeline
+        thread before the pull-ahead: a pull taken while a lagging peer
+        is below the bound is dropped and taken again at the step (127
+        MB on NCF), so the pipeline waits for the bound first, at most
+        ``_PREFETCH_GATE_S``; past that it pulls ahead anyway, and the
+        step's own gate judges the peer (dead-peer policies stay on the
+        step's thread). The wait is the gate's: it is recorded as a
+        ``staleness_gate`` span of the step it gates. Returns its
+        (start, end), or None when there was no bound to wait for."""
+        if bound <= 0:
+            return None
+        t0 = time.perf_counter()
+        try:
+            client.min_wait(prefix, bound, parties, _PREFETCH_GATE_S)
+        except TimeoutError:
+            pass
+        t1 = time.perf_counter()
+        with self._stats_lock:
+            self._ps_phase['gate_s'] += t1 - t0
+        self._tel.record_span('staleness_gate', t0, t1 - t0, step=gate_at,
+                              worker=self._worker_name, prefetch=True)
+        return t0, t1
 
     def _pull_to_fetch(self):
         """The variables a pull fetches (warm proxies are served from
@@ -2115,7 +2329,128 @@ class LooseSession(Session):
             active_workers=self._active_workers(),
             excluded=sorted(w.rsplit('/', 1)[-1]
                             for w in self._excluded))
+        if self._monitor is not None:
+            # rolling cohort stats, active verdicts, the slowdown /
+            # recovered audit and the recalibrations; health_report and
+            # format_health render it
+            out['perf'] = self._monitor.snapshot()
         return out
+
+    # -- the telemetry plane ----------------------------------------------
+    def _join_tel_push(self):
+        """Join the previous background span push (pushes stay FIFO on
+        the lane); its error is logged, never raised."""
+        handle, self._tel_push_handle = self._tel_push_handle, None
+        if handle is None:
+            return
+        try:
+            handle.result()
+        except Exception as e:  # noqa: BLE001 - advisory plane
+            logging.warning('background telemetry batch push failed: '
+                            '%s: %s', type(e).__name__, e)
+
+    def _push_batch(self, client, records):
+        nbytes = _aggregate.push_records(client, self._ns,
+                                         self._worker_name, records)
+        with self._stats_lock:
+            self._tel_pushed_bytes += nbytes
+        return nbytes
+
+    def _maybe_push_telemetry(self, client, step, final=False):
+        """Push this worker's drained span records to ``<ns>/telemetry/``
+        every ``AUTODIST_TELEMETRY_PUSH_EVERY`` train steps (JAX
+        ``session.py:2085-2129``), from the step's thread once the step
+        is recorded. A batch carries whole steps: the records of a step
+        whose push is still in flight (depth 2) wait for the next batch
+        with that push's span, since the monitor derives a step's
+        compute share from its phases in one batch (the JAX package
+        pushes from the pipeline thread, which can split a step).
+        Steady-state pushes ride a background lane (one
+        :class:`TransferPool` worker with its own fenced connection): a
+        batch never belongs on the step's critical path. ``final=True``
+        (the close-time flush) joins the lane and pushes everything on
+        the caller's client, so nothing is in flight when the chief
+        collects and purges. The chief's own records go straight to its
+        monitor as they are drained (never fetched back). Never
+        fatal."""
+        if not self._tel.enabled:
+            return
+        every = ENV.AUTODIST_TELEMETRY_PUSH_EVERY.val
+        if not final and (not every or step % every):
+            return
+        try:
+            drained = self._tel.drain_spans()
+            if self._monitor is not None and drained:
+                self._monitor.ingest_local(drained)
+            records, self._tel_carry = self._tel_carry + drained, []
+            if final:
+                self._join_tel_push()
+                self._push_batch(client, records)
+                return
+            if self._inflight is not None:
+                pushing = self._inflight_step
+                self._tel_carry = [
+                    r for r in records
+                    if (r.get('tags') or {}).get('step', 0) >= pushing]
+                records = [
+                    r for r in records
+                    if (r.get('tags') or {}).get('step', 0) < pushing]
+            if not records:
+                return
+            if self._tel_pipe is None:
+                addr = self._coord.address
+                self._tel_pipe = cc.TransferPool(
+                    [lambda: self._fenced_connect(addr)])
+            self._join_tel_push()
+            self._tel_push_handle = self._tel_pipe.submit(
+                0, lambda c: self._push_batch(c, records))
+        except Exception as e:  # noqa: BLE001 - advisory plane
+            logging.warning('telemetry batch push failed at step %d: '
+                            '%s: %s', step, type(e).__name__, e)
+
+    @property
+    def telemetry_pushed_bytes(self):
+        """Wire bytes of the span batches this worker pushed so far."""
+        with self._stats_lock:
+            return self._tel_pushed_bytes
+
+    def cohort_telemetry(self):
+        """Every member's pushed span batches off the run's telemetry
+        namespace, each record tagged with its worker and sorted on the
+        shared wall axis (JAX ``session.py:2131-2141``); ``[]`` when
+        nothing was pushed."""
+        members = ['p%d' % i for i in range(self._world)]
+        return _aggregate.collect_records(self._coord, self._ns, members)
+
+    def export_chrome_trace(self, path=None):
+        """Write the cohort's timeline as Chrome ``trace_event`` JSON
+        (JAX ``session.py:2143-2172``), this worker's undrained spans
+        and its flight events included. Returns the path, or None when
+        there was nothing to export."""
+        import json
+        records = self.cohort_telemetry()
+        for rec in self._tel.drain_spans():
+            rec.setdefault('worker', self._worker_name)
+            records.append(rec)
+        if not records:
+            return None
+        records.sort(key=lambda r: r.get('t0', 0.0))
+        # control-plane instants go on THIS process's row: ring events
+        # name their subject (an excluded peer), not the actor
+        trace = _aggregate.chrome_trace(
+            records,
+            flight_events=[dict(e, worker_self=self._worker_name)
+                           for e in self._flight.events()])
+        if path is None:
+            path = os.path.join(_flight.telemetry_dir(),
+                                'trace-%s.json' % self._ns)
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, 'w') as f:
+            json.dump(trace, f)
+        logging.info('telemetry: wrote cohort Chrome trace (%d events) '
+                     'to %s', len(trace['traceEvents']), path)
+        self.trace_path = path
+        return path
 
     @property
     def ps_stats(self):
@@ -2174,13 +2509,34 @@ class LooseSession(Session):
                 drain_err = e
                 logging.error('final background PS push failed in '
                               'close(): %s: %s', type(e).__name__, e)
-            if self._is_chief:
-                # staged swap plans must not outlive the run, even when
-                # the purge quorum below is never reached
+            if self._tel.enabled:
+                # the last span batch, the monitor's last verdicts and
+                # the chief's cohort trace, all before the purges below
                 try:
-                    swap_keys.purge_all(self._coord, self._ns)
-                except Exception:  # noqa: BLE001 - service may be gone
-                    pass
+                    self._maybe_push_telemetry(self._coord,
+                                               self._step_count,
+                                               final=True)
+                    if self._monitor is not None:
+                        self._monitor.poll()
+                    if self._is_chief:
+                        self.export_chrome_trace()
+                except Exception as e:  # noqa: BLE001 - advisory
+                    logging.warning('telemetry flush/export in close() '
+                                    'failed: %s: %s', type(e).__name__, e)
+            if self._is_chief:
+                # the telemetry namespace (batches and their counters)
+                # and staged swap plans must not outlive the run, even
+                # when the purge quorum below is never reached: a reused
+                # service would replay them into the next run
+                for purge in (
+                        lambda: self._coord.delete_namespace(
+                            self._key('telemetry/')),
+                        lambda: swap_keys.purge_all(self._coord,
+                                                    self._ns)):
+                    try:
+                        purge()
+                    except Exception:  # noqa: BLE001 - service gone
+                        pass
             self._flight.record('close', worker=self._worker_name,
                                 step=self._step_count,
                                 clean=drain_err is None)
@@ -2214,7 +2570,7 @@ class LooseSession(Session):
             except Exception:  # noqa: BLE001 - the service may be gone
                 pass
         super().close()
-        for pool in (self._pipe, self._pool):
+        for pool in (self._pipe, self._tel_pipe, self._pool):
             if pool is not None:
                 pool.close()
         if self._auto_ckpt is not None:

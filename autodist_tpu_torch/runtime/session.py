@@ -192,8 +192,13 @@ class Session:
                 self._tel.gauge('step', self._step_count)
                 self._tel.record_span('step', t0, wall,
                                       step=self._step_count,
-                                      worker='p%d' % self._group.rank)
+                                      worker=self._span_worker)
         return results
+
+    @property
+    def _span_worker(self):
+        """The worker name this process's spans carry."""
+        return 'p%d' % self._group.rank
 
     @property
     def step_wall_series(self):

@@ -157,7 +157,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    equal to each worker's fresh pull after both pushed their last; on
    one batch the last 5 losses below the first and every table the
    initial values plus both workers' decoded pushes; i8's first push
-   3.5-4.1x below f32's at the same bytes a pull;
+   3.5-4.1x below f32's at the same bytes a pull; ``loose_elastic``:
+   the membership half (a join, an exclusion, a restart, a swap,
+   serving readers);
+10d. this slice's path, the chief's launch and the cohort telemetry
+   plane (``loose_launch``): the same NCF, every process on the card,
+   each on one batch of its own. (a) The chief of a spec of two nodes
+   launches the other through ``Coordinator`` over ``ssh`` / ``scp``
+   exec shims (the shim log shows the strategy's ``scp`` and ``mv -f``
+   and the worker's identity); p1's pushes are delayed 0.25 s each from
+   its 8th; at step 12 the chief calls ``scale_up(1)``: the monitor
+   issues a ``slowdown`` verdict for p1 on ``push`` and none that
+   accuses p0 or p2, the re-rank for world 3 prices with measured link
+   constants, the chief's Chrome trace has the three workers' rows with
+   the four phase spans, the telemetry namespace is empty after close,
+   every worker's last 5 losses are below its first; the launch
+   seconds, examples/s before, during and after, the detection latency,
+   the fitted α and β against the analytic, and the span bytes a step.
+   (b) ``python -m autodist_tpu_torch.launch`` over the same two nodes:
+   rc 0, both records, the launcher's coord service gone;
 11. the card's line, the ``kernels`` line (K1-K4 of the main paths:
    K1-K3 at head dim 64, at 256 and at 384, each row with the CUDA
    kernel that ran and its launches in its own phase), and last
@@ -2617,14 +2635,18 @@ def elastic_serve(cfg, device, tmp, steps, smi=None):
         forwards = 0
         members_before = None
         # serve while the cohort trains: until both pass the kill point,
-        # one reader is closed mid-run, then until they finish
+        # one reader is closed mid-run, then until they finish and a
+        # forward was served (a cohort may finish before the readers'
+        # first snapshot: it then waits at the launcher's barrier)
+        deadline = time.time() + 300.0
         while True:
             steps_now = [ctl.incr('%s/step/p%d' % (ns, i), 0)
                          for i in range(2)]
-            if min(steps_now) >= steps:
-                break
             if members_before is None and min(steps_now) >= 1:
                 members_before = live_members_on_plane(ctl, ns)
+            if min(steps_now) >= steps and forwards:
+                break
+            require(time.time() < deadline, 'no forward was served')
             users = rng.randint(0, cfg['users'], n).astype(np.int32)
             items = rng.randint(0, cfg['items'], n).astype(np.int32)
             rows = {t: fleet.lookup(t, users if 'user' in t else items)
@@ -2645,7 +2667,9 @@ def elastic_serve(cfg, device, tmp, steps, smi=None):
         # the plane is quiet: pin, look up, and hold both to the PS
         live = fleet.replicas[0]
         live.refresh()
-        floor = live.published_floor()
+        with live._lock:
+            # the replica's serve thread polls on the same connection
+            floor = live.published_floor()
         require(live.snapshot.step == floor, 'the pinned step %d is not '
                 'the floor %d' % (live.snapshot.step, floor))
         users = rng.randint(0, cfg['users'], n).astype(np.int32)
@@ -2717,6 +2741,421 @@ def loose_elastic_phase(cfg, steps, device, smi=None, runs=ELASTIC_RUNS,
             t0 = time.time()
             out[run] = fns[run](cfg, device, tmp, n, smi, **kw)
             out[run]['seconds'] = time.time() - t0
+    return out
+
+
+# -- the chief's launch and the cohort telemetry plane -----------------------
+# loose_launch: NCF at NCF_FULL under PS(staleness=2), LazyAdam 1e-3, f32,
+# depth 2, every process on the one card. Run (a): the chief of a spec of
+# two nodes (127.0.0.1, 127.0.0.2) launches the other through Coordinator
+# over ssh and scp exec shims; from its LAUNCH_DELAY_FROM-th push on, each
+# of p1's pushes is delayed LAUNCH_DELAY_S (a faultline delay_conn on the
+# push frame of head/bias, one a push); at step LAUNCH_JOIN_AT the chief
+# calls scale_up(1) and waits for the joiner's claim. Run (b): python -m
+# autodist_tpu_torch.launch over the same two local nodes, no delay and
+# no join. Each worker trains on one batch of its own (seed 1000 * (pid +
+# 1)), the batch it is held to fit: its last LAUNCH_FALLING steps below its
+# first. The cohort takes LAUNCH_STEPS steps: the join's aftermath (the
+# chief's re-rank, the migration at its boundary) disturbs every worker's
+# step for a few steps past the join, and the monitor needs two clean
+# polls (every 4 steps) after it to confirm a verdict it could not
+# confirm across the join.
+LAUNCH_STEPS = 32
+LAUNCH_EXTRA = 16          # steps past LAUNCH_STEPS while a migration lands
+LAUNCH_DELAY_FROM = 8
+LAUNCH_DELAY_S = 0.25
+LAUNCH_JOIN_AT = 12
+LAUNCH_CLI_STEPS = 8
+LAUNCH_FALLING = 5
+LAUNCH_ENV = {'AUTODIST_TELEMETRY': '1',
+              'AUTODIST_TELEMETRY_PUSH_EVERY': '4',
+              'AUTODIST_RECALIBRATE_EVERY': '8',
+              'AUTODIST_STRAGGLER_POLICY': 'advise',
+              'AUTODIST_EXECUTE_REPLAN': '1',
+              'AUTODIST_PEER_FAILURE_POLICY': 'exclude',
+              'AUTODIST_PS_PIPELINE_DEPTH': '2',
+              'AUTODIST_PS_WIRE_DTYPE': 'f32'}
+LAUNCH_PHASES = ('staleness_gate', 'pull_vars', 'push_deltas',
+                 'pipeline_wait')
+SSH_SHIM = """#!/bin/bash
+# ssh exec shim: strip option flags, run the remote command on this host.
+echo "ssh $@" >> "$SHIM_LOG"
+args=()
+while [[ $# -gt 0 ]]; do
+  case "$1" in
+    -o|-i|-p) shift 2 ;;
+    *) args+=("$1"); shift ;;
+  esac
+done
+exec bash -c "${args[*]:1}"
+"""
+SCP_SHIM = """#!/bin/bash
+# scp exec shim: strip flags, copy src to the host-stripped destination.
+echo "scp $@" >> "$SHIM_LOG"
+args=()
+while [[ $# -gt 0 ]]; do
+  case "$1" in
+    -o|-i|-P) shift 2 ;;
+    *) args+=("$1"); shift ;;
+  esac
+done
+src="${args[0]}"
+dest="${args[1]#*:}"
+[[ "$src" == "$dest" ]] && exit 0
+exec cp "$src" "$dest"
+"""
+
+
+def write_shims(bindir):
+    """``ssh`` and ``scp`` exec shims in ``bindir`` (each logs its command
+    line to ``$SHIM_LOG``); returns ``bindir``, for the front of
+    ``PATH``."""
+    os.makedirs(bindir, exist_ok=True)
+    for name, body in (('ssh', SSH_SHIM), ('scp', SCP_SHIM)):
+        path = os.path.join(bindir, name)
+        with open(path, 'w') as f:
+            f.write(body)
+        os.chmod(path, 0o755)
+    return bindir
+
+
+def _push_delay_plan(key, first, last, seconds):
+    """delay_conn faults on the ``first``-th to ``last``-th push frame of
+    ``key`` (a dense variable: one BADD frame a push)."""
+    from autodist_tpu_torch.utils.faultline import FaultPlan
+    return FaultPlan([{'kind': 'delay_conn', 'match': 'BADD %s ' % key,
+                       'at': at, 'seconds': seconds}
+                      for at in range(first, last + 1)], seed=14)
+
+
+def launch_worker(args):
+    """One process of a ``loose_launch`` run (``chip_smoke.py
+    --launch-run JSON``), the same script on every node: the chief when
+    no ``AUTODIST_WORKER`` is set, else a worker the chief (run 'ssh') or
+    the launcher (run 'cli') started. Writes ``<out>/<worker>.json``."""
+    from autodist_tpu_torch.utils.faultline import FaultLine
+    run, cfg, out = args['run'], args['cfg'], args['out']
+    started = time.time()
+    autodist = ad.AutoDist(resource_spec_file=args['spec'],
+                           strategy_builder=ad.PS(staleness=LOOSE_STALENESS),
+                           device=args['device'])
+    sess, feeds, loss, train_op = ncf_program(
+        autodist, ncf_init(cfg), optimizer=ad.optimizers.LazyAdam)
+    require(type(sess).__name__ == 'LooseSession',
+            'loose_launch %s: not in loose mode' % run)
+    name, coord = sess._worker_name, autodist._coord
+    pid = int(name[1:])
+    fault = None
+    if run == 'ssh' and name == 'p1':
+        fault = FaultLine(_push_delay_plan(
+            sess._key('var/head/bias'), LAUNCH_DELAY_FROM,
+            LAUNCH_STEPS + LAUNCH_EXTRA, LAUNCH_DELAY_S))
+        fault.install()
+    feed = dict(zip(feeds, ncf_batch(cfg, 1000 * (pid + 1))))
+    rec = {'worker': name, 'pid': pid, 'started': started,
+           'joining': sess._joining, 'start_step': sess.step_count,
+           'steps': []}
+
+    def migrated():
+        return any(e.get('migrated') for e in sess._health['replans'])
+
+    # run (a) trains on while its staged migration has not applied yet
+    while sess.step_count < args['steps'] or (
+            run == 'ssh' and not migrated() and
+            sess.step_count < args['steps'] + LAUNCH_EXTRA):
+        s = sess.step_count + 1
+        t0 = time.time()
+        value = float(sess.run([loss, train_op], feed)[0])
+        rec['steps'].append({'step': s, 't0': t0, 't1': time.time(),
+                             'loss': value,
+                             'parties': sess._active_workers()})
+        if sess.monitor is not None:
+            rec['steps'][-1]['slowdowns'] = sum(
+                1 for e in sess.monitor.events if e['kind'] == 'slowdown')
+        if run == 'ssh' and sess._is_chief and s == LAUNCH_JOIN_AT:
+            t_join = time.time()
+            rec['scaled_up'] = len(autodist._coordinator.scale_up(1))
+            deadline = time.time() + 300.0
+            while coord.incr(sess._key('join/world'), 0) <= 2:
+                require(time.time() < deadline, 'no worker joined')
+                time.sleep(0.05)
+            rec['join_claim_s'] = time.time() - t_join
+    # a read lands this worker's last push
+    sess.get_variable_value(sorted(sess._graph_item.graph.variables)[0])
+    rec['migrated'] = migrated()
+    rec['ps_stats'] = sess.ps_stats
+    tag = args['tag']
+    coord.barrier(tag + '/trained', args['parties'], timeout_s=300.0)
+    if not sess._is_chief:
+        sess.close()
+        coord.barrier(tag + '/closed', args['parties'], timeout_s=300.0)
+    else:
+        # the chief closes last: its cohort trace holds every final batch
+        coord.barrier(tag + '/closed', args['parties'], timeout_s=300.0)
+        sess.close()
+        rec['telemetry_left'] = coord.delete_namespace(
+            sess._key('telemetry/'))
+        rec['trace_path'] = sess.trace_path
+    rec['health'] = sess.health_stats
+    rec['telemetry_pushed_bytes'] = sess.telemetry_pushed_bytes
+    rec['faults_fired'] = len(fault.events) if fault is not None else 0
+    if sess._is_chief and autodist._coordinator is not None:
+        for sup in autodist._coordinator.supervisors:
+            sup.join(timeout=120.0)
+        rec['worker_exit_codes'] = [
+            sup.proc.poll() for sup in autodist._coordinator.supervisors]
+    with open(os.path.join(out, '%s.json' % name), 'w') as f:
+        json.dump(rec, f, default=lambda o: o.item() if hasattr(o, 'item')
+                  else repr(o))
+    return 0
+
+
+def _launch_spec(out):
+    path = os.path.join(out, 'resources.yml')
+    with open(path, 'w') as f:
+        json.dump({'nodes': [
+            {'address': '127.0.0.1', 'gpus': [0], 'chief': True,
+             'network_bandwidth': 100},
+            {'address': '127.0.0.2', 'gpus': [0],
+             'network_bandwidth': 100}]}, f)   # JSON is valid YAML
+    return path
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def _launch_env(out, spec, shims):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('AUTODIST_')}
+    env.update(LAUNCH_ENV, SYS_RESOURCE_PATH=spec,
+               AUTODIST_COORD_SERVICE_ADDR='127.0.0.1:%d' % _free_port(),
+               AUTODIST_COORDINATOR_ADDR='127.0.0.1:%d' % _free_port(),
+               AUTODIST_TELEMETRY_DIR=out,
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 3)),
+               SHIM_LOG=os.path.join(out, 'shim.log'))
+    if shims:
+        env['PATH'] = write_shims(os.path.join(out, 'bin')) + os.pathsep + \
+            env.get('PATH', '')
+    return env
+
+
+def _launch_run(cmd, env, out, timeout):
+    """Run ``cmd`` (the chief, or the launcher) in a session of its own,
+    its output in ``<out>/run.log``; whatever it started and left is
+    killed with its process group. Returns (exit code, seconds, log)."""
+    import signal
+    t0 = time.time()
+    with open(os.path.join(out, 'run.log'), 'w') as log:
+        proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            code = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            code = None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    with open(os.path.join(out, 'run.log')) as f:
+        return code, time.time() - t0, f.read()
+
+
+def _launch_record(out, worker, log):
+    path = os.path.join(out, '%s.json' % worker)
+    require(os.path.exists(path), 'loose_launch: %s left no record:\n%s'
+            % (worker, log[-4000:]))
+    with open(path) as f:
+        return json.load(f)
+
+
+def _eps(cfg, steps, lo, hi):
+    """Examples/s over the steps with ids in (lo, hi]."""
+    return _examples_per_s(cfg, [s for s in steps if lo < s['step'] <= hi])
+
+
+def _losses_fall(rec):
+    losses = [s['loss'] for s in rec['steps']]
+    return all(math.isfinite(x) for x in losses) and \
+        len(losses) > LAUNCH_FALLING and \
+        all(x < losses[0] for x in losses[-LAUNCH_FALLING:])
+
+
+def launch_ssh_run(cfg, device, tmp, smi=None):
+    """Run (a): the chief's ssh launch with p1's slowdown and the join."""
+    from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.simulator.cost_model import CostModelParams
+    out = os.path.join(tmp, 'ssh')
+    os.makedirs(out)
+    spec = _launch_spec(out)
+    env = _launch_env(out, spec, shims=True)
+    emit(phase='loose_launch', run='ssh', ssh='exec shims: ssh and scp on '
+         'PATH run the remote command on this host (no sshd); the spec '
+         'names 127.0.0.1 (chief) and 127.0.0.2, both on GPU 0')
+    args = dict(run='ssh', cfg=cfg, device=device, out=out, spec=spec,
+                steps=LAUNCH_STEPS, parties=3, tag='launch-ssh-%d'
+                % os.getpid())
+    t_launch = time.time()
+    code, seconds, log = _launch_run(
+        [sys.executable, os.path.abspath(__file__), '--launch-run',
+         json.dumps(args)], env, out, timeout=400)
+    require(code == 0, 'loose_launch ssh: the chief exited %s:\n%s'
+            % (code, log[-6000:]))
+    p0, p1, p2 = (_launch_record(out, w, log) for w in ('p0', 'p1', 'p2'))
+    with open(env['SHIM_LOG']) as f:
+        shim = f.read()
+    require('scp ' in shim and 'mv -f' in shim and
+            'AUTODIST_WORKER=127.0.0.2' in shim,
+            'loose_launch ssh: the shim log lacks the strategy shipping or '
+            'the worker identity:\n%s' % shim[-3000:])
+    require(p0['worker_exit_codes'] == [0, 0],
+            'loose_launch ssh: workers exited %r' % p0['worker_exit_codes'])
+    require(p2['joining'] and p0.get('scaled_up') == 1,
+            'loose_launch ssh: the scale-up joined no worker')
+    require(p1['faults_fired'] > 0, 'loose_launch ssh: no push was delayed')
+    perf = p0['health']['perf']
+    events = [e for e in perf['events'] if e['kind'] == 'slowdown']
+    slow_p1 = [e for e in events if e['worker'] == 'p1']
+    require(slow_p1 and slow_p1[0]['attributed_phase'] == 'push' and
+            slow_p1[0]['classification'] == 'link_or_host',
+            'loose_launch ssh: no slowdown verdict for p1 on push: %r'
+            % perf['events'])
+    culprits = [e for e in events if e['worker'] != 'p1' and
+                e['classification'] != 'upstream_victim']
+    require(not culprits, 'loose_launch ssh: culprit verdicts for %r'
+            % culprits)
+    grown = [e for e in p0['health']['replans'] if e.get('world') == 3]
+    require(grown and grown[0].get('cost_constants') == 'measured' and
+            all(math.isfinite(v) for v in
+                grown[0].get('cost_alpha_beta', {'-': float('nan')})
+                .values()),
+            'loose_launch ssh: the re-rank for world 3 was not priced '
+            'with measured constants: %r' % p0['health']['replans'])
+    with open(p0['trace_path']) as f:
+        trace = json.load(f)['traceEvents']
+    rows = {e['pid']: e['args']['name'] for e in trace if e['ph'] == 'M'}
+    spans = {name: {e['name'] for e in trace
+                    if e['pid'] == pid and e['ph'] == 'X'}
+             for pid, name in rows.items()}
+    require(set(rows.values()) >= {'worker p0', 'worker p1', 'worker p2'}
+            and all(set(LAUNCH_PHASES) <= spans['worker p%d' % i]
+                    for i in range(3)),
+            'loose_launch ssh: the cohort trace lacks a row or a phase: %r'
+            % {k: sorted(v) for k, v in spans.items()})
+    require(p0['telemetry_left'] == 0, 'loose_launch ssh: %d telemetry '
+            'entries left after close' % p0['telemetry_left'])
+    for rec in (p0, p1, p2):
+        require(_losses_fall(rec), 'loose_launch ssh: %s losses do not fall:'
+                ' %r' % (rec['worker'], [s['loss'] for s in rec['steps']]))
+    rs = ResourceSpec(resource_file=spec)
+    alpha0, beta0 = CostModelParams.from_topology(rs.topology).link(
+        cross_node=rs.topology.multi_node)
+    fit = perf['recalibrations'][-1] if perf['recalibrations'] else {}
+    join_step = p2['start_step']
+    res = dict(
+        phase='loose_launch', run='ssh', steps=LAUNCH_STEPS,
+        batch=cfg['batch'], seconds=seconds,
+        launch_s=p1['steps'][0]['t0'] - t_launch,
+        launch_to_p1_started_s=p1['started'] - t_launch,
+        join_claim_s=p0.get('join_claim_s'), join_step=join_step,
+        joiner_first_step_s=p2['steps'][0]['t0'] - p0['steps'][
+            LAUNCH_JOIN_AT - 1]['t1'],
+        examples_per_s={rec['worker']: {
+            'before_delay': _eps(cfg, rec['steps'], 2, LAUNCH_DELAY_FROM),
+            'during_delay': _eps(cfg, rec['steps'], LAUNCH_DELAY_FROM,
+                                 LAUNCH_JOIN_AT),
+            'after_join': _eps(cfg, rec['steps'], join_step + 1, 10 ** 6)}
+            for rec in (p0, p1, p2)},
+        verdict={k: slow_p1[0].get(k) for k in (
+            'step', 'statistic', 'stat_s', 'baseline_s', 'ratio',
+            'mad_score', 'attributed_phase', 'classification',
+            'phase_shares', 'exclude_candidate')},
+        detection_latency_steps=slow_p1[0]['step'] - LAUNCH_DELAY_FROM,
+        issued_at_chief_step=next(
+            (s['step'] for s in p0['steps'] if s.get('slowdowns')), 'close'),
+        verdicts=[{k: e.get(k) for k in ('kind', 'worker', 'step',
+                                          'classification')}
+                  for e in perf['events']],
+        rerank={k: grown[0].get(k) for k in (
+            'world', 'kept', 'predicted', 'cost_constants',
+            'cost_alpha_beta', 'migration_staged', 'migrated')},
+        migrated={rec['worker']: rec['migrated'] for rec in (p0, p1, p2)},
+        fitted={'alpha_s': fit.get('alpha_s'),
+                'beta_s_per_byte': fit.get('beta_s_per_byte'),
+                'samples': fit.get('samples'), 'tier': fit.get('tier'),
+                'step': fit.get('step')},
+        analytic={'alpha_s': alpha0, 'beta_s_per_byte': beta0},
+        fitted_over_analytic={'alpha': fit.get('alpha_vs_analytic'),
+                              'beta': fit.get('beta_vs_analytic')},
+        recalibrations=len(perf['recalibrations']),
+        telemetry_bytes_per_step={
+            rec['worker']: rec['telemetry_pushed_bytes'] /
+            max(1, len(rec['steps'])) for rec in (p0, p1, p2)},
+        monitor={'polls': perf['polls'], 'poll_s': perf['poll_s'],
+                 'records_ingested': perf['records_ingested'],
+                 'step_time_s': perf['step_time_s']},
+        trace_rows=sorted(rows.values()),
+        telemetry_left=p0['telemetry_left'],
+        losses={rec['worker']: [s['loss'] for s in rec['steps']]
+                for rec in (p0, p1, p2)},
+        delay={'from_push': LAUNCH_DELAY_FROM, 'seconds': LAUNCH_DELAY_S,
+               'fired': p1['faults_fired']})
+    emit(card=smi, **res)
+    return res
+
+
+def launch_cli_run(cfg, device, tmp, smi=None):
+    """Run (b): ``python -m autodist_tpu_torch.launch`` over two local
+    nodes."""
+    out = os.path.join(tmp, 'cli')
+    os.makedirs(out)
+    spec = _launch_spec(out)
+    env = _launch_env(out, spec, shims=False)
+    args = dict(run='cli', cfg=cfg, device=device, out=out, spec=spec,
+                steps=LAUNCH_CLI_STEPS, parties=2,
+                tag='launch-cli-%d' % os.getpid())
+    code, seconds, log = _launch_run(
+        [sys.executable, '-m', 'autodist_tpu_torch.launch', '--spec', spec,
+         os.path.abspath(__file__), '--launch-run', json.dumps(args)], env,
+        out, timeout=300)
+    require(code == 0, 'loose_launch cli: the launcher exited %s:\n%s'
+            % (code, log[-6000:]))
+    recs = [_launch_record(out, w, log) for w in ('p0', 'p1')]
+    host, port = env['AUTODIST_COORD_SERVICE_ADDR'].rsplit(':', 1)
+    try:
+        socket.create_connection((host, int(port)), timeout=2.0).close()
+        service_gone = False
+    except OSError:
+        service_gone = True
+    require(service_gone, 'loose_launch cli: the coord service outlived '
+            'the launcher')
+    for rec in recs:
+        require(_losses_fall(rec), 'loose_launch cli: %s losses do not fall:'
+                ' %r' % (rec['worker'], [s['loss'] for s in rec['steps']]))
+    res = dict(phase='loose_launch', run='cli', steps=LAUNCH_CLI_STEPS,
+               batch=cfg['batch'], rc=code, seconds=seconds,
+               service_gone=service_gone,
+               examples_per_s={rec['worker']: _eps(cfg, rec['steps'], 1,
+                                                   10 ** 6) for rec in recs},
+               losses={rec['worker']: [s['loss'] for s in rec['steps']]
+                       for rec in recs})
+    emit(card=smi, **res)
+    return res
+
+
+def loose_launch_phase(cfg, device, smi=None):
+    """``loose_launch``: runs (a) and (b) (see above)."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {'ssh': launch_ssh_run(cfg, device, tmp, smi),
+               'cli': launch_cli_run(cfg, device, tmp, smi)}
+    out['seconds'] = time.time() - t0
+    emit(phase='loose_launch', seconds=out['seconds'], card=smi)
     return out
 
 
@@ -3445,6 +3884,8 @@ def main(argv):
         return loose_worker(json.loads(argv[1]))
     if argv[:1] == ['--elastic-worker']:
         return elastic_worker(json.loads(argv[1]))
+    if argv[:1] == ['--launch-run']:
+        return launch_worker(json.loads(argv[1]))
     profiling = '--profile' in argv
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3609,6 +4050,10 @@ def main(argv):
     # this slice's path: the membership half of the loose plane (joins,
     # exclusion, supervised restart, the epoch swap, serving readers)
     loose_elastic_phase(NCF_FULL, ELASTIC_STEPS, 'cuda', smi)
+    # this slice's path: the chief's ssh launch, the launcher, and the
+    # cohort telemetry plane (span push, the monitor's verdicts, the
+    # re-rank on measured link constants)
+    loose_launch_phase(NCF_FULL, 'cuda', smi)
 
     # K1-K3 at each head dim's main-path shape, with the launches of the
     # phase that gives the kernels that shape

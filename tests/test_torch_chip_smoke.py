@@ -687,3 +687,39 @@ def test_loose_elastic_phase_at_tiny_width():
     assert srv['lookups'] > 0 and srv['forwards'] > 0
     assert 0 <= srv['row_cache_hit_rate'] <= 1
 
+
+
+# -- the chief's launch and the cohort telemetry plane ----------------------
+NCF_LAUNCH_CPU = {'users': 20000, 'items': 5000, 'mf_dim': 16,
+                  'mlp': (16, 8, 4), 'batch': 32}
+
+
+def test_loose_launch_runs_in_main_after_the_elastic_phase():
+    calls, card_line = _main_call_lines()
+    assert calls['loose_elastic_phase'] < calls['loose_launch_phase'] \
+        < card_line
+
+
+def test_loose_launch_phase_at_tiny_width():
+    """Both runs of ``loose_launch`` at NCF_SMALL on the CPU, each in
+    processes of ``chip_smoke.py --launch-run``: (a) the chief launches
+    p1 through the ssh and scp shims, the monitor names p1 slow on push
+    once its pushes are delayed, the scale-up's joiner is re-ranked for
+    with measured constants, the trace has the three workers' rows and
+    the telemetry namespace is empty after close; (b) the launcher's run
+    exits 0 and its coord service is gone. The requirements are the
+    card's; the records carry what the card's run prints. The tables are
+    20,000 and 5,000 rows (NCF_SMALL's are too small for a pull to
+    weigh against an RPC's latency, and the link fit needs both)."""
+    out = chip_smoke.loose_launch_phase(NCF_LAUNCH_CPU, 'cpu')
+    ssh, cli = out['ssh'], out['cli']
+    assert ssh['verdict']['attributed_phase'] == 'push'
+    assert ssh['detection_latency_steps'] >= 0
+    assert ssh['rerank']['cost_constants'] == 'measured'
+    assert ssh['trace_rows'] == ['worker p0', 'worker p1', 'worker p2']
+    assert ssh['telemetry_left'] == 0 and ssh['delay']['fired'] > 0
+    assert ssh['launch_s'] > 0 and ssh['join_step'] >= \
+        chip_smoke.LAUNCH_JOIN_AT
+    assert all(v > 0 for v in ssh['telemetry_bytes_per_step'].values())
+    assert ssh['fitted']['beta_s_per_byte'] > 0
+    assert cli['rc'] == 0 and cli['service_gone']

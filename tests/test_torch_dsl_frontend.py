@@ -7,6 +7,9 @@ JAX package this slice leaves out, which must raise naming their
 ROADMAP.md item. Tolerance: 1e-5 on f32 values unless a case says
 otherwise.
 """
+import os
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -314,16 +317,55 @@ def test_autodist_defaults_to_the_card():
     ad_mod._DEFAULT_AUTODIST.clear()
 
 
-def test_ssh_coordinator_launch_raises_naming_its_queue_item():
+def test_ssh_coordinator_launch_raises_naming_its_queue_item(monkeypatch,
+                                                             caplog):
+    """The launch this test once found missing: the chief of a spec of
+    two nodes that no launcher started claims rank 0 of 2, launches the
+    other node through a ``Coordinator`` (``AUTODIST_DEBUG_REMOTE`` logs
+    the ssh line instead) and only then forms its group, which the
+    stub ``start`` stops (``tests/test_torch_launch.py`` runs it)."""
+    from autodist_tpu_torch.runtime.coordinator import Coordinator
+    from autodist_tpu_torch.utils import logging as adlog
+    for name in ('AUTODIST_PROCESS_ID', 'AUTODIST_NUM_PROCESSES'):
+        monkeypatch.setenv(name, '')   # restored as absent afterwards
+        monkeypatch.delenv(name)
+    monkeypatch.setenv('AUTODIST_DEBUG_REMOTE', '1')
     autodist = cases.fresh(ad.AllReduce())
     autodist._resource_spec = two_node_spec()
     autodist._cluster._resource_spec = autodist._resource_spec
     autodist._ext_launched = False
-    with autodist.scope():
-        ad.Variable(1.0, name='v')
-        with pytest.raises(NotImplementedError,
-                           match='ROADMAP.md Queue 1: Loose-mode PS plane'):
-            autodist.create_distributed_session()
+    planes, published = [], {}
+
+    def control_plane(rank, world):
+        planes.append((rank, world))
+        autodist._coord = types.SimpleNamespace(set=published.__setitem__)
+    monkeypatch.setattr(autodist, '_ensure_control_plane', control_plane)
+
+    def group_forms(device_type):
+        raise NotImplementedError('group formation after the launch')
+    monkeypatch.setattr(autodist._cluster, 'start', group_forms)
+    logger = adlog.get_logger()
+    logger.addHandler(caplog.handler)
+    try:
+        with autodist.scope():
+            ad.Variable(1.0, name='v')
+            with pytest.raises(NotImplementedError,
+                               match='group formation after the launch'):
+                autodist.create_distributed_session()
+    finally:
+        logger.removeHandler(caplog.handler)
+        ad_coordinator = autodist._coordinator
+        if ad_coordinator is not None:
+            ad_coordinator.terminate()
+    assert planes == [(0, 2)]
+    assert published['strategy//id'] == autodist._coordinator._strategy.id
+    assert isinstance(autodist._coordinator, Coordinator)
+    assert os.environ['AUTODIST_PROCESS_ID'] == '0'
+    assert os.environ['AUTODIST_NUM_PROCESSES'] == '2'
+    (line,) = [r.getMessage() for r in caplog.records
+               if 'AUTODIST_WORKER=' in r.getMessage()]
+    assert ' 10.20.41.1 ' in line and 'AUTODIST_WORKER=10.20.41.1 ' in line
+    assert 'AUTODIST_PROCESS_ID=1 AUTODIST_NUM_PROCESSES=2 ' in line
 
 
 def test_saver_and_autostrategy_raise_naming_their_queue_items():

@@ -8,8 +8,11 @@ BatchNorm kernel's module on the CPU, one c0 step through the DSL
 prefetch and a checkpoint, restored into a fresh trainer, two loose
 NCF steps on the bf16 wire, and imports the membership half's modules
 and round-trips a staged swap plan (whose pickle names the JAX
-package's classes) through them; an AST scan finds no import of any of
-them in any of the port's files. The
+package's classes) through them, and imports the launch
+(``autodist_tpu_torch.launch``, ``runtime.coordinator``) and the
+telemetry plane (``telemetry.aggregate``, ``telemetry.monitor``) and
+round-trips a span batch and a monitor sample through them; an AST scan
+finds no import of any of them in any of the port's files. The
 scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
 name, never by prefix.
 """
@@ -104,6 +107,15 @@ plan = faultline.FaultPlan.random(3, ['p0', 'p1'], 5,
                                   kinds=faultline.FAULT_KINDS)
 assert len(plan.faults) == len(faultline.FAULT_KINDS)
 flight.recorder().record('nojax', ok=True)
+# the launch and the telemetry plane
+import autodist_tpu_torch.launch
+from autodist_tpu_torch.runtime.coordinator import Coordinator, launch_cli
+from autodist_tpu_torch.telemetry import aggregate, monitor
+recs = [{'name': 'step', 't0': 1.0, 'dur': 0.5, 'tags': {'step': 3}}]
+assert aggregate.decode_records(aggregate.encode_records(recs)) == recs
+mon = monitor.CohortMonitor(policy='warn', warmup_steps=0)
+mon.ingest([dict(r, worker='p0') for r in recs])
+assert mon.snapshot()['workers']['p0']['samples'] == 1
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                 ('jax', 'jaxlib', 'autodist_tpu', 'ml_dtypes') and
                 sys.modules[m])

@@ -218,3 +218,32 @@ def group_formed(rank, world, steps=3):
         if proc is not None:
             stop_service(port, proc)
     return got
+
+
+def telemetry_pair(pid, nprocs, steps=8):
+    """The c0 program at depth 2 with telemetry on (the launcher's env):
+    each worker trains ``steps`` steps; the workers close first, then
+    the chief, whose close exports the cohort trace with every final
+    batch. The chief reports its ``perf`` section, the trace's path and
+    what a purge of the telemetry namespace finds after every close."""
+    autodist = _autodist(ad.PS(staleness=2), nprocs)
+    inputs, outputs = make_data(SEEDS[pid])
+    sess, x, y, train_op = _linear(autodist, ad.optimizers.SGD(0.01))
+    for _ in range(steps):
+        sess.run(train_op, {x: inputs, y: outputs})
+    tag = os.environ['AUTODIST_RUN_ID']
+    coord = autodist._coord
+    coord.barrier('test/%s/trained' % tag, nprocs, timeout_s=120.0)
+    out = {'monitor': sess.monitor}
+    if pid:
+        sess.close()
+        coord.barrier('test/%s/closed' % tag, nprocs, timeout_s=120.0)
+    else:
+        coord.barrier('test/%s/closed' % tag, nprocs, timeout_s=120.0)
+        sess.close()
+        out = {'perf': sess.health_stats['perf'],
+               'trace_path': sess.trace_path,
+               'left_after_close': coord.delete_namespace(
+                   sess._key('telemetry/'))}
+    out['pushed_bytes'] = sess.telemetry_pushed_bytes
+    return out
