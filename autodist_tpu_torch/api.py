@@ -59,11 +59,46 @@ updates). The step hands the data-parallel group to the model on that
 collector, so BatchNorm reduces its moments over the whole global batch:
 in the JAX package data parallelism is GSPMD's, and a mean over the
 batch axis is a mean over the global batch.
+
+The ranks form a (data, seq) grid (:class:`RankGrid`: data outermost,
+rank ``r = d·sp + s``), as the JAX package lays its mesh.
+
+*Sequence parallelism* (``ParallelSpec(sp > 1, sp_mode=...)``, the JAX
+step's manual seq region): ``shard_batch`` also slices dim 1 of every
+leaf of rank >= 2 over the seq group, the model runs on its slice under
+``model_mode(seq=...)`` (ring or Ulysses attention over the seq group,
+global positions), and the loss is the model's per-token NLL's global
+masked mean over the data x seq tokens (the count all-reduced over the
+grid; without a mask every token counts) plus ``aux_loss_weight`` times
+the aux averaged over the grid: the MoE fractions reduce over the data
+group inside the model, so the mean over the seq ranks is the JAX
+``pmean``. As in the JAX package, this loss replaces a user
+``loss_fn``. The gradients of the replicated parameters are summed over
+the whole grid.
+
+*Sharded training state* (the JAX ``_zero_extend`` and
+``apply_strategy_to_shardings``): each trainable leaf may have a shard
+dim over the data group, :meth:`Trainer.shard_dims`. With ``zero >= 2``
+it is the first dim that divides by dp; for a variable a strategy
+partitions (``partition_dims``, installed by ``trainer_from_strategy``)
+it is the strategy's partition axis when that divides. A sharded leaf's
+optimizer slots exist only for this rank's slice: its gradient is
+reduce-scattered along the shard dim, the optimizer steps on the slice.
+Under ``zero == 3`` and for a partitioned variable the parameter itself
+is held as the slice, and a differentiable all-gather (its backward a
+reduce-scatter) hands the full tensor to the loss, which frees it after
+the backward; under ``zero == 2`` the full parameter is kept and
+all-gathered from the slices after the step. Buffers (BatchNorm
+statistics) stay replicated. ``get_params``, ``save_state``,
+``restore_state``, ``evaluate``, ``fit`` and ``profile`` see the
+logical (full) layout, so either package restores the other's
+checkpoint; with sharded state ``get_params`` and ``save_state`` gather,
+so every rank calls them.
 """
 import copy
 import os
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -74,6 +109,7 @@ from autodist_tpu_torch.models import weights
 from autodist_tpu_torch.models.core import (apply_tree_updates,
                                             assign_state_paths, model_mode)
 from autodist_tpu_torch.parallel.axes import ParallelSpec
+from autodist_tpu_torch.parallel.mesh import RankGrid, all_gather
 from autodist_tpu_torch.utils import logging
 
 
@@ -82,6 +118,21 @@ class TrainState:
     params: Any          # {name: nn.Parameter}, the model's own
     opt_state: Any       # the torch.optim.Optimizer over them
     step: int = 0
+
+
+@dataclass
+class _Leaf:
+    """One leaf of the model's params tree and where its state lives."""
+    path: tuple                 # its JAX path
+    tensor: torch.Tensor        # the model's parameter or buffer
+    shape: tuple                # the full (logical) shape
+    dim: Optional[int]          # shard dim over the data group, or None
+    held: bool                  # the parameter itself is this rank's slice
+    opt: Optional[torch.Tensor]  # what the optimizer steps (None: buffer)
+
+    @property
+    def name(self):
+        return '/'.join(self.path)
 
 
 class Trainer:
@@ -97,8 +148,14 @@ class Trainer:
         loss_fn: ``loss_fn(params, batch) -> scalar`` or ``(sum,
             count)`` (the global mean over the group, see the module
             docstring); defaults to ``model.loss``.
-        process_group: the data-parallel group; defaults to the
+        process_group: the group of the grid's ranks; defaults to the
             default group when ``torch.distributed`` is initialized.
+            Every rank constructs the Trainer (the grid's subgroups are
+            made here, a collective).
+
+    ``partition_dims`` ({variable name: dim}) shards those variables'
+    state over the data group; ``trainer_from_strategy`` installs it
+    from the strategy before ``init``.
     """
 
     def __init__(self, model, optimizer, spec=None, loss_fn=None,
@@ -115,19 +172,98 @@ class Trainer:
         else:
             self.world, self.rank = 1, 0
         self.dp = self.spec.resolve_dp(self.world)
+        self.sp = int(self.spec.sp)
         self.accum = max(1, int(self.spec.grad_accum))
         self.device = next(model.parameters()).device
+        self.grid = RankGrid(self.dp, self.sp, self.rank, process_group,
+                             self.device)
+        self.partition_dims = {}
+        # replicated until ``init`` lays the state out by its shard dims
+        self._leaves = self._layout(shard=False)
         self._has_state = model.has_state()
         if self._has_state:
             assign_state_paths(model)
-        logging.info('Trainer: dp=%d on %s, grad_accum=%d, remat=%s',
-                     self.dp, self.device, self.accum, self.spec.remat)
+        logging.info('Trainer: dp=%d sp=%d (%s) zero=%d on %s, '
+                     'grad_accum=%d, remat=%s', self.dp, self.sp,
+                     self.spec.sp_mode, self.spec.zero, self.device,
+                     self.accum, self.spec.remat)
+
+    # -- sharded state -----------------------------------------------------
+    def _shard_dim(self, name, shape):
+        """A trainable leaf's shard dim over the data group: the
+        strategy's partition axis for a partitioned variable, else under
+        ``zero >= 2`` the first dim that divides by dp (the JAX
+        ``_zero_extend``); None when replicated."""
+        if self.dp <= 1:
+            return None
+        if name in self.partition_dims:
+            return self.partition_dims[name]
+        if self.spec.zero >= 2:
+            for i, n in enumerate(shape):
+                if n % self.dp == 0 and n >= self.dp:
+                    return i
+        return None
+
+    def shard_dims(self):
+        """``{variable name: shard dim over the data group, or None}`` for
+        every leaf of the params tree (buffers replicate), as ``init``
+        laid the state out: the position of ``'data'`` in the JAX
+        trainer's sharding of the leaf's optimizer slots, and, under
+        ``zero == 3`` or for a partitioned variable, of the parameter
+        itself (:meth:`state_sharding`)."""
+        return {l.name: l.dim for l in self._leaves}
+
+    def state_sharding(self):
+        """``{'params': {name: dim}, 'opt_state': {name: dim}}``: the data
+        group's dim in each leaf of the parameters and of the optimizer
+        slots as this trainer holds them (None: replicated)."""
+        return {'params': {l.name: l.dim if l.held else None
+                           for l in self._leaves},
+                'opt_state': self.shard_dims()}
+
+    def _slice(self, x, dim):
+        """This rank's slice of a full tensor along ``dim``."""
+        c = x.shape[dim] // self.dp
+        return x.narrow(dim, self.grid.data_index * c, c)
+
+    def _layout(self, shard=True):
+        """Lay the model's leaves out by their shard dims (all replicated
+        without ``shard``): a held leaf's parameter becomes its slice; a
+        zero-2 leaf gets a slice parameter for the optimizer beside the
+        full one."""
+        trainable = {id(p) for p in self.model.parameters()}
+        leaves = []
+        for path, t in weights.flatten_tree(self.model.params()):
+            name, shape = '/'.join(path), tuple(t.shape)
+            dim = self._shard_dim(name, shape) \
+                if shard and id(t) in trainable else None
+            held = dim is not None and (self.spec.zero >= 3 or
+                                        name in self.partition_dims)
+            opt = t if id(t) in trainable else None
+            if dim is not None:
+                part = self._slice(t.detach(), dim).clone()
+                if held:
+                    t.data = part
+                else:
+                    opt = torch.nn.Parameter(part)
+            leaves.append(_Leaf(path, t, shape, dim, held, opt))
+        return leaves
+
+    def _unshard(self):
+        """Full-size storage for held leaves again (before a new init)."""
+        for l in self._leaves:
+            if l.held:
+                l.tensor.data = torch.empty(l.shape, dtype=l.tensor.dtype,
+                                            device=l.tensor.device)
+        self._leaves = []
 
     # -- init --------------------------------------------------------------
     def init(self, seed=0, params=None):
         """Fresh params from ``seed`` (the port's own init), or
         ``params`` in the JAX layout (nested dict of arrays); then the
-        optimizer state. Ranks start from rank 0's params."""
+        optimizer state, over this rank's slices of sharded leaves.
+        Ranks start from rank 0's params."""
+        self._unshard()
         if params is None:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
         else:
@@ -138,22 +274,40 @@ class Trainer:
                 dist.broadcast(p.data, dist.get_global_rank(self.group, 0)
                                if self.group is not None else 0,
                                group=self.group)
+        self._leaves = self._layout()
+        opt_of = {id(l.tensor): l.opt for l in self._leaves}
         named = dict(self.model.named_parameters())
-        return TrainState(params=named,
-                          opt_state=self.optimizer(list(named.values())))
+        return TrainState(params=named, opt_state=self.optimizer(
+            [opt_of[id(p)] for p in named.values()]))
+
+    def _params(self, grad=True):
+        """The params tree the loss sees: held leaves all-gathered
+        (differentiably with ``grad``), every other leaf the model's."""
+        params = self.model.params()
+        held = [l for l in self._leaves if l.held]
+        if not held:
+            return params
+        with torch.set_grad_enabled(grad and torch.is_grad_enabled()):
+            full = {l.path: all_gather(self.grid.data, l.tensor, l.dim)
+                    for l in held}
+        return _replace(params, full)
 
     # -- data --------------------------------------------------------------
     def shard_batch(self, batch):
         """Global host batch -> this rank's share of every leaf's leading
-        dim, as tensors on the trainer's device: rows [r·B/dp,
-        (r+1)·B/dp), or under ``grad_accum`` the r-th dp-slice of each
-        of its chunks of consecutive rows. A tensor already on the
+        dim, as tensors on the trainer's device: rows [d·B/dp,
+        (d+1)·B/dp) for data index d, or under ``grad_accum`` the d-th
+        dp-slice of each of its chunks of consecutive rows; under
+        ``sp > 1`` also columns [s·S/sp, (s+1)·S/sp) of dim 1 of every
+        leaf of rank >= 2 for seq index s. A tensor already on the
         trainer's device is taken as placed and passes through untouched
         (a batch from ``shard_batch`` or the prefetcher). On the card the
         copy leaves pinned memory with ``non_blocking=True``."""
         return self._place(batch, self.accum)
 
     def _place(self, batch, accum):
+        d_idx, s_idx = divmod(self.rank, self.sp)
+
         def local(x):
             if isinstance(x, torch.Tensor):
                 if x.device == self.device:
@@ -167,9 +321,15 @@ class Trainer:
                                  'dp=%d x grad_accum=%d'
                                  % (x.shape[0], self.dp, accum))
             n = x.shape[0] // (self.dp * accum)
-            part = x.reshape((accum, self.dp, n) + x.shape[1:])[:, self.rank]
-            t = torch.from_numpy(np.ascontiguousarray(
-                part.reshape((accum * n,) + x.shape[1:])))
+            part = x.reshape((accum, self.dp, n) + x.shape[1:])[:, d_idx]
+            part = part.reshape((accum * n,) + x.shape[1:])
+            if self.sp > 1 and x.ndim >= 2:
+                if x.shape[1] % self.sp:
+                    raise ValueError('sequence dim %d does not split over '
+                                     'sp=%d' % (x.shape[1], self.sp))
+                c = x.shape[1] // self.sp
+                part = part[:, s_idx * c:(s_idx + 1) * c]
+            t = torch.from_numpy(np.ascontiguousarray(part))
             if self.device.type == 'cuda':
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t.to(self.device)
@@ -198,17 +358,33 @@ class Trainer:
         return self.model.loss(params, batch)
 
     def _global_mask(self, batch):
-        """True when the loss is the global masked mean over the group's
-        ranks (a mask, the model's per-token loss, no user loss_fn)."""
+        """True when the loss is the global masked mean over the grid's
+        ranks: a mask, the model's per-token loss and no user loss_fn;
+        or sequence parallelism (with or without a mask)."""
+        if self.sp > 1:
+            if not hasattr(self.model, 'per_token_loss'):
+                raise ValueError('ParallelSpec(sp=%d) needs a model with '
+                                 'per_token_loss' % self.sp)
+            return True
         return self._loss_fn is None and 'mask' in batch and \
             hasattr(self.model, 'per_token_loss')
 
     def _mask_counts(self, chunks):
-        """Each chunk's unmasked-token count over the whole group, f32,
-        floored at 1: one all-reduce for every chunk."""
-        counts = torch.stack([c['mask'].float().sum() for c in chunks])
+        """Each chunk's counted tokens over the whole grid (the mask's
+        sum, else every target), f32, floored at 1: one all-reduce for
+        every chunk."""
+        counts = torch.stack([
+            c['mask'].float().sum() if 'mask' in c else
+            torch.tensor(float(c['targets'].numel()), device=self.device)
+            for c in chunks])
         self._all_reduce(counts)
         return torch.clamp(counts, min=1)
+
+    def _mode(self, training):
+        """``model_mode`` with the data group (and the seq group)."""
+        return model_mode(training=training, group=self.grid.data.group,
+                          world=self.dp, seq=self.grid.seq,
+                          sp_mode=self.spec.sp_mode)
 
     def _pair_mean(self, total, count):
         """This rank's part of a pair-form loss's global mean: its sum
@@ -226,9 +402,9 @@ class Trainer:
         that returns ``(sum, count)``, its sum over the global count;
         in both the ranks' parts are summed. Else the rank's mean loss,
         which the ranks average. The forward runs under ``model_mode``
-        with the data-parallel group. Under ``remat='full'`` the forward
-        runs again in the backward; the state updates are those of the
-        first run."""
+        with the data group and the seq group. Under ``remat='full'``
+        the forward runs again in the backward; the state updates are
+        those of the first run."""
         def compute():
             if count is None:
                 return self.loss_for(params, chunk)
@@ -236,7 +412,9 @@ class Trainer:
                 nll, aux = self.model.per_token_loss_with_aux(params, chunk)
             else:
                 nll, aux = self.model.per_token_loss(params, chunk), 0.0
-            loss = (nll * chunk['mask'].to(nll.dtype)).sum() / count
+            if 'mask' in chunk:
+                nll = nll * chunk['mask'].to(nll.dtype)
+            loss = nll.sum() / count
             weight = getattr(self.model, 'aux_loss_weight', 0.0)
             if weight:
                 # the ranks' parts are summed: each adds its share of the
@@ -247,8 +425,7 @@ class Trainer:
         recorded = []
 
         def run():
-            with model_mode(training=training, group=self.group,
-                            world=self.world) as mm:
+            with self._mode(training) as mm:
                 out = compute()
             if not recorded:
                 recorded.append(mm.updates)
@@ -274,14 +451,14 @@ class Trainer:
     def _step(self, state, batch):
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
-        params = self.model.params()
         chunks = self._chunks(batch)
         global_mask = self._global_mask(batch)
         counts = self._mask_counts(chunks) if global_mask else None
         total, updates = None, {}
         for i, chunk in enumerate(chunks):
             loss, updates, summed = self._chunk_loss(
-                params, chunk, None if counts is None else counts[i], True)
+                self._params(), chunk, None if counts is None else counts[i],
+                True)
             loss.backward()
             loss = loss.detach()
             total = loss if total is None else total + loss
@@ -289,23 +466,54 @@ class Trainer:
         # a global mean sums the ranks' parts; a mean averages the
         # ranks' means
         ranks = 1 if summed else self.world
-        grads = [p.grad for p in state.params.values() if p.grad is not None]
+        self._reduce_grads(self.accum * ranks)
         if self.world > 1:
-            self._all_reduce(grads, self.accum * ranks)
             loss = loss.clone()
             self._all_reduce(loss, ranks)
-        elif self.accum > 1:
-            for g in grads:
-                g.div_(self.accum)
         opt.step()
+        self._gather_zero2()
         if self._has_state:
-            apply_tree_updates(params, updates)
+            apply_tree_updates(self.model.params(), updates)
         state.step += 1
         return state, {'loss': loss}
 
+    def _reduce_grads(self, divide):
+        """Sum every gradient over the grid and divide by ``divide``. A
+        replicated leaf's is all-reduced; a sharded leaf's is
+        reduce-scattered over the data group along its shard dim (a
+        held leaf's gather did that in its backward) and all-reduced
+        over the seq group, and lands on the slice the optimizer
+        steps."""
+        replicated, sliced = [], []
+        for l in self._leaves:
+            if l.opt is None:
+                continue
+            if l.dim is None:
+                if l.tensor.grad is not None:
+                    replicated.append(l.tensor.grad)
+                continue
+            if not l.held:
+                g = l.tensor.grad
+                if g is None:
+                    g = torch.zeros_like(l.tensor)
+                l.opt.grad = self.grid.data.reduce_scatter(g, l.dim)
+                l.tensor.grad = None
+            elif l.opt.grad is None:
+                l.opt.grad = torch.zeros_like(l.opt)
+            sliced.append(l.opt.grad)
+        _sum(self.grid.world, replicated, divide)
+        _sum(self.grid.seq, sliced, divide)
+
+    @torch.no_grad()
+    def _gather_zero2(self):
+        """A zero-2 leaf's full parameter from the slices just stepped."""
+        for l in self._leaves:
+            if l.dim is not None and not l.held:
+                l.tensor.copy_(self.grid.data.all_gather(l.opt, l.dim))
+
     def _all_reduce(self, tensors, divide=1):
         """Sum a tensor, or a list of them in one flat collective, over
-        the group (nothing at one rank), then divide by ``divide``."""
+        the grid (nothing at one rank), then divide by ``divide``."""
         if self.world == 1:
             return
         if isinstance(tensors, torch.Tensor):
@@ -313,14 +521,7 @@ class Trainer:
             if divide != 1:
                 tensors /= divide
             return
-        flat = torch.cat([g.reshape(-1) for g in tensors])
-        dist.all_reduce(flat, group=self.group)
-        if divide != 1:
-            flat /= divide
-        offset = 0
-        for g in tensors:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+        _sum(self.grid.world, tensors, divide)
 
     def compile_step(self, state, batch):
         """The step callable for batches already passed through
@@ -398,14 +599,13 @@ class Trainer:
         the module docstring); a pair metric is the global sum over the
         global count, a scalar metric each rank's value on its slice,
         averaged over the ranks."""
-        params = self.model.params()
+        params = self._params(grad=False)
         totals, count = {}, 0
         for batch in batches:
             batch = self._place(batch, 1)
             global_mask = self._global_mask(batch)
             counts = self._mask_counts([batch]) if global_mask else None
-            with model_mode(training=False, group=self.group,
-                            world=self.world):
+            with self._mode(False):
                 loss, _, summed = self._chunk_loss(
                     params, batch, None if counts is None else counts[0],
                     False)
@@ -434,33 +634,42 @@ class Trainer:
             'save_state: no optax layout for %s' % type(opt).__name__)
 
     def _state_tree(self, state, skeleton=False):
-        """The state as the JAX package's ``TrainState`` flattens it: the
-        params tree under ``.params``, optax's slots under
-        ``.opt_state/0`` (Adam and AdamW: ``.count``, ``.mu``, ``.nu``;
-        SGD with momentum: ``.trace``), and ``.step``. State buffers get
-        zero slots, as their zero gradients give them in optax. With
-        ``skeleton``, uninitialized host arrays of the right shapes."""
+        """The state as the JAX package's ``TrainState`` flattens it, in
+        the logical (full) layout: the params tree under ``.params``,
+        optax's slots under ``.opt_state/0`` (Adam and AdamW:
+        ``.count``, ``.mu``, ``.nu``; SGD with momentum: ``.trace``),
+        and ``.step``. Sharded leaves and slots are all-gathered over
+        the data group (a collective: every rank builds the tree). State
+        buffers get zero slots, as their zero gradients give them in
+        optax. With ``skeleton``, uninitialized host arrays of the right
+        shapes."""
         def host(t):
-            if skeleton:
-                return np.empty(tuple(t.shape), np.float32)
             return t.detach().float().cpu().numpy()
+
+        def full(t, l):
+            return self.grid.data.all_gather(t.detach(), l.dim)
 
         opt = state.opt_state
         kind = self._slot_kind(opt)
-        params = self.model.params()
-        tree = {'.params': _map_tree(host, params),
+
+        def param(l):
+            if skeleton:
+                return np.empty(l.shape, np.float32)
+            return host(full(l.tensor, l) if l.held else l.tensor)
+
+        tree = {'.params': _tree(param, self._leaves),
                 '.step': np.asarray(state.step, np.int32)}
         if kind is None:
             return tree
 
         def slot(name):
-            def leaf(p):
-                s = opt.state.get(p, {}) if isinstance(
-                    p, torch.nn.Parameter) else {}
+            def leaf(l):
+                s = opt.state.get(l.opt, {}) if l.opt is not None else {}
                 if name in s and not skeleton:
-                    return host(s[name])
-                return np.zeros(tuple(p.shape), np.float32)
-            return _map_tree(leaf, params)
+                    return host(s[name] if l.dim is None
+                                else full(s[name], l))
+                return np.zeros(l.shape, np.float32)
+            return _tree(leaf, self._leaves)
 
         if kind == 'trace':
             tree['.opt_state'] = ({'.trace': slot('momentum_buffer')},)
@@ -475,8 +684,8 @@ class Trainer:
     def save_state(self, manager, state):
         """Checkpoint params, optimizer slots and step for exact resume,
         in the JAX package's ``TrainState`` layout, so either package
-        restores the other's checkpoint. Rank 0 writes (the state is
-        replicated)."""
+        restores the other's checkpoint. Every rank builds the tree
+        (sharded state is gathered); rank 0 writes."""
         tree = self._state_tree(state)
         if self.world > 1 and self.rank != 0:
             return None
@@ -484,35 +693,57 @@ class Trainer:
 
     def restore_state(self, manager, state_template, step=None):
         """Restore a :meth:`save_state` checkpoint (either package's) into
-        this trainer's model and optimizer, in place. Returns
-        ``(state, step)``; ``(state_template, None)`` when there is no
-        checkpoint."""
+        this trainer's model and optimizer, in place, each rank taking
+        its slices of sharded leaves. Returns ``(state, step)``;
+        ``(state_template, None)`` when there is no checkpoint."""
         like = self._state_tree(state_template, skeleton=True)
         tree, got_step = manager.restore(like=like, step=step)
         if tree is None:
             return state_template, None
-        weights.load_params(self.model, tree['.params'])
+        with torch.no_grad():
+            for l in self._leaves:
+                value = self._leaf_value(tree['.params'], l)
+                l.tensor.copy_(self._slice(value, l.dim) if l.held
+                               else value)
+                if l.dim is not None and not l.held:
+                    l.opt.copy_(self._slice(value, l.dim))
         opt = state_template.opt_state
         kind = self._slot_kind(opt)
         step_count = int(tree['.step'])
         if kind is not None:
             slots = tree['.opt_state'][0]
-            flat = dict(weights.flatten_tree(self.model.params()))
-            for path, p in flat.items():
-                if not isinstance(p, torch.nn.Parameter):
+            for l in self._leaves:
+                if l.opt is None:
                     continue
                 leaf = {}
                 if kind == 'trace' and step_count:
-                    leaf['momentum_buffer'] = _slot_tensor(slots['.trace'],
-                                                           path, p)
+                    leaf['momentum_buffer'] = self._slot(slots['.trace'], l)
                 elif kind == 'adam' and int(slots['.count']):
                     leaf['step'] = torch.tensor(float(slots['.count']),
                                                 dtype=torch.float32)
-                    leaf['exp_avg'] = _slot_tensor(slots['.mu'], path, p)
-                    leaf['exp_avg_sq'] = _slot_tensor(slots['.nu'], path, p)
-                opt.state[p] = leaf
+                    leaf['exp_avg'] = self._slot(slots['.mu'], l)
+                    leaf['exp_avg_sq'] = self._slot(slots['.nu'], l)
+                opt.state[l.opt] = leaf
         state_template.step = step_count
         return state_template, got_step
+
+    def _leaf_value(self, tree, l):
+        """The full value at ``l``'s path of a JAX-layout tree, as a
+        tensor like ``l``'s."""
+        for k in l.path:
+            tree = tree[k]
+        if tuple(np.shape(tree)) != l.shape:
+            raise ValueError('restore_state: %s has shape %s, the model '
+                             '%s' % (l.name, np.shape(tree), l.shape))
+        return torch.from_numpy(np.ascontiguousarray(tree)).to(
+            l.tensor.device, l.tensor.dtype)
+
+    def _slot(self, tree, l):
+        """This rank's slot tensor for ``l`` from a JAX-layout slot tree
+        (its slice when the leaf is sharded)."""
+        value = self._leaf_value(tree, l)
+        return value if l.dim is None else \
+            self._slice(value, l.dim).contiguous()
 
     # -- profiling ---------------------------------------------------------
     def profile(self, state, batch, trace_dir, steps=3):
@@ -527,7 +758,9 @@ class Trainer:
         from torch.profiler import ProfilerActivity, profile
         placed = self.shard_batch(batch)
         opt = state.opt_state
-        tensors = list(self.model.parameters()) + list(self.model.buffers())
+        tensors = list(self.model.parameters()) + \
+            list(self.model.buffers()) + \
+            [l.opt for l in self._leaves if l.dim is not None and not l.held]
         saved = ([t.detach().clone() for t in tensors],
                  copy.deepcopy(opt.state_dict()), state.step)
         activities = [ProfilerActivity.CPU]
@@ -556,18 +789,46 @@ class Trainer:
 
     # -- fetch -------------------------------------------------------------
     def get_params(self, state):
-        """Params on the host in the JAX layout (nested dict of numpy)."""
-        return weights.params_to_jax(self.model)
+        """Params on the host in the JAX layout (nested dict of numpy),
+        full: sharded leaves are all-gathered, so every rank calls it."""
+        with torch.no_grad():
+            return weights.tree_to_numpy(self._params(grad=False))
 
 
-def _map_tree(fn, tree):
-    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def _tree(fn, leaves):
+    """The nested dict of ``fn(leaf)`` at each leaf's path."""
+    out = {}
+    for l in leaves:
+        node = out
+        for k in l.path[:-1]:
+            node = node.setdefault(k, {})
+        node[l.path[-1]] = fn(l)
+    return out
 
 
-def _slot_tensor(tree, path, p):
-    """The slot at ``path`` of a JAX-layout slot tree, as a tensor like
-    the parameter ``p``."""
-    for k in path:
-        tree = tree[k]
-    return torch.from_numpy(np.ascontiguousarray(tree)).to(p.device, p.dtype)
+def _replace(tree, values):
+    """``tree`` with the leaves at the paths of ``values`` replaced."""
+    def walk(node, prefix):
+        return {k: walk(v, prefix + (k,)) if isinstance(v, dict)
+                else values.get(prefix + (k,), v) for k, v in node.items()}
+    return walk(tree, ())
+
+
+def _sum(group, tensors, divide=1):
+    """Sum ``tensors`` in place over a ``ReplicaGroup`` in one flat
+    collective (nothing with one member), then divide by ``divide``."""
+    if not tensors:
+        return
+    if group.size == 1:
+        if divide != 1:
+            for t in tensors:
+                t.div_(divide)
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group.group)
+    if divide != 1:
+        flat /= divide
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()

@@ -1,18 +1,24 @@
 """Multi-head attention for the port.
 
-The counterpart of ``autodist_tpu/models/attention.py``, data-parallel
-only. Each rank holds its local batch, so the JAX package's unsharded
-branch and its nested-manual ``_tp_manual_flash`` branch are one rule
-here: the flash kernel when ``flash_attention.preferred(q.shape)``
-holds, else ``local_flash_attention``. Tensor, sequence (ring) and
-Ulysses parallelism are refused by ``ParallelSpec`` until they are
-ported.
+The counterpart of ``autodist_tpu/models/attention.py``. With a live
+seq group (``core.seq_group()``, set by the Trainer under sequence
+parallelism) the attention runs over it by ``core.sp_mode()``: Ulysses
+(:mod:`autodist_tpu_torch.parallel.ulysses`) or the ring
+(:mod:`autodist_tpu_torch.parallel.ring_attention`), as the JAX module
+dispatches on its manual ``seq`` axis. Otherwise each rank holds its
+local batch, so the JAX package's unsharded branch and its
+nested-manual ``_tp_manual_flash`` branch are one rule here: the flash
+kernel when ``flash_attention.preferred(q.shape)`` holds, else
+``local_flash_attention``. Tensor parallelism is refused by
+``ParallelSpec`` until it is ported.
 """
 import torch
 
 from autodist_tpu_torch.kernels import flash_attention as fa
-from autodist_tpu_torch.models.core import Dense, Module
-from autodist_tpu_torch.parallel.ring_attention import local_flash_attention
+from autodist_tpu_torch.models.core import Dense, Module, seq_group, sp_mode
+from autodist_tpu_torch.parallel.ring_attention import (local_flash_attention,
+                                                        ring_attention)
+from autodist_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 class MultiHeadAttention(Module):
@@ -42,7 +48,13 @@ class MultiHeadAttention(Module):
         qkv = self.qkv.apply(params['qkv'], x).reshape(b, s, 3, h, d)
         # [b, s, 3, h, d] -> 3 x [b, h, s, d]
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-        if fa.preferred(q.shape):
+        seq = seq_group()
+        if seq is not None:
+            if sp_mode() == 'ulysses':
+                o = ulysses_attention(q, k, v, seq, causal=self.causal)
+            else:
+                o = ring_attention(q, k, v, seq, causal=self.causal)
+        elif fa.preferred(q.shape):
             o = fa.flash_attention(q, k, v, causal=self.causal)
         else:
             o = local_flash_attention(q, k, v, causal=self.causal)

@@ -150,16 +150,19 @@ def _leaves(tree):
 # optimizer step. Paths are stamped on module instances once per trainer
 # (``assign_state_paths``). The collector also carries the data-parallel
 # process group of the step, so BatchNorm can reduce its moments over the
-# whole data-parallel batch (``reduce_over_batch``).
+# whole data-parallel batch (``reduce_over_batch``), and the seq group
+# with its attention mode under sequence parallelism (``seq_group``).
 # ---------------------------------------------------------------------------
 _MODEL_CTX = threading.local()
 
 
 class _StateCollector:
-    def __init__(self, training, group, world):
+    def __init__(self, training, group, world, seq=None, sp_mode='ring'):
         self.training = training
         self.group = group
         self.world = world
+        self.seq = seq if seq is not None and seq.size > 1 else None
+        self.sp_mode = sp_mode
         self.updates = {}    # path tuple -> new value (detached)
 
 
@@ -184,10 +187,16 @@ class _resumed:
 class model_mode(_resumed):
     """Context: set training/eval mode and collect state updates during a
     forward. ``group``/``world`` name the data-parallel group whose ranks
-    each hold a slice of the batch (``world`` 1: no collective)."""
+    each hold a slice of the batch (``world`` 1: no collective).
+    ``seq`` is the seq group (a ``ReplicaGroup``) whose ranks each hold a
+    slice of the sequence, and ``sp_mode`` the attention that runs over
+    it ('ring' | 'ulysses'): the port's ``sharding_ctx`` for sequence
+    parallelism."""
 
-    def __init__(self, training=True, group=None, world=1):
-        super().__init__(_StateCollector(training, group, world))
+    def __init__(self, training=True, group=None, world=1, seq=None,
+                 sp_mode='ring'):
+        super().__init__(_StateCollector(training, group, world, seq,
+                                         sp_mode))
 
     @property
     def updates(self):
@@ -209,6 +218,19 @@ def is_training():
     return True if col is None else col.training
 
 
+def seq_group():
+    """The live seq group of the active step (a ``ReplicaGroup`` of two
+    or more ranks), or None: the JAX package's ``manual_axis('seq')``."""
+    col = _collector()
+    return None if col is None else col.seq
+
+
+def sp_mode():
+    """The attention over the seq group: 'ring' or 'ulysses'."""
+    col = _collector()
+    return 'ring' if col is None else col.sp_mode
+
+
 def reduce_over_batch(t):
     """Sum ``t`` over the data-parallel group of the active step, with a
     differentiable all-reduce (its backward sums the cotangents over the
@@ -226,7 +248,10 @@ def mean_over_batch(t):
     a constant (no gradient flows through the collective); ``t`` itself
     outside a step or with one rank. The ranks hold equal slices, so the
     mean of their batch means is the global batch's: the JAX package's
-    value, where GSPMD sees the whole batch."""
+    value, where GSPMD sees the whole batch. Under sequence parallelism
+    the group is the data axis alone (the ranks that hold this rank's
+    seq slice), as the JAX step's data axis is GSPMD's inside its
+    manual seq region."""
     col = _collector()
     if col is None or col.world <= 1:
         return t
@@ -239,8 +264,8 @@ def checkpoint(fn, *args, context_fn=None):
     """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)``, whose
     recompute in the backward runs under the model mode active at this
     call, so a collective the forward ran over the data-parallel group
-    (:func:`mean_over_batch`, :func:`reduce_over_batch`) runs again in
-    the recompute. ``context_fn`` as in ``torch.utils.checkpoint``
+    (:func:`mean_over_batch`, :func:`reduce_over_batch`) or the seq
+    group (ring and Ulysses attention) runs again in the recompute. ``context_fn`` as in ``torch.utils.checkpoint``
     (selective policies). Without grad mode it just calls ``fn``."""
     if not torch.is_grad_enabled():
         return fn(*args)

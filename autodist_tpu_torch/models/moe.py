@@ -15,7 +15,11 @@ batch. Each rank here holds a slice, so ``f`` is averaged over the
 data-parallel group of the step (:func:`core.mean_over_batch`, a
 constant: it comes from a one-hot), and each rank differentiates
 ``e * sum f_global * P_rank``; the Trainer's mean over the ranks is
-then the JAX value, with its gradients.
+then the JAX value, with its gradients. Under sequence parallelism
+that group is the data axis alone: ``f`` and ``P`` are the rank's seq
+slice's, over the global batch, as GSPMD computes them inside the JAX
+step's manual seq region, and the Trainer's mean over the whole grid
+is then the JAX ``pmean`` of the aux over the seq axis.
 
 Dispatch and combine are built as ``[b, s, e, cap]`` by one contraction
 over the k choices each (a token's k choices name k different experts,

@@ -28,7 +28,13 @@ with f32 logits, a mean-NLL loss and the MoE load-balance loss.
   sequence), each checkpointed, so the backward holds one
   ``[b, s/n, vocab]`` slab of logits at a time.
 
-Tensor, sequence and pipeline parallelism are not ported (``ParallelSpec``
+Under sequence parallelism (a live ``core.seq_group()``) each rank
+runs the model on its slice of the sequence: positions are offset by
+``seq_rank · s_local``, attention runs over the seq group, and
+``per_token_loss_with_aux`` returns the slice's token NLL, which the
+Trainer reduces. MoE routing groups are then the local slices (GShard
+grouping: capacity and dropping per slice), as in the JAX package.
+Tensor and pipeline parallelism are not ported (``ParallelSpec``
 refuses them).
 """
 import functools
@@ -40,7 +46,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 
 from autodist_tpu_torch.models.attention import MultiHeadAttention
 from autodist_tpu_torch.models.core import (Dense, Embedding, LayerNorm, Mlp,
-                                            Module, checkpoint)
+                                            Module, checkpoint, seq_group)
 from autodist_tpu_torch.models.moe import MoeMlp
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -227,6 +233,10 @@ class TransformerLM(Module):
         s = tokens.shape[1]
         x = self.embed.apply(params['embed'], tokens)
         pos = torch.arange(s, device=tokens.device)
+        seq = seq_group()
+        if seq is not None:
+            # global positions: this rank holds seq slice ``seq.rank``
+            pos = pos + seq.rank * s
         x = x + self.pos_embed.apply(params['pos_embed'], pos)[None]
         aux_total = torch.zeros((), device=x.device)
         for block, p in self._layers(params):

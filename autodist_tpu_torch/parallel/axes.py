@@ -1,46 +1,100 @@
-"""``ParallelSpec``: the user-facing parallelism knob, data-parallel only.
+"""``ParallelSpec``: the user-facing parallelism knob, and the logical
+axis rules.
 
-The counterpart of ``ParallelSpec`` in ``autodist_tpu/parallel/axes.py``.
-This slice of the port runs data parallelism over ``torch.distributed``
-ranks, with gradient accumulation and full rematerialization, and
-nothing else: a spec that asks for tensor, pipeline, sequence or expert
-parallelism, or for ZeRO, raises ``NotImplementedError`` until the slice
-that ports it. It serializes as the JAX spec does (``to_dict`` /
-``from_dict``), with the same tolerance of version skew.
+The counterpart of ``autodist_tpu/parallel/axes.py``. The spec carries
+every field of the JAX spec and serializes as it does (``to_dict`` /
+``from_dict``, with the same tolerance of version skew), so either
+package reads the other's dict. This port runs the axes that live on a
+(data, seq) grid of ``torch.distributed`` ranks: data parallelism with
+ZeRO stages 1-3 (``zero``), sequence parallelism (``sp``, ring or
+Ulysses attention by ``sp_mode``), gradient accumulation and full
+rematerialization. Tensor, pipeline and expert parallelism and a
+multi-slice data axis (``tp``, ``pp``, ``ep``, ``dcn_dp`` above 1) raise
+``NotImplementedError`` until the slice that ports them.
+
+The JAX package binds logical axes to a ``jax.sharding.Mesh``; the port
+has no mesh object, so :func:`mesh_axis_for` and :func:`spec_for_axes`
+take the grid's axis sizes (a ``{axis: size}`` dict, or anything with
+such a ``shape``, as :class:`~autodist_tpu_torch.parallel.mesh.RankGrid`
+has) and return a tuple of mesh-axis names where JAX returns a
+``PartitionSpec``.
 """
-from dataclasses import asdict, dataclass, fields
+from dataclasses import asdict, dataclass, field, fields
 
+from autodist_tpu_torch.const import (AXIS_DATA, AXIS_EXPERT, AXIS_MODEL,
+                                      AXIS_PIPELINE, AXIS_SEQUENCE)
 from autodist_tpu_torch.utils import logging
 
 REMAT_POLICIES = ('none', 'full')
+SP_MODES = ('ring', 'ulysses')
+
+# Default logical-axis -> mesh-axis rules (the JAX package's table).
+# First match wins; a logical axis absent from the table is unsharded.
+DEFAULT_RULES = (
+    ('batch', AXIS_DATA),
+    ('seq', AXIS_SEQUENCE),
+    ('embed', None),
+    ('mlp', AXIS_MODEL),
+    ('heads', AXIS_MODEL),
+    ('kv', None),
+    ('vocab', AXIS_MODEL),
+    ('expert', AXIS_EXPERT),
+    ('stage', AXIS_PIPELINE),
+    ('classes', None),
+)
+
+# the axes a later slice of the port brings, and what it ports there
+_LATER = {'tp': 'tensor parallelism (DTensor)',
+          'pp': 'the pipeline schedules',
+          'ep': 'expert parallelism',
+          'dcn_dp': 'the multi-slice data axis'}
 
 
 @dataclass
 class ParallelSpec:
-    """dp: data-parallel degree; 0 means "every rank of the process
-    group". tp / pp / sp / ep (tensor, pipeline, sequence, expert
-    degrees) and zero (optimizer-state sharding stage) must stay 1.
-    ``remat``: 'none' | 'full' (the whole loss recomputed in the
-    backward). ``grad_accum``: gradient-accumulation chunks of the
-    global batch."""
+    """Grid sizes and execution options, field for field the JAX spec's.
+
+    dp / tp / pp / sp / ep: data / tensor / pipeline / sequence / expert
+    degrees; ``dp=0`` means "every rank the other axes leave". ``zero``:
+    1 replicates the training state, 2 shards the optimizer slots over
+    the data axis, 3 the parameters too. ``sp_mode``: 'ring' | 'ulysses'
+    (the attention that runs over the seq axis). ``remat``: 'none' |
+    'full' (the whole loss recomputed in the backward). ``grad_accum``:
+    gradient-accumulation chunks of the global batch. ``dcn_dp``,
+    ``microbatches``, ``pp_schedule`` and ``pp_variant`` are the JAX
+    spec's multi-slice and pipeline options, carried for the round trip;
+    ``rules`` the logical-axis table."""
     dp: int = 0
     tp: int = 1
     pp: int = 1
     sp: int = 1
     ep: int = 1
+    dcn_dp: int = 1
     zero: int = 1
     remat: str = 'none'
+    microbatches: int = 1
+    pp_schedule: str = 'gpipe'
+    pp_variant: str = 'auto'
+    sp_mode: str = 'ring'
     grad_accum: int = 1
+    rules: list = field(default_factory=lambda: [list(r)
+                                                 for r in DEFAULT_RULES])
 
     def __post_init__(self):
-        for name in ('tp', 'pp', 'sp', 'ep', 'zero'):
+        for name, what in _LATER.items():
             if getattr(self, name) > 1:
                 raise NotImplementedError(
-                    'ParallelSpec(%s=%d): the PyTorch port runs data '
-                    'parallelism only so far' % (name, getattr(self, name)))
+                    'ParallelSpec(%s=%d): %s waits for a later slice of '
+                    'the PyTorch port' % (name, getattr(self, name), what))
         if self.remat not in REMAT_POLICIES:
             raise ValueError('ParallelSpec(remat=%r): the port takes %s'
                              % (self.remat, REMAT_POLICIES))
+        if self.sp_mode not in SP_MODES:
+            raise ValueError('ParallelSpec(sp_mode=%r): expected one of %s'
+                             % (self.sp_mode, SP_MODES))
+        if self.zero not in (1, 2, 3):
+            raise ValueError('ParallelSpec(zero=%r): expected 1, 2 or 3'
+                             % (self.zero,))
 
     # -- serialization (parity with Strategy JSON round-trip) -------------
     def to_dict(self):
@@ -50,8 +104,7 @@ class ParallelSpec:
     def from_dict(cls, d):
         """Tolerates version skew in BOTH directions: missing fields
         take their defaults (old dict, new code) and unknown fields are
-        dropped with a warning (new dict, old code, or a JAX spec's
-        fields the port lacks)."""
+        dropped with a warning (new dict, old code)."""
         known = {f.name for f in fields(cls)}
         unknown = set(d) - known
         if unknown:
@@ -60,9 +113,55 @@ class ParallelSpec:
         return cls(**{k: v for k, v in d.items() if k in known})
 
     def resolve_dp(self, world_size):
-        """The data-parallel degree over ``world_size`` ranks."""
-        if self.dp and self.dp != world_size:
+        """The data-parallel degree over ``world_size`` ranks: the world
+        over tp·pp·sp·ep, as the JAX package divides its devices. The
+        port runs one rank per device, so the grid must take every
+        rank."""
+        fixed = self.tp * self.pp * self.sp * self.ep
+        if world_size % fixed:
+            raise ValueError(
+                'tp*pp*sp*ep=%d does not divide the %d ranks of the '
+                'process group' % (fixed, world_size))
+        dp = world_size // fixed
+        if self.dp and self.dp != dp:
             raise ValueError('ParallelSpec(dp=%d) needs %d ranks, the '
                              'process group has %d'
-                             % (self.dp, self.dp, world_size))
-        return world_size
+                             % (self.dp, self.dp * fixed, world_size))
+        return dp
+
+
+def _sizes(mesh):
+    return getattr(mesh, 'shape', mesh)
+
+
+def mesh_axis_for(logical, rules, mesh):
+    """Resolve one logical axis to a live mesh axis name (or None): the
+    first rule naming it, when that axis is on the grid with size > 1."""
+    sizes = _sizes(mesh)
+    for name, target in rules:
+        if name == logical:
+            if target is None or target not in sizes:
+                return None
+            if sizes[target] == 1:
+                return None  # size-1 axis: sharding is a no-op
+            return target
+    return None
+
+
+def spec_for_axes(axes, rules, mesh):
+    """The per-dim mesh axes (trailing Nones dropped) of a tuple of
+    logical axis names: the JAX ``PartitionSpec`` as a tuple."""
+    if axes is None:
+        return ()
+    used = set()
+    out = []
+    for logical in axes:
+        target = mesh_axis_for(logical, rules, mesh)
+        if target in used:
+            target = None  # a mesh axis may shard only one tensor dim
+        if target is not None:
+            used.add(target)
+        out.append(target)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)

@@ -8,7 +8,11 @@ the data axis is a group of ranks and each rank is one replica.
 execution plan lowers to: sums, reduce-scatters and all-gathers over
 the whole group, the neighbour exchange of the ring schedules, and the
 subgroups the two-level schedules run over (:meth:`ReplicaGroup.split`).
-With one replica every collective is the identity.
+With one replica every collective is the identity. :class:`RankGrid`
+lays the (data, seq) grid of the functional Trainer over the ranks, and
+:func:`shift`, :func:`all_to_all` and :func:`all_gather` are the
+differentiable forms the ring and Ulysses attention and the ZeRO-3
+parameter gather run through.
 
 ``mesh_from_strategy`` sizes the group as the JAX package sizes the
 mesh's data axis: the strategy's replica list, capped by what the run
@@ -17,6 +21,8 @@ has (there, the visible devices; here, the processes).
 import torch
 import torch.distributed as dist
 
+from autodist_tpu_torch.const import (AXIS_DATA, AXIS_EXPERT, AXIS_MODEL,
+                                      AXIS_PIPELINE, AXIS_SEQUENCE)
 from autodist_tpu_torch.utils import logging
 
 # the deprecated names are the only ones older releases have
@@ -78,20 +84,45 @@ class ReplicaGroup:
         """The replicas' ``x`` stacked on a new leading axis."""
         return self.all_gather(x[None])
 
-    def shift(self, x):
-        """Ring neighbour exchange: send ``x`` to replica ``rank + 1``,
-        return what replica ``rank - 1`` sent (the ``ppermute`` of the
-        JAX ring schedules)."""
-        if self.size == 1:
+    def shift(self, x, offset=1):
+        """Ring neighbour exchange: send ``x`` to replica ``rank +
+        offset``, return what replica ``rank - offset`` sent (the
+        ``ppermute`` of the JAX ring schedules). ``x`` may be a list or
+        tuple of tensors: every send and receive is posted in one
+        ``batch_isend_irecv``, so no rank blocks on a send."""
+        many = isinstance(x, (list, tuple))
+        xs = list(x) if many else [x]
+        if self.size == 1 or offset % self.size == 0:
             return x
-        out = torch.empty_like(x)
-        src = self._global((self.rank - 1) % self.size)
-        dst = self._global((self.rank + 1) % self.size)
-        ops = [dist.P2POp(dist.isend, x.contiguous(), dst, self.group),
-               dist.P2POp(dist.irecv, out, src, self.group)]
+        src = self._global((self.rank - offset) % self.size)
+        dst = self._global((self.rank + offset) % self.size)
+        outs = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                for t in xs]
+        ops = [dist.P2POp(dist.isend, t.contiguous(), dst, self.group)
+               for t in xs]
+        ops += [dist.P2POp(dist.irecv, o, src, self.group) for o in outs]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        return out
+        return type(x)(outs) if many else outs[0]
+
+    def all_to_all(self, x, split_axis, concat_axis):
+        """Tiled all-to-all (``jax.lax.all_to_all(..., tiled=True)``):
+        ``x`` splits into ``size`` blocks along ``split_axis``, block j
+        goes to replica j, and the blocks received are concatenated
+        along ``concat_axis`` in rank order."""
+        if self.size == 1:
+            return x
+        n = self.size
+        if x.shape[split_axis] % n:
+            raise ValueError('all_to_all: dim %d of %s does not split '
+                             'over %d replicas'
+                             % (split_axis, tuple(x.shape), n))
+        blocks = x.unflatten(split_axis, (n, x.shape[split_axis] // n))
+        send = blocks.movedim(split_axis, 0).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.group)
+        return recv.movedim(0, concat_axis).flatten(concat_axis,
+                                                    concat_axis + 1)
 
     def _global(self, rank):
         if self.group is None:
@@ -118,6 +149,109 @@ class ReplicaGroup:
                                         self.device)
             self._splits[key] = mine
         return self._splits[key]
+
+
+class RankGrid:
+    """The (data, seq) grid over a process group's ranks.
+
+    Data is outermost and seq inner, as ``ParallelSpec.build_mesh``
+    orders the JAX mesh's axes: rank ``r = d * sp + s``. :attr:`data`
+    is this rank's group along the data axis (the ranks that share its
+    seq position), :attr:`seq` its group along the seq axis, and
+    :attr:`world` the whole grid. Every rank makes every subgroup, in
+    the same order, as ``new_group`` requires; an axis of size 1 is a
+    group of one, and an axis that spans the grid is the world group."""
+
+    def __init__(self, dp, sp, rank, group=None, device=None):
+        self.dp, self.sp = int(dp), int(sp)
+        self.world = ReplicaGroup(self.dp * self.sp, rank, group, device)
+        self.data_index, self.seq_index = divmod(int(rank), self.sp)
+        one = ReplicaGroup(1, 0, None, device)
+        if self.sp == 1:
+            self.data, self.seq = self.world, one
+        elif self.dp == 1:
+            self.data, self.seq = one, self.world
+        else:
+            self.data = self.world.split(
+                [[d * self.sp + s for d in range(self.dp)]
+                 for s in range(self.sp)])
+            self.seq = self.world.split(
+                [[d * self.sp + s for s in range(self.sp)]
+                 for d in range(self.dp)])
+
+    @property
+    def shape(self):
+        """``{axis: size}`` in the JAX mesh's axis order."""
+        return {AXIS_DATA: self.dp, AXIS_PIPELINE: 1,
+                AXIS_SEQUENCE: self.sp, AXIS_EXPERT: 1, AXIS_MODEL: 1}
+
+
+# -- differentiable collectives ---------------------------------------------
+# Autograd runs a backward's collectives on its own thread; each rank
+# builds the same graph, so every rank posts them in the same order.
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, offset, *xs):
+        ctx.group, ctx.offset = group, offset
+        return tuple(group.shift(list(xs), offset))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros_like(g) if g is None else g for g in grads]
+        return (None, None) + tuple(ctx.group.shift(grads, -ctx.offset))
+
+
+def shift(group, xs, offset=1):
+    """:meth:`ReplicaGroup.shift` of a list of tensors, differentiable:
+    the backward of a shift to ``rank + offset`` is a shift of the
+    cotangents to ``rank - offset``."""
+    if group.size == 1:
+        return list(xs)
+    return list(_Shift.apply(group, offset, *xs))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, split_axis, concat_axis, x):
+        ctx.args = (group, split_axis, concat_axis)
+        return group.all_to_all(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, split_axis, concat_axis = ctx.args
+        return None, None, None, group.all_to_all(grad, concat_axis,
+                                                  split_axis)
+
+
+def all_to_all(group, x, split_axis, concat_axis):
+    """:meth:`ReplicaGroup.all_to_all`, differentiable: the backward is
+    the inverse all-to-all (split and concat axes swapped)."""
+    if group.size == 1:
+        return x
+    return _AllToAll.apply(group, split_axis, concat_axis, x)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, axis, x):
+        ctx.args = (group, axis)
+        return group.all_gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, axis = ctx.args
+        return None, None, group.reduce_scatter(grad, axis)
+
+
+def all_gather(group, x, axis):
+    """:meth:`ReplicaGroup.all_gather`, differentiable: the backward
+    reduce-scatters the cotangent, so each replica's slice receives the
+    sum over the replicas of its part of the gradient (the ZeRO-3 /
+    FSDP parameter gather)."""
+    if group.size == 1:
+        return x
+    return _Gather.apply(group, axis, x)
 
 
 def data_axis_node_groups(group, forced_nodes=0, ranks_per_node=None):

@@ -12,10 +12,13 @@ the same ``node_config`` in both packages.
 :class:`~autodist_tpu_torch.api.Trainer`, with the strategy's gradient
 buckets (:func:`grad_bucket_layout`) as ``trainer.grad_buckets``.
 Variables the strategy leaves unpartitioned (AllReduce, plain PS) are
-replicated, which is what the Trainer does. A partitioned placement is
-the ZeRO realization of PS in the JAX package; at dp = 1 it is a no-op
-there and here, and at dp > 1 it raises until the ZeRO/PS slice of the
-port.
+replicated, which is what the Trainer does. A partitioned placement
+(PartitionedPS, UnevenPartitionedPS, PartitionedAR,
+RandomAxisPartitionAR) is the ZeRO realization of PS in the JAX package:
+:func:`apply_strategy_to_shardings` maps each partitioned variable to
+its shard dim over the data group, which the Trainer holds sharded (the
+parameter and its optimizer slots, this rank's slice of each). At
+dp = 1 it is a no-op there and here.
 """
 import numpy as np
 import torch
@@ -25,6 +28,7 @@ from torch import nn
 from autodist_tpu_torch.const import DEFAULT_CHUNK_SIZE
 from autodist_tpu_torch.models.weights import flatten_tree
 from autodist_tpu_torch.strategy.base import AllReduceSynchronizer
+from autodist_tpu_torch.utils import logging
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -225,10 +229,39 @@ def grad_bucket_layout(strategy, graph_item):
     return out
 
 
+def apply_strategy_to_shardings(strategy, graph_item, dp):
+    """The per-variable shard dims a built Strategy lays over the data
+    axis (the JAX function of the same name refines a tree of
+    ``NamedSharding``s; here the Trainer takes ``{name: dim}``).
+
+    A partitioned (PS or AR) variable shards its state over the data
+    group along the strategy's partition axis when that axis divides by
+    ``dp``; otherwise, and for every unpartitioned variable (a plain PS
+    variable is the degenerate single shard), it stays replicated."""
+    out = {}
+    if dp <= 1:
+        return out
+    for node in strategy.node_config:
+        axis = node.partition_axis
+        if axis is None:
+            continue
+        try:
+            var = graph_item.var_by_name(node.var_name)
+        except KeyError:
+            continue
+        if var.shape[axis] % dp == 0 and var.shape[axis] >= dp:
+            out[node.var_name] = axis
+        else:
+            logging.debug('Cannot shard %s axis %d over data (%s)',
+                          node.var_name, axis, var.shape)
+    return out
+
+
 def trainer_from_strategy(model, optimizer, strategy_builder,
                           resource_spec=None, spec=None, **kw):
     """Build a Trainer placed by a reference-style strategy built by
-    ``strategy_builder`` over the model's parameters."""
+    ``strategy_builder`` over the model's parameters: partitioned
+    variables shard over the data group (``trainer.partition_dims``)."""
     from autodist_tpu_torch.api import Trainer
     from autodist_tpu_torch.resource_spec import ResourceSpec
 
@@ -241,13 +274,8 @@ def trainer_from_strategy(model, optimizer, strategy_builder,
             'gpus': list(range(n)), 'network_bandwidth': 100}]})
     strategy = strategy_builder.build(gi, resource_spec)
     trainer = Trainer(model, optimizer, spec=spec, **kw)
-    partitioned = [n.var_name for n in strategy.node_config
-                   if n.partition_axis is not None]
-    if partitioned and trainer.dp > 1:
-        raise NotImplementedError(
-            'strategy partitions %d variables (e.g. %s): sharded state '
-            'over dp=%d waits for the ZeRO/PS slice of the port'
-            % (len(partitioned), partitioned[0], trainer.dp))
+    trainer.partition_dims = apply_strategy_to_shardings(strategy, gi,
+                                                         trainer.dp)
     trainer.strategy = strategy
     trainer.grad_buckets = grad_bucket_layout(strategy, gi)
     return trainer

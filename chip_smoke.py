@@ -32,6 +32,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    and 384 (the wgmma kernels with 64-row kv tiles; 320 leaves a last
    chunk of one 64-column slab), causal and full, against the plain
    version, with a bitwise repeat;
+2d. ``ulysses_kernels``: K1-K3 at [4, 3, 4096, 64] bf16 causal, the
+   shape gpt_small (seq 4096, batch 4) at sp 4 gives each rank after
+   Ulysses' all-to-all, held against their plain versions and timed
+   beside ``scaled_dot_product_attention`` and the bound, then
+   ``ulysses_attention`` on one rank at that shape, forward and
+   backward, one launch of each; ``ring_blocks``: each of 4 ranks'
+   block-and-merge (``ring_attention.merge_blocks``) over the 4 blocks
+   of gpt_small's [4, 12, 4096, 64] bf16 in its visit order, against
+   ``local_flash_attention`` over the whole sequence, with one hop's
+   compute time;
+2e. ``grid_trainers``, with two or more cards (else a line saying it
+   did not run on one card): min(4, cards) NCCL processes, one a card
+   (``chip_smoke.py --grid-worker``), train gpt_small at seq 4096,
+   batch 4, bf16, remat at sp = N under ring and under Ulysses, and at
+   seq 1024, batch 4 a card, dp = N under zero 1, 2, 3 and
+   PartitionedPS, 3 adamw steps each: losses within 1e-2 relative of
+   the same steps on one card, tokens/s, memory a card after a step
+   against the predicted state bytes, and the peak;
 3. the fused conv + BatchNorm kernel (K4) held against its plain version
    at each of ResNet-101's main-path shapes (batch 256) in bf16, and in
    f32 at two of them and at a stage-1 shape (802,816 rows), with times:
@@ -177,8 +195,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    (b) ``python -m autodist_tpu_torch.launch`` over the same two nodes:
    rc 0, both records, the launcher's coord service gone;
 11. the card's line, the ``kernels`` line (K1-K4 of the main paths:
-   K1-K3 at head dim 64, at 256 and at 384, each row with the CUDA
-   kernel that ran and its launches in its own phase), and last
+   K1-K3 at head dim 64, at 256 and at 384, and at the Ulysses shape
+   (its launches: the one-rank local attention's, or with four cards
+   the grid's Ulysses run's), each row with the CUDA kernel that ran and
+   its launches in its own phase), and last
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time (CUDA events around back-to-back launches
@@ -193,6 +213,7 @@ fails before printing any result.
 """
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -3879,6 +3900,360 @@ def dsl_saved_model_phase(device, tmp, smi=None):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# this slice's paths: sequence parallelism (ring and Ulysses) and sharded
+# training state (ZeRO 2/3, strategy-partitioned variables)
+# ---------------------------------------------------------------------------
+# gpt_small at seq 4096, batch 4, sp 4 under Ulysses: a rank's q, k, v
+# after the all-to-all are [b, h / sp, s, d]
+ULYSSES_SHAPE = (4, 3, 4096, 64)
+# the ring at the same width: each of 4 ranks holds a [4, 12, 1024, 64]
+# slice of gpt_small's [4, 12, 4096, 64]
+RING_SHAPE, RING_RANKS = (4, 12, 4096, 64), 4
+# a rank's losses against the same steps on one card, bf16 (relative):
+# the grid sums its tokens, gradients and attention in other orders
+GRID_LOSS_REL = 1e-2
+GRID_STEPS = 3
+# adamw's f32 state a trainable element holds after a step: the param,
+# its gradient and the two slots (bytes)
+STATE_BYTES = {'param': 4, 'grad': 4, 'slots': 8}
+
+
+def ulysses_kernels_phase(smi):
+    """K1-K3 at the shape Ulysses gives them (``ULYSSES_SHAPE``, bf16,
+    causal) held against their plain versions and timed, then the
+    Ulysses local attention at that shape through
+    ``ulysses.ulysses_attention`` on one rank (a seq group of one: what
+    each rank runs after the all-to-all), forward and backward, the
+    counts set to 0 just before it. Returns (check_kernels' records,
+    {kernel: launches})."""
+    from autodist_tpu_torch.parallel import ulysses
+    from autodist_tpu_torch.parallel.mesh import ReplicaGroup
+    recs = check_kernels(ULYSSES_SHAPE, True, torch.bfloat16, True, smi)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    q, k, v, do = (torch.randn(ULYSSES_SHAPE, generator=gen, device='cuda')
+                   .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fa.reset_launches()
+    o = ulysses.ulysses_attention(q, k, v, ReplicaGroup(1, 0,
+                                                        device='cuda'))
+    o.backward(do)
+    torch.cuda.synchronize()
+    launches = {name: fa.KERNEL_LAUNCHES.get(recs[name]['cuda_kernel'], 0)
+                for name in ('fwd', 'dq', 'dkv')}
+    emit(phase='ulysses_kernels', shape=list(ULYSSES_SHAPE),
+         dtype='bfloat16', causal=True, launches=launches,
+         kernel_launches=dict(fa.KERNEL_LAUNCHES), card=smi,
+         **{name: {key: recs[name][key] for key in (
+             'cuda_kernel', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
+             'bound_ms', 'bound_by')} for name in recs})
+    require(launches == {'fwd': 1, 'dq': 1, 'dkv': 1},
+            'the Ulysses local attention at %s launched %s'
+            % (ULYSSES_SHAPE, launches))
+    del q, k, v, do, o
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
+def ring_visits(my, n):
+    """The owners of the K/V blocks rank ``my`` merges, in the order the
+    ring brings them."""
+    return [(my - step) % n for step in range(n)]
+
+
+def ring_blocks(q, k, v, n, causal=True):
+    """Each of ``n`` ranks' output slice by the ring's block-and-merge
+    (``ring_attention.merge_blocks``) over the ``n`` blocks of the full
+    q, k, v [B, H, S, D], in that rank's visit order; concatenated."""
+    from autodist_tpu_torch.parallel.ring_attention import merge_blocks
+    qs, ks, vs = (t.chunk(n, dim=2) for t in (q, k, v))
+    return torch.cat([merge_blocks(qs[my], [(o, ks[o], vs[o])
+                                            for o in ring_visits(my, n)],
+                                   my, causal)
+                      for my in range(n)], dim=2)
+
+
+def ring_blocks_phase(smi, shape=RING_SHAPE, n=RING_RANKS,
+                      dtype=torch.bfloat16, device='cuda'):
+    """The ring's block-and-merge for each of ``n`` ranks over the blocks
+    of ``shape`` (gpt_small's attention at seq 4096, bf16, causal), held
+    against ``local_flash_attention`` over the whole sequence (bf16
+    output: within two bf16 ulps of the largest output, as the flash
+    kernels' O is held), with the device time of one hop's block and
+    merge on the card. Returns the record."""
+    from autodist_tpu_torch.parallel.ring_attention import (
+        _block_attn, _merge, causal_mask, local_flash_attention)
+    gen = torch.Generator(device=device).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=device)
+               .to(dtype) for _ in range(3))
+    got = ring_blocks(q, k, v, n)
+    want = local_flash_attention(q, k, v, causal=True)
+    err, ok = max_err(got, want, TOL[dtype]['o'])
+    rec = {'phase': 'ring_blocks', 'shape': list(shape), 'ranks': n,
+           'block_shape': [shape[0], shape[1], shape[2] // n, shape[3]],
+           'dtype': str(dtype).replace('torch.', ''), 'causal': True,
+           'max_abs_err': err, 'tol': list(TOL[dtype]['o']), 'ok': ok,
+           'visits': {my: ring_visits(my, n) for my in range(n)},
+           'hop_bytes': 2 * q.numel() // n * q.element_size(),
+           'card': smi}
+    if device == 'cuda':
+        c = shape[2] // n
+        qs, ks, vs = (t[:, :, c:2 * c] for t in (q, k, v))
+        mask = causal_mask(1, 0, c, device)
+        acc, m, l = _block_attn(qs, ks, vs, mask, shape[3] ** -0.5)
+        rec['hop_compute_ms'] = cuda_ms(lambda: _merge(
+            acc, m, l, *_block_attn(qs, ks, vs, mask, shape[3] ** -0.5)), 5)
+    emit(**rec)
+    require(ok, 'ring block-and-merge disagrees with local attention over '
+            'the whole sequence: %g' % err)
+    return rec
+
+
+def grid_state_bytes(dims, numels, n):
+    """Predicted adamw state bytes a rank holds after a step (params,
+    gradients, slots) from each leaf's element count and shard dim
+    (``Trainer.state_sharding``): a replicated leaf holds them whole; a
+    zero-2 leaf its full param plus a slice's param, gradient and slots;
+    a held leaf (zero 3, partitioned) a slice of all four."""
+    per = sum(STATE_BYTES.values())
+    total = 0
+    for name, count in numels.items():
+        param_dim, slot_dim = dims['params'][name], dims['opt_state'][name]
+        if slot_dim is None:
+            total += per * count
+        elif param_dim is None:
+            total += STATE_BYTES['param'] * count + per * count // n
+        else:
+            total += per * count // n
+    return total
+
+
+def settled_bytes(device):
+    """Device bytes allocated once a step's deferred frees have landed:
+    a buffer a collective used is released only after its stream's work
+    completes (the allocator frees it at a later call, the NCCL watchdog
+    when it next polls), so synchronize, collect, and read until two
+    readings 0.2 s apart agree (at most 2 s)."""
+    torch.cuda.synchronize(device)
+    gc.collect()
+    last = None
+    for _ in range(10):
+        torch.empty(1, device=device)   # the allocator processes events
+        now = torch.cuda.memory_allocated(device)
+        if now == last:
+            break
+        last = now
+        time.sleep(0.2)
+    return now
+
+
+def grid_run(run, device, world=1):
+    """One configuration of ``grid_trainers`` on this rank: a
+    ``TransformerLM`` of ``run['cfg']`` from seed 0 through ``Trainer``
+    (or ``trainer_from_strategy(PartitionedPS())`` over a spec of one PS
+    device per rank, so it partitions), ``run['steps']`` adamw steps on
+    one batch. Returns losses, step seconds, tokens/s of the grid, peak
+    and after-step memory, the predicted state bytes and the launches."""
+    cfg = TransformerConfig(**dict(run['cfg'], dtype=getattr(
+        torch, run['cfg']['dtype'])))
+    if device.startswith('cuda'):
+        # a first product sets up cuBLAS's workspace, which would otherwise
+        # count as the first run's state
+        float((torch.ones(8, 8, device=device) @ torch.ones(
+            8, 8, device=device)).sum())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = settled_bytes(device)
+    model = TransformerLM(cfg, device=device, seed=0)
+    numels = {'/'.join(p): t.numel() for p, t in _flat_leaves(model)
+              if isinstance(t, torch.nn.Parameter)}
+    spec = ParallelSpec(**run['spec'])
+    opt = optim.adamw(run['lr'])
+    if run.get('builder'):
+        from autodist_tpu_torch.resource_spec import ResourceSpec
+        rs = ResourceSpec(resource_info={'nodes': [{
+            'address': 'localhost', 'chief': True,
+            'cpus': list(range(world)), 'gpus': list(range(world)),
+            'network_bandwidth': 100}]})
+        trainer = trainer_from_strategy(model, opt, PartitionedPS(),
+                                        resource_spec=rs, spec=spec)
+    else:
+        trainer = Trainer(model, opt, spec=spec)
+    batch = make_batch(cfg.vocab, run['batch'], run['seq'], seed=1)
+    fa.reset_launches()
+    state, losses, seconds = train_steps(trainer, batch, run['steps'])
+    launches = dict(fa.KERNEL_LAUNCHES)
+    dims = trainer.state_sharding()
+    step_s = float(np.median(seconds[1:])) if len(seconds) > 1 \
+        else seconds[0]
+    rec = {'losses': losses, 'step_seconds': seconds,
+           'tokens_per_s': run['batch'] * run['seq'] / step_s,
+           'launches': launches,
+           'sharded_leaves': sum(d is not None
+                                 for d in dims['opt_state'].values()),
+           'predicted_state_bytes': grid_state_bytes(dims, numels,
+                                                     trainer.dp)}
+    if device.startswith('cuda'):
+        rec['state_bytes_at_step_end'] = \
+            torch.cuda.memory_allocated() - base
+        rec['state_bytes'] = settled_bytes(device) - base
+        rec['peak_mem_bytes'] = torch.cuda.max_memory_allocated() - base
+    if run.get('params'):
+        rec['params'] = {k: v.tolist() for k, v in _flat_params(
+            trainer.get_params(state)).items()}
+    del trainer, state, model
+    return rec
+
+
+def _flat_leaves(model):
+    from autodist_tpu_torch.models.weights import flatten_tree
+    return flatten_tree(model.params())
+
+
+def _flat_params(tree):
+    from autodist_tpu_torch.models.weights import flatten_tree
+    return {'/'.join(p): np.asarray(v) for p, v in flatten_tree(tree)}
+
+
+def grid_worker(args):
+    """One rank of ``grid_trainers`` (``chip_smoke.py --grid-worker
+    JSON``): joins the group (NCCL on the card, gloo on the CPU), runs
+    every configuration of ``args['runs']`` and writes its records to
+    ``<out>/rank<r>.json``."""
+    import torch.distributed as dist
+    rank, world = int(args['rank']), int(args['world'])
+    device = args['device']
+    if device == 'cuda':
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = 'cuda:%d' % rank
+    dist.init_process_group('nccl' if device.startswith('cuda') else 'gloo',
+                            init_method='tcp://127.0.0.1:%d' % args['port'],
+                            world_size=world, rank=rank)
+    try:
+        out = {run['name']: grid_run(run, device, world)
+               for run in args['runs']}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(args['out'], 'rank%d.json' % rank), 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
+def launch_grid(runs, world, device, out, timeout=900):
+    """Run ``runs`` on a grid of ``world`` worker processes (one a card
+    on the card); returns each rank's records."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--grid-worker',
+         json.dumps({'rank': r, 'world': world, 'port': port,
+                     'device': device, 'out': out, 'runs': runs})],
+        env=dict(os.environ, OMP_NUM_THREADS='1'))
+        for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    require(rcs == [0] * world, 'grid workers exited %s' % rcs)
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out, 'rank%d.json' % r)) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def grid_configs(n, seq=4096, batch=4, zero_seq=1024, dim=768, layers=12,
+                 heads=12, vocab=32000, steps=GRID_STEPS):
+    """The ``grid_trainers`` runs over ``n`` ranks and their one-card
+    references: gpt_small (bf16, remat) at seq 4096, batch 4 under ring
+    and under Ulysses at sp = n; zero 1, 2, 3 and PartitionedPS at
+    dp = n, batch 4 a rank at seq 1024 (gpt_small's own max_len).
+    Returns (runs, {run name: its reference run})."""
+    def cfg(max_len):
+        return dict(vocab=vocab, dim=dim, n_layers=layers, n_heads=heads,
+                    max_len=max_len, causal=True, dtype='bfloat16',
+                    remat=True)
+    seq_run = dict(cfg=cfg(seq), seq=seq, batch=batch, lr=1e-4,
+                   steps=steps)
+    dp_run = dict(cfg=cfg(zero_seq), seq=zero_seq, batch=batch * n, lr=1e-4,
+                  steps=steps)
+    runs = [dict(seq_run, name=mode, spec=dict(sp=n, sp_mode=mode))
+            for mode in ('ring', 'ulysses')]
+    runs += [dict(dp_run, name='zero%d' % z, spec=dict(dp=n, zero=z))
+             for z in (1, 2, 3)]
+    runs.append(dict(dp_run, name='partitioned_ps', spec=dict(dp=n),
+                     builder='PartitionedPS'))
+    refs = {'ring': 'one_card_seq', 'ulysses': 'one_card_seq'}
+    refs.update({r['name']: 'one_card_dp' for r in runs[2:]})
+    one = [dict(seq_run, name='one_card_seq', spec={}),
+           dict(dp_run, name='one_card_dp', spec={})]
+    return runs, refs, one
+
+
+def grid_report(runs, refs, ranks, single, n, smi):
+    """One JSON line a grid run: its tokens/s, peak and after-step memory
+    per card, the predicted state bytes, and each rank's losses against
+    its one-card reference's (``GRID_LOSS_REL``). Returns the records."""
+    out = {}
+    for run in runs:
+        name = run['name']
+        want = single[refs[name]]['losses']
+        recs = [r[name] for r in ranks]
+        rel = max(abs(a - b) / abs(b) for rec in recs
+                  for a, b in zip(rec['losses'], want))
+        rec = {'phase': 'grid_trainers', 'run': name, 'cards': n,
+               'spec': run['spec'], 'seq': run['seq'],
+               'batch': run['batch'], 'losses': recs[0]['losses'],
+               'one_card_losses': want, 'max_rel_loss_diff': rel,
+               'tol': GRID_LOSS_REL,
+               'tokens_per_s': recs[0]['tokens_per_s'],
+               'one_card_tokens_per_s': single[refs[name]]['tokens_per_s'],
+               'launches': recs[0]['launches'],
+               'sharded_leaves': recs[0]['sharded_leaves'],
+               'predicted_state_bytes': recs[0]['predicted_state_bytes'],
+               'card': smi}
+        for key in ('state_bytes', 'peak_mem_bytes'):
+            if key in recs[0]:
+                rec[key] = max(r[key] for r in recs)
+        emit(**rec)
+        require(all(math.isfinite(x) for r in recs for x in r['losses']),
+                'grid run %s: a loss is not finite' % name)
+        require(rel <= GRID_LOSS_REL, 'grid run %s: losses %s against one '
+                'card %s' % (name, recs[0]['losses'], want))
+        out[name] = rec
+    return out
+
+
+def grid_trainers_phase(smi, device='cuda', n=None, tmp=None, **sizes):
+    """The (data, seq) grid through ``Trainer`` over min(4, cards) NCCL
+    processes, one a card (``grid_configs``), each run's losses against
+    the same steps on one card. Prints that it did not run on fewer than
+    two cards. Returns {run: record}, or None when it did not run."""
+    if n is None:
+        count = torch.cuda.device_count()
+        if count < 2:
+            emit(phase='grid_trainers', ran=False, cards=count,
+                 reason='needs two or more cards; did not run on one card',
+                 card=smi)
+            return None
+        n = min(4, count)
+    runs, refs, one = grid_configs(n, **sizes)
+    single = {}
+    for run in one:
+        dev = 'cuda:0' if device == 'cuda' else device
+        single[run['name']] = grid_run(run, dev)
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=tmp) as out:
+        ranks = launch_grid(runs, n, device, out)
+    emit(phase='grid_trainers', ran=True, cards=n, card=smi)
+    return grid_report(runs, refs, ranks, single, n, smi)
+
+
 def main(argv):
     if argv[:1] == ['--loose-worker']:
         return loose_worker(json.loads(argv[1]))
@@ -3886,6 +4261,8 @@ def main(argv):
         return elastic_worker(json.loads(argv[1]))
     if argv[:1] == ['--launch-run']:
         return launch_worker(json.loads(argv[1]))
+    if argv[:1] == ['--grid-worker']:
+        return grid_worker(json.loads(argv[1]))
     profiling = '--profile' in argv
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3926,6 +4303,14 @@ def main(argv):
         torch.cuda.empty_cache()
     flash_head_dims(smi)
     dkv_head_dims(smi)
+
+    # this slice's paths: K1-K3 at the shape Ulysses gives them, the
+    # ring's block-and-merge, and the (data, seq) grid across the cards
+    uly_recs, uly_launches = ulysses_kernels_phase(smi)
+    ring_blocks_phase(smi)
+    torch.cuda.empty_cache()
+    grid = grid_trainers_phase(smi)
+    torch.cuda.empty_cache()
 
     k4 = [check_conv_bn(shape, torch.bfloat16, smi) for shape in RESNET_K4]
     for shape in K4_F32:
@@ -4083,6 +4468,19 @@ def main(argv):
                             suffix)
             row['launches_by_path'] = by_path
             kernels.append(row)
+    # K1-K3 at the Ulysses shape: the one-rank local attention's launches,
+    # and with four cards the grid's Ulysses run's (three steps)
+    for name in ('fwd', 'dq', 'dkv'):
+        rec = uly_recs[name]
+        by_path = {'ulysses_local_attention': uly_launches[name]}
+        if grid is not None and grid['ulysses']['cards'] == RING_RANKS:
+            by_path['grid_trainers_ulysses'] = grid['ulysses'][
+                'launches'].get(rec['cuda_kernel'], 0)
+        row = flash_row(name, rec, by_path.get('grid_trainers_ulysses',
+                                                uly_launches[name]),
+                        ULYSSES_SHAPE, '_ulysses')
+        row['launches_by_path'] = by_path
+        kernels.append(row)
     # K4: launch-weighted means over ResNet-101's main-path shapes
     weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]
 

@@ -723,3 +723,70 @@ def test_loose_launch_phase_at_tiny_width():
     assert all(v > 0 for v in ssh['telemetry_bytes_per_step'].values())
     assert ssh['fitted']['beta_s_per_byte'] > 0
     assert cli['rc'] == 0 and cli['service_gone']
+
+
+# -- the ring's blocks, the grid and its report ------------------------------
+@pytest.mark.parametrize('causal', [True, False])
+def test_ring_blocks_merge_equals_local_attention(causal):
+    """``ring_blocks`` (each rank's block-and-merge in its visit order) at
+    a tiny width equals attention over the whole sequence (f32: the same
+    products, merged in another order)."""
+    from autodist_tpu_torch.parallel.ring_attention import \
+        local_flash_attention
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 32, 8, generator=gen) for _ in range(3))
+    got = chip_smoke.ring_blocks(q, k, v, 4, causal)
+    want = local_flash_attention(q, k, v, causal=causal)
+    assert (got - want).abs().max() < 1e-5
+    assert chip_smoke.ring_visits(1, 4) == [1, 0, 3, 2]
+
+
+def test_ring_blocks_phase_on_the_cpu():
+    rec = chip_smoke.ring_blocks_phase('cpu', shape=(1, 2, 64, 8), n=4,
+                                       dtype=torch.float32, device='cpu')
+    assert rec['ok'] and rec['block_shape'] == [1, 2, 16, 8]
+    assert rec['hop_bytes'] == 2 * 1 * 2 * 16 * 8 * 4
+    assert 'hop_compute_ms' not in rec    # a device time only on the card
+
+
+def test_grid_state_bytes_predicts_each_layout():
+    numels = {'a': 8, 'b': 6}
+    dims = {'params': {'a': None, 'b': None},
+            'opt_state': {'a': None, 'b': None}}
+    assert chip_smoke.grid_state_bytes(dims, numels, 2) == 16 * 14
+    dims['opt_state']['a'] = 0                            # zero 2
+    assert chip_smoke.grid_state_bytes(dims, numels, 2) == \
+        4 * 8 + 16 * 8 // 2 + 16 * 6
+    dims['params']['a'] = 0                               # zero 3
+    assert chip_smoke.grid_state_bytes(dims, numels, 2) == \
+        16 * 8 // 2 + 16 * 6
+
+
+def test_grid_trainers_phase_on_a_gloo_pair(capsys):
+    """``grid_trainers`` at a tiny width over two gloo processes on the
+    CPU: every run's losses within ``GRID_LOSS_REL`` of one process's,
+    ZeRO 2 and 3 predicted to hold less state than zero 1, and one line
+    a run."""
+    out = chip_smoke.grid_trainers_phase(
+        'cpu', device='cpu', n=2, seq=32, batch=2, zero_seq=32, dim=32,
+        layers=2, heads=2, vocab=64, steps=2)
+    assert set(out) == {'ring', 'ulysses', 'zero1', 'zero2', 'zero3',
+                        'partitioned_ps'}
+    for name, rec in out.items():
+        assert rec['max_rel_loss_diff'] <= chip_smoke.GRID_LOSS_REL, name
+        assert 'state_bytes' not in rec    # device memory only on the card
+    state = {k: out[k]['predicted_state_bytes']
+             for k in ('zero1', 'zero2', 'zero3')}
+    assert state['zero3'] < state['zero2'] < state['zero1']
+    assert out['zero1']['sharded_leaves'] == 0
+    assert out['zero3']['sharded_leaves'] == \
+        out['partitioned_ps']['sharded_leaves'] > 0
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if '"grid_trainers"' in l]
+    assert len(lines) == 7
+
+
+def test_grid_trainers_phase_reports_one_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+    assert chip_smoke.grid_trainers_phase('card') is None
+    assert 'did not run on one card' in capsys.readouterr().out

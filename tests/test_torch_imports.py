@@ -11,7 +11,10 @@ and round-trips a staged swap plan (whose pickle names the JAX
 package's classes) through them, and imports the launch
 (``autodist_tpu_torch.launch``, ``runtime.coordinator``) and the
 telemetry plane (``telemetry.aggregate``, ``telemetry.monitor``) and
-round-trips a span batch and a monitor sample through them; an AST scan
+round-trips a span batch and a monitor sample through them, and imports
+the sequence-parallel modules (``parallel.ring_attention``,
+``parallel.ulysses``, ``parallel.mesh.RankGrid``) and runs both
+attentions over a seq group of one; an AST scan
 finds no import of any of them in any of the port's files. The
 scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
 name, never by prefix.
@@ -116,6 +119,17 @@ assert aggregate.decode_records(aggregate.encode_records(recs)) == recs
 mon = monitor.CohortMonitor(policy='warn', warmup_steps=0)
 mon.ingest([dict(r, worker='p0') for r in recs])
 assert mon.snapshot()['workers']['p0']['samples'] == 1
+# sequence parallelism and sharded state: both attentions over a seq
+# group of one, and the spec of a (data, seq) grid with ZeRO 3
+from autodist_tpu_torch.parallel import mesh, ring_attention, ulysses
+from autodist_tpu_torch.parallel.axes import ParallelSpec
+q = torch.randn(1, 2, 16, 8)
+one = mesh.ReplicaGroup(1, 0)
+assert torch.allclose(ulysses.ulysses_attention(q, q, q, one),
+                      ring_attention.ring_attention(q, q, q, one),
+                      atol=1e-5)
+assert mesh.RankGrid(1, 1, 0).shape['seq'] == 1
+assert ParallelSpec(sp=2, sp_mode='ulysses', zero=3).resolve_dp(4) == 2
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                 ('jax', 'jaxlib', 'autodist_tpu', 'ml_dtypes') and
                 sys.modules[m])

@@ -284,9 +284,50 @@ def test_strategy_node_config_matches_jax(builder, model):
 
 
 def test_spec_beyond_dp_raises():
-    for kw in (dict(tp=2), dict(pp=2), dict(sp=2), dict(ep=2), dict(zero=2)):
+    """The axes a later slice ports still raise; sequence parallelism and
+    ZeRO 2 / 3 construct."""
+    for kw in (dict(tp=2), dict(pp=2), dict(ep=2), dict(dcn_dp=2)):
         with pytest.raises(NotImplementedError):
             ParallelSpec(**kw)
+    spec = ParallelSpec(sp=2, sp_mode='ulysses', zero=3)
+    assert (spec.sp, spec.sp_mode, spec.zero) == (2, 'ulysses', 3)
+    assert spec.resolve_dp(4) == 2
     with pytest.raises(ValueError):
         ParallelSpec(dp=2).resolve_dp(1)
+    with pytest.raises(ValueError):
+        ParallelSpec(sp=3).resolve_dp(4)
+    with pytest.raises(ValueError, match='sp_mode'):
+        ParallelSpec(sp_mode='tree')
     assert ParallelSpec().resolve_dp(3) == 3
+
+
+def test_spec_for_axes_matches_jax_on_a_data_seq_grid():
+    """The logical-axis rules bind as the JAX package's do, over the
+    grid's axis sizes in place of a mesh."""
+    from autodist_tpu.parallel.axes import DEFAULT_RULES as J_RULES
+    from autodist_tpu.parallel.axes import spec_for_axes as j_spec_for_axes
+    from autodist_tpu_torch.parallel.axes import (DEFAULT_RULES,
+                                                  spec_for_axes)
+    assert DEFAULT_RULES == J_RULES
+    mesh = JSpec(dp=2, sp=2).build_mesh(jax.devices()[:4])
+    rules = [list(r) for r in DEFAULT_RULES]
+    for axes in (('batch', 'seq', 'embed'), ('embed', 'mlp'),
+                 ('seq', 'seq'), ('vocab', 'embed'), ('batch',), None):
+        assert spec_for_axes(axes, rules, dict(mesh.shape)) == \
+            tuple(j_spec_for_axes(axes, rules, mesh)), axes
+
+
+def test_spec_round_trips_with_the_jax_spec(monkeypatch):
+    """A JAX spec's dict loads in the port with no field dropped, and the
+    port's dict loads in JAX, field for field."""
+    from autodist_tpu_torch.parallel import axes
+    dropped = []
+    monkeypatch.setattr(axes.logging, 'warning',
+                        lambda *a, **k: dropped.append(a))
+    jd = JSpec(dp=2, sp=2, sp_mode='ulysses', zero=3, microbatches=4,
+               grad_accum=2, remat='full').to_dict()
+    spec = ParallelSpec.from_dict(jd)
+    assert not dropped
+    assert spec.to_dict() == jd
+    assert JSpec.from_dict(spec.to_dict()) == JSpec(**jd)
+    assert ParallelSpec().to_dict() == JSpec().to_dict()

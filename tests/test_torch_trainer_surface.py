@@ -367,8 +367,7 @@ def test_profile_writes_trace_and_leaves_state_bitwise(tmp_path):
 def test_parallel_spec_serializes_like_jax():
     spec = ParallelSpec(dp=2, grad_accum=4, remat='full')
     assert ParallelSpec.from_dict(spec.to_dict()) == spec
-    # a JAX spec's dict: the fields the port has are read, the rest
-    # (rules, microbatches, ...) dropped with a warning
+    # a JAX spec's dict: the port has every field
     jd = JSpec(dp=2, grad_accum=4, remat='full').to_dict()
     assert ParallelSpec.from_dict(jd) == spec
     assert set(spec.to_dict()) <= set(jd)

@@ -129,20 +129,23 @@ def make_trainer(kind, opt=('adam', 1e-3), spec=None, builder=None,
     loss_fn = None if loss is None else masked_loss(model, loss)
     if builder is None:
         return Trainer(model, optimizer, spec=spec, loss_fn=loss_fn)
+    name, bkw = (builder, {}) if isinstance(builder, str) else builder
     return strategy.trainer_from_strategy(
-        model, optimizer, getattr(strategy, builder)(), spec=spec)
+        model, optimizer, getattr(strategy, name)(**bkw), spec=spec)
 
 
 def train(rank, world, kind, init, batches, eval_batches=None, **kw):
     """Steps over the global ``batches`` from the JAX-layout ``init``:
     {'losses', 'params' (flat, JAX paths), 'eval' (when asked; with a
     ``loss`` form, ``evaluate``'s dict with the pair ``masked_nll``
-    metric), 'warned' (the scalar-loss warning was logged)}."""
+    metric), 'warned' (the scalar-loss warning was logged), 'sharding'
+    (``Trainer.state_sharding``)}."""
     trainer = make_trainer(kind, **kw)
     state = trainer.init(params=init)
     losses = [float(trainer.step(state, b)[1]['loss']) for b in batches]
     out = {'losses': losses, 'params': flat(trainer.get_params(state)),
-           'warned': trainer._warned_scalar}
+           'warned': trainer._warned_scalar,
+           'sharding': trainer.state_sharding()}
     if eval_batches is not None:
         metrics = None if kw.get('loss') is None else \
             masked_metric(trainer.model)
