@@ -60,8 +60,8 @@ collector, so BatchNorm reduces its moments over the whole global batch:
 in the JAX package data parallelism is GSPMD's, and a mean over the
 batch axis is a mean over the global batch.
 
-The ranks form a (data, seq) grid (:class:`RankGrid`: data outermost,
-rank ``r = d·sp + s``), as the JAX package lays its mesh.
+The ranks form a grid (:class:`RankGrid`) laid as the JAX package lays
+its mesh; with only the data and seq axes, rank ``r = d·sp + s``.
 
 *Sequence parallelism* (``ParallelSpec(sp > 1, sp_mode=...)``, the JAX
 step's manual seq region): ``shard_batch`` also slices dim 1 of every
@@ -94,6 +94,26 @@ statistics) stay replicated. ``get_params``, ``save_state``,
 logical (full) layout, so either package restores the other's
 checkpoint; with sharded state ``get_params`` and ``save_state`` gather,
 so every rank calls them.
+
+*Tensor and expert parallelism* (``ParallelSpec(tp > 1)``, ``ep > 1``;
+the GSPMD half of the JAX step): the grid grows to the JAX mesh's
+(data, pipe, seq, expert, model) axes, rank ``r = (((d·sp + s)·ep +
+e)·tp + t)``. Every leaf is laid out by ``spec_for_axes`` of its logical
+axes over the grid: a dim bound to the model or expert axis is split
+over that group (by the leaf's ``ParamDef.view`` where it has one), and
+the model's parameter is this rank's shard, which the modules run on
+(Megatron's column- and row-parallel products, the vocab-sharded
+embedding and cross-entropy). The batch rides the data and seq axes
+alone, so the ranks of a model or expert group hold the same rows, and
+the gradient of a parameter replicated over those groups comes out
+whole and equal on each of them. So the gradients, the loss and the
+token counts reduce over the data x seq ranks only (``grid.batch``).
+ZeRO's data dim is the first dim that no group splits and that divides
+by dp, as JAX ``_zero_extend`` picks it; a strategy's partition dim
+takes the data axis only when no group splits it. ``get_params``,
+``save_state`` and ``state_sharding`` see the JAX layout (the shards
+gathered). ``ParallelSpec(dcn_dp)`` lays the data axis out in that many
+contiguous blocks (``grid.node_groups``).
 """
 import copy
 import os
@@ -105,10 +125,11 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from autodist_tpu_torch.const import AXIS_EXPERT, AXIS_MODEL
 from autodist_tpu_torch.models import weights
 from autodist_tpu_torch.models.core import (apply_tree_updates,
                                             assign_state_paths, model_mode)
-from autodist_tpu_torch.parallel.axes import ParallelSpec
+from autodist_tpu_torch.parallel.axes import ParallelSpec, spec_for_axes
 from autodist_tpu_torch.parallel.mesh import RankGrid, all_gather
 from autodist_tpu_torch.utils import logging
 
@@ -126,8 +147,10 @@ class _Leaf:
     path: tuple                 # its JAX path
     tensor: torch.Tensor        # the model's parameter or buffer
     shape: tuple                # the full (logical) shape
+    work: tuple                 # the shape its splits cut (its view's)
+    splits: list                # [(work dim, 'model' | 'expert')]
     dim: Optional[int]          # shard dim over the data group, or None
-    held: bool                  # the parameter itself is this rank's slice
+    held: bool                  # the parameter holds its data slice only
     opt: Optional[torch.Tensor]  # what the optimizer steps (None: buffer)
 
     @property
@@ -152,6 +175,8 @@ class Trainer:
             default group when ``torch.distributed`` is initialized.
             Every rank constructs the Trainer (the grid's subgroups are
             made here, a collective).
+        ranks_per_node: the resource spec's ranks on each node, in rank
+            order; under ``dcn_dp > 1`` they must span ``dcn_dp`` nodes.
 
     ``partition_dims`` ({variable name: dim}) shards those variables'
     state over the data group; ``trainer_from_strategy`` installs it
@@ -159,7 +184,7 @@ class Trainer:
     """
 
     def __init__(self, model, optimizer, spec=None, loss_fn=None,
-                 process_group=None):
+                 process_group=None, ranks_per_node=None):
         self.model = model
         self.optimizer = optimizer
         self.spec = spec or ParallelSpec()
@@ -172,37 +197,76 @@ class Trainer:
         else:
             self.world, self.rank = 1, 0
         self.dp = self.spec.resolve_dp(self.world)
-        self.sp = int(self.spec.sp)
+        self.sp, self.tp, self.ep = (int(self.spec.sp), int(self.spec.tp),
+                                     int(self.spec.ep))
+        self.rules = self.spec.rules
         self.accum = max(1, int(self.spec.grad_accum))
         self.device = next(model.parameters()).device
         self.grid = RankGrid(self.dp, self.sp, self.rank, process_group,
-                             self.device)
+                             self.device, ep=self.ep, tp=self.tp,
+                             dcn_dp=self.spec.dcn_dp,
+                             ranks_per_node=ranks_per_node)
+        # the ranks that hold other tokens: data x seq
+        self.replicas = self.grid.batch.size
         self.partition_dims = {}
-        # replicated until ``init`` lays the state out by its shard dims
+        # split over the model and expert groups; replicated over data
+        # until ``init`` lays the state out by its data dims
         self._leaves = self._layout(shard=False)
         self._has_state = model.has_state()
         if self._has_state:
             assign_state_paths(model)
-        logging.info('Trainer: dp=%d sp=%d (%s) zero=%d on %s, '
-                     'grad_accum=%d, remat=%s', self.dp, self.sp,
-                     self.spec.sp_mode, self.spec.zero, self.device,
-                     self.accum, self.spec.remat)
+        logging.info('Trainer: dp=%d pp=%d sp=%d (%s) ep=%d tp=%d '
+                     'dcn_dp=%d zero=%d on %s, grad_accum=%d, remat=%s',
+                     self.dp, self.spec.pp, self.sp, self.spec.sp_mode,
+                     self.ep, self.tp, self.spec.dcn_dp, self.spec.zero,
+                     self.device, self.accum, self.spec.remat)
 
     # -- sharded state -----------------------------------------------------
-    def _shard_dim(self, name, shape):
-        """A trainable leaf's shard dim over the data group: the
-        strategy's partition axis for a partitioned variable, else under
-        ``zero >= 2`` the first dim that divides by dp (the JAX
-        ``_zero_extend``); None when replicated."""
+    def _splits(self, name, shape, axes, view):
+        """A leaf's split over the model and expert groups: (the shape
+        the splits cut, [(its dim, 'model' | 'expert')]). A leaf with a
+        ``view`` is cut along the view's dims when a group splits it."""
+        work, work_axes = shape, axes
+        if view is not None and any(spec_for_axes(view[1], self.rules,
+                                                  self.grid.shape)):
+            work, work_axes = tuple(view[0]), view[1]
+        splits = []
+        for i, axis in enumerate(spec_for_axes(work_axes, self.rules,
+                                               self.grid.shape)):
+            if axis is None:
+                continue
+            if axis not in (AXIS_MODEL, AXIS_EXPERT):
+                raise NotImplementedError(
+                    '%s: the rules bind its dim %d to the %r axis; the '
+                    'port shards parameters over the model and expert '
+                    'axes' % (name, i, axis))
+            if work[i] % self.grid.shape[axis]:
+                raise ValueError(
+                    '%s: dim %d of %s (size %d) does not divide over the '
+                    '%d ranks of the %r axis'
+                    % (name, i, work, work[i], self.grid.shape[axis], axis))
+            splits.append((i, axis))
+        return work, splits
+
+    def _shard_dim(self, name, shape, axes):
+        """A trainable leaf's shard dim over the data group and whether
+        the parameter is held as that slice: the strategy's partition
+        axis for a partitioned variable (held), else under ``zero >= 2``
+        the first dim that divides by dp (held under ``zero == 3``), as
+        the JAX ``_zero_extend``; a dim some group already splits never
+        takes the data axis. (None, False) when replicated."""
         if self.dp <= 1:
-            return None
-        if name in self.partition_dims:
-            return self.partition_dims[name]
+            return None, False
+        spec = spec_for_axes(axes, self.rules, self.grid.shape)
+        free = [i for i in range(len(shape))
+                if i >= len(spec) or spec[i] is None]
+        if self.partition_dims.get(name) in free:
+            return self.partition_dims[name], True
         if self.spec.zero >= 2:
-            for i, n in enumerate(shape):
-                if n % self.dp == 0 and n >= self.dp:
-                    return i
-        return None
+            for i in free:
+                if shape[i] % self.dp == 0 and shape[i] >= self.dp:
+                    return i, self.spec.zero >= 3
+        return None, False
 
     def shard_dims(self):
         """``{variable name: shard dim over the data group, or None}`` for
@@ -214,45 +278,99 @@ class Trainer:
         return {l.name: l.dim for l in self._leaves}
 
     def state_sharding(self):
-        """``{'params': {name: dim}, 'opt_state': {name: dim}}``: the data
-        group's dim in each leaf of the parameters and of the optimizer
-        slots as this trainer holds them (None: replicated)."""
+        """``{'params': {name: dim}, 'opt_state': {name: dim}, 'groups':
+        {name: {axis: dim}}}``: the data group's dim in each leaf of the
+        parameters and of the optimizer slots as this trainer holds them
+        (None: replicated), and the leaf dims the model and expert groups
+        split (in the leaf's view's dims where it has one)."""
         return {'params': {l.name: l.dim if l.held else None
                            for l in self._leaves},
-                'opt_state': self.shard_dims()}
+                'opt_state': self.shard_dims(),
+                'groups': {l.name: {axis: d for d, axis in l.splits}
+                           for l in self._leaves}}
 
     def _slice(self, x, dim):
-        """This rank's slice of a full tensor along ``dim``."""
+        """This rank's slice of a tensor along ``dim`` over the data
+        group."""
         c = x.shape[dim] // self.dp
         return x.narrow(dim, self.grid.data_index * c, c)
 
+    def _local(self, x, l, data):
+        """This rank's shard of the full tensor ``x`` of leaf ``l``: its
+        model and expert splits, and with ``data`` its data slice."""
+        if l.splits:
+            x = x.reshape(l.work)
+            for d, axis in l.splits:
+                group = self.grid.group(axis)
+                c = x.shape[d] // group.size
+                x = x.narrow(d, group.rank * c, c)
+            x = x.reshape(self._local_shape(l))
+        if data and l.dim is not None:
+            x = self._slice(x, l.dim)
+        return x
+
+    def _gather(self, t, l, data):
+        """The full tensor of leaf ``l`` from this rank's shard ``t`` (the
+        inverse of :meth:`_local`; a collective on every group that
+        splits it)."""
+        if data and l.dim is not None:
+            t = self.grid.data.all_gather(t, l.dim)
+        if l.splits:
+            x = t.reshape(self._local_work(l))
+            for d, axis in reversed(l.splits):
+                x = self.grid.group(axis).all_gather(x, d)
+            t = x.reshape(l.shape)
+        return t
+
+    def _local_work(self, l):
+        """The shape of leaf ``l``'s model / expert shard in its work
+        dims."""
+        work = list(l.work)
+        for d, axis in l.splits:
+            work[d] //= self.grid.shape[axis]
+        return tuple(work)
+
+    def _local_shape(self, l):
+        """The shape of leaf ``l``'s model / expert shard in its own
+        dims: a view splits the leaf's last dim, so its trailing dims
+        merge back."""
+        work = self._local_work(l)
+        if len(work) == len(l.shape):
+            return work
+        k = len(l.shape) - 1
+        return work[:k] + (int(np.prod(work[k:])),)
+
     def _layout(self, shard=True):
-        """Lay the model's leaves out by their shard dims (all replicated
-        without ``shard``): a held leaf's parameter becomes its slice; a
-        zero-2 leaf gets a slice parameter for the optimizer beside the
-        full one."""
+        """Lay the model's leaves out: each leaf's parameter becomes its
+        model / expert shard, and (with ``shard``) a held leaf's its data
+        slice of that; a zero-2 leaf gets a slice parameter for the
+        optimizer beside the shard."""
         trainable = {id(p) for p in self.model.parameters()}
+        axes = dict(weights.flatten_tree(self.model.axes()))
+        views = dict(weights.flatten_tree(self.model.views())) \
+            if hasattr(self.model, 'views') else {}
         leaves = []
         for path, t in weights.flatten_tree(self.model.params()):
             name, shape = '/'.join(path), tuple(t.shape)
-            dim = self._shard_dim(name, shape) \
-                if shard and id(t) in trainable else None
-            held = dim is not None and (self.spec.zero >= 3 or
-                                        name in self.partition_dims)
-            opt = t if id(t) in trainable else None
-            if dim is not None:
-                part = self._slice(t.detach(), dim).clone()
-                if held:
-                    t.data = part
-                else:
-                    opt = torch.nn.Parameter(part)
-            leaves.append(_Leaf(path, t, shape, dim, held, opt))
+            work, splits = self._splits(name, shape, axes[path],
+                                        views.get(path))
+            dim, held = self._shard_dim(name, shape, axes[path]) \
+                if shard and id(t) in trainable else (None, False)
+            l = _Leaf(path, t, shape, work, splits, dim, held,
+                      t if id(t) in trainable else None)
+            if splits or held:
+                t.data = self._local(t.detach(), l, held).clone()
+            if dim is not None and not held:
+                l.opt = torch.nn.Parameter(self._slice(t.detach(),
+                                                       dim).clone())
+            leaves.append(l)
         return leaves
 
     def _unshard(self):
-        """Full-size storage for held leaves again (before a new init)."""
+        """Full-size storage for split or held leaves again (before a new
+        init)."""
         for l in self._leaves:
-            if l.held:
+            if tuple(l.tensor.shape) != l.shape:
                 l.tensor.data = torch.empty(l.shape, dtype=l.tensor.dtype,
                                             device=l.tensor.device)
         self._leaves = []
@@ -281,8 +399,9 @@ class Trainer:
             [opt_of[id(p)] for p in named.values()]))
 
     def _params(self, grad=True):
-        """The params tree the loss sees: held leaves all-gathered
-        (differentiably with ``grad``), every other leaf the model's."""
+        """The params tree the loss sees: held leaves all-gathered over
+        the data group (differentiably with ``grad``), every other leaf
+        the model's; model and expert shards stay this rank's."""
         params = self.model.params()
         held = [l for l in self._leaves if l.held]
         if not held:
@@ -299,14 +418,17 @@ class Trainer:
         (d+1)·B/dp) for data index d, or under ``grad_accum`` the d-th
         dp-slice of each of its chunks of consecutive rows; under
         ``sp > 1`` also columns [s·S/sp, (s+1)·S/sp) of dim 1 of every
-        leaf of rank >= 2 for seq index s. A tensor already on the
+        leaf of rank >= 2 for seq index s. The ranks of a model or
+        expert group get the same rows. A tensor already on the
         trainer's device is taken as placed and passes through untouched
         (a batch from ``shard_batch`` or the prefetcher). On the card the
         copy leaves pinned memory with ``non_blocking=True``."""
         return self._place(batch, self.accum)
 
     def _place(self, batch, accum):
-        d_idx, s_idx = divmod(self.rank, self.sp)
+        # r = ((d·sp + s)·ep + e)·tp + t: the expert and model ranks of
+        # one (d, s) take the same rows
+        d_idx, s_idx = divmod(self.rank // (self.ep * self.tp), self.sp)
 
         def local(x):
             if isinstance(x, torch.Tensor):
@@ -358,8 +480,8 @@ class Trainer:
         return self.model.loss(params, batch)
 
     def _global_mask(self, batch):
-        """True when the loss is the global masked mean over the grid's
-        ranks: a mask, the model's per-token loss and no user loss_fn;
+        """True when the loss is the global masked mean over the data x
+        seq ranks: a mask, the model's per-token loss and no user loss_fn;
         or sequence parallelism (with or without a mask)."""
         if self.sp > 1:
             if not hasattr(self.model, 'per_token_loss'):
@@ -370,9 +492,9 @@ class Trainer:
             hasattr(self.model, 'per_token_loss')
 
     def _mask_counts(self, chunks):
-        """Each chunk's counted tokens over the whole grid (the mask's
-        sum, else every target), f32, floored at 1: one all-reduce for
-        every chunk."""
+        """Each chunk's counted tokens over the data x seq ranks (the
+        mask's sum, else every target), f32, floored at 1: one
+        all-reduce for every chunk."""
         counts = torch.stack([
             c['mask'].float().sum() if 'mask' in c else
             torch.tensor(float(c['targets'].numel()), device=self.device)
@@ -381,10 +503,13 @@ class Trainer:
         return torch.clamp(counts, min=1)
 
     def _mode(self, training):
-        """``model_mode`` with the data group (and the seq group)."""
+        """``model_mode`` with the data group, the seq group, and the
+        grid and rules that bind parameters to the model and expert
+        groups."""
         return model_mode(training=training, group=self.grid.data.group,
                           world=self.dp, seq=self.grid.seq,
-                          sp_mode=self.spec.sp_mode)
+                          sp_mode=self.spec.sp_mode, mesh=self.grid,
+                          rules=self.rules)
 
     def _pair_mean(self, total, count):
         """This rank's part of a pair-form loss's global mean: its sum
@@ -419,7 +544,7 @@ class Trainer:
             if weight:
                 # the ranks' parts are summed: each adds its share of the
                 # mean of the ranks' aux
-                loss = loss + weight * aux / self.world
+                loss = loss + weight * aux / self.replicas
             return loss
 
         recorded = []
@@ -438,13 +563,13 @@ class Trainer:
         summed = count is not None
         if isinstance(loss, (tuple, list)):
             loss, summed = self._pair_mean(*loss), True
-        elif not summed and self.world > 1 and 'mask' in chunk and \
+        elif not summed and self.replicas > 1 and 'mask' in chunk and \
                 not self._warned_scalar:
             self._warned_scalar = True
             logging.warning(
                 'Trainer: a scalar loss at dp=%d on a masked batch is the '
                 'mean of the ranks\' losses, not the global batch\'s; '
-                'return (sum, count) for the global mean', self.world)
+                'return (sum, count) for the global mean', self.replicas)
         return loss, (recorded[0] if recorded else {}), summed
 
     # -- the step ----------------------------------------------------------
@@ -465,9 +590,9 @@ class Trainer:
         loss = total / self.accum if self.accum > 1 else total
         # a global mean sums the ranks' parts; a mean averages the
         # ranks' means
-        ranks = 1 if summed else self.world
+        ranks = 1 if summed else self.replicas
         self._reduce_grads(self.accum * ranks)
-        if self.world > 1:
+        if self.replicas > 1:
             loss = loss.clone()
             self._all_reduce(loss, ranks)
         opt.step()
@@ -478,12 +603,14 @@ class Trainer:
         return state, {'loss': loss}
 
     def _reduce_grads(self, divide):
-        """Sum every gradient over the grid and divide by ``divide``. A
-        replicated leaf's is all-reduced; a sharded leaf's is
-        reduce-scattered over the data group along its shard dim (a
-        held leaf's gather did that in its backward) and all-reduced
-        over the seq group, and lands on the slice the optimizer
-        steps."""
+        """Sum every gradient over the data x seq ranks and divide by
+        ``divide``. A model or expert shard's gradient is its own, and a
+        leaf those groups replicate has the same whole gradient on each
+        of their ranks, so neither group takes part. A leaf with no data
+        dim is all-reduced; one with a data dim is reduce-scattered over
+        the data group along it (a held leaf's gather did that in its
+        backward) and all-reduced over the seq group, and lands on the
+        slice the optimizer steps."""
         replicated, sliced = [], []
         for l in self._leaves:
             if l.opt is None:
@@ -501,7 +628,7 @@ class Trainer:
             elif l.opt.grad is None:
                 l.opt.grad = torch.zeros_like(l.opt)
             sliced.append(l.opt.grad)
-        _sum(self.grid.world, replicated, divide)
+        _sum(self.grid.batch, replicated, divide)
         _sum(self.grid.seq, sliced, divide)
 
     @torch.no_grad()
@@ -513,15 +640,16 @@ class Trainer:
 
     def _all_reduce(self, tensors, divide=1):
         """Sum a tensor, or a list of them in one flat collective, over
-        the grid (nothing at one rank), then divide by ``divide``."""
-        if self.world == 1:
+        the data x seq ranks (nothing at one), then divide by
+        ``divide``."""
+        if self.replicas == 1:
             return
         if isinstance(tensors, torch.Tensor):
-            dist.all_reduce(tensors, group=self.group)
+            dist.all_reduce(tensors, group=self.grid.batch.group)
             if divide != 1:
                 tensors /= divide
             return
-        _sum(self.grid.world, tensors, divide)
+        _sum(self.grid.batch, tensors, divide)
 
     def compile_step(self, state, batch):
         """The step callable for batches already passed through
@@ -618,7 +746,7 @@ class Trainer:
                             v, dtype=torch.float32, device=self.device),
                             pair)
             for name, (val, summed) in out.items():
-                self._all_reduce(val, 1 if summed else self.world)
+                self._all_reduce(val, 1 if summed else self.replicas)
                 totals[name] = totals.get(name, 0.0) + float(val)
             count += 1
         means = {name: val / max(count, 1) for name, val in totals.items()}
@@ -639,15 +767,13 @@ class Trainer:
         optax's slots under ``.opt_state/0`` (Adam and AdamW:
         ``.count``, ``.mu``, ``.nu``; SGD with momentum: ``.trace``),
         and ``.step``. Sharded leaves and slots are all-gathered over
-        the data group (a collective: every rank builds the tree). State
+        the groups that split them (a collective: every rank builds the
+        tree). State
         buffers get zero slots, as their zero gradients give them in
         optax. With ``skeleton``, uninitialized host arrays of the right
         shapes."""
         def host(t):
             return t.detach().float().cpu().numpy()
-
-        def full(t, l):
-            return self.grid.data.all_gather(t.detach(), l.dim)
 
         opt = state.opt_state
         kind = self._slot_kind(opt)
@@ -655,7 +781,7 @@ class Trainer:
         def param(l):
             if skeleton:
                 return np.empty(l.shape, np.float32)
-            return host(full(l.tensor, l) if l.held else l.tensor)
+            return host(self._gather(l.tensor.detach(), l, l.held))
 
         tree = {'.params': _tree(param, self._leaves),
                 '.step': np.asarray(state.step, np.int32)}
@@ -666,8 +792,7 @@ class Trainer:
             def leaf(l):
                 s = opt.state.get(l.opt, {}) if l.opt is not None else {}
                 if name in s and not skeleton:
-                    return host(s[name] if l.dim is None
-                                else full(s[name], l))
+                    return host(self._gather(s[name], l, True))
                 return np.zeros(l.shape, np.float32)
             return _tree(leaf, self._leaves)
 
@@ -703,10 +828,9 @@ class Trainer:
         with torch.no_grad():
             for l in self._leaves:
                 value = self._leaf_value(tree['.params'], l)
-                l.tensor.copy_(self._slice(value, l.dim) if l.held
-                               else value)
+                l.tensor.copy_(self._local(value, l, l.held))
                 if l.dim is not None and not l.held:
-                    l.opt.copy_(self._slice(value, l.dim))
+                    l.opt.copy_(self._local(value, l, True))
         opt = state_template.opt_state
         kind = self._slot_kind(opt)
         step_count = int(tree['.step'])
@@ -740,10 +864,8 @@ class Trainer:
 
     def _slot(self, tree, l):
         """This rank's slot tensor for ``l`` from a JAX-layout slot tree
-        (its slice when the leaf is sharded)."""
-        value = self._leaf_value(tree, l)
-        return value if l.dim is None else \
-            self._slice(value, l.dim).contiguous()
+        (its shard when the leaf is sharded)."""
+        return self._local(self._leaf_value(tree, l), l, True).contiguous()
 
     # -- profiling ---------------------------------------------------------
     def profile(self, state, batch, trace_dir, steps=3):
@@ -792,7 +914,9 @@ class Trainer:
         """Params on the host in the JAX layout (nested dict of numpy),
         full: sharded leaves are all-gathered, so every rank calls it."""
         with torch.no_grad():
-            return weights.tree_to_numpy(self._params(grad=False))
+            return weights.tree_to_numpy(_tree(
+                lambda l: self._gather(l.tensor.detach(), l, l.held),
+                self._leaves))
 
 
 def _tree(fn, leaves):

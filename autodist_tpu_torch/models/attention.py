@@ -9,13 +9,23 @@ dispatches on its manual ``seq`` axis. Otherwise each rank holds its
 local batch, so the JAX package's unsharded branch and its
 nested-manual ``_tp_manual_flash`` branch are one rule here: the flash
 kernel when ``flash_attention.preferred(q.shape)`` holds, else
-``local_flash_attention``. Tensor parallelism is refused by
-``ParallelSpec`` until it is ported.
+``local_flash_attention``.
+
+Under tensor parallelism (a live ``'heads'`` axis) each rank of the
+model group runs ``h / tp`` heads: the fused qkv kernel is
+column-parallel, and its shard is the rank's block of heads of the
+``[dim, 3, h, d]`` view (``ParamDef.view``), where the JAX package's
+GSPMD reshards across the ``reshape(b, s, 3, h, d)``; ``out`` is
+row-parallel. The local attention then dispatches as above on the
+local shape ``[b, h / tp, s, d]``, which is what the JAX
+``_tp_manual_flash`` runs the kernel on; Ulysses splits the local heads
+over the seq group, so it needs ``(h / tp) % sp == 0``.
 """
 import torch
 
 from autodist_tpu_torch.kernels import flash_attention as fa
-from autodist_tpu_torch.models.core import Dense, Module, seq_group, sp_mode
+from autodist_tpu_torch.models.core import (Dense, Module, ParamDef,
+                                            seq_group, sp_mode)
 from autodist_tpu_torch.parallel.ring_attention import (local_flash_attention,
                                                         ring_attention)
 from autodist_tpu_torch.parallel.ulysses import ulysses_attention
@@ -34,8 +44,8 @@ class MultiHeadAttention(Module):
         self.dtype = dtype
         inner = self.num_heads * self.head_dim
         # fused qkv, laid out [b, s, 3, h, d] as in the JAX package
-        self.qkv = Dense(dim, 3 * inner, 'embed', 'heads', use_bias=False,
-                         dtype=dtype, device=device, stack=stack)
+        self.qkv = _QkvDense(dim, self.num_heads, self.head_dim,
+                             dtype=dtype, device=device, stack=stack)
         self.out = Dense(inner, dim, 'heads', 'embed', use_bias=False,
                          dtype=dtype, device=device, stack=stack)
 
@@ -44,8 +54,10 @@ class MultiHeadAttention(Module):
 
     def apply(self, params, x):
         b, s, _ = x.shape
-        h, d = self.num_heads, self.head_dim
-        qkv = self.qkv.apply(params['qkv'], x).reshape(b, s, 3, h, d)
+        d = self.head_dim
+        qkv = self.qkv.apply(params['qkv'], x)
+        h = qkv.shape[-1] // (3 * d)     # this rank's heads
+        qkv = qkv.reshape(b, s, 3, h, d)
         # [b, s, 3, h, d] -> 3 x [b, h, s, d]
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         seq = seq_group()
@@ -60,3 +72,20 @@ class MultiHeadAttention(Module):
             o = local_flash_attention(q, k, v, causal=self.causal)
         o = o.transpose(1, 2).reshape(b, s, h * d)
         return self.out.apply(params['out'], o)
+
+
+class _QkvDense(Dense):
+    """The fused qkv product: a ``Dense`` whose kernel ``[dim, 3 · h ·
+    d]`` is sharded by its ``[dim, 3, h, d]`` view, heads on the model
+    axis."""
+
+    def __init__(self, dim, heads, head_dim, **kw):
+        self.heads, self.head_dim = heads, head_dim
+        super().__init__(dim, 3 * heads * head_dim, 'embed', 'heads',
+                         use_bias=False, **kw)
+
+    def param_defs(self):
+        return {'kernel': ParamDef(
+            (self.in_dim, self.out_dim), (self.in_axis, self.out_axis),
+            'fan_in', view=((self.in_dim, 3, self.heads, self.head_dim),
+                            (self.in_axis, None, self.out_axis, None)))}

@@ -21,9 +21,18 @@ a registered *buffer*, not a parameter: the optimizer never sees it, yet
 ``params()`` and ``state_dict`` carry it under its JAX path, as the JAX
 ``init`` carries it in the params tree. It advances through the state
 channel below (:func:`record_state_update`), as in the JAX package.
+
+Tensor and expert parallelism: under a Trainer whose grid has a model
+or expert axis, each rank holds its shard of every parameter whose
+logical axes the rules bind to a live grid axis, and the modules run on
+those shards (Megatron's column- and row-parallel products, the
+vocab-sharded embedding), with the collectives of
+:mod:`autodist_tpu_torch.parallel.mesh` where the JAX package's GSPMD
+inserts them. A ``ParamDef`` with a ``view`` is sharded by the view's
+axes, not by a plain split of its own dims (the fused qkv kernel: a
+rank's shard is its heads' block of the ``[dim, 3, h, d]`` view).
 """
 import math
-import threading
 from dataclasses import dataclass
 
 import torch
@@ -33,6 +42,8 @@ from torch import nn
 from torch.distributed.nn.functional import all_reduce
 from torch.utils.checkpoint import checkpoint as torch_checkpoint
 
+from autodist_tpu_torch.parallel.axes import STEP_CTX, live_spec, step_mesh
+from autodist_tpu_torch.parallel.mesh import copy_to, reduce_from
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -45,6 +56,9 @@ class ParamDef:
     # False = a STATE leaf (BatchNorm running stats): a buffer the
     # optimizer never touches; it advances via record_state_update.
     trainable: bool = True
+    # (view shape, view axes): the leaf's last dim seen as several, the
+    # dims a tensor-parallel shard is cut along (None: its own dims)
+    view: tuple = None
 
 
 class Module(nn.Module):
@@ -108,6 +122,16 @@ class Module(nn.Module):
                 else lead + tuple(d.axes)
                 for name, d in sorted(self.param_defs().items())}
 
+    def views(self):
+        """``ParamDef.view`` of every parameter (None where it has none),
+        as ``(view shape, view axes)`` with the stacked layers' leading
+        dims and ``'stage'`` axes, as :meth:`axes` leads them."""
+        lead = ('stage',) * len(self.stack)
+        return {name: d.views() if isinstance(d, Module)
+                else None if d.view is None
+                else (self.stack + tuple(d.view[0]), lead + tuple(d.view[1]))
+                for name, d in sorted(self.param_defs().items())}
+
     @torch.no_grad()
     def reset_parameters(self, generator):
         """Initialize every parameter below this module from
@@ -150,19 +174,26 @@ def _leaves(tree):
 # optimizer step. Paths are stamped on module instances once per trainer
 # (``assign_state_paths``). The collector also carries the data-parallel
 # process group of the step, so BatchNorm can reduce its moments over the
-# whole data-parallel batch (``reduce_over_batch``), and the seq group
-# with its attention mode under sequence parallelism (``seq_group``).
+# whole data-parallel batch (``reduce_over_batch``), the seq group with
+# its attention mode under sequence parallelism (``seq_group``), and the
+# step's rank grid and logical-axis rules, which bind parameters to the
+# model and expert groups (``live_spec``, ``mesh_group``). The stack of
+# collectors lives in ``parallel.axes.STEP_CTX``, where the axis binding
+# reads the step's grid.
 # ---------------------------------------------------------------------------
-_MODEL_CTX = threading.local()
+_MODEL_CTX = STEP_CTX
 
 
 class _StateCollector:
-    def __init__(self, training, group, world, seq=None, sp_mode='ring'):
+    def __init__(self, training, group, world, seq=None, sp_mode='ring',
+                 mesh=None, rules=None):
         self.training = training
         self.group = group
         self.world = world
         self.seq = seq if seq is not None and seq.size > 1 else None
         self.sp_mode = sp_mode
+        self.mesh = mesh
+        self.rules = rules
         self.updates = {}    # path tuple -> new value (detached)
 
 
@@ -191,12 +222,16 @@ class model_mode(_resumed):
     ``seq`` is the seq group (a ``ReplicaGroup``) whose ranks each hold a
     slice of the sequence, and ``sp_mode`` the attention that runs over
     it ('ring' | 'ulysses'): the port's ``sharding_ctx`` for sequence
-    parallelism."""
+    parallelism. ``mesh`` is the step's
+    :class:`~autodist_tpu_torch.parallel.mesh.RankGrid` and ``rules``
+    its logical-axis table: with them, a parameter whose axes bind to a
+    live model or expert axis is this rank's shard, and the modules
+    run the sharded products (the rest of the JAX ``sharding_ctx``)."""
 
     def __init__(self, training=True, group=None, world=1, seq=None,
-                 sp_mode='ring'):
+                 sp_mode='ring', mesh=None, rules=None):
         super().__init__(_StateCollector(training, group, world, seq,
-                                         sp_mode))
+                                         sp_mode, mesh, rules))
 
     @property
     def updates(self):
@@ -229,6 +264,16 @@ def sp_mode():
     """The attention over the seq group: 'ring' or 'ulysses'."""
     col = _collector()
     return 'ring' if col is None else col.sp_mode
+
+
+def mesh_group(*mesh_axes):
+    """The step's group over the live ones of ``mesh_axes`` (None
+    entries skipped), or None when none is live."""
+    mesh, _ = step_mesh()
+    if mesh is None:
+        return None
+    axes = [a for a in mesh_axes if a is not None and mesh.shape[a] > 1]
+    return mesh.group(*axes) if axes else None
 
 
 def reduce_over_batch(t):
@@ -349,8 +394,31 @@ class Sequential(Module):
         return x
 
 
+def sharded_embedding_lookup(table, ids, group):
+    """Rows of a table sharded along dim 0 over ``group`` (this rank
+    holds rows ``[rank · n, (rank + 1) · n)``): each rank takes the rows
+    it owns, ids outside its range (negative local ids too) fill with
+    zeros, and a sum over the group assembles the full rows. The
+    backward hands each rank the rows' cotangent for the rows it owns
+    (the JAX function's psum in a shard_map over the vocab axis)."""
+    size = table.shape[0]
+    local = ids.long() - group.rank * size
+    inside = (local >= 0) & (local < size)
+    rows = F.embedding(torch.where(inside, local, 0), table)
+    rows = rows * inside[..., None].to(rows.dtype)
+    return reduce_from(group, rows)
+
+
 class Dense(Module):
-    """y = x @ w + b, computed in ``dtype``."""
+    """y = x @ w + b, computed in ``dtype``.
+
+    Under a live axis (tensor parallelism) the kernel is this rank's
+    shard: column-parallel when ``out_axis`` is live (the input enters
+    through :func:`copy_to`, the output and the bias are the rank's
+    slice of the last dim), row-parallel when ``in_axis`` is (the input
+    is the rank's slice, the partial products leave through
+    :func:`reduce_from`, and the replicated bias is added once, after
+    the sum)."""
 
     def __init__(self, in_dim, out_dim, in_axis='embed', out_axis='mlp',
                  use_bias=True, dtype=torch.float32, device=None, stack=()):
@@ -369,14 +437,30 @@ class Dense(Module):
         return d
 
     def apply(self, params, x):
-        y = x.to(self.dtype) @ params['kernel'].to(self.dtype)
+        kernel = params['kernel']
+        row, col = live_spec((self.in_axis, self.out_axis))
+        if col is not None:
+            x = copy_to(mesh_group(col), x)
+        if x.shape[-1] != kernel.shape[-2]:
+            raise ValueError(
+                'Dense(%r, %r): input width %d, kernel shard %s; under '
+                'tensor parallelism a layer whose in axis is sharded takes '
+                'the output of one whose out axis is'
+                % (self.in_axis, self.out_axis, x.shape[-1],
+                   tuple(kernel.shape)))
+        y = x.to(self.dtype) @ kernel.to(self.dtype)
+        if row is not None:
+            y = reduce_from(mesh_group(row), y)
         if self.use_bias:
             y = y + params['bias'].to(self.dtype)
         return y
 
 
 class Embedding(Module):
-    """Token embedding; ``attend`` is the tied output head."""
+    """Token embedding; ``attend`` is the tied output head. Under a live
+    vocab axis the table is this rank's rows: the lookup is
+    :func:`sharded_embedding_lookup` and ``attend`` gives the rank's
+    vocab slice of the logits."""
 
     def __init__(self, vocab, dim, vocab_axis='vocab', dim_axis='embed',
                  dtype=torch.float32, device=None, stack=()):
@@ -392,10 +476,17 @@ class Embedding(Module):
                                   'normal', 0.02)}
 
     def apply(self, params, ids):
-        return F.embedding(ids, params['table'].to(self.dtype))
+        table = params['table'].to(self.dtype)
+        axis = live_spec((self.vocab_axis,))[0]
+        if axis is not None:
+            return sharded_embedding_lookup(table, ids, mesh_group(axis))
+        return F.embedding(ids, table)
 
     def attend(self, params, x):
         """Tied-output logits: x @ table.T"""
+        axis = live_spec((self.vocab_axis,))[0]
+        if axis is not None:
+            x = copy_to(mesh_group(axis), x)
         return x @ params['table'].to(self.dtype).T
 
 

@@ -26,13 +26,30 @@ over the k choices each (a token's k choices name k different experts,
 so at most one term of each sum is nonzero and the values are the JAX
 package's bit for bit), without the ``[b, s, k, e, cap]`` products the
 JAX code forms first.
+
+Expert and tensor parallelism: rank e of a live expert group holds
+experts ``[e · E / ep, (e + 1) · E / ep)`` of ``up`` and ``down``, and
+under a live model axis each rank of the model group holds its slice of
+those experts' ``mlp`` dim, so one leaf may be sharded on two dims over
+two groups. Every rank of the expert x model group sees the same tokens
+(the JAX batch rides the data axis alone), so the routing runs
+replicated, the activations and the gate values enter the rank's
+experts through :func:`mesh.copy_to` over that group (its backward sums
+the gradients the other ranks' experts give the router and the input),
+dispatch and combine are built for the local experts only, and the
+output is the local experts' partial sum, reduced over the group
+(:func:`mesh.reduce_from`). No all-to-all is needed: that is what the
+JAX layout computes. The aux loss comes from replicated values and
+stays as it is.
 """
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
 from autodist_tpu_torch.models.core import (Dense, Module, ParamDef,
-                                            mean_over_batch)
+                                            live_spec, mean_over_batch,
+                                            mesh_group)
+from autodist_tpu_torch.parallel.mesh import copy_to, reduce_from
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -88,26 +105,37 @@ class MoeMlp(Module):
         cap = self.capacity(s)
         probs, gate_vals, gate_idx, pos = self.route(params, x)
 
-        # choice [b, s, k, e] (dropped choices zeroed) and slot [b, s, k,
+        # the local experts [lo, lo + n) and the group over which their
+        # products are partial (None: every expert here, unsharded)
+        expert_axis, _, mlp_axis = live_spec(('expert', 'embed', 'mlp'))
+        n = params['up'].shape[0]
+        lo = mesh_group(expert_axis).rank * n if expert_axis else 0
+        group = mesh_group(expert_axis, mlp_axis)
+        xin = copy_to(group, x)
+        gate_vals = copy_to(group, gate_vals)
+
+        # choice [b, s, k, n] (dropped choices zeroed) and slot [b, s, k,
         # cap] one-hots; a position past capacity matches no slot, as
         # jax.nn.one_hot gives a zero row there. The named ranges let a
         # profile of the forward (and its remat recompute) attribute
         # device time to the dense dispatch.
         choice_oh = F.one_hot(gate_idx, e)
         with record_function('moe_dispatch'):
-            choice = choice_oh.to(dt) * (pos < cap)[..., None].to(dt)
+            choice = choice_oh[..., lo:lo + n].to(dt) * \
+                (pos < cap)[..., None].to(dt)
             slot = (pos[..., None] == torch.arange(cap, device=x.device)) \
                 .to(dt)
             disp = torch.einsum('bske,bskc->bsec', choice, slot)
             combine = torch.einsum('bske,bskc->bsec',
                                    choice * gate_vals.to(dt)[..., None], slot)
-            xe = torch.einsum('bsec,bsd->becd', disp, x.to(dt))
+            xe = torch.einsum('bsec,bsd->becd', disp, xin.to(dt))
         with record_function('moe_experts'):
             h = F.gelu(torch.einsum('becd,edh->bech', xe,
                                     params['up'].to(dt)), approximate='tanh')
             ye = torch.einsum('bech,ehd->becd', h, params['down'].to(dt))
         with record_function('moe_combine'):
-            y = torch.einsum('bsec,becd->bsd', combine, ye)
+            y = reduce_from(group, torch.einsum('bsec,becd->bsd', combine,
+                                                ye))
 
         # load-balance aux loss (Switch eq. 4): e * sum_e f_e * P_e, f over
         # first choices, averaged over the data-parallel batch

@@ -11,7 +11,7 @@ compiled cell to reuse.
 import torch
 
 from autodist_tpu_torch.models.core import (Dense, Embedding, Module,
-                                            ParamDef)
+                                            ParamDef, live_spec)
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -33,6 +33,10 @@ class LSTMCell(Module):
 
     def apply(self, params, carry, x):
         """((h, c), h) after one time step of ``x`` [batch, in_dim]."""
+        if live_spec(('embed', 'mlp'))[1] is not None:
+            raise NotImplementedError(
+                'LSTMCell: its fused gates under a live mlp axis (tensor '
+                'parallelism) are not ported; run LSTMLM at tp = 1')
         h, c = carry
         z = torch.cat([x, h], dim=-1).to(self.dtype)
         gates = z @ params['kernel'].to(self.dtype) + \

@@ -34,8 +34,16 @@ runs the model on its slice of the sequence: positions are offset by
 ``per_token_loss_with_aux`` returns the slice's token NLL, which the
 Trainer reduces. MoE routing groups are then the local slices (GShard
 grouping: capacity and dropping per slice), as in the JAX package.
-Tensor and pipeline parallelism are not ported (``ParallelSpec``
-refuses them).
+
+Under tensor parallelism the blocks run on their shards (see
+``models/attention.py``, ``models/moe.py`` and ``core.Dense``), and
+under a live ``'vocab'`` axis the embedding table (tied) or the
+``lm_head`` (untied) is vocab-sharded, so the head gives each rank its
+vocab slice of the logits and the NLL is :func:`vocab_parallel_nll`,
+which never gathers them (the JAX package's GSPMD partitions its
+logsumexp and one-hot contraction the same way). ``apply`` then returns
+the rank's vocab slice of the logits. Pipeline parallelism is not
+ported (``ParallelSpec`` refuses it).
 """
 import functools
 from dataclasses import dataclass
@@ -46,8 +54,10 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 
 from autodist_tpu_torch.models.attention import MultiHeadAttention
 from autodist_tpu_torch.models.core import (Dense, Embedding, LayerNorm, Mlp,
-                                            Module, checkpoint, seq_group)
+                                            Module, checkpoint, live_spec,
+                                            mesh_group, seq_group)
 from autodist_tpu_torch.models.moe import MoeMlp
+from autodist_tpu_torch.parallel.mesh import reduce_from
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -269,6 +279,9 @@ class TransformerLM(Module):
 
     def _chunk_nll(self, params, x, targets):
         logits = self._head_logits(params, x).float()
+        axis = live_spec(('vocab',))[0]
+        if axis is not None:
+            return vocab_parallel_nll(logits, targets, mesh_group(axis))
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
         return logz - gold
@@ -297,6 +310,26 @@ class TransformerLM(Module):
         if not self.cfg.moe_experts:
             return ce
         return ce + self.cfg.moe_aux_coef * aux
+
+
+def vocab_parallel_nll(logits, targets, group):
+    """Token NLL ``logsumexp(logits) - logits[target]`` of logits whose
+    vocab dim is sharded over ``group`` (this rank holds columns
+    ``[rank · n, (rank + 1) · n)``), without gathering them: the max and
+    the sum of exps are all-reduced over the group, and the gold logit
+    comes from the rank that owns it. The sums go through
+    :func:`mesh.reduce_from`, so the backward hands each rank the
+    softmax minus the one-hot on its own columns; the max is a constant
+    shift."""
+    n = logits.shape[-1]
+    m = group.all_reduce(logits.detach().amax(-1),
+                         op=torch.distributed.ReduceOp.MAX)
+    z = reduce_from(group, torch.exp(logits - m[..., None]).sum(-1))
+    local = targets.long() - group.rank * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])
+    gold = reduce_from(group, gold[..., 0] * inside.to(logits.dtype))
+    return torch.log(z) + m - gold
 
 
 def _unstack(tree):

@@ -5,20 +5,26 @@ The counterpart of ``autodist_tpu/parallel/axes.py``. The spec carries
 every field of the JAX spec and serializes as it does (``to_dict`` /
 ``from_dict``, with the same tolerance of version skew), so either
 package reads the other's dict. This port runs the axes that live on a
-(data, seq) grid of ``torch.distributed`` ranks: data parallelism with
-ZeRO stages 1-3 (``zero``), sequence parallelism (``sp``, ring or
-Ulysses attention by ``sp_mode``), gradient accumulation and full
-rematerialization. Tensor, pipeline and expert parallelism and a
-multi-slice data axis (``tp``, ``pp``, ``ep``, ``dcn_dp`` above 1) raise
-``NotImplementedError`` until the slice that ports them.
+(data, seq, expert, model) grid of ``torch.distributed`` ranks: data
+parallelism with ZeRO stages 1-3 (``zero``) and a multi-slice data axis
+(``dcn_dp``), sequence parallelism (``sp``, ring or Ulysses attention by
+``sp_mode``), tensor parallelism (``tp``: parameters sharded by their
+``'heads'``, ``'mlp'`` and ``'vocab'`` axes over the model group) and
+expert parallelism (``ep``: the ``'expert'`` axis over the expert
+group), gradient accumulation and full rematerialization. Pipeline
+parallelism (``pp`` above 1) raises ``NotImplementedError`` until the
+slice that ports the pipeline schedules.
 
 The JAX package binds logical axes to a ``jax.sharding.Mesh``; the port
 has no mesh object, so :func:`mesh_axis_for` and :func:`spec_for_axes`
 take the grid's axis sizes (a ``{axis: size}`` dict, or anything with
 such a ``shape``, as :class:`~autodist_tpu_torch.parallel.mesh.RankGrid`
 has) and return a tuple of mesh-axis names where JAX returns a
-``PartitionSpec``.
+``PartitionSpec``. The step that is running keeps its grid and rules in
+``STEP_CTX`` (:func:`autodist_tpu_torch.models.core.model_mode` puts them
+there); :func:`live_mesh_axis` and :func:`live_spec` read them.
 """
+import threading
 from dataclasses import asdict, dataclass, field, fields
 
 from autodist_tpu_torch.const import (AXIS_DATA, AXIS_EXPERT, AXIS_MODEL,
@@ -44,10 +50,8 @@ DEFAULT_RULES = (
 )
 
 # the axes a later slice of the port brings, and what it ports there
-_LATER = {'tp': 'tensor parallelism (DTensor)',
-          'pp': 'the pipeline schedules',
-          'ep': 'expert parallelism',
-          'dcn_dp': 'the multi-slice data axis'}
+_LATER = {'pp': 'pipeline parallelism (the GPipe and 1F1B schedules of '
+                'parallel/pipeline.py)'}
 
 
 @dataclass
@@ -62,8 +66,10 @@ class ParallelSpec:
     'full' (the whole loss recomputed in the backward). ``grad_accum``:
     gradient-accumulation chunks of the global batch. ``dcn_dp``,
     ``microbatches``, ``pp_schedule`` and ``pp_variant`` are the JAX
-    spec's multi-slice and pipeline options, carried for the round trip;
-    ``rules`` the logical-axis table."""
+    spec's multi-slice and pipeline options (``dcn_dp``: the data axis
+    is that many contiguous blocks of ranks, one a slice or node; the
+    pipeline options are carried for the round trip); ``rules`` the
+    logical-axis table."""
     dp: int = 0
     tp: int = 1
     pp: int = 1
@@ -146,6 +152,42 @@ def mesh_axis_for(logical, rules, mesh):
                 return None  # size-1 axis: sharding is a no-op
             return target
     return None
+
+
+# The running step's context, a stack a thread: ``models.core.model_mode``
+# pushes its collector, whose ``mesh`` and ``rules`` are the step's
+# ``RankGrid`` and logical-axis table.
+STEP_CTX = threading.local()
+
+
+def step_mesh():
+    """(the step's grid, its rules), or (None, None) outside a step."""
+    stack = getattr(STEP_CTX, 'stack', None)
+    if not stack or stack[-1].mesh is None:
+        return None, None
+    return stack[-1].mesh, stack[-1].rules or DEFAULT_RULES
+
+
+def live_mesh_axis(logical):
+    """The grid axis ``logical`` is bound to in the step that is running
+    (a size above 1), or None: outside a step, or when the rules leave
+    it unsharded. The JAX function reads the active ``sharding_ctx``."""
+    mesh, rules = step_mesh()
+    return None if mesh is None else mesh_axis_for(logical, rules, mesh)
+
+
+def live_spec(axes):
+    """The model or expert axis each of ``axes`` (logical names) is bound
+    to in the running step, one entry a dim (None: not sharded over
+    either), as ``spec_for_axes`` binds them; all None outside a step.
+    (The Trainer shards parameters over those two axes alone.)"""
+    mesh, rules = step_mesh()
+    if mesh is None or (mesh.shape[AXIS_MODEL] == 1 and
+                        mesh.shape[AXIS_EXPERT] == 1):
+        return (None,) * len(axes)   # asked by every Dense of a step
+    spec = tuple(a if a in (AXIS_MODEL, AXIS_EXPERT) else None
+                 for a in spec_for_axes(axes, rules, mesh))
+    return spec + (None,) * (len(axes) - len(spec))
 
 
 def spec_for_axes(axes, rules, mesh):

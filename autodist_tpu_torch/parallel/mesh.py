@@ -9,10 +9,15 @@ execution plan lowers to: sums, reduce-scatters and all-gathers over
 the whole group, the neighbour exchange of the ring schedules, and the
 subgroups the two-level schedules run over (:meth:`ReplicaGroup.split`).
 With one replica every collective is the identity. :class:`RankGrid`
-lays the (data, seq) grid of the functional Trainer over the ranks, and
-:func:`shift`, :func:`all_to_all` and :func:`all_gather` are the
-differentiable forms the ring and Ulysses attention and the ZeRO-3
-parameter gather run through.
+lays the (data, seq, expert, model) grid of the functional Trainer over
+the ranks, and :func:`shift`, :func:`all_to_all` and :func:`all_gather`
+are the differentiable forms the ring and Ulysses attention and the
+ZeRO-3 parameter gather run through. :func:`copy_to` and
+:func:`reduce_from` are the two operators of Megatron-style tensor and
+expert parallelism: the JAX package's GSPMD inserts the collectives
+that shard a product over the model or expert axis, and the port writes
+them where a replicated activation enters a rank-local product and
+where its partial sum leaves it.
 
 ``mesh_from_strategy`` sizes the group as the JAX package sizes the
 mesh's data axis: the strategy's replica list, capped by what the run
@@ -51,11 +56,11 @@ class ReplicaGroup:
         self._splits = {}
 
     # -- whole-group collectives ------------------------------------------
-    def all_reduce(self, x):
-        """Sum of ``x`` over the replicas (a new tensor)."""
+    def all_reduce(self, x, op=dist.ReduceOp.SUM):
+        """Sum (or ``op``) of ``x`` over the replicas (a new tensor)."""
         out = x.clone()
         if self.size > 1:
-            dist.all_reduce(out, group=self.group)
+            dist.all_reduce(out, op=op, group=self.group)
         return out
 
     def reduce_scatter(self, x, axis=0):
@@ -152,38 +157,103 @@ class ReplicaGroup:
 
 
 class RankGrid:
-    """The (data, seq) grid over a process group's ranks.
+    """The (data, pipe, seq, expert, model) grid over a process group's
+    ranks.
 
-    Data is outermost and seq inner, as ``ParallelSpec.build_mesh``
-    orders the JAX mesh's axes: rank ``r = d * sp + s``. :attr:`data`
-    is this rank's group along the data axis (the ranks that share its
-    seq position), :attr:`seq` its group along the seq axis, and
-    :attr:`world` the whole grid. Every rank makes every subgroup, in
-    the same order, as ``new_group`` requires; an axis of size 1 is a
-    group of one, and an axis that spans the grid is the world group."""
+    The axes are the JAX mesh's, in its order (``ParallelSpec.
+    build_mesh``): data outermost, model innermost, so rank ``r = (((d
+    · sp + s) · ep + e) · tp + t)`` (the pipe axis is 1 until the
+    pipeline is ported). :attr:`data`, :attr:`seq`, :attr:`expert` and
+    :attr:`model` are this rank's groups along each axis (the ranks that
+    share its other coordinates); :attr:`batch` is the data x seq group,
+    the ranks that hold other tokens and the same parameter shards (the
+    group gradients, losses and token counts reduce over); and
+    :attr:`world` the whole grid. :meth:`group` returns the group over
+    any of those axis sets and over (expert, model), the ranks that hold
+    the same tokens. Every rank makes every subgroup, in the same order,
+    as ``new_group`` requires; an axis of size 1 is a group of one, and
+    an axis set that spans the grid is the world group.
 
-    def __init__(self, dp, sp, rank, group=None, device=None):
-        self.dp, self.sp = int(dp), int(sp)
-        self.world = ReplicaGroup(self.dp * self.sp, rank, group, device)
-        self.data_index, self.seq_index = divmod(int(rank), self.sp)
-        one = ReplicaGroup(1, 0, None, device)
-        if self.sp == 1:
-            self.data, self.seq = self.world, one
-        elif self.dp == 1:
-            self.data, self.seq = one, self.world
-        else:
-            self.data = self.world.split(
-                [[d * self.sp + s for d in range(self.dp)]
-                 for s in range(self.sp)])
-            self.seq = self.world.split(
-                [[d * self.sp + s for s in range(self.sp)]
-                 for d in range(self.dp)])
+    ``dcn_dp`` (the multi-slice factor) must divide dp: the data axis is
+    then ``dcn_dp`` contiguous blocks of ranks (:attr:`node_groups`, its
+    positions), the layout the JAX ``device_mesh_array`` emulates on
+    devices without a slice index. With ``ranks_per_node`` (the resource
+    spec's ranks on each node, in rank order) the grid's ranks must span
+    ``dcn_dp`` nodes, as the JAX mesh's devices must span ``dcn_dp``
+    slices."""
 
-    @property
-    def shape(self):
-        """``{axis: size}`` in the JAX mesh's axis order."""
-        return {AXIS_DATA: self.dp, AXIS_PIPELINE: 1,
-                AXIS_SEQUENCE: self.sp, AXIS_EXPERT: 1, AXIS_MODEL: 1}
+    def __init__(self, dp, sp, rank, group=None, device=None, ep=1, tp=1,
+                 dcn_dp=1, ranks_per_node=None):
+        self.dp, self.sp, self.ep, self.tp = int(dp), int(sp), int(ep), \
+            int(tp)
+        self.sizes = (self.dp, 1, self.sp, self.ep, self.tp)
+        # {axis: size} in the JAX mesh's axis order
+        self.shape = dict(zip(self._AXES, self.sizes))
+        n = self.dp * self.sp * self.ep * self.tp
+        self.dcn_dp = int(dcn_dp)
+        if self.dcn_dp > 1:
+            if self.dp % self.dcn_dp:
+                raise ValueError('dcn_dp=%d must divide the data axis (%d)'
+                                 % (self.dcn_dp, self.dp))
+            if ranks_per_node:
+                node_of = [i for i, c in enumerate(ranks_per_node)
+                           for _ in range(c)]
+                spanned = len({node_of[r] for r in range(n)
+                               if r < len(node_of)})
+                if spanned != self.dcn_dp:
+                    raise ValueError('dcn_dp=%d but the %d devices span %d '
+                                     'slices' % (self.dcn_dp, n, spanned))
+        self.world = ReplicaGroup(n, rank, group, device)
+        self.data_index, _, self.seq_index, self.expert_index, \
+            self.model_index = self.coords(int(rank))
+        self._one = ReplicaGroup(1, 0, None, device)
+        self._groups = {}
+        for axes in ((AXIS_DATA,), (AXIS_SEQUENCE,), (AXIS_EXPERT,),
+                     (AXIS_MODEL,), (AXIS_DATA, AXIS_SEQUENCE),
+                     (AXIS_EXPERT, AXIS_MODEL)):
+            self._groups[axes] = self._make(axes)
+        self.data = self._groups[(AXIS_DATA,)]
+        self.seq = self._groups[(AXIS_SEQUENCE,)]
+        self.expert = self._groups[(AXIS_EXPERT,)]
+        self.model = self._groups[(AXIS_MODEL,)]
+        self.batch = self._groups[(AXIS_DATA, AXIS_SEQUENCE)]
+        self.node_groups = data_axis_node_groups(
+            self.data, dcn_dp=self.dcn_dp) if self.dcn_dp > 1 else None
+
+    _AXES = (AXIS_DATA, AXIS_PIPELINE, AXIS_SEQUENCE, AXIS_EXPERT,
+             AXIS_MODEL)
+
+    def coords(self, rank):
+        """(d, p, s, e, t) of ``rank``."""
+        out = []
+        for size in reversed(self.sizes):
+            rank, c = divmod(rank, size)
+            out.append(c)
+        return tuple(reversed(out))
+
+    def _make(self, axes):
+        pos = [self._AXES.index(a) for a in axes]
+        n = 1
+        for i in pos:
+            n *= self.sizes[i]
+        if n == 1:
+            return self._one
+        if n == self.world.size:
+            return self.world
+        groups = {}
+        for r in range(self.world.size):
+            c = self.coords(r)
+            key = tuple(c[i] for i in range(len(c)) if i not in pos)
+            groups.setdefault(key, []).append(r)
+        return self.world.split(list(groups.values()))
+
+    def group(self, *axes):
+        """The group over ``axes`` (mesh-axis names, in grid order), made
+        with the grid."""
+        key = tuple(a for a in self._AXES if a in axes)
+        if key not in self._groups:
+            raise ValueError('RankGrid: no group over %s' % (axes,))
+        return self._groups[key]
 
 
 # -- differentiable collectives ---------------------------------------------
@@ -254,18 +324,65 @@ def all_gather(group, x, axis):
     return _Gather.apply(group, axis, x)
 
 
-def data_axis_node_groups(group, forced_nodes=0, ranks_per_node=None):
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, ctx.group.all_reduce(grad)
+
+
+def copy_to(group, x):
+    """Identity forward, all-reduce backward over ``group``: a replicated
+    activation entering a product each rank of ``group`` computes over
+    its own shard of a parameter. Each rank's cotangent covers only its
+    shard's share; the sum over the group is the whole gradient, the
+    same on every rank."""
+    if group is None or group.size == 1:
+        return x
+    return _CopyTo.apply(group, x)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+def reduce_from(group, x):
+    """All-reduce forward, identity backward over ``group``: the partial
+    sums of a rank-local product leave it replicated. The cotangent of
+    the sum is the cotangent of each part, so each rank passes its own
+    (the same on every rank) back unchanged."""
+    if group is None or group.size == 1:
+        return x
+    return _ReduceFrom.apply(group, x)
+
+
+def data_axis_node_groups(group, forced_nodes=0, ranks_per_node=None,
+                          dcn_dp=1):
     """Node groups over the data axis for two-level schedules, or None
     when the group is effectively one node (the flat emission).
 
     ``forced_nodes >= 2`` (``AUTODIST_HIERARCHY_NODES``) asks for that
-    many contiguous equal groups; otherwise ``ranks_per_node`` (the
-    resource spec's node sizes, in rank order) splits the ranks by
-    host. Groups must be equal and at least 2 wide, as in the JAX
-    package."""
+    many contiguous equal groups, and so does a multi-slice factor
+    ``dcn_dp >= 2`` (the grid's data axis is ``dcn_dp`` contiguous
+    blocks, as the JAX mesh lays a dcn_dp data axis out); otherwise
+    ``ranks_per_node`` (the resource spec's node sizes, in rank order)
+    splits the ranks by host. Groups must be equal and at least 2 wide,
+    as in the JAX package."""
     n = group.size
     if n <= 1:
         return None
+    if not (forced_nodes and forced_nodes >= 2) and dcn_dp >= 2:
+        forced_nodes = dcn_dp
     if forced_nodes and forced_nodes >= 2:
         if n % forced_nodes or n // forced_nodes < 2:
             logging.warning(

@@ -237,7 +237,10 @@ def apply_strategy_to_shardings(strategy, graph_item, dp):
     A partitioned (PS or AR) variable shards its state over the data
     group along the strategy's partition axis when that axis divides by
     ``dp``; otherwise, and for every unpartitioned variable (a plain PS
-    variable is the degenerate single shard), it stays replicated."""
+    variable is the degenerate single shard), it stays replicated. The
+    Trainer lays a dim out over the data group only when no model or
+    expert group splits it, as the JAX function extends a leaf's spec
+    only where it is None."""
     out = {}
     if dp <= 1:
         return out
@@ -261,14 +264,22 @@ def trainer_from_strategy(model, optimizer, strategy_builder,
                           resource_spec=None, spec=None, **kw):
     """Build a Trainer placed by a reference-style strategy built by
     ``strategy_builder`` over the model's parameters: partitioned
-    variables shard over the data group (``trainer.partition_dims``)."""
+    variables shard over the data group (``trainer.partition_dims``).
+    ``spec`` passes through, its tensor and expert axes included; under
+    a ``dcn_dp`` above 1, a ``resource_spec`` given here also hands the
+    Trainer its ranks a node (the ``dcn_dp`` check)."""
     from autodist_tpu_torch.api import Trainer
     from autodist_tpu_torch.resource_spec import ResourceSpec
+    from autodist_tpu_torch.runtime.device_resolver import DeviceResolver
 
     gi = PytreeGraphItem(model)
+    n = dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
+    if resource_spec is not None and spec is not None and \
+            spec.dcn_dp > 1 and 'ranks_per_node' not in kw:
+        kw['ranks_per_node'] = DeviceResolver(resource_spec,
+                                              n).ranks_per_node()
     if resource_spec is None:
-        n = dist.get_world_size() if dist.is_available() and \
-            dist.is_initialized() else 1
         resource_spec = ResourceSpec(resource_info={'nodes': [{
             'address': 'localhost', 'chief': True, 'cpus': [0],
             'gpus': list(range(n)), 'network_bandwidth': 100}]})

@@ -50,6 +50,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    PartitionedPS, 3 adamw steps each: losses within 1e-2 relative of
    the same steps on one card, tokens/s, memory a card after a step
    against the predicted state bytes, and the peak;
+2f. ``tp_ep_grid``, with two or more cards (else a line saying it did
+   not run on one card): over the same N processes, gpt_small at seq
+   4096, batch 4, bf16, remat at tp = N (each rank launches K1-K3 at
+   [4, 12 / N, 4096, 64], 24 / 12 / 12 a step) and its MoE arm (8
+   experts, top 2) at ep = N; with four cards also the MoE arm at ep 2 x
+   tp 2 and gpt_small at seq 1024, batch 4 a data rank, tp 2 x dp 2
+   under zero 3; 3 adamw steps each from the one-card init: losses
+   within 1e-2 relative of one card, tokens/s, memory a card after a
+   step against the predicted state bytes (the model and expert shards
+   counted): the bytes the tensors ask for within the step's inputs of
+   it and not growing from the first step to the last, the bytes held
+   within the inputs and the caching allocator's slack; and the peak.
 3. the fused conv + BatchNorm kernel (K4) held against its plain version
    at each of ResNet-101's main-path shapes (batch 256) in bf16, and in
    f32 at two of them and at a stage-1 shape (802,816 rows), with times:
@@ -1189,9 +1201,10 @@ def make_batch(vocab, batch, seq, seed=0):
             'targets': rng.randint(0, vocab, (batch, seq), dtype=np.int32)}
 
 
-def train_steps(trainer, batch, steps):
+def train_steps(trainer, batch, steps, after_step=None):
     """Run ``steps`` steps on ``batch``; returns (state, losses, step
-    seconds each), each step fenced by a device sync."""
+    seconds each), each step fenced by a device sync. ``after_step()``,
+    when given, runs after each step, outside its time."""
     state = trainer.init(seed=0)
     step = trainer.compile_step(state, batch)
     local = trainer.shard_batch(batch)
@@ -1201,6 +1214,8 @@ def train_steps(trainer, batch, steps):
         state, metrics = step(state, local)
         losses.append(float(metrics['loss']))   # host read fences the step
         seconds.append(time.perf_counter() - t0)
+        if after_step is not None:
+            after_step()
     return state, losses, seconds
 
 
@@ -2205,11 +2220,16 @@ def elastic_worker(args):
     def migrated():
         return any(e.get('migrated') for e in sess._health['replans'])
 
-    # the grow run trains on until its migration applied (the re-rank
-    # and the handshake take their own time)
+    # the grow and swap runs train on until their migration applied (the
+    # re-rank and the handshake take their own time, longer on a loaded
+    # host, which can arm the boundary past the last step), and the swap
+    # run ELASTIC_SWAP_TRAIN steps past it
+    applied = None
     while sess.step_count < args['steps'] or (
-            run == 'grow' and not migrated() and
-            sess.step_count < 4 * args['steps']):
+            run in ('grow', 'swap') and not migrated() and
+            sess.step_count < 4 * args['steps']) or (
+            run == 'swap' and applied is not None and
+            sess.step_count < applied + ELASTIC_SWAP_TRAIN):
         s = sess.step_count + 1
         if run == 'swap' and sess._is_chief and entry is None and \
                 s > args['swap_at']:
@@ -2221,6 +2241,8 @@ def elastic_worker(args):
         rec['steps'].append({'step': s, 't0': t0, 't1': time.time(),
                              'loss': value,
                              'parties': sess._active_workers()})
+        if applied is None and migrated():
+            applied = s
         if run == 'grow' and not joiner and s == args['join_at']:
             deadline = time.time() + 300.0
             while ctl.incr(sess._key('join/world'), 0) <= args['cohort']:
@@ -2770,9 +2792,20 @@ def loose_elastic_phase(cfg, steps, device, smi=None, runs=ELASTIC_RUNS,
 # depth 2, every process on the one card. Run (a): the chief of a spec of
 # two nodes (127.0.0.1, 127.0.0.2) launches the other through Coordinator
 # over ssh and scp exec shims; from its LAUNCH_DELAY_FROM-th push on, each
-# of p1's pushes is delayed LAUNCH_DELAY_S (a faultline delay_conn on the
-# push frame of head/bias, one a push); at step LAUNCH_JOIN_AT the chief
-# calls scale_up(1) and waits for the joiner's claim. Run (b): python -m
+# of p1's pushes is delayed (a faultline delay_conn on the push frame of
+# head/bias, one a push) by LAUNCH_DELAY_RATIO times p1's median step
+# before the delay, LAUNCH_DELAY_S at least: a fixed delay on a host whose
+# steps other processes slow falls under the monitor's 1.5 ratio, so the
+# delay follows the step it is held against. Every delayed push is a link
+# sample of a few bytes and a long wait, which turns the fit of the link
+# constants' slope negative, so the delay starts only once the chief's
+# monitor has refit them from clean traffic (it publishes the step): on a
+# loaded host the first fits (one every 4 steps until one holds) can find
+# the timings too noisy. At step LAUNCH_JOIN_AT, or once that refit holds
+# (at most LAUNCH_JOIN_WAIT steps later), the chief calls scale_up(1) and
+# waits for the joiner's claim, and the re-rank for the grown world
+# prices with the measured constants; the cohort trains as many steps
+# past a late join as past one at LAUNCH_JOIN_AT. Run (b): python -m
 # autodist_tpu_torch.launch over the same two local nodes, no delay and
 # no join. Each worker trains on one batch of its own (seed 1000 * (pid +
 # 1)), the batch it is held to fit: its last LAUNCH_FALLING steps below its
@@ -2785,12 +2818,14 @@ LAUNCH_STEPS = 32
 LAUNCH_EXTRA = 16          # steps past LAUNCH_STEPS while a migration lands
 LAUNCH_DELAY_FROM = 8
 LAUNCH_DELAY_S = 0.25
+LAUNCH_DELAY_RATIO = 1.0
 LAUNCH_JOIN_AT = 12
+LAUNCH_JOIN_WAIT = 32
 LAUNCH_CLI_STEPS = 8
 LAUNCH_FALLING = 5
 LAUNCH_ENV = {'AUTODIST_TELEMETRY': '1',
               'AUTODIST_TELEMETRY_PUSH_EVERY': '4',
-              'AUTODIST_RECALIBRATE_EVERY': '8',
+              'AUTODIST_RECALIBRATE_EVERY': '4',
               'AUTODIST_STRAGGLER_POLICY': 'advise',
               'AUTODIST_EXECUTE_REPLAN': '1',
               'AUTODIST_PEER_FAILURE_POLICY': 'exclude',
@@ -2870,7 +2905,7 @@ def launch_worker(args):
     if run == 'ssh' and name == 'p1':
         fault = FaultLine(_push_delay_plan(
             sess._key('var/head/bias'), LAUNCH_DELAY_FROM,
-            LAUNCH_STEPS + LAUNCH_EXTRA, LAUNCH_DELAY_S))
+            LAUNCH_STEPS + LAUNCH_JOIN_WAIT + LAUNCH_EXTRA, LAUNCH_DELAY_S))
         fault.install()
     feed = dict(zip(feeds, ncf_batch(cfg, 1000 * (pid + 1))))
     rec = {'worker': name, 'pid': pid, 'started': started,
@@ -2880,20 +2915,59 @@ def launch_worker(args):
     def migrated():
         return any(e.get('migrated') for e in sess._health['replans'])
 
-    # run (a) trains on while its staged migration has not applied yet
-    while sess.step_count < args['steps'] or (
-            run == 'ssh' and not migrated() and
-            sess.step_count < args['steps'] + LAUNCH_EXTRA):
+    join_key = sess._key('launch/join_step')
+    refit_key = sess._key('launch/refit_step')
+
+    def last_step():
+        """Run (a) trains as many steps past the join as past one at
+        LAUNCH_JOIN_AT (the latest join bounds it until the chief has
+        published its step), and on while its staged migration has not
+        applied yet."""
+        if run != 'ssh':
+            return args['steps']
+        join = coord.incr(join_key, 0) or LAUNCH_JOIN_AT + LAUNCH_JOIN_WAIT
+        end = args['steps'] + join - LAUNCH_JOIN_AT
+        return end if migrated() else end + LAUNCH_EXTRA
+
+    while sess.step_count < args['steps'] or \
+            sess.step_count < last_step():
         s = sess.step_count + 1
         t0 = time.time()
         value = float(sess.run([loss, train_op], feed)[0])
         rec['steps'].append({'step': s, 't0': t0, 't1': time.time(),
                              'loss': value,
                              'parties': sess._active_workers()})
+        if fault is not None and 'delay_s' not in rec and \
+                s >= LAUNCH_DELAY_FROM - 2:
+            if coord.incr(refit_key, 0):
+                # two steps before the first delayed push: the delay
+                # follows p1's own median step (its first step, the
+                # warm-up, left out)
+                walls = [r['t1'] - r['t0'] for r in rec['steps'][1:]]
+                rec['delay_s'] = max(LAUNCH_DELAY_S, LAUNCH_DELAY_RATIO *
+                                     float(np.median(walls)))
+                rec['delay_from'] = fault.plan.faults[0]['at']
+                for f in fault.plan.faults:
+                    f['seconds'] = rec['delay_s']
+            else:
+                # no refit yet: the first delayed push moves a step on
+                for f in fault.plan.faults:
+                    f['at'] += 1
+        if run == 'ssh' and sess._is_chief and 'refit_at' not in rec and \
+                sess.monitor is not None and \
+                sess.monitor.calibrated_params() is not None:
+            rec['refit_at'] = s
+            coord.incr(refit_key, s)
         if sess.monitor is not None:
             rec['steps'][-1]['slowdowns'] = sum(
                 1 for e in sess.monitor.events if e['kind'] == 'slowdown')
-        if run == 'ssh' and sess._is_chief and s == LAUNCH_JOIN_AT:
+        if run == 'ssh' and sess._is_chief and 'scaled_up' not in rec and \
+                s >= LAUNCH_JOIN_AT and (
+                    s >= LAUNCH_JOIN_AT + LAUNCH_JOIN_WAIT or (
+                        sess.monitor is not None and
+                        sess.monitor.calibrated_params() is not None)):
+            rec['scaled_up_at'] = s
+            coord.incr(join_key, s)
             t_join = time.time()
             rec['scaled_up'] = len(autodist._coordinator.scale_up(1))
             deadline = time.time() + 300.0
@@ -3084,19 +3158,20 @@ def launch_ssh_run(cfg, device, tmp, smi=None):
         launch_s=p1['steps'][0]['t0'] - t_launch,
         launch_to_p1_started_s=p1['started'] - t_launch,
         join_claim_s=p0.get('join_claim_s'), join_step=join_step,
+        scaled_up_at=p0['scaled_up_at'],
         joiner_first_step_s=p2['steps'][0]['t0'] - p0['steps'][
-            LAUNCH_JOIN_AT - 1]['t1'],
+            p0['scaled_up_at'] - 1]['t1'],
         examples_per_s={rec['worker']: {
-            'before_delay': _eps(cfg, rec['steps'], 2, LAUNCH_DELAY_FROM),
-            'during_delay': _eps(cfg, rec['steps'], LAUNCH_DELAY_FROM,
-                                 LAUNCH_JOIN_AT),
+            'before_delay': _eps(cfg, rec['steps'], 2, p1['delay_from']),
+            'during_delay': _eps(cfg, rec['steps'], p1['delay_from'],
+                                 p0['scaled_up_at']),
             'after_join': _eps(cfg, rec['steps'], join_step + 1, 10 ** 6)}
             for rec in (p0, p1, p2)},
         verdict={k: slow_p1[0].get(k) for k in (
             'step', 'statistic', 'stat_s', 'baseline_s', 'ratio',
             'mad_score', 'attributed_phase', 'classification',
             'phase_shares', 'exclude_candidate')},
-        detection_latency_steps=slow_p1[0]['step'] - LAUNCH_DELAY_FROM,
+        detection_latency_steps=slow_p1[0]['step'] - p1['delay_from'],
         issued_at_chief_step=next(
             (s['step'] for s in p0['steps'] if s.get('slowdowns')), 'close'),
         verdicts=[{k: e.get(k) for k in ('kind', 'worker', 'step',
@@ -3124,7 +3199,9 @@ def launch_ssh_run(cfg, device, tmp, smi=None):
         telemetry_left=p0['telemetry_left'],
         losses={rec['worker']: [s['loss'] for s in rec['steps']]
                 for rec in (p0, p1, p2)},
-        delay={'from_push': LAUNCH_DELAY_FROM, 'seconds': LAUNCH_DELAY_S,
+        refit_at=p0['refit_at'],
+        delay={'from_push': p1['delay_from'], 'seconds': p1['delay_s'],
+               'floor_s': LAUNCH_DELAY_S, 'ratio': LAUNCH_DELAY_RATIO,
                'fired': p1['faults_fired']})
     emit(card=smi, **res)
     return res
@@ -4010,15 +4087,19 @@ def ring_blocks_phase(smi, shape=RING_SHAPE, n=RING_RANKS,
     return rec
 
 
-def grid_state_bytes(dims, numels, n):
+def grid_state_bytes(dims, numels, n, sizes=None):
     """Predicted adamw state bytes a rank holds after a step (params,
-    gradients, slots) from each leaf's element count and shard dim
-    (``Trainer.state_sharding``): a replicated leaf holds them whole; a
-    zero-2 leaf its full param plus a slice's param, gradient and slots;
-    a held leaf (zero 3, partitioned) a slice of all four."""
+    gradients, slots) from each leaf's element count and shard dims
+    (``Trainer.state_sharding``): a leaf the model or expert group
+    splits (``dims['groups']``, over the grid's ``sizes``) counts its
+    shard; then a leaf the data group leaves replicated holds them
+    whole; a zero-2 leaf its param plus a slice's param, gradient and
+    slots; a held leaf (zero 3, partitioned) a slice of all four."""
     per = sum(STATE_BYTES.values())
     total = 0
     for name, count in numels.items():
+        for axis in dims.get('groups', {}).get(name, {}):
+            count //= sizes[axis]
         param_dim, slot_dim = dims['params'][name], dims['opt_state'][name]
         if slot_dim is None:
             total += per * count
@@ -4048,23 +4129,77 @@ def settled_bytes(device):
     return now
 
 
+def requested_bytes(device):
+    """The bytes the live tensors on ``device`` asked the caching
+    allocator for (``memory_allocated`` counts the blocks it handed
+    out, which may be larger)."""
+    return torch.cuda.memory_stats(device)['requested_bytes.all.current']
+
+
+# what a rank may hold after a step beyond its predicted state: the step's
+# batch on the card (tokens and targets, int32), its scalars (the loss and
+# its metrics, the optimizer's step counts; STEP_SCALAR_BYTES), and the
+# caching allocator's slack: a block of its large pool (over 1 MiB) is
+# handed out whole when a split would leave less than 1 MiB, so each live
+# large block may hold up to LARGE_SLACK_BYTES beyond what its tensor
+# asked for, and the small pool rounds each request up to 512 bytes
+STEP_SCALAR_BYTES = 64 << 10
+LARGE_SLACK_BYTES = 1 << 20
+SMALL_SLACK_BYTES = 512
+
+
+def step_input_bytes(batch):
+    """Bytes a step's tensors may ask for beyond the state: ``batch``
+    (host arrays) whole on the card, and the scalars."""
+    return sum(v.nbytes for v in batch.values()) + STEP_SCALAR_BYTES
+
+
+def check_state_bytes(name, rec):
+    """A rank's memory after a step (``grid_run``'s record ``rec``): the
+    bytes its tensors asked for do not grow from the first step to the
+    last and exceed the predicted state by the step's inputs at most;
+    the bytes the card holds exceed it by the inputs and the
+    allocator's slack (``state_margin_bytes``) at most."""
+    asked = rec['state_requested_by_step']
+    want = rec['predicted_state_bytes']
+    require(asked[-1] <= asked[0], '%s: the step\'s tensors grew from %d to '
+            '%d bytes between the first and the last step'
+            % (name, asked[0], asked[-1]))
+    require(asked[-1] <= want + rec['step_input_bytes'],
+            '%s: the tensors asked for %d bytes after a step, predicted %d '
+            '+ the inputs %d' % (name, asked[-1], want,
+                                 rec['step_input_bytes']))
+    require(rec['state_bytes'] <= want + rec['state_margin_bytes'],
+            '%s: %d bytes a card after a step, predicted %d + a margin of '
+            '%d' % (name, rec['state_bytes'], want,
+                    rec['state_margin_bytes']))
+
+
 def grid_run(run, device, world=1):
     """One configuration of ``grid_trainers`` on this rank: a
     ``TransformerLM`` of ``run['cfg']`` from seed 0 through ``Trainer``
     (or ``trainer_from_strategy(PartitionedPS())`` over a spec of one PS
     device per rank, so it partitions), ``run['steps']`` adamw steps on
     one batch. Returns losses, step seconds, tokens/s of the grid, peak
-    and after-step memory, the predicted state bytes and the launches."""
+    memory, the settled memory after each step (held, and asked for by
+    the tensors), what the cuBLAS set-up added, the predicted state
+    bytes and the launches."""
     cfg = TransformerConfig(**dict(run['cfg'], dtype=getattr(
         torch, run['cfg']['dtype'])))
-    if device.startswith('cuda'):
-        # a first product sets up cuBLAS's workspace, which would otherwise
-        # count as the first run's state
-        float((torch.ones(8, 8, device=device) @ torch.ones(
-            8, 8, device=device)).sum())
+    cuda = device.startswith('cuda')
+    if cuda:
+        # cuBLAS keeps a workspace for each handle (one a thread) and
+        # stream from its first product on, and the backward runs on the
+        # autograd engine's thread: a product forward and backward sets up
+        # both, so they count in the base and not as the first run's state
+        before = settled_bytes(device)
+        a = torch.ones(8, 8, device=device, requires_grad=True)
+        (a @ a).sum().backward()
+        del a
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = settled_bytes(device)
+        base_asked = requested_bytes(device)
     model = TransformerLM(cfg, device=device, seed=0)
     numels = {'/'.join(p): t.numel() for p, t in _flat_leaves(model)
               if isinstance(t, torch.nn.Parameter)}
@@ -4081,8 +4216,19 @@ def grid_run(run, device, world=1):
     else:
         trainer = Trainer(model, opt, spec=spec)
     batch = make_batch(cfg.vocab, run['batch'], run['seq'], seed=1)
+    by_step = []
+
+    def read():
+        if cuda:
+            end = torch.cuda.memory_allocated(device) - base
+            held = settled_bytes(device) - base
+            stats = torch.cuda.memory_stats(device)
+            by_step.append((end, held, requested_bytes(device) - base_asked,
+                            stats['active.large_pool.current'],
+                            stats['active.small_pool.current']))
     fa.reset_launches()
-    state, losses, seconds = train_steps(trainer, batch, run['steps'])
+    state, losses, seconds = train_steps(trainer, batch, run['steps'],
+                                         after_step=read)
     launches = dict(fa.KERNEL_LAUNCHES)
     dims = trainer.state_sharding()
     step_s = float(np.median(seconds[1:])) if len(seconds) > 1 \
@@ -4092,13 +4238,18 @@ def grid_run(run, device, world=1):
            'launches': launches,
            'sharded_leaves': sum(d is not None
                                  for d in dims['opt_state'].values()),
-           'predicted_state_bytes': grid_state_bytes(dims, numels,
-                                                     trainer.dp)}
-    if device.startswith('cuda'):
-        rec['state_bytes_at_step_end'] = \
-            torch.cuda.memory_allocated() - base
-        rec['state_bytes'] = settled_bytes(device) - base
-        rec['peak_mem_bytes'] = torch.cuda.max_memory_allocated() - base
+           'predicted_state_bytes': grid_state_bytes(
+               dims, numels, trainer.dp, trainer.grid.shape)}
+    if cuda:
+        end, held, asked, large, small = by_step[-1]
+        rec.update(cublas_setup_bytes=base - before,
+                   state_bytes_at_step_end=end, state_bytes=held,
+                   state_requested_bytes=asked, state_blocks=[large, small],
+                   state_requested_by_step=[r[2] for r in by_step],
+                   step_input_bytes=step_input_bytes(batch),
+                   state_margin_bytes=step_input_bytes(batch) +
+                   LARGE_SLACK_BYTES * large + SMALL_SLACK_BYTES * small,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated() - base)
     if run.get('params'):
         rec['params'] = {k: v.tolist() for k, v in _flat_params(
             trainer.get_params(state)).items()}
@@ -4194,7 +4345,7 @@ def grid_configs(n, seq=4096, batch=4, zero_seq=1024, dim=768, layers=12,
     return runs, refs, one
 
 
-def grid_report(runs, refs, ranks, single, n, smi):
+def grid_report(runs, refs, ranks, single, n, smi, phase='grid_trainers'):
     """One JSON line a grid run: its tokens/s, peak and after-step memory
     per card, the predicted state bytes, and each rank's losses against
     its one-card reference's (``GRID_LOSS_REL``). Returns the records."""
@@ -4205,7 +4356,7 @@ def grid_report(runs, refs, ranks, single, n, smi):
         recs = [r[name] for r in ranks]
         rel = max(abs(a - b) / abs(b) for rec in recs
                   for a, b in zip(rec['losses'], want))
-        rec = {'phase': 'grid_trainers', 'run': name, 'cards': n,
+        rec = {'phase': phase, 'run': name, 'cards': n,
                'spec': run['spec'], 'seq': run['seq'],
                'batch': run['batch'], 'losses': recs[0]['losses'],
                'one_card_losses': want, 'max_rel_loss_diff': rel,
@@ -4216,7 +4367,9 @@ def grid_report(runs, refs, ranks, single, n, smi):
                'sharded_leaves': recs[0]['sharded_leaves'],
                'predicted_state_bytes': recs[0]['predicted_state_bytes'],
                'card': smi}
-        for key in ('state_bytes', 'peak_mem_bytes'):
+        for key in ('cublas_setup_bytes', 'state_bytes',
+                    'state_requested_bytes', 'state_margin_bytes',
+                    'peak_mem_bytes'):
             if key in recs[0]:
                 rec[key] = max(r[key] for r in recs)
         emit(**rec)
@@ -4252,6 +4405,134 @@ def grid_trainers_phase(smi, device='cuda', n=None, tmp=None, **sizes):
         ranks = launch_grid(runs, n, device, out)
     emit(phase='grid_trainers', ran=True, cards=n, card=smi)
     return grid_report(runs, refs, ranks, single, n, smi)
+
+
+# tensor and expert parallelism over the cards: gpt_small at seq 4096,
+# batch 4 (bf16, remat) at tp = n, where each rank runs 12 / n heads; the
+# MoE arm (8 experts, top 2, capacity factor 2.0) at the same seq, batch
+# and remat at ep = n; and with four cards the MoE arm at ep 2 x tp 2 and
+# gpt_small at seq 1024, batch 4 a data rank, tp 2 x dp 2 under zero 3.
+# A rank's K1-K3 launches a step under remat: two forwards (the block and
+# its recompute), one dQ and one dK/dV a layer.
+TP_LAUNCHES_PER_LAYER = {'fwd': 2, 'dq': 1, 'dkv': 1}
+
+
+def tp_ep_configs(n, seq=4096, batch=4, dp_seq=1024, dim=768, layers=12,
+                  heads=12, vocab=32000, experts=8, steps=GRID_STEPS):
+    """The ``tp_ep_grid`` runs over ``n`` ranks and their one-card
+    references (see above). Returns (runs, {run name: its reference},
+    the one-card runs)."""
+    def cfg(max_len, **kw):
+        return dict(vocab=vocab, dim=dim, n_layers=layers, n_heads=heads,
+                    max_len=max_len, causal=True, dtype='bfloat16',
+                    remat=True, **kw)
+    moe = dict(moe_experts=experts, moe_top_k=2)
+    seq_run = dict(cfg=cfg(seq), seq=seq, batch=batch, lr=1e-4, steps=steps)
+    moe_run = dict(seq_run, cfg=cfg(seq, **moe))
+    runs = [dict(seq_run, name='tp', spec=dict(tp=n)),
+            dict(moe_run, name='ep', spec=dict(ep=n))]
+    refs = {'tp': 'one_card_seq', 'ep': 'one_card_moe'}
+    one = [dict(seq_run, name='one_card_seq', spec={}),
+           dict(moe_run, name='one_card_moe', spec={})]
+    if n == 4:
+        dp_run = dict(cfg=cfg(dp_seq), seq=dp_seq, batch=batch * 2, lr=1e-4,
+                      steps=steps)
+        runs += [dict(moe_run, name='ep_tp', spec=dict(ep=2, tp=2)),
+                 dict(dp_run, name='tp_dp', spec=dict(tp=2, dp=2, zero=3))]
+        refs.update(ep_tp='one_card_moe', tp_dp='one_card_tp_dp')
+        one.append(dict(dp_run, name='one_card_tp_dp', spec={}))
+    return runs, refs, one
+
+
+def tp_ep_grid_phase(smi, device='cuda', n=None, tmp=None, single=None,
+                     **sizes):
+    """Tensor and expert parallelism through ``Trainer`` over min(4,
+    cards) NCCL processes, one a card (``tp_ep_configs``): each run's
+    losses within ``GRID_LOSS_REL`` of the same steps on one card
+    (``single`` may hold one-card runs already made, by name), its
+    tokens/s, and its memory a card after a step and at peak against the
+    predicted state bytes. On the card every rank of the ``tp`` run must
+    launch K1-K3 at [b, h / n, s, d] as many times as the layers ask, by
+    the CUDA kernel the head dim routes to, and every rank's memory
+    after each step must pass ``check_state_bytes``. Prints that it did not run on fewer than two cards. Returns
+    {run: record}, or None when it did not run."""
+    if n is None:
+        count = torch.cuda.device_count()
+        if count < 2:
+            emit(phase='tp_ep_grid', ran=False, cards=count,
+                 reason='needs two or more cards; did not run on one card',
+                 card=smi)
+            return None
+        n = min(4, count)
+    runs, refs, one = tp_ep_configs(n, **sizes)
+    single = dict(single or {})
+    for run in one:
+        if run['name'] in single:
+            continue
+        dev = 'cuda:0' if device == 'cuda' else device
+        single[run['name']] = grid_run(run, dev)
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=tmp) as out:
+        ranks = launch_grid(runs, n, device, out)
+    emit(phase='tp_ep_grid', ran=True, cards=n, card=smi)
+    out = grid_report(runs, refs, ranks, single, n, smi, phase='tp_ep_grid')
+    for run in runs:
+        for r, rank in enumerate(ranks):
+            if 'state_bytes' in rank[run['name']]:
+                check_state_bytes('tp_ep_grid run %s rank %d'
+                                  % (run['name'], r), rank[run['name']])
+    cfg = runs[0]['cfg']
+    d = cfg['dim'] // cfg['n_heads']
+    local = (runs[0]['batch'], cfg['n_heads'] // n, runs[0]['seq'], d)
+    if device == 'cuda' and fa.preferred(local):
+        want = {fa.kernel_name(k, torch.bfloat16, d):
+                runs[0]['steps'] * cfg['n_layers'] * c
+                for k, c in TP_LAUNCHES_PER_LAYER.items()}
+        got = [r['tp']['launches'] for r in ranks]
+        require(all(g == want for g in got),
+                'tp_ep_grid tp: the ranks launched %s, expected %s at %s'
+                % (got, want, local))
+    return out
+
+
+def grid_phases(smi):
+    """``grid_trainers``, then ``tp_ep_grid`` (its ``tp`` run's one-card
+    reference is grid_trainers' seq run: the same configuration, init and
+    batch). Returns both results (None where a phase did not run)."""
+    grid = grid_trainers_phase(smi)
+    torch.cuda.empty_cache()
+    single = None
+    if grid is not None:
+        single = {'one_card_seq': {
+            'losses': grid['ring']['one_card_losses'],
+            'tokens_per_s': grid['ring']['one_card_tokens_per_s']}}
+    tp = tp_ep_grid_phase(smi, single=single)
+    torch.cuda.empty_cache()
+    return grid, tp
+
+
+def ulysses_rows(uly_recs, uly_launches, grid, tp):
+    """K1-K3's rows of the ``kernels`` line at the Ulysses shape: the
+    one-rank local attention's launches, and with four cards the grid's
+    Ulysses run's and ``tp_ep_grid``'s tp run's, whose ranks run 3 heads
+    each at that shape (three steps each)."""
+    rows = []
+    for name in ('fwd', 'dq', 'dkv'):
+        rec = uly_recs[name]
+        by_path = {'ulysses_local_attention': uly_launches[name]}
+        if grid is not None and grid['ulysses']['cards'] == RING_RANKS:
+            by_path['grid_trainers_ulysses'] = grid['ulysses'][
+                'launches'].get(rec['cuda_kernel'], 0)
+        if tp is not None and tp['tp']['cards'] == RING_RANKS:
+            by_path['tp_ep_grid_tp'] = tp['tp']['launches'].get(
+                rec['cuda_kernel'], 0)
+        row = flash_row(name, rec, by_path.get('grid_trainers_ulysses',
+                                                uly_launches[name]),
+                        ULYSSES_SHAPE, '_ulysses')
+        row['launches_by_path'] = by_path
+        rows.append(row)
+    return rows
 
 
 def main(argv):
@@ -4309,8 +4590,7 @@ def main(argv):
     uly_recs, uly_launches = ulysses_kernels_phase(smi)
     ring_blocks_phase(smi)
     torch.cuda.empty_cache()
-    grid = grid_trainers_phase(smi)
-    torch.cuda.empty_cache()
+    grid, tp = grid_phases(smi)
 
     k4 = [check_conv_bn(shape, torch.bfloat16, smi) for shape in RESNET_K4]
     for shape in K4_F32:
@@ -4468,19 +4748,7 @@ def main(argv):
                             suffix)
             row['launches_by_path'] = by_path
             kernels.append(row)
-    # K1-K3 at the Ulysses shape: the one-rank local attention's launches,
-    # and with four cards the grid's Ulysses run's (three steps)
-    for name in ('fwd', 'dq', 'dkv'):
-        rec = uly_recs[name]
-        by_path = {'ulysses_local_attention': uly_launches[name]}
-        if grid is not None and grid['ulysses']['cards'] == RING_RANKS:
-            by_path['grid_trainers_ulysses'] = grid['ulysses'][
-                'launches'].get(rec['cuda_kernel'], 0)
-        row = flash_row(name, rec, by_path.get('grid_trainers_ulysses',
-                                                uly_launches[name]),
-                        ULYSSES_SHAPE, '_ulysses')
-        row['launches_by_path'] = by_path
-        kernels.append(row)
+    kernels += ulysses_rows(uly_recs, uly_launches, grid, tp)
     # K4: launch-weighted means over ResNet-101's main-path shapes
     weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]
 

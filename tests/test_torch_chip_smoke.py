@@ -786,6 +786,76 @@ def test_grid_trainers_phase_on_a_gloo_pair(capsys):
     assert len(lines) == 7
 
 
+def test_grid_state_bytes_counts_the_model_and_expert_shards():
+    numels = {'a': 8, 'b': 6}
+    dims = {'params': {'a': None, 'b': None},
+            'opt_state': {'a': None, 'b': None},
+            'groups': {'a': {'model': 1}, 'b': {}}}
+    sizes = {'data': 1, 'model': 2, 'expert': 1}
+    assert chip_smoke.grid_state_bytes(dims, numels, 1, sizes) == \
+        16 * 8 // 2 + 16 * 6
+    dims['groups']['a'] = {'model': 1, 'expert': 0}      # two groups
+    assert chip_smoke.grid_state_bytes(dims, numels, 1, dict(
+        sizes, expert=2)) == 16 * 8 // 4 + 16 * 6
+
+
+def test_tp_ep_grid_phase_on_a_gloo_world_of_4(capsys):
+    """``tp_ep_grid`` at a tiny width over four gloo processes on the
+    CPU: the tp, ep, ep x tp and tp x dp (zero 3) runs, each run's
+    losses within ``GRID_LOSS_REL`` of one process's, every run
+    predicted to hold less state a rank than one process, and one line
+    a run."""
+    out = chip_smoke.tp_ep_grid_phase(
+        'cpu', device='cpu', n=4, seq=32, batch=2, dp_seq=32, dim=32,
+        layers=2, heads=4, vocab=64, experts=4, steps=2)
+    assert set(out) == {'tp', 'ep', 'ep_tp', 'tp_dp'}
+    for name, rec in out.items():
+        assert rec['max_rel_loss_diff'] <= chip_smoke.GRID_LOSS_REL, name
+        assert rec['cards'] == 4 and 'state_bytes' not in rec
+    assert out['tp']['spec'] == {'tp': 4} and \
+        out['tp_dp']['spec'] == {'tp': 2, 'dp': 2, 'zero': 3}
+    for name, moe in (('tp', {}), ('ep', {'moe_experts': 4}),
+                      ('ep_tp', {'moe_experts': 4}), ('tp_dp', {})):
+        model = chip_smoke.TransformerLM(chip_smoke.TransformerConfig(
+            vocab=64, dim=32, n_layers=2, n_heads=4, max_len=32, **moe),
+            device='cpu')
+        whole = sum(p.numel() for p in model.parameters()) * \
+            sum(chip_smoke.STATE_BYTES.values())
+        assert out[name]['predicted_state_bytes'] < whole, name
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if '"tp_ep_grid"' in l]
+    assert len(lines) == 5
+
+
+def test_check_state_bytes_holds_growth_and_each_margin():
+    """``check_state_bytes`` passes a record within its prediction and
+    refuses growth from the first step to the last, tensors that asked
+    for more than the state and the inputs, and a card that holds more
+    than those and the allocator's slack."""
+    rec = {'predicted_state_bytes': 1000, 'step_input_bytes': 100,
+           'state_margin_bytes': 300, 'state_requested_by_step': [1050] * 3,
+           'state_requested_bytes': 1050, 'state_bytes': 1250}
+    chip_smoke.check_state_bytes('run', rec)
+    for change, words in (
+            ({'state_requested_by_step': [1050, 1060, 1070]}, 'grew'),
+            ({'state_requested_by_step': [1101] * 3}, 'asked for'),
+            ({'state_bytes': 1301}, 'a card after a step')):
+        with pytest.raises(RuntimeError, match=words):
+            chip_smoke.check_state_bytes('run', dict(rec, **change))
+
+
+def test_tp_ep_grid_phase_reports_one_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+    assert chip_smoke.tp_ep_grid_phase('card') is None
+    assert 'did not run on one card' in capsys.readouterr().out
+
+
+def test_grid_phases_run_in_main_after_the_ulysses_kernels():
+    calls, card_line = _main_call_lines()
+    assert calls['ulysses_kernels_phase'] < calls['grid_phases'] < \
+        calls['check_conv_bn'] < card_line
+
+
 def test_grid_trainers_phase_reports_one_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
     assert chip_smoke.grid_trainers_phase('card') is None

@@ -284,11 +284,18 @@ def test_strategy_node_config_matches_jax(builder, model):
 
 
 def test_spec_beyond_dp_raises():
-    """The axes a later slice ports still raise; sequence parallelism and
-    ZeRO 2 / 3 construct."""
-    for kw in (dict(tp=2), dict(pp=2), dict(ep=2), dict(dcn_dp=2)):
-        with pytest.raises(NotImplementedError):
-            ParallelSpec(**kw)
+    """The pipeline axis, which a later slice ports, still raises and
+    names the pipeline; tensor and expert parallelism, the multi-slice
+    data axis, sequence parallelism and ZeRO 2 / 3 construct and
+    resolve."""
+    with pytest.raises(NotImplementedError, match='pipeline'):
+        ParallelSpec(pp=2)
+    spec = ParallelSpec(tp=2, ep=2, dcn_dp=2)
+    assert (spec.tp, spec.ep, spec.dcn_dp) == (2, 2, 2)
+    assert spec.resolve_dp(8) == 2
+    assert ParallelSpec(tp=4).resolve_dp(4) == 1
+    with pytest.raises(ValueError):
+        ParallelSpec(tp=3).resolve_dp(4)
     spec = ParallelSpec(sp=2, sp_mode='ulysses', zero=3)
     assert (spec.sp, spec.sp_mode, spec.zero) == (2, 'ulysses', 3)
     assert spec.resolve_dp(4) == 2

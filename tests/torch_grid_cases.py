@@ -66,5 +66,7 @@ def restore_then_step(rank, world, path, batch, opt, spec, builder=None):
 
 
 def _flat_tree(tree):
+    """The leaves of a state tree, copied: a replicated leaf's host array
+    is a view of the live CPU parameter, which the next step moves."""
     from autodist_tpu_torch.checkpoint.saver import _leaf_paths
-    return {n: np.asarray(v) for n, v in _leaf_paths(tree)}
+    return {n: np.array(v, copy=True) for n, v in _leaf_paths(tree)}

@@ -72,15 +72,22 @@ def images_batch(b=4, seed=0):
 MOE_TINY = dict(moe_experts=4, moe_aux_coef=1.0)
 
 
+LM_KINDS = {'lm': {}, 'moe': MOE_TINY,
+            'moe_remat': dict(MOE_TINY, remat=True),
+            'lm_untied': dict(tied_embeddings=False),
+            'lm_chunk': dict(loss_chunk=16)}
+
+
 def lm_config(kind):
-    """``TransformerConfig.tiny`` keywords of an LM kind: 'lm', 'moe', or
-    'moe_remat' (the MoE model under per-block remat)."""
-    return {'lm': {}, 'moe': MOE_TINY,
-            'moe_remat': dict(MOE_TINY, remat=True)}[kind]
+    """``TransformerConfig.tiny`` keywords of an LM kind: 'lm', 'moe',
+    'moe_remat' (the MoE model under per-block remat), 'lm_untied' (an
+    lm_head of its own) or 'lm_chunk' (the head and NLL in chunks of 16
+    rows)."""
+    return LM_KINDS[kind]
 
 
 def make_model(kind, tied=False):
-    if kind in ('lm', 'moe', 'moe_remat'):
+    if kind in LM_KINDS:
         return TransformerLM(TransformerConfig.tiny(dtype=torch.float32,
                                                     **lm_config(kind)),
                              device='cpu')
