@@ -114,6 +114,27 @@ takes the data axis only when no group splits it. ``get_params``,
 ``save_state`` and ``state_sharding`` see the JAX layout (the shards
 gathered). ``ParallelSpec(dcn_dp)`` lays the data axis out in that many
 contiguous blocks (``grid.node_groups``).
+
+*Pipeline parallelism* (``ParallelSpec(pp > 1, microbatches,
+pp_schedule, pp_variant)``, the JAX step's manual pipe region): rank ``r
+= ((((d·pp + p)·sp + s)·ep + e)·tp + t)``, and the ``'stage'`` dim of
+the stacked blocks is split over the pipe group like a model-axis split
+(``n_layers % pp`` raises ``ValueError``), so stage ``p`` holds layers
+``[p·L/pp, (p+1)·L/pp)``. Every rank of a pipe group gets the same
+batch slice. The model runs under ``model_mode(pipe=..., options=...)``,
+which takes the transformer through the GPipe or 1F1B schedule of
+:mod:`autodist_tpu_torch.parallel.pipeline`; the loss is the global
+masked mean, as under sequence parallelism (a user ``loss_fn`` is
+replaced, as in the JAX package). The model hands back per-rank
+partials: the last stage's NLL, zeros elsewhere, and each stage's aux;
+each rank differentiates its part and the parts' sum over the pipe group
+is the loss, so every rank's metric is the global value. A leaf the
+stages split reduces its gradient over the data x seq ranks as before;
+every other leaf (the embeddings, ln_f, the lm head) is summed over the
+data x pipe x seq ranks, the stages that did not use it adding zeros.
+``remat='full'`` checkpoints each microbatch's stage (and the last
+stage's head and NLL) rather than the whole loss: a recompute of the
+schedule inside autograd's backward could not keep the stages in step.
 """
 import copy
 import os
@@ -125,7 +146,8 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from autodist_tpu_torch.const import AXIS_EXPERT, AXIS_MODEL
+from autodist_tpu_torch.const import (AXIS_DATA, AXIS_EXPERT, AXIS_MODEL,
+                                      AXIS_PIPELINE, AXIS_SEQUENCE)
 from autodist_tpu_torch.models import weights
 from autodist_tpu_torch.models.core import (apply_tree_updates,
                                             assign_state_paths, model_mode)
@@ -197,17 +219,24 @@ class Trainer:
         else:
             self.world, self.rank = 1, 0
         self.dp = self.spec.resolve_dp(self.world)
-        self.sp, self.tp, self.ep = (int(self.spec.sp), int(self.spec.tp),
-                                     int(self.spec.ep))
+        self.sp, self.tp, self.ep, self.pp = (
+            int(self.spec.sp), int(self.spec.tp), int(self.spec.ep),
+            int(self.spec.pp))
+        if self.pp > 1 and not hasattr(model, 'per_token_loss'):
+            raise ValueError('ParallelSpec(pp=%d) needs a model with '
+                             'per_token_loss' % self.pp)
         self.rules = self.spec.rules
         self.accum = max(1, int(self.spec.grad_accum))
         self.device = next(model.parameters()).device
         self.grid = RankGrid(self.dp, self.sp, self.rank, process_group,
                              self.device, ep=self.ep, tp=self.tp,
                              dcn_dp=self.spec.dcn_dp,
-                             ranks_per_node=ranks_per_node)
+                             ranks_per_node=ranks_per_node, pp=self.pp)
         # the ranks that hold other tokens: data x seq
         self.replicas = self.grid.batch.size
+        # the ranks a loss's parts are summed over: data x pipe x seq
+        self._parts = self.grid.group(AXIS_DATA, AXIS_PIPELINE,
+                                      AXIS_SEQUENCE)
         self.partition_dims = {}
         # split over the model and expert groups; replicated over data
         # until ``init`` lays the state out by its data dims
@@ -217,15 +246,16 @@ class Trainer:
             assign_state_paths(model)
         logging.info('Trainer: dp=%d pp=%d sp=%d (%s) ep=%d tp=%d '
                      'dcn_dp=%d zero=%d on %s, grad_accum=%d, remat=%s',
-                     self.dp, self.spec.pp, self.sp, self.spec.sp_mode,
+                     self.dp, self.pp, self.sp, self.spec.sp_mode,
                      self.ep, self.tp, self.spec.dcn_dp, self.spec.zero,
                      self.device, self.accum, self.spec.remat)
 
     # -- sharded state -----------------------------------------------------
     def _splits(self, name, shape, axes, view):
-        """A leaf's split over the model and expert groups: (the shape
-        the splits cut, [(its dim, 'model' | 'expert')]). A leaf with a
-        ``view`` is cut along the view's dims when a group splits it."""
+        """A leaf's split over the model, expert and pipe groups: (the
+        shape the splits cut, [(its dim, 'model' | 'expert' | 'pipe')]).
+        A leaf with a ``view`` is cut along the view's dims when a group
+        splits it."""
         work, work_axes = shape, axes
         if view is not None and any(spec_for_axes(view[1], self.rules,
                                                   self.grid.shape)):
@@ -235,11 +265,11 @@ class Trainer:
                                                self.grid.shape)):
             if axis is None:
                 continue
-            if axis not in (AXIS_MODEL, AXIS_EXPERT):
+            if axis not in (AXIS_MODEL, AXIS_EXPERT, AXIS_PIPELINE):
                 raise NotImplementedError(
                     '%s: the rules bind its dim %d to the %r axis; the '
-                    'port shards parameters over the model and expert '
-                    'axes' % (name, i, axis))
+                    'port shards parameters over the model, expert and '
+                    'pipe axes' % (name, i, axis))
             if work[i] % self.grid.shape[axis]:
                 raise ValueError(
                     '%s: dim %d of %s (size %d) does not divide over the '
@@ -418,17 +448,18 @@ class Trainer:
         (d+1)·B/dp) for data index d, or under ``grad_accum`` the d-th
         dp-slice of each of its chunks of consecutive rows; under
         ``sp > 1`` also columns [s·S/sp, (s+1)·S/sp) of dim 1 of every
-        leaf of rank >= 2 for seq index s. The ranks of a model or
-        expert group get the same rows. A tensor already on the
+        leaf of rank >= 2 for seq index s. The ranks of a model, expert
+        or pipe group get the same rows. A tensor already on the
         trainer's device is taken as placed and passes through untouched
         (a batch from ``shard_batch`` or the prefetcher). On the card the
         copy leaves pinned memory with ``non_blocking=True``."""
         return self._place(batch, self.accum)
 
     def _place(self, batch, accum):
-        # r = ((d·sp + s)·ep + e)·tp + t: the expert and model ranks of
-        # one (d, s) take the same rows
-        d_idx, s_idx = divmod(self.rank // (self.ep * self.tp), self.sp)
+        # r = (((d·pp + p)·sp + s)·ep + e)·tp + t: the pipe, expert and
+        # model ranks of one (d, s) take the same rows
+        d_idx = self.rank // (self.pp * self.sp * self.ep * self.tp)
+        s_idx = self.rank // (self.ep * self.tp) % self.sp
 
         def local(x):
             if isinstance(x, torch.Tensor):
@@ -482,8 +513,8 @@ class Trainer:
     def _global_mask(self, batch):
         """True when the loss is the global masked mean over the data x
         seq ranks: a mask, the model's per-token loss and no user loss_fn;
-        or sequence parallelism (with or without a mask)."""
-        if self.sp > 1:
+        or sequence or pipeline parallelism (with or without a mask)."""
+        if self.sp > 1 or self.pp > 1:
             if not hasattr(self.model, 'per_token_loss'):
                 raise ValueError('ParallelSpec(sp=%d) needs a model with '
                                  'per_token_loss' % self.sp)
@@ -503,13 +534,18 @@ class Trainer:
         return torch.clamp(counts, min=1)
 
     def _mode(self, training):
-        """``model_mode`` with the data group, the seq group, and the
-        grid and rules that bind parameters to the model and expert
-        groups."""
+        """``model_mode`` with the data group, the seq group, the pipe
+        group and the pipeline's options, and the grid and rules that
+        bind parameters to the model and expert groups."""
+        spec = self.spec
+        options = {'microbatches': int(spec.microbatches),
+                   'pp_schedule': spec.pp_schedule,
+                   'pp_variant': spec.pp_variant, 'remat': spec.remat}
         return model_mode(training=training, group=self.grid.data.group,
                           world=self.dp, seq=self.grid.seq,
-                          sp_mode=self.spec.sp_mode, mesh=self.grid,
-                          rules=self.rules)
+                          sp_mode=spec.sp_mode, mesh=self.grid,
+                          rules=self.rules, pipe=self.grid.pipe,
+                          options=options)
 
     def _pair_mean(self, total, count):
         """This rank's part of a pair-form loss's global mean: its sum
@@ -556,7 +592,7 @@ class Trainer:
                 recorded.append(mm.updates)
             return out
 
-        if training and self.spec.remat == 'full':
+        if training and self.spec.remat == 'full' and self.pp == 1:
             loss = checkpoint(run, use_reentrant=False)
         else:
             loss = run()
@@ -592,9 +628,9 @@ class Trainer:
         # ranks' means
         ranks = 1 if summed else self.replicas
         self._reduce_grads(self.accum * ranks)
-        if self.replicas > 1:
+        if self._parts.size > 1:
             loss = loss.clone()
-            self._all_reduce(loss, ranks)
+            self._all_reduce(loss, ranks, self._parts)
         opt.step()
         self._gather_zero2()
         if self._has_state:
@@ -610,14 +646,20 @@ class Trainer:
         dim is all-reduced; one with a data dim is reduce-scattered over
         the data group along it (a held leaf's gather did that in its
         backward) and all-reduced over the seq group, and lands on the
-        slice the optimizer steps."""
-        replicated, sliced = [], []
+        slice the optimizer steps. Under pipeline parallelism a leaf the
+        stages do not split sums over the pipe group too, the stages
+        that did not use it adding zeros."""
+        replicated, sliced = ([], []), ([], [])
         for l in self._leaves:
             if l.opt is None:
                 continue
+            shared = self.pp > 1 and all(axis != AXIS_PIPELINE
+                                         for _, axis in l.splits)
             if l.dim is None:
+                if shared and l.tensor.grad is None:
+                    l.tensor.grad = torch.zeros_like(l.tensor)
                 if l.tensor.grad is not None:
-                    replicated.append(l.tensor.grad)
+                    replicated[shared].append(l.tensor.grad)
                 continue
             if not l.held:
                 g = l.tensor.grad
@@ -627,9 +669,12 @@ class Trainer:
                 l.tensor.grad = None
             elif l.opt.grad is None:
                 l.opt.grad = torch.zeros_like(l.opt)
-            sliced.append(l.opt.grad)
-        _sum(self.grid.batch, replicated, divide)
-        _sum(self.grid.seq, sliced, divide)
+            sliced[shared].append(l.opt.grad)
+        _sum(self.grid.batch, replicated[False], divide)
+        _sum(self._parts, replicated[True], divide)
+        _sum(self.grid.seq, sliced[False], divide)
+        _sum(self.grid.group(AXIS_PIPELINE, AXIS_SEQUENCE), sliced[True],
+             divide)
 
     @torch.no_grad()
     def _gather_zero2(self):
@@ -638,18 +683,19 @@ class Trainer:
             if l.dim is not None and not l.held:
                 l.tensor.copy_(self.grid.data.all_gather(l.opt, l.dim))
 
-    def _all_reduce(self, tensors, divide=1):
+    def _all_reduce(self, tensors, divide=1, group=None):
         """Sum a tensor, or a list of them in one flat collective, over
-        the data x seq ranks (nothing at one), then divide by
-        ``divide``."""
-        if self.replicas == 1:
+        ``group`` (default the data x seq ranks; nothing at one rank),
+        then divide by ``divide``."""
+        group = group or self.grid.batch
+        if group.size == 1:
             return
         if isinstance(tensors, torch.Tensor):
-            dist.all_reduce(tensors, group=self.grid.batch.group)
+            dist.all_reduce(tensors, group=group.group)
             if divide != 1:
                 tensors /= divide
             return
-        _sum(self.grid.batch, tensors, divide)
+        _sum(group, tensors, divide)
 
     def compile_step(self, state, batch):
         """The step callable for batches already passed through
@@ -726,8 +772,13 @@ class Trainer:
         of the bare loss. Each batch's loss is taken as in training (see
         the module docstring); a pair metric is the global sum over the
         global count, a scalar metric each rank's value on its slice,
-        averaged over the ranks."""
+        averaged over the ranks. Under pipeline parallelism the loss is
+        the sum of the stages' partials; ``metrics_fn`` runs on every
+        stage (its forward is the pipeline's, a collective over the pipe
+        group), and only the last stage's values count: the other
+        stages' outputs are zeros, not logits."""
         params = self._params(grad=False)
+        last_stage = self.grid.pipe_index == self.pp - 1
         totals, count = {}, 0
         for batch in batches:
             batch = self._place(batch, 1)
@@ -742,11 +793,13 @@ class Trainer:
                     for k, v in metrics_fn(params, batch).items():
                         pair = isinstance(v, (tuple, list))
                         v = self._pair_mean(*v) if pair else v
-                        out[k] = (torch.as_tensor(
-                            v, dtype=torch.float32, device=self.device),
-                            pair)
+                        v = torch.as_tensor(v, dtype=torch.float32,
+                                            device=self.device)
+                        out[k] = (v if last_stage else torch.zeros_like(v),
+                                  pair)
             for name, (val, summed) in out.items():
-                self._all_reduce(val, 1 if summed else self.replicas)
+                self._all_reduce(val, 1 if summed else self.replicas,
+                                 self._parts)
                 totals[name] = totals.get(name, 0.0) + float(val)
             count += 1
         means = {name: val / max(count, 1) for name, val in totals.items()}

@@ -42,7 +42,9 @@ from torch import nn
 from torch.distributed.nn.functional import all_reduce
 from torch.utils.checkpoint import checkpoint as torch_checkpoint
 
-from autodist_tpu_torch.parallel.axes import STEP_CTX, live_spec, step_mesh
+from autodist_tpu_torch.parallel.axes import live_spec, step_mesh
+from autodist_tpu_torch.parallel.axes import resumed_step as _resumed
+from autodist_tpu_torch.parallel.axes import step_context as _collector
 from autodist_tpu_torch.parallel.mesh import copy_to, reduce_from
 from autodist_tpu_torch.utils.device import resolve_device
 
@@ -175,18 +177,18 @@ def _leaves(tree):
 # (``assign_state_paths``). The collector also carries the data-parallel
 # process group of the step, so BatchNorm can reduce its moments over the
 # whole data-parallel batch (``reduce_over_batch``), the seq group with
-# its attention mode under sequence parallelism (``seq_group``), and the
-# step's rank grid and logical-axis rules, which bind parameters to the
-# model and expert groups (``live_spec``, ``mesh_group``). The stack of
+# its attention mode under sequence parallelism (``seq_group``), the pipe
+# group and the pipeline's options (``pipe_group``, ``step_option``), and
+# the step's rank grid and logical-axis rules, which bind parameters to
+# the model and expert groups (``live_spec``, ``mesh_group``). The stack of
 # collectors lives in ``parallel.axes.STEP_CTX``, where the axis binding
-# reads the step's grid.
+# reads the step's grid (``step_context``, ``resumed_step``).
 # ---------------------------------------------------------------------------
-_MODEL_CTX = STEP_CTX
 
 
 class _StateCollector:
     def __init__(self, training, group, world, seq=None, sp_mode='ring',
-                 mesh=None, rules=None):
+                 mesh=None, rules=None, pipe=None, options=None):
         self.training = training
         self.group = group
         self.world = world
@@ -194,25 +196,9 @@ class _StateCollector:
         self.sp_mode = sp_mode
         self.mesh = mesh
         self.rules = rules
+        self.pipe = pipe if pipe is not None and pipe.size > 1 else None
+        self.options = dict(options or {})
         self.updates = {}    # path tuple -> new value (detached)
-
-
-class _resumed:
-    """Context: make ``col`` the active collector again (the backward's
-    recompute runs on another thread, and after the forward's context
-    has closed)."""
-
-    def __init__(self, col):
-        self.col = col
-
-    def __enter__(self):
-        stack = getattr(_MODEL_CTX, 'stack', None)
-        if stack is None:
-            stack = _MODEL_CTX.stack = []
-        stack.append(self.col)
-
-    def __exit__(self, *exc):
-        _MODEL_CTX.stack.pop()
 
 
 class model_mode(_resumed):
@@ -226,12 +212,18 @@ class model_mode(_resumed):
     :class:`~autodist_tpu_torch.parallel.mesh.RankGrid` and ``rules``
     its logical-axis table: with them, a parameter whose axes bind to a
     live model or expert axis is this rank's shard, and the modules
-    run the sharded products (the rest of the JAX ``sharding_ctx``)."""
+    run the sharded products (the rest of the JAX ``sharding_ctx``).
+    ``pipe`` is the pipe group (a ``ReplicaGroup`` whose positions are
+    the stages; the JAX ``manual_axis('pipe')``) and ``options`` the
+    step's pipeline options (``microbatches``, ``pp_schedule``,
+    ``pp_variant``, ``remat``; the JAX ``ctx_option``)."""
 
     def __init__(self, training=True, group=None, world=1, seq=None,
-                 sp_mode='ring', mesh=None, rules=None):
+                 sp_mode='ring', mesh=None, rules=None, pipe=None,
+                 options=None):
         super().__init__(_StateCollector(training, group, world, seq,
-                                         sp_mode, mesh, rules))
+                                         sp_mode, mesh, rules, pipe,
+                                         options))
 
     @property
     def updates(self):
@@ -240,11 +232,6 @@ class model_mode(_resumed):
     def __enter__(self):
         super().__enter__()
         return self
-
-
-def _collector():
-    stack = getattr(_MODEL_CTX, 'stack', None)
-    return stack[-1] if stack else None
 
 
 def is_training():
@@ -264,6 +251,19 @@ def sp_mode():
     """The attention over the seq group: 'ring' or 'ulysses'."""
     col = _collector()
     return 'ring' if col is None else col.sp_mode
+
+
+def pipe_group():
+    """The live pipe group of the active step (a ``ReplicaGroup`` of two
+    or more stages), or None: the JAX package's ``manual_axis('pipe')``."""
+    col = _collector()
+    return None if col is None else col.pipe
+
+
+def step_option(name, default=None):
+    """A pipeline option of the active step (the JAX ``ctx_option``)."""
+    col = _collector()
+    return default if col is None else col.options.get(name, default)
 
 
 def mesh_group(*mesh_axes):

@@ -42,8 +42,23 @@ under a live ``'vocab'`` axis the embedding table (tied) or the
 vocab slice of the logits and the NLL is :func:`vocab_parallel_nll`,
 which never gathers them (the JAX package's GSPMD partitions its
 logsumexp and one-hot contraction the same way). ``apply`` then returns
-the rank's vocab slice of the logits. Pipeline parallelism is not
-ported (``ParallelSpec`` refuses it).
+the rank's vocab slice of the logits.
+
+Under pipeline parallelism (a live ``core.pipe_group()``) each rank holds
+its stage's slice of the stacked blocks, ``n_layers / pp`` layers, and
+the model runs through :mod:`autodist_tpu_torch.parallel.pipeline` with
+the step's options (``core.step_option``: ``microbatches``,
+``pp_schedule``, ``pp_variant``). ``hidden_with_aux`` embeds on the
+first stage and runs the GPipe schedule (also the 1F1B ``'legacy'``
+variant, which gives its numbers); ``per_token_loss_with_aux`` then runs
+ln_f, the head and the NLL on the last stage. Under ``pp_schedule='1f1b'``
+with a fused variant it is :meth:`TransformerLM._loss_1f1b`: the
+embedding folds into the first stage and ln_f, the head and the NLL into
+the last, each microbatch a head chunk (``loss_chunk`` is subsumed).
+What comes back are per-rank partials, as the pipeline's: the last
+stage's NLL (and hidden states) and zeros of their shape on the other
+stages, and each stage's share of the aux; the Trainer sums both over
+the pipe group. Pipeline parallelism needs ``scan_layers=True``.
 """
 import functools
 from dataclasses import dataclass
@@ -55,9 +70,11 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 from autodist_tpu_torch.models.attention import MultiHeadAttention
 from autodist_tpu_torch.models.core import (Dense, Embedding, LayerNorm, Mlp,
                                             Module, checkpoint, live_spec,
-                                            mesh_group, seq_group)
+                                            mesh_group, pipe_group, seq_group,
+                                            step_option)
 from autodist_tpu_torch.models.moe import MoeMlp
-from autodist_tpu_torch.parallel.mesh import reduce_from
+from autodist_tpu_torch.parallel import pipeline
+from autodist_tpu_torch.parallel.mesh import all_gather, reduce_from
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -206,9 +223,15 @@ class TransformerLM(Module):
 
     def apply_with_aux(self, params, tokens):
         """(logits f32, aux): aux the summed MoE router load-balance loss
-        (0.0 for dense configs)."""
+        (0.0 for dense configs). Under a live vocab axis the logits are
+        gathered over it: every rank gets the whole vocab, as the JAX
+        ``apply`` hands it out."""
         x, aux = self.hidden_with_aux(params, tokens)
-        return self._head_logits(params, x).float(), aux
+        logits = self._head_logits(params, x).float()
+        axis = live_spec(('vocab',))[0]
+        if axis is not None:
+            logits = all_gather(mesh_group(axis), logits, logits.dim() - 1)
+        return logits, aux
 
     def _head_logits(self, params, x):
         if self.cfg.tied_embeddings:
@@ -216,12 +239,18 @@ class TransformerLM(Module):
         return self.lm_head.apply(params['lm_head'], x)
 
     def _layers(self, params):
-        """(block module, its params) per layer, in order."""
+        """(block module, its params) per layer, in order: the layers of
+        the stacked params this rank holds (under pipeline parallelism,
+        its stage's)."""
         cfg = self.cfg
         if not cfg.scan_layers:
             return [(getattr(self, 'block_%03d' % i),
                      params['block_%03d' % i]) for i in range(cfg.n_layers)]
-        return [(self.blocks, p) for p in _unstack(params['blocks'])]
+        return [(self.blocks, p) for p in pipeline.unstack(params['blocks'])]
+
+    def _block_fn(self, p, x):
+        """One stacked layer under the remat policy: (x, aux)."""
+        return self._run_block(self.blocks, p, x)
 
     def _run_block(self, block, p, x):
         """One block under the remat policy: (x, aux)."""
@@ -236,10 +265,8 @@ class TransformerLM(Module):
         return checkpoint(block.apply, p, x,
                           context_fn=_save_ops(_MATMULS[remat]))
 
-    def hidden_with_aux(self, params, tokens):
-        """Final hidden states (post ln_f) and the MoE aux loss summed
-        over the layers: everything but the lm-head, so the loss can
-        chunk the head."""
+    def _embedded(self, params, tokens):
+        """Embedding + positions (the pipeline's head)."""
         s = tokens.shape[1]
         x = self.embed.apply(params['embed'], tokens)
         pos = torch.arange(s, device=tokens.device)
@@ -247,7 +274,33 @@ class TransformerLM(Module):
         if seq is not None:
             # global positions: this rank holds seq slice ``seq.rank``
             pos = pos + seq.rank * s
-        x = x + self.pos_embed.apply(params['pos_embed'], pos)[None]
+        return x + self.pos_embed.apply(params['pos_embed'], pos)[None]
+
+    def _pipe(self):
+        """The live pipe group, after the JAX check of the layout."""
+        pipe = pipe_group()
+        if pipe is not None and not self.cfg.scan_layers:
+            raise ValueError(
+                'pipeline parallelism requires scan_layers=True '
+                '(blocks must be stage-stacked to shard over pipe)')
+        return pipe
+
+    def hidden_with_aux(self, params, tokens):
+        """Final hidden states (post ln_f) and the MoE aux loss summed
+        over the layers: everything but the lm-head, so the loss can
+        chunk the head. Under a live pipe group, the GPipe schedule over
+        the stages: per-rank partials (see the module docstring)."""
+        pipe = self._pipe()
+        if pipe is not None:
+            x = self._embedded(params, tokens) if pipe.rank == 0 else tokens
+            x, aux = pipeline.gpipe(
+                self._block_fn, params['blocks'], x, pipe,
+                step_option('microbatches', 1),
+                remat=step_option('remat') == 'full')
+            if pipe.rank != pipe.size - 1:
+                return x, aux
+            return self.ln_f.apply(params['ln_f'], x), aux
+        x = self._embedded(params, tokens)
         aux_total = torch.zeros((), device=x.device)
         for block, p in self._layers(params):
             x, aux = self._run_block(block, p, x)
@@ -265,17 +318,55 @@ class TransformerLM(Module):
     def per_token_loss_with_aux(self, params, batch):
         """([batch, seq] token NLL, aux loss); expects {'tokens',
         'targets'}. With ``loss_chunk`` the head and NLL run per sequence
-        chunk, each checkpointed."""
+        chunk, each checkpointed. Under a live pipe group: per-rank
+        partials (see the module docstring)."""
         targets = batch['targets']
+        pipe = self._pipe()
+        if pipe is not None and step_option('pp_schedule') == '1f1b' and \
+                step_option('pp_variant', 'auto') != 'legacy':
+            return self._loss_1f1b(params, batch, pipe)
         x, aux = self.hidden_with_aux(params, batch['tokens'])
+        if pipe is not None and pipe.rank != pipe.size - 1:
+            # zeros of the NLL's shape that the schedule's backward hangs on
+            return x[..., 0].float() * 0, aux
+        if pipe is not None and step_option('remat') == 'full':
+            return checkpoint(self._token_nll, params, x, targets), aux
+        return self._token_nll(params, x, targets), aux
+
+    def _token_nll(self, params, x, targets):
         b, s = targets.shape
         n = self._ce_chunks(s, b * s)
         if n == 1:
-            return self._chunk_nll(params, x, targets), aux
+            return self._chunk_nll(params, x, targets)
         c = s // n
         nll = [checkpoint(self._chunk_nll, params, x[:, i * c:(i + 1) * c],
                           targets[:, i * c:(i + 1) * c]) for i in range(n)]
-        return torch.cat(nll, dim=1), aux
+        return torch.cat(nll, dim=1)
+
+    def _loss_1f1b(self, params, batch, pipe):
+        """Pipelined NLL by the fused 1F1B schedule: the embedding folds
+        into the first stage (``head_fn``) and ln_f + the head + the NLL
+        into the last (``tail_fn``), so what crosses the schedule is
+        token-sized. Only the subtrees the head and tail touch are handed
+        to them: a tied embedding rides both, and its gradient is the
+        sum of both uses."""
+        cfg = self.cfg
+
+        def head(p, tok_mb):
+            return self._embedded(p, tok_mb)
+
+        def tail(p, h, tgt):
+            return self._chunk_nll(p, self.ln_f.apply(p['ln_f'], h), tgt)
+
+        head_params = {k: params[k] for k in ('embed', 'pos_embed')}
+        tail_params = {k: params[k] for k in (
+            'ln_f', 'embed' if cfg.tied_embeddings else 'lm_head')}
+        return pipeline.one_f_one_b(
+            self._block_fn, params['blocks'], batch['tokens'], pipe,
+            step_option('microbatches', 1), tail_fn=tail,
+            extra=batch['targets'], tail_params=tail_params, head_fn=head,
+            head_params=head_params,
+            variant=step_option('pp_variant', 'auto'))
 
     def _chunk_nll(self, params, x, targets):
         logits = self._head_logits(params, x).float()
@@ -331,13 +422,3 @@ def vocab_parallel_nll(logits, targets, group):
     gold = reduce_from(group, gold[..., 0] * inside.to(logits.dtype))
     return torch.log(z) + m - gold
 
-
-def _unstack(tree):
-    """Per-layer trees of views into stacked params. One ``unbind`` per
-    leaf: its backward stacks the layers' grads in one op, where taking
-    one layer at a time would add a zero-padded full-size grad per layer
-    (O(L^2) memory traffic)."""
-    leaves = {k: _unstack(v) if isinstance(v, dict) else v.unbind(0)
-              for k, v in tree.items()}
-    n = len(next(iter(leaves.values())))
-    return [{k: v[i] for k, v in leaves.items()} for i in range(n)]

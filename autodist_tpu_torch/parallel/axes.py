@@ -11,9 +11,11 @@ parallelism with ZeRO stages 1-3 (``zero``) and a multi-slice data axis
 ``sp_mode``), tensor parallelism (``tp``: parameters sharded by their
 ``'heads'``, ``'mlp'`` and ``'vocab'`` axes over the model group) and
 expert parallelism (``ep``: the ``'expert'`` axis over the expert
-group), gradient accumulation and full rematerialization. Pipeline
-parallelism (``pp`` above 1) raises ``NotImplementedError`` until the
-slice that ports the pipeline schedules.
+group), pipeline parallelism (``pp``: the ``'stage'`` axis of the
+stacked blocks over the pipe group, run by the GPipe or 1F1B schedule of
+:mod:`autodist_tpu_torch.parallel.pipeline` with ``microbatches``,
+``pp_schedule`` and ``pp_variant``), gradient accumulation and full
+rematerialization.
 
 The JAX package binds logical axes to a ``jax.sharding.Mesh``; the port
 has no mesh object, so :func:`mesh_axis_for` and :func:`spec_for_axes`
@@ -33,6 +35,8 @@ from autodist_tpu_torch.utils import logging
 
 REMAT_POLICIES = ('none', 'full')
 SP_MODES = ('ring', 'ulysses')
+PP_SCHEDULES = ('gpipe', '1f1b')
+PP_VARIANTS = ('auto', 'remat', 'stash', 'legacy')
 
 # Default logical-axis -> mesh-axis rules (the JAX package's table).
 # First match wins; a logical axis absent from the table is unsharded.
@@ -49,10 +53,6 @@ DEFAULT_RULES = (
     ('classes', None),
 )
 
-# the axes a later slice of the port brings, and what it ports there
-_LATER = {'pp': 'pipeline parallelism (the GPipe and 1F1B schedules of '
-                'parallel/pipeline.py)'}
-
 
 @dataclass
 class ParallelSpec:
@@ -64,11 +64,13 @@ class ParallelSpec:
     the data axis, 3 the parameters too. ``sp_mode``: 'ring' | 'ulysses'
     (the attention that runs over the seq axis). ``remat``: 'none' |
     'full' (the whole loss recomputed in the backward). ``grad_accum``:
-    gradient-accumulation chunks of the global batch. ``dcn_dp``,
-    ``microbatches``, ``pp_schedule`` and ``pp_variant`` are the JAX
-    spec's multi-slice and pipeline options (``dcn_dp``: the data axis
-    is that many contiguous blocks of ranks, one a slice or node; the
-    pipeline options are carried for the round trip); ``rules`` the
+    gradient-accumulation chunks of the global batch. ``dcn_dp``: the
+    data axis is that many contiguous blocks of ranks, one a slice or
+    node. ``microbatches``: the pipeline's microbatch count (pp > 1);
+    ``pp_schedule``: 'gpipe' | '1f1b'; ``pp_variant``: the 1F1B
+    backward, 'remat' | 'stash' | 'auto' (stash while it fits
+    ``AUTODIST_PP_STASH_LIMIT_MB``) | 'legacy' (the un-fused schedule),
+    see :mod:`autodist_tpu_torch.parallel.pipeline`. ``rules``: the
     logical-axis table."""
     dp: int = 0
     tp: int = 1
@@ -87,11 +89,15 @@ class ParallelSpec:
                                                  for r in DEFAULT_RULES])
 
     def __post_init__(self):
-        for name, what in _LATER.items():
-            if getattr(self, name) > 1:
-                raise NotImplementedError(
-                    'ParallelSpec(%s=%d): %s waits for a later slice of '
-                    'the PyTorch port' % (name, getattr(self, name), what))
+        if self.pp_schedule not in PP_SCHEDULES:
+            raise ValueError('ParallelSpec(pp_schedule=%r): expected one of '
+                             '%s' % (self.pp_schedule, PP_SCHEDULES))
+        if self.pp_variant not in PP_VARIANTS:
+            raise ValueError('ParallelSpec(pp_variant=%r): expected one of '
+                             '%s' % (self.pp_variant, PP_VARIANTS))
+        if int(self.microbatches) < 1:
+            raise ValueError('ParallelSpec(microbatches=%r): expected 1 or '
+                             'more' % (self.microbatches,))
         if self.remat not in REMAT_POLICIES:
             raise ValueError('ParallelSpec(remat=%r): the port takes %s'
                              % (self.remat, REMAT_POLICIES))
@@ -160,12 +166,36 @@ def mesh_axis_for(logical, rules, mesh):
 STEP_CTX = threading.local()
 
 
+def step_context():
+    """The running step's collector (the top of ``STEP_CTX``), or None."""
+    stack = getattr(STEP_CTX, 'stack', None)
+    return stack[-1] if stack else None
+
+
+class resumed_step:
+    """Context: make ``ctx`` (a :func:`step_context`) the running step's
+    again (a backward, or a checkpoint's recompute, runs on autograd's
+    thread, and after the forward's context has closed)."""
+
+    def __init__(self, ctx):
+        self.col = ctx
+
+    def __enter__(self):
+        stack = getattr(STEP_CTX, 'stack', None)
+        if stack is None:
+            stack = STEP_CTX.stack = []
+        stack.append(self.col)
+
+    def __exit__(self, *exc):
+        STEP_CTX.stack.pop()
+
+
 def step_mesh():
     """(the step's grid, its rules), or (None, None) outside a step."""
-    stack = getattr(STEP_CTX, 'stack', None)
-    if not stack or stack[-1].mesh is None:
+    ctx = step_context()
+    if ctx is None or ctx.mesh is None:
         return None, None
-    return stack[-1].mesh, stack[-1].rules or DEFAULT_RULES
+    return ctx.mesh, ctx.rules or DEFAULT_RULES
 
 
 def live_mesh_axis(logical):

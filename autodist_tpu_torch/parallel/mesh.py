@@ -7,10 +7,12 @@ the data axis is a group of ranks and each rank is one replica.
 :class:`ReplicaGroup` holds that group and the collectives the
 execution plan lowers to: sums, reduce-scatters and all-gathers over
 the whole group, the neighbour exchange of the ring schedules, and the
-subgroups the two-level schedules run over (:meth:`ReplicaGroup.split`).
+subgroups the two-level schedules run over (:meth:`ReplicaGroup.split`),
+and the point-to-point exchange the pipeline schedules hand activations
+and their gradients between stages with (:meth:`ReplicaGroup.exchange`).
 With one replica every collective is the identity. :class:`RankGrid`
-lays the (data, seq, expert, model) grid of the functional Trainer over
-the ranks, and :func:`shift`, :func:`all_to_all` and :func:`all_gather`
+lays the (data, pipe, seq, expert, model) grid of the functional Trainer
+over the ranks, and :func:`shift`, :func:`all_to_all` and :func:`all_gather`
 are the differentiable forms the ring and Ulysses attention and the
 ZeRO-3 parameter gather run through. :func:`copy_to` and
 :func:`reduce_from` are the two operators of Megatron-style tensor and
@@ -110,6 +112,21 @@ class ReplicaGroup:
             req.wait()
         return type(x)(outs) if many else outs[0]
 
+    def exchange(self, sends=(), recvs=()):
+        """Point-to-point: post every send ``(tensor, to)`` and every
+        receive ``(buffer, src)`` (positions on this group) in one
+        ``batch_isend_irecv`` and wait for all of them, so a step that
+        both sends and receives never blocks a peer that posts the
+        matching pair in its own batch. Returns the buffers, filled."""
+        ops = [dist.P2POp(dist.isend, t.contiguous(), self._global(to),
+                          self.group) for t, to in sends]
+        ops += [dist.P2POp(dist.irecv, buf, self._global(src), self.group)
+                for buf, src in recvs]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [buf for buf, _ in recvs]
+
     def all_to_all(self, x, split_axis, concat_axis):
         """Tiled all-to-all (``jax.lax.all_to_all(..., tiled=True)``):
         ``x`` splits into ``size`` blocks along ``split_axis``, block j
@@ -161,18 +178,26 @@ class RankGrid:
     ranks.
 
     The axes are the JAX mesh's, in its order (``ParallelSpec.
-    build_mesh``): data outermost, model innermost, so rank ``r = (((d
-    · sp + s) · ep + e) · tp + t)`` (the pipe axis is 1 until the
-    pipeline is ported). :attr:`data`, :attr:`seq`, :attr:`expert` and
-    :attr:`model` are this rank's groups along each axis (the ranks that
-    share its other coordinates); :attr:`batch` is the data x seq group,
-    the ranks that hold other tokens and the same parameter shards (the
-    group gradients, losses and token counts reduce over); and
-    :attr:`world` the whole grid. :meth:`group` returns the group over
-    any of those axis sets and over (expert, model), the ranks that hold
-    the same tokens. Every rank makes every subgroup, in the same order,
-    as ``new_group`` requires; an axis of size 1 is a group of one, and
-    an axis set that spans the grid is the world group.
+    build_mesh``): data outermost, model innermost, so rank ``r = ((((d
+    · pp + p) · sp + s) · ep + e) · tp + t)``. :attr:`data`,
+    :attr:`pipe`, :attr:`seq`, :attr:`expert` and :attr:`model` are
+    this rank's groups along each axis (the ranks that share its other
+    coordinates; the pipe group's positions are the stages); :attr:`batch`
+    is the data x seq group, the ranks that hold other tokens and the
+    same parameter shards (the group gradients, losses and token counts
+    reduce over); and :attr:`world` the whole grid. :meth:`group`
+    returns the group over any of those axis sets, over (pipe, seq) and
+    (data, pipe, seq) (the ranks a leaf the stages share reduces over)
+    and over (expert, model), the ranks that hold the same tokens. Every
+    rank makes every subgroup, in the same order, as ``new_group``
+    requires; an axis of size 1 is a group of one, an axis set that
+    spans the grid is the world group, and axis sets that part the ranks
+    alike share one group (:meth:`ReplicaGroup.split` caches by the rank
+    sets: at pp 1 the (data, pipe, seq) group is :attr:`batch`). A pipe
+    group of two or more runs
+    one all-reduce as it is made: NCCL builds a group's communicator at
+    its first call, in which every rank of the group must take part, and
+    the pipeline's first calls there are point-to-point.
 
     ``dcn_dp`` (the multi-slice factor) must divide dp: the data axis is
     then ``dcn_dp`` contiguous blocks of ranks (:attr:`node_groups`, its
@@ -183,13 +208,13 @@ class RankGrid:
     slices."""
 
     def __init__(self, dp, sp, rank, group=None, device=None, ep=1, tp=1,
-                 dcn_dp=1, ranks_per_node=None):
-        self.dp, self.sp, self.ep, self.tp = int(dp), int(sp), int(ep), \
-            int(tp)
-        self.sizes = (self.dp, 1, self.sp, self.ep, self.tp)
+                 dcn_dp=1, ranks_per_node=None, pp=1):
+        self.dp, self.pp, self.sp, self.ep, self.tp = (
+            int(dp), int(pp), int(sp), int(ep), int(tp))
+        self.sizes = (self.dp, self.pp, self.sp, self.ep, self.tp)
         # {axis: size} in the JAX mesh's axis order
         self.shape = dict(zip(self._AXES, self.sizes))
-        n = self.dp * self.sp * self.ep * self.tp
+        n = self.dp * self.pp * self.sp * self.ep * self.tp
         self.dcn_dp = int(dcn_dp)
         if self.dcn_dp > 1:
             if self.dp % self.dcn_dp:
@@ -204,15 +229,21 @@ class RankGrid:
                     raise ValueError('dcn_dp=%d but the %d devices span %d '
                                      'slices' % (self.dcn_dp, n, spanned))
         self.world = ReplicaGroup(n, rank, group, device)
-        self.data_index, _, self.seq_index, self.expert_index, \
-            self.model_index = self.coords(int(rank))
+        self.data_index, self.pipe_index, self.seq_index, \
+            self.expert_index, self.model_index = self.coords(int(rank))
         self._one = ReplicaGroup(1, 0, None, device)
         self._groups = {}
         for axes in ((AXIS_DATA,), (AXIS_SEQUENCE,), (AXIS_EXPERT,),
                      (AXIS_MODEL,), (AXIS_DATA, AXIS_SEQUENCE),
-                     (AXIS_EXPERT, AXIS_MODEL)):
+                     (AXIS_EXPERT, AXIS_MODEL), (AXIS_PIPELINE,),
+                     (AXIS_PIPELINE, AXIS_SEQUENCE),
+                     (AXIS_DATA, AXIS_PIPELINE, AXIS_SEQUENCE)):
             self._groups[axes] = self._make(axes)
         self.data = self._groups[(AXIS_DATA,)]
+        self.pipe = self._groups[(AXIS_PIPELINE,)]
+        if self.pipe.size > 1:
+            dist.all_reduce(torch.zeros(1, device=self.pipe.device),
+                            group=self.pipe.group)
         self.seq = self._groups[(AXIS_SEQUENCE,)]
         self.expert = self._groups[(AXIS_EXPERT,)]
         self.model = self._groups[(AXIS_MODEL,)]

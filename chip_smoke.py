@@ -62,6 +62,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    counted): the bytes the tensors ask for within the step's inputs of
    it and not growing from the first step to the last, the bytes held
    within the inputs and the caching allocator's slack; and the peak.
+2g. ``pipeline_kernels``: K1-K3 at [2, 12, 4096, 64] bf16 causal, the
+   microbatch shape gpt_small (seq 4096, batch 8, 4 microbatches) gives
+   every stage of the pipeline, held against their plain versions and
+   timed beside ``scaled_dot_product_attention`` and the bound, then the
+   3 layers a stage holds at pp 4 on one microbatch through
+   ``pipeline.run_stack`` (remat), forward and backward: 6 / 3 / 3
+   launches;
+2h. ``pp_grid``, with two or more cards (else a line saying it did not
+   run on one card): over the same N processes, gpt_small at seq 4096,
+   batch 8, 4 microbatches, bf16, remat, at pp = N under GPipe, 1F1B
+   stash and 1F1B remat; with four cards also pp 2 x tp 2 (1F1B auto)
+   and the memory pair at seq 1024, batch 32, 16 microbatches, pp 4:
+   GPipe and 1F1B remat; 3 adamw steps each from the one-card init:
+   losses within 1e-2 relative of one card, every rank's K1-K3 launches
+   exactly as its stage's layers, the microbatches and the schedule's
+   recomputes ask (``pp_launches``), tokens/s and the peak memory a
+   card; 1F1B remat's peak below GPipe's on every card;
 3. the fused conv + BatchNorm kernel (K4) held against its plain version
    at each of ResNet-101's main-path shapes (batch 256) in bf16, and in
    f32 at two of them and at a stage-1 shape (802,816 rows), with times:
@@ -195,22 +212,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    each on one batch of its own. (a) The chief of a spec of two nodes
    launches the other through ``Coordinator`` over ``ssh`` / ``scp``
    exec shims (the shim log shows the strategy's ``scp`` and ``mv -f``
-   and the worker's identity); p1's pushes are delayed 0.25 s each from
-   its 8th; at step 12 the chief calls ``scale_up(1)``: the monitor
-   issues a ``slowdown`` verdict for p1 on ``push`` and none that
-   accuses p0 or p2, the re-rank for world 3 prices with measured link
-   constants, the chief's Chrome trace has the three workers' rows with
-   the four phase spans, the telemetry namespace is empty after close,
+   and the worker's identity); p1's pushes are delayed by its median
+   step (0.5 s at least) from its 8th, or later, once the chief's
+   monitor has refit the link constants and holds no verdict for p1; at
+   step 12 (or once that refit holds) the chief calls ``scale_up(1)``:
+   from p1's first delayed push on the monitor issues a ``slowdown``
+   verdict for p1 on ``push``, and none that accuses p0 or p2 (a
+   verdict for p1 before it, the host's, recovered before it), the
+   re-rank for world 3 prices with measured link constants, the chief's
+   Chrome trace has the three workers' rows with the four phase spans,
+   the telemetry namespace is empty after close,
    every worker's last 5 losses are below its first; the launch
    seconds, examples/s before, during and after, the detection latency,
    the fitted α and β against the analytic, and the span bytes a step.
    (b) ``python -m autodist_tpu_torch.launch`` over the same two nodes:
    rc 0, both records, the launcher's coord service gone;
 11. the card's line, the ``kernels`` line (K1-K4 of the main paths:
-   K1-K3 at head dim 64, at 256 and at 384, and at the Ulysses shape
-   (its launches: the one-rank local attention's, or with four cards
-   the grid's Ulysses run's), each row with the CUDA kernel that ran and
-   its launches in its own phase), and last
+   K1-K3 at head dim 64, at 256 and at 384, at the Ulysses shape (its
+   launches: the one-rank local attention's, or with four cards the
+   grid's Ulysses run's) and at the pipeline's microbatch shape (the
+   stage's launches, or with two or more cards ``pp_grid``'s GPipe
+   run's), each row with the CUDA kernel that ran and its launches in
+   its own phase), and last
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time (CUDA events around back-to-back launches
@@ -881,11 +904,7 @@ def auto_strategy_phase(cfg, batch, seq, steps, device, kind, smi=None):
     local = trainer.shard_batch(data)
     cost = rl.cost_of(trainer.compile_step(state, local), state, local)
     peak_flops, peak_hbm = spec.topology.peaks()
-    roof = rl.classify_regime(cost['flops'], cost['bytes_accessed'], step_s,
-                              peak_flops, peak_hbm)
-    require(roof['mfu'] is not None and 0 < roof['mfu'] <= 1,
-            'auto_strategy MFU %r against %s is not in (0, 1]'
-            % (roof['mfu'], kind))
+    roof, share = check_mfu(cost, step_s, peak_flops, peak_hbm, kind)
 
     params = CostModelParams.from_topology(spec.topology)
     with tempfile.TemporaryDirectory() as tmp:
@@ -901,7 +920,7 @@ def auto_strategy_phase(cfg, batch, seq, steps, device, kind, smi=None):
                predicted_step_s=best.predicted_step_time_s,
                predicted_peak_bytes=best.predicted_peak_bytes,
                memory=memory, cost=cost, peaks=[peak_flops, peak_hbm],
-               mfu=roof['mfu'], hbm_frac=roof['hbm_frac'],
+               mfu=roof['mfu'], mfu_share=share, hbm_frac=roof['hbm_frac'],
                roofline_regime=roof['roofline_regime'],
                calibrated=fitted.calibrated,
                alpha_beta={'ici': params.link(cross_node=False),
@@ -910,6 +929,24 @@ def auto_strategy_phase(cfg, batch, seq, steps, device, kind, smi=None):
     emit(**rec)
     del trainer, state
     return rec
+
+
+def check_mfu(cost, step_s, peak_flops, peak_hbm, kind):
+    """``roofline.classify_regime``'s record for one step of ``cost``
+    taking ``step_s``, and the step's unrounded share of the peak
+    (flops / peak / seconds), which must lie in (0, 1]. The record keeps
+    ``classify_regime``'s ``mfu``, rounded to 6 places: a CPU step of
+    seconds against the card's peak rounds to 0 there."""
+    from autodist_tpu_torch.telemetry import roofline as rl
+    roof = rl.classify_regime(cost['flops'], cost['bytes_accessed'], step_s,
+                              peak_flops, peak_hbm)
+    share = None
+    if cost['flops'] is not None and peak_flops and step_s > 0:
+        share = cost['flops'] / peak_flops / step_s
+    require(share is not None and 0 < share <= 1,
+            'auto_strategy MFU %r against %s is not in (0, 1]'
+            % (share, kind))
+    return roof, share
 
 
 # gpt_small at bench_longctx's seq with an MoE MLP in every block, as the
@@ -2796,12 +2833,22 @@ def loose_elastic_phase(cfg, steps, device, smi=None, runs=ELASTIC_RUNS,
 # head/bias, one a push) by LAUNCH_DELAY_RATIO times p1's median step
 # before the delay, LAUNCH_DELAY_S at least: a fixed delay on a host whose
 # steps other processes slow falls under the monitor's 1.5 ratio, so the
-# delay follows the step it is held against. Every delayed push is a link
+# delay follows the step it is held against. At depth 2 a push overlaps
+# the next step's compute, so a delay that a loaded host's compute reaches
+# hides in it: the floor is twice the CPU twin's undisturbed step under
+# load (0.25 s hid behind 0.3 s steps). Every delayed push is a link
 # sample of a few bytes and a long wait, which turns the fit of the link
 # constants' slope negative, so the delay starts only once the chief's
-# monitor has refit them from clean traffic (it publishes the step): on a
-# loaded host the first fits (one every 4 steps until one holds) can find
-# the timings too noisy. At step LAUNCH_JOIN_AT, or once that refit holds
+# monitor has refit them from clean traffic: on a loaded host the first
+# fits (one every 4 steps until one holds) can find the timings too noisy.
+# The chief also waits until its monitor holds no verdict for p1: a host
+# hiccup can flag p1 before the delay (on pull or compute), and a verdict
+# stays until its worker recovers, so the delay would only prolong it and
+# never show as a verdict on push. The chief publishes the step once both
+# hold; p1's delay starts two pushes after it has seen it, and the verdict
+# held to the delay is p1's first issued from its first delayed push on
+# (one before it is the host's, and the record lists it). At step
+# LAUNCH_JOIN_AT, or once that refit holds
 # (at most LAUNCH_JOIN_WAIT steps later), the chief calls scale_up(1) and
 # waits for the joiner's claim, and the re-rank for the grown world
 # prices with the measured constants; the cohort trains as many steps
@@ -2813,11 +2860,16 @@ def loose_elastic_phase(cfg, steps, device, smi=None, runs=ELASTIC_RUNS,
 # chief's re-rank, the migration at its boundary) disturbs every worker's
 # step for a few steps past the join, and the monitor needs two clean
 # polls (every 4 steps) after it to confirm a verdict it could not
-# confirm across the join.
+# confirm across the join. When the first refit holds late, p1's delay
+# starts after the join, so the cohort trains on (LAUNCH_VERDICT_WAIT
+# steps at most) until the chief's monitor has issued a verdict for p1
+# from its first delayed push on (p1 publishes that push, the chief the
+# verdict's step).
 LAUNCH_STEPS = 32
 LAUNCH_EXTRA = 16          # steps past LAUNCH_STEPS while a migration lands
+LAUNCH_VERDICT_WAIT = 16   # and while no verdict for p1's delay has come
 LAUNCH_DELAY_FROM = 8
-LAUNCH_DELAY_S = 0.25
+LAUNCH_DELAY_S = 0.5
 LAUNCH_DELAY_RATIO = 1.0
 LAUNCH_JOIN_AT = 12
 LAUNCH_JOIN_WAIT = 32
@@ -2905,7 +2957,8 @@ def launch_worker(args):
     if run == 'ssh' and name == 'p1':
         fault = FaultLine(_push_delay_plan(
             sess._key('var/head/bias'), LAUNCH_DELAY_FROM,
-            LAUNCH_STEPS + LAUNCH_JOIN_WAIT + LAUNCH_EXTRA, LAUNCH_DELAY_S))
+            LAUNCH_STEPS + LAUNCH_JOIN_WAIT + LAUNCH_EXTRA +
+            LAUNCH_VERDICT_WAIT, LAUNCH_DELAY_S))
         fault.install()
     feed = dict(zip(feeds, ncf_batch(cfg, 1000 * (pid + 1))))
     rec = {'worker': name, 'pid': pid, 'started': started,
@@ -2916,18 +2969,25 @@ def launch_worker(args):
         return any(e.get('migrated') for e in sess._health['replans'])
 
     join_key = sess._key('launch/join_step')
-    refit_key = sess._key('launch/refit_step')
+    delay_key = sess._key('launch/delay_step')
+    delay_from_key = sess._key('launch/delay_from')
+    verdict_key = sess._key('launch/verdict_step')
 
     def last_step():
         """Run (a) trains as many steps past the join as past one at
         LAUNCH_JOIN_AT (the latest join bounds it until the chief has
         published its step), and on while its staged migration has not
-        applied yet."""
+        applied yet and while the monitor has issued no verdict for p1
+        since its delay started (the chief publishes its step)."""
         if run != 'ssh':
             return args['steps']
         join = coord.incr(join_key, 0) or LAUNCH_JOIN_AT + LAUNCH_JOIN_WAIT
         end = args['steps'] + join - LAUNCH_JOIN_AT
-        return end if migrated() else end + LAUNCH_EXTRA
+        if not migrated():
+            end += LAUNCH_EXTRA
+        if not coord.incr(verdict_key, 0):
+            end += LAUNCH_VERDICT_WAIT
+        return end
 
     while sess.step_count < args['steps'] or \
             sess.step_count < last_step():
@@ -2939,7 +2999,7 @@ def launch_worker(args):
                              'parties': sess._active_workers()})
         if fault is not None and 'delay_s' not in rec and \
                 s >= LAUNCH_DELAY_FROM - 2:
-            if coord.incr(refit_key, 0):
+            if coord.incr(delay_key, 0):
                 # two steps before the first delayed push: the delay
                 # follows p1's own median step (its first step, the
                 # warm-up, left out)
@@ -2947,17 +3007,28 @@ def launch_worker(args):
                 rec['delay_s'] = max(LAUNCH_DELAY_S, LAUNCH_DELAY_RATIO *
                                      float(np.median(walls)))
                 rec['delay_from'] = fault.plan.faults[0]['at']
+                coord.incr(delay_from_key, rec['delay_from'])
                 for f in fault.plan.faults:
                     f['seconds'] = rec['delay_s']
             else:
-                # no refit yet: the first delayed push moves a step on
+                # not cleared yet: the first delayed push moves a step on
                 for f in fault.plan.faults:
                     f['at'] += 1
-        if run == 'ssh' and sess._is_chief and 'refit_at' not in rec and \
-                sess.monitor is not None and \
+        if run == 'ssh' and sess._is_chief and 'delay_cleared_at' not in rec \
+                and sess.monitor is not None and \
                 sess.monitor.calibrated_params() is not None:
-            rec['refit_at'] = s
-            coord.incr(refit_key, s)
+            rec.setdefault('refit_at', s)
+            if not any(v['worker'] == 'p1'
+                       for v in sess.monitor.verdicts()):
+                rec['delay_cleared_at'] = s
+                coord.incr(delay_key, s)
+        if run == 'ssh' and sess._is_chief and 'verdict_at' not in rec and \
+                sess.monitor is not None and coord.incr(delay_from_key, 0):
+            start = coord.incr(delay_from_key, 0)
+            if any(e['kind'] == 'slowdown' and e['worker'] == 'p1' and
+                   e['step'] >= start for e in sess.monitor.events):
+                rec['verdict_at'] = s
+                coord.incr(verdict_key, s)
         if sess.monitor is not None:
             rec['steps'][-1]['slowdowns'] = sum(
                 1 for e in sess.monitor.events if e['kind'] == 'slowdown')
@@ -3115,7 +3186,21 @@ def launch_ssh_run(cfg, device, tmp, smi=None):
     require(p1['faults_fired'] > 0, 'loose_launch ssh: no push was delayed')
     perf = p0['health']['perf']
     events = [e for e in perf['events'] if e['kind'] == 'slowdown']
-    slow_p1 = [e for e in events if e['worker'] == 'p1']
+    slow_p1 = [e for e in events if e['worker'] == 'p1' and
+               e['step'] >= p1['delay_from']]
+    # a verdict for p1 before its delay is the host's (the chief starts
+    # the delay only once its monitor holds none for p1): each must have
+    # recovered before the delay's first push
+    pre_open = []
+    for e in perf['events']:
+        if e['worker'] == 'p1' and e['step'] < p1['delay_from']:
+            if e['kind'] == 'slowdown':
+                pre_open.append(e)
+            elif e['kind'] == 'recovered':
+                pre_open = []
+    require(not pre_open, 'loose_launch ssh: p1\'s verdict before its '
+            'delay (from push %d) did not recover before it: %r'
+            % (p1['delay_from'], perf['events']))
     require(slow_p1 and slow_p1[0]['attributed_phase'] == 'push' and
             slow_p1[0]['classification'] == 'link_or_host',
             'loose_launch ssh: no slowdown verdict for p1 on push: %r'
@@ -3177,6 +3262,7 @@ def launch_ssh_run(cfg, device, tmp, smi=None):
         verdicts=[{k: e.get(k) for k in ('kind', 'worker', 'step',
                                           'classification')}
                   for e in perf['events']],
+        pre_delay_open=pre_open,
         rerank={k: grown[0].get(k) for k in (
             'world', 'kept', 'predicted', 'cost_constants',
             'cost_alpha_beta', 'migration_staged', 'migrated')},
@@ -3199,7 +3285,8 @@ def launch_ssh_run(cfg, device, tmp, smi=None):
         telemetry_left=p0['telemetry_left'],
         losses={rec['worker']: [s['loss'] for s in rec['steps']]
                 for rec in (p0, p1, p2)},
-        refit_at=p0['refit_at'],
+        refit_at=p0['refit_at'], delay_cleared_at=p0['delay_cleared_at'],
+        verdict_published_at=p0.get('verdict_at'),
         delay={'from_push': p1['delay_from'], 'seconds': p1['delay_s'],
                'floor_s': LAUNCH_DELAY_S, 'ratio': LAUNCH_DELAY_RATIO,
                'fired': p1['faults_fired']})
@@ -3991,6 +4078,13 @@ RING_SHAPE, RING_RANKS = (4, 12, 4096, 64), 4
 # the grid sums its tokens, gradients and attention in other orders
 GRID_LOSS_REL = 1e-2
 GRID_STEPS = 3
+# the pipeline runs' limit (``pp_grid``): a stage splits no product, so
+# a rank's losses follow one card's far closer than the grid's. Four
+# cards read 8.2e-6 at most (pp 2 x tp 2), the same in three calls; a
+# backward with one stage's block gradients dropped read 1.1e-4 at pp 4
+# and 1.2e-3 at pp 2 x tp 2, one that left the shared leaves unsummed
+# over the pipe group 1.5e-3 (PERF.md §6)
+PP_LOSS_REL = 1e-4
 # adamw's f32 state a trainable element holds after a step: the param,
 # its gradient and the two slots (bytes)
 STATE_BYTES = {'param': 4, 'grad': 4, 'slots': 8}
@@ -4345,10 +4439,12 @@ def grid_configs(n, seq=4096, batch=4, zero_seq=1024, dim=768, layers=12,
     return runs, refs, one
 
 
-def grid_report(runs, refs, ranks, single, n, smi, phase='grid_trainers'):
+def grid_report(runs, refs, ranks, single, n, smi, phase='grid_trainers',
+                tol=GRID_LOSS_REL):
     """One JSON line a grid run: its tokens/s, peak and after-step memory
     per card, the predicted state bytes, and each rank's losses against
-    its one-card reference's (``GRID_LOSS_REL``). Returns the records."""
+    its one-card reference's (relative, within ``tol``). Returns the
+    records."""
     out = {}
     for run in runs:
         name = run['name']
@@ -4360,7 +4456,7 @@ def grid_report(runs, refs, ranks, single, n, smi, phase='grid_trainers'):
                'spec': run['spec'], 'seq': run['seq'],
                'batch': run['batch'], 'losses': recs[0]['losses'],
                'one_card_losses': want, 'max_rel_loss_diff': rel,
-               'tol': GRID_LOSS_REL,
+               'tol': tol,
                'tokens_per_s': recs[0]['tokens_per_s'],
                'one_card_tokens_per_s': single[refs[name]]['tokens_per_s'],
                'launches': recs[0]['launches'],
@@ -4375,8 +4471,8 @@ def grid_report(runs, refs, ranks, single, n, smi, phase='grid_trainers'):
         emit(**rec)
         require(all(math.isfinite(x) for r in recs for x in r['losses']),
                 'grid run %s: a loss is not finite' % name)
-        require(rel <= GRID_LOSS_REL, 'grid run %s: losses %s against one '
-                'card %s' % (name, recs[0]['losses'], want))
+        require(rel <= tol, 'grid run %s: losses %s against one card %s'
+                % (name, recs[0]['losses'], want))
         out[name] = rec
     return out
 
@@ -4499,7 +4595,8 @@ def tp_ep_grid_phase(smi, device='cuda', n=None, tmp=None, single=None,
 def grid_phases(smi):
     """``grid_trainers``, then ``tp_ep_grid`` (its ``tp`` run's one-card
     reference is grid_trainers' seq run: the same configuration, init and
-    batch). Returns both results (None where a phase did not run)."""
+    batch), then ``pp_grid``. Returns the three results (None where a
+    phase did not run)."""
     grid = grid_trainers_phase(smi)
     torch.cuda.empty_cache()
     single = None
@@ -4509,7 +4606,9 @@ def grid_phases(smi):
             'tokens_per_s': grid['ring']['one_card_tokens_per_s']}}
     tp = tp_ep_grid_phase(smi, single=single)
     torch.cuda.empty_cache()
-    return grid, tp
+    pp = pp_grid_phase(smi)
+    torch.cuda.empty_cache()
+    return grid, tp, pp
 
 
 def ulysses_rows(uly_recs, uly_launches, grid, tp):
@@ -4530,6 +4629,205 @@ def ulysses_rows(uly_recs, uly_launches, grid, tp):
         row = flash_row(name, rec, by_path.get('grid_trainers_ulysses',
                                                 uly_launches[name]),
                         ULYSSES_SHAPE, '_ulysses')
+        row['launches_by_path'] = by_path
+        rows.append(row)
+    return rows
+
+
+# the pipeline's microbatch: gpt_small at seq 4096, batch 8 in 4
+# microbatches gives every stage K1-K3 at [2, 12, 4096, 64]; a stage at
+# pp 4 holds 3 of the 12 layers
+PIPELINE_SHAPE = (2, 12, 4096, 64)
+PIPELINE_STAGE_LAYERS = 3
+
+
+def pipeline_kernels_phase(smi, device='cuda', shape=PIPELINE_SHAPE,
+                           layers=PIPELINE_STAGE_LAYERS):
+    """K1-K3 at the pipeline's microbatch shape (``shape``, bf16, causal)
+    held against their plain versions and timed (on the card), then the
+    ``layers`` one stage holds (gpt_small's width at ``shape``, remat) on
+    one microbatch through ``pipeline.run_stack``, forward and backward,
+    the counts set to 0 just before it: on the card each layer launches
+    K1-K3 2 / 1 / 1 times, on the CPU (the plain versions) none. Returns
+    (check_kernels' records or None, {kernel: launches})."""
+    from autodist_tpu_torch.parallel import pipeline
+    cuda = device == 'cuda'
+    recs = check_kernels(shape, True, torch.bfloat16, True, smi) \
+        if cuda else None
+    b, h, s, d = shape
+    model = TransformerLM(TransformerConfig.gpt_small(
+        dtype=torch.bfloat16, remat=True, max_len=s, dim=h * d, n_heads=h,
+        n_layers=layers), device=device, seed=0)
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn((b, s, h * d), generator=gen, device=device).to(
+        torch.bfloat16).requires_grad_()
+    fa.reset_launches()
+    with core.model_mode():
+        y, _ = pipeline.run_stack(model._block_fn, model.params()['blocks'],
+                                  x)
+        y.float().square().mean().backward()
+    if cuda:
+        torch.cuda.synchronize()
+    if cuda:
+        launches = {name: fa.KERNEL_LAUNCHES.get(recs[name]['cuda_kernel'],
+                                                 0)
+                    for name in ('fwd', 'dq', 'dkv')}
+    else:
+        launches = {name: fa.LAUNCHES.get(name, 0)
+                    for name in ('fwd', 'dq', 'dkv')}
+    want = {k: layers * c if cuda else 0
+            for k, c in TP_LAUNCHES_PER_LAYER.items()}
+    finite = bool(torch.isfinite(x.grad).all())
+    emit(phase='pipeline_kernels', shape=list(shape), dtype='bfloat16',
+         causal=True, stage_layers=layers, launches=launches,
+         kernel_launches=dict(fa.KERNEL_LAUNCHES), finite=finite, card=smi,
+         **{name: {key: recs[name][key] for key in (
+             'cuda_kernel', 'max_abs_err', 'ms', 'plain_ms', 'library_ms',
+             'bound_ms', 'bound_by')} for name in recs or {}})
+    require(launches == want, 'the stage at %s launched %s, expected %s'
+            % (shape, launches, want))
+    require(finite, 'the stage\'s input gradient is not finite')
+    del model, x, y
+    if cuda:
+        torch.cuda.empty_cache()
+    return recs, launches
+
+
+# K1-K3 launches a microbatch a layer on a rank under a remat
+# configuration (each block checkpointed): GPipe runs the block forward,
+# then recomputes it in the backward before dQ and dK/dV; each 1F1B
+# variant runs one forward without a graph first and the stage again
+# with its graph in the backward (the remat variant's chain forward, the
+# stash variant's recompute from the stash), so one forward more
+PP_LAUNCHES_PER_LAYER = {'gpipe': {'fwd': 2, 'dq': 1, 'dkv': 1},
+                         '1f1b': {'fwd': 3, 'dq': 1, 'dkv': 1}}
+
+
+def pp_launches(run):
+    """{kernel: launches} a rank of ``run`` (a ``pp_configs`` run) makes
+    over its steps: its stage's layers (n_layers / pp) x microbatches x
+    ``PP_LAUNCHES_PER_LAYER`` of its schedule x steps."""
+    spec, cfg = run['spec'], run['cfg']
+    per = PP_LAUNCHES_PER_LAYER[spec.get('pp_schedule', 'gpipe')]
+    n = cfg['n_layers'] // spec['pp'] * spec['microbatches'] * run['steps']
+    return {k: n * c for k, c in per.items()}
+
+
+def pp_configs(n, seq=4096, batch=8, microbatches=4, mem_seq=1024,
+               mem_batch=32, mem_microbatches=16, dim=768, layers=12,
+               heads=12, vocab=32000, steps=GRID_STEPS):
+    """The ``pp_grid`` runs over ``n`` ranks and their one-card
+    references: gpt_small (bf16, remat) at seq 4096, batch 8, 4
+    microbatches at pp = n under GPipe, 1F1B stash and 1F1B remat; with
+    four cards also pp 2 x tp 2 (1F1B auto) and the memory pair (seq
+    1024, batch 32, 16 microbatches, pp 4, GPipe and 1F1B remat).
+    Returns (runs, {run name: its reference}, the one-card runs)."""
+    def cfg(max_len):
+        return dict(vocab=vocab, dim=dim, n_layers=layers, n_heads=heads,
+                    max_len=max_len, causal=True, dtype='bfloat16',
+                    remat=True)
+
+    def pp(size, m, schedule, variant='auto', **kw):
+        return dict(pp=size, microbatches=m, pp_schedule=schedule,
+                    pp_variant=variant, **kw)
+    seq_run = dict(cfg=cfg(seq), seq=seq, batch=batch, lr=1e-4, steps=steps)
+    runs = [dict(seq_run, name='gpipe', spec=pp(n, microbatches, 'gpipe')),
+            dict(seq_run, name='1f1b_stash',
+                 spec=pp(n, microbatches, '1f1b', 'stash')),
+            dict(seq_run, name='1f1b_remat',
+                 spec=pp(n, microbatches, '1f1b', 'remat'))]
+    refs = {r['name']: 'one_card_pp' for r in runs}
+    one = [dict(seq_run, name='one_card_pp', spec={})]
+    if n == 4:
+        mem_run = dict(cfg=cfg(mem_seq), seq=mem_seq, batch=mem_batch,
+                       lr=1e-4, steps=steps)
+        runs += [dict(seq_run, name='pp2_tp2',
+                      spec=pp(2, microbatches, '1f1b', tp=2)),
+                 dict(mem_run, name='mem_gpipe',
+                      spec=pp(4, mem_microbatches, 'gpipe')),
+                 dict(mem_run, name='mem_1f1b_remat',
+                      spec=pp(4, mem_microbatches, '1f1b', 'remat'))]
+        refs.update(pp2_tp2='one_card_pp', mem_gpipe='one_card_mem',
+                    mem_1f1b_remat='one_card_mem')
+        one.append(dict(mem_run, name='one_card_mem', spec={}))
+    return runs, refs, one
+
+
+def pp_grid_phase(smi, device='cuda', n=None, tmp=None, **sizes):
+    """Pipeline parallelism through ``Trainer`` over min(4, cards) NCCL
+    processes, one a card (``pp_configs``): each run's losses within
+    ``PP_LOSS_REL`` of the same steps on one card, its tokens/s and the
+    peak memory a card. On the card every rank of every run must launch
+    K1-K3 exactly ``pp_launches(run)`` times by the CUDA kernel its
+    microbatch's head dim routes to, and with four cards the memory
+    pair's 1F1B remat must peak below GPipe on every card. Prints that it
+    did not run on fewer than two cards. Returns {run: record}, or None
+    when it did not run."""
+    if n is None:
+        count = torch.cuda.device_count()
+        if count < 2:
+            emit(phase='pp_grid', ran=False, cards=count,
+                 reason='needs two or more cards; did not run on one card',
+                 card=smi)
+            return None
+        n = min(4, count)
+    runs, refs, one = pp_configs(n, **sizes)
+    single = {}
+    for run in one:
+        dev = 'cuda:0' if device == 'cuda' else device
+        single[run['name']] = grid_run(run, dev)
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=tmp) as out:
+        ranks = launch_grid(runs, n, device, out)
+    emit(phase='pp_grid', ran=True, cards=n, card=smi)
+    out = grid_report(runs, refs, ranks, single, n, smi, phase='pp_grid',
+                      tol=PP_LOSS_REL)
+    for run in runs:
+        name, cfg = run['name'], run['cfg']
+        per_rank = [rank[name] for rank in ranks]
+        out[name]['launches_by_rank'] = [r['launches'] for r in per_rank]
+        out[name]['launches_expected'] = pp_launches(run)
+        if 'peak_mem_bytes' in per_rank[0]:
+            out[name]['peak_mem_bytes_by_rank'] = [r['peak_mem_bytes']
+                                                   for r in per_rank]
+        d = cfg['dim'] // cfg['n_heads']
+        local = (run['batch'] // run['spec']['microbatches'],
+                 cfg['n_heads'] // run['spec'].get('tp', 1), run['seq'], d)
+        if device == 'cuda' and fa.preferred(local):
+            want = {fa.kernel_name(k, torch.bfloat16, d): c
+                    for k, c in pp_launches(run).items()}
+            got = [r['launches'] for r in per_rank]
+            require(all(g == want for g in got),
+                    'pp_grid %s: the ranks launched %s, expected %s at %s'
+                    % (name, got, want, local))
+    if 'mem_gpipe' in out and 'peak_mem_bytes_by_rank' in out['mem_gpipe']:
+        gpipe = out['mem_gpipe']['peak_mem_bytes_by_rank']
+        remat = out['mem_1f1b_remat']['peak_mem_bytes_by_rank']
+        emit(phase='pp_grid', run='memory_pair', cards=n,
+             gpipe_peak_bytes=gpipe, remat_peak_bytes=remat,
+             ratio=[r / g for r, g in zip(remat, gpipe)], card=smi)
+        require(all(r < g for r, g in zip(remat, gpipe)),
+                'pp_grid: 1F1B remat peaked at %s bytes a card, GPipe at %s'
+                % (remat, gpipe))
+    return out
+
+
+def pipeline_rows(pk_recs, pk_launches, pp):
+    """K1-K3's rows of the ``kernels`` line at the pipeline's microbatch
+    shape: the stage's launches, and with two or more cards each
+    ``pp_grid`` run's at that shape (rank 0's, over its steps)."""
+    rows = []
+    for name in ('fwd', 'dq', 'dkv'):
+        rec = pk_recs[name]
+        by_path = {'pipeline_stage': pk_launches[name]}
+        for run in ('gpipe', '1f1b_stash', '1f1b_remat'):
+            if pp is not None:
+                by_path['pp_grid_' + run] = pp[run]['launches'].get(
+                    rec['cuda_kernel'], 0)
+        row = flash_row(name, rec, by_path.get('pp_grid_gpipe',
+                                                pk_launches[name]),
+                        PIPELINE_SHAPE, '_pipeline')
         row['launches_by_path'] = by_path
         rows.append(row)
     return rows
@@ -4590,7 +4888,10 @@ def main(argv):
     uly_recs, uly_launches = ulysses_kernels_phase(smi)
     ring_blocks_phase(smi)
     torch.cuda.empty_cache()
-    grid, tp = grid_phases(smi)
+    # this slice's path: K1-K3 at the pipeline's microbatch shape, and the
+    # pipeline's schedules across the cards (in grid_phases)
+    pk_recs, pk_launches = pipeline_kernels_phase(smi)
+    grid, tp, pp = grid_phases(smi)
 
     k4 = [check_conv_bn(shape, torch.bfloat16, smi) for shape in RESNET_K4]
     for shape in K4_F32:
@@ -4749,6 +5050,7 @@ def main(argv):
             row['launches_by_path'] = by_path
             kernels.append(row)
     kernels += ulysses_rows(uly_recs, uly_launches, grid, tp)
+    kernels += pipeline_rows(pk_recs, pk_launches, pp)
     # K4: launch-weighted means over ResNet-101's main-path shapes
     weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]
 

@@ -704,7 +704,8 @@ def test_loose_launch_phase_at_tiny_width():
     """Both runs of ``loose_launch`` at NCF_SMALL on the CPU, each in
     processes of ``chip_smoke.py --launch-run``: (a) the chief launches
     p1 through the ssh and scp shims, the monitor names p1 slow on push
-    once its pushes are delayed, the scale-up's joiner is re-ranked for
+    once its pushes are delayed (any verdict for p1 before the delay
+    recovered before it), the scale-up's joiner is re-ranked for
     with measured constants, the trace has the three workers' rows and
     the telemetry namespace is empty after close; (b) the launcher's run
     exits 0 and its coord service is gone. The requirements are the
@@ -713,16 +714,30 @@ def test_loose_launch_phase_at_tiny_width():
     weigh against an RPC's latency, and the link fit needs both)."""
     out = chip_smoke.loose_launch_phase(NCF_LAUNCH_CPU, 'cpu')
     ssh, cli = out['ssh'], out['cli']
-    assert ssh['verdict']['attributed_phase'] == 'push'
-    assert ssh['detection_latency_steps'] >= 0
-    assert ssh['rerank']['cost_constants'] == 'measured'
-    assert ssh['trace_rows'] == ['worker p0', 'worker p1', 'worker p2']
-    assert ssh['telemetry_left'] == 0 and ssh['delay']['fired'] > 0
+
+    def part(rec, *keys):
+        return {k: rec.get(k) for k in keys}
+    assert ssh['verdict']['attributed_phase'] == 'push', \
+        part(ssh, 'verdict', 'verdicts', 'delay', 'refit_at',
+             'delay_cleared_at', 'verdict_published_at', 'monitor')
+    assert ssh['detection_latency_steps'] >= 0, \
+        part(ssh, 'detection_latency_steps', 'verdict', 'delay')
+    assert ssh['rerank']['cost_constants'] == 'measured', \
+        part(ssh, 'rerank', 'fitted', 'recalibrations', 'scaled_up_at',
+             'refit_at')
+    assert ssh['trace_rows'] == ['worker p0', 'worker p1', 'worker p2'], \
+        part(ssh, 'trace_rows')
+    assert ssh['telemetry_left'] == 0 and ssh['delay']['fired'] > 0, \
+        part(ssh, 'telemetry_left', 'delay')
     assert ssh['launch_s'] > 0 and ssh['join_step'] >= \
-        chip_smoke.LAUNCH_JOIN_AT
-    assert all(v > 0 for v in ssh['telemetry_bytes_per_step'].values())
-    assert ssh['fitted']['beta_s_per_byte'] > 0
-    assert cli['rc'] == 0 and cli['service_gone']
+        chip_smoke.LAUNCH_JOIN_AT, \
+        part(ssh, 'launch_s', 'join_step', 'scaled_up_at', 'join_claim_s')
+    assert all(v > 0 for v in ssh['telemetry_bytes_per_step'].values()), \
+        part(ssh, 'telemetry_bytes_per_step')
+    assert ssh['fitted']['beta_s_per_byte'] > 0, \
+        part(ssh, 'fitted', 'analytic', 'recalibrations')
+    assert cli['rc'] == 0 and cli['service_gone'], \
+        part(cli, 'rc', 'service_gone', 'seconds', 'losses')
 
 
 # -- the ring's blocks, the grid and its report ------------------------------
@@ -860,3 +875,116 @@ def test_grid_trainers_phase_reports_one_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
     assert chip_smoke.grid_trainers_phase('card') is None
     assert 'did not run on one card' in capsys.readouterr().out
+
+
+# -- the pipeline: its microbatch's kernels and the pp grid ------------------
+def test_check_mfu_holds_the_unrounded_share():
+    """A CPU step of seconds against the H100's peak: ``classify_regime``
+    rounds its MFU to 6 places, to 0.0, and the requirement reads the
+    unrounded share (flops / peak / seconds), which stays in (0, 1]; a
+    share above 1 still fails."""
+    cost = {'flops': 2.0e6, 'bytes_accessed': 1.0e6}
+    roof, share = chip_smoke.check_mfu(cost, 30.0, 989e12, 3.35e12, 'H100')
+    assert roof['mfu'] == 0.0
+    assert share == pytest.approx(2.0e6 / 989e12 / 30.0) and share > 0
+    with pytest.raises(RuntimeError, match='MFU'):
+        chip_smoke.check_mfu({'flops': 1e16, 'bytes_accessed': 1.0}, 1.0,
+                             989e12, 3.35e12, 'H100')
+
+
+def test_pipeline_kernels_phase_at_tiny_width():
+    """The stage of ``pipeline_kernels`` on the CPU at a tiny width: two
+    layers on one microbatch through ``pipeline.run_stack``, forward and
+    backward, the plain versions (no launch), a finite input gradient;
+    the kernel checks run only on the card."""
+    recs, launches = chip_smoke.pipeline_kernels_phase(
+        'cpu', device='cpu', shape=(2, 2, 32, 16), layers=2)
+    assert recs is None
+    assert launches == {'fwd': 0, 'dq': 0, 'dkv': 0}
+
+
+def test_pp_launches_follow_the_stage_the_microbatches_and_the_schedule():
+    """gpt_small at pp 4, 4 microbatches, 3 steps: a stage holds 3
+    layers, so GPipe launches 3 x 4 x 3 x (2, 1, 1) and each 1F1B
+    variant one forward more a layer a microbatch; pp 2 x tp 2 holds 6
+    layers a stage; the memory pair 3 layers x 16 microbatches."""
+    runs, refs, one = chip_smoke.pp_configs(4)
+    by = {r['name']: r for r in runs}
+    assert chip_smoke.pp_launches(by['gpipe']) == \
+        {'fwd': 72, 'dq': 36, 'dkv': 36}
+    for name in ('1f1b_stash', '1f1b_remat'):
+        assert chip_smoke.pp_launches(by[name]) == \
+            {'fwd': 108, 'dq': 36, 'dkv': 36}
+    assert chip_smoke.pp_launches(by['pp2_tp2']) == \
+        {'fwd': 216, 'dq': 72, 'dkv': 72}
+    assert chip_smoke.pp_launches(by['mem_gpipe']) == \
+        {'fwd': 288, 'dq': 144, 'dkv': 144}
+    assert set(refs.values()) == {r['name'] for r in one}
+    assert by['gpipe']['batch'] // by['gpipe']['spec']['microbatches'] == \
+        chip_smoke.PIPELINE_SHAPE[0]
+    assert [r['name'] for r in chip_smoke.pp_configs(2)[0]] == \
+        ['gpipe', '1f1b_stash', '1f1b_remat']
+
+
+def test_pp_grid_phase_on_a_gloo_world_of_4(capsys):
+    """``pp_grid`` at a tiny width over four gloo processes on the CPU:
+    GPipe, 1F1B stash and remat at pp 4, pp 2 x tp 2 and the memory pair,
+    each run's losses within ``PP_LOSS_REL`` of one process's, one line
+    a run (device memory and launches only on the card)."""
+    out = chip_smoke.pp_grid_phase(
+        'cpu', device='cpu', n=4, seq=32, batch=8, microbatches=4,
+        mem_seq=32, mem_batch=16, mem_microbatches=8, dim=32, layers=4,
+        heads=2, vocab=64, steps=2)
+    assert set(out) == {'gpipe', '1f1b_stash', '1f1b_remat', 'pp2_tp2',
+                        'mem_gpipe', 'mem_1f1b_remat'}
+    for name, rec in out.items():
+        assert rec['max_rel_loss_diff'] <= chip_smoke.PP_LOSS_REL, name
+        assert rec['tol'] == chip_smoke.PP_LOSS_REL, name
+        assert rec['cards'] == 4 and 'peak_mem_bytes' not in rec
+        assert rec['launches_by_rank'] == [{}] * 4
+    assert out['pp2_tp2']['spec']['tp'] == 2
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if '"pp_grid"' in l]
+    assert len(lines) == 7
+
+
+def test_pp_grid_phase_reports_one_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+    assert chip_smoke.pp_grid_phase('card') is None
+    assert 'did not run on one card' in capsys.readouterr().out
+
+
+def test_pipeline_phases_run_in_main_before_the_card_line():
+    """``pipeline_kernels`` runs after the Ulysses and ring phases and
+    before the grid phases, ``grid_phases`` runs ``pp_grid`` last, and
+    the kernels line carries the pipeline rows."""
+    import inspect
+    calls, card_line = _main_call_lines()
+    assert calls['ring_blocks_phase'] < calls['pipeline_kernels_phase'] < \
+        calls['grid_phases'] < card_line
+    assert calls['pipeline_rows'] < card_line
+    src = inspect.getsource(chip_smoke.grid_phases)
+    assert src.index('tp_ep_grid_phase(') < src.index('pp_grid_phase(')
+
+
+@pytest.mark.parametrize('name', ['fwd', 'dq', 'dkv'])
+def test_pipeline_rows_carry_the_stage_and_the_grid_launches(name):
+    rec = {'max_abs_err': 0.01, 'bitwise_repeat': True,
+           'cuda_kernel': '%s_wgmma_kernel<bf16,64>' % name, 'ms': 0.15,
+           'plain_ms': 9.0, 'library_ms': 0.13, 'library': 'sdpa',
+           'bound_ms': 0.05, 'bound_by': 'operations', 'tflops': 300.0,
+           'bound_share': 0.33}
+    recs = {n: dict(rec, cuda_kernel='%s_wgmma_kernel<bf16,64>' % n)
+            for n in ('fwd', 'dq', 'dkv')}
+    stage = {'fwd': 6, 'dq': 3, 'dkv': 3}
+    row = {r['name']: r for r in chip_smoke.pipeline_rows(
+        recs, stage, None)}['flash_attention_%s_pipeline' % name]
+    assert row['launches'] == stage[name]
+    assert row['shape'] == list(chip_smoke.PIPELINE_SHAPE)
+    assert row['launches_by_path'] == {'pipeline_stage': stage[name]}
+    pp = {run: {'launches': {recs[name]['cuda_kernel']: 72 + i}}
+          for i, run in enumerate(('gpipe', '1f1b_stash', '1f1b_remat'))}
+    row = {r['name']: r for r in chip_smoke.pipeline_rows(
+        recs, stage, pp)}['flash_attention_%s_pipeline' % name]
+    assert row['launches'] == 72
+    assert row['launches_by_path']['pp_grid_1f1b_remat'] == 74

@@ -14,7 +14,8 @@ telemetry plane (``telemetry.aggregate``, ``telemetry.monitor``) and
 round-trips a span batch and a monitor sample through them, and imports
 the sequence-parallel modules (``parallel.ring_attention``,
 ``parallel.ulysses``, ``parallel.mesh.RankGrid``) and runs both
-attentions over a seq group of one; an AST scan
+attentions over a seq group of one, and imports ``parallel.pipeline``
+and runs GPipe and 1F1B over a pipe group of one; an AST scan
 finds no import of any of them in any of the port's files. The
 scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
 name, never by prefix.
@@ -130,6 +131,21 @@ assert torch.allclose(ulysses.ulysses_attention(q, q, q, one),
                       atol=1e-5)
 assert mesh.RankGrid(1, 1, 0).shape['seq'] == 1
 assert ParallelSpec(sp=2, sp_mode='ulysses', zero=3).resolve_dp(4) == 2
+# pipeline parallelism: both schedules over a pipe group of one (the
+# plain composition), and the spec of a pipe axis
+from autodist_tpu_torch.parallel import pipeline
+w = torch.randn(2, 8, 8, requires_grad=True)
+x = torch.randn(4, 8)
+block = lambda p, h: (torch.tanh(h @ p['w']), None)
+outs = [pipeline.gpipe(block, {'w': w}, x, one, 2)[0],
+        pipeline.one_f_one_b(block, {'w': w}, x, one, 2,
+                             variant='remat')[0]]
+assert torch.equal(outs[0], outs[1])
+outs[0].sum().backward()
+assert w.grad is not None
+assert ParallelSpec(pp=2, microbatches=4, pp_schedule='1f1b').resolve_dp(4) \
+    == 2
+assert mesh.RankGrid(1, 1, 0).shape['pipe'] == 1
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                 ('jax', 'jaxlib', 'autodist_tpu', 'ml_dtypes') and
                 sys.modules[m])

@@ -284,12 +284,16 @@ def test_strategy_node_config_matches_jax(builder, model):
 
 
 def test_spec_beyond_dp_raises():
-    """The pipeline axis, which a later slice ports, still raises and
-    names the pipeline; tensor and expert parallelism, the multi-slice
-    data axis, sequence parallelism and ZeRO 2 / 3 construct and
-    resolve."""
-    with pytest.raises(NotImplementedError, match='pipeline'):
-        ParallelSpec(pp=2)
+    """Every axis constructs and resolves (the pipeline too, with its
+    schedule options); an unknown pipeline schedule or 1F1B variant
+    raises and names the option."""
+    spec = ParallelSpec(pp=2, microbatches=4, pp_schedule='1f1b',
+                        pp_variant='stash')
+    assert spec.resolve_dp(8) == 4
+    with pytest.raises(ValueError, match='pp_schedule'):
+        ParallelSpec(pp=2, pp_schedule='interleaved')
+    with pytest.raises(ValueError, match='pp_variant'):
+        ParallelSpec(pp=2, pp_variant='zb')
     spec = ParallelSpec(tp=2, ep=2, dcn_dp=2)
     assert (spec.tp, spec.ep, spec.dcn_dp) == (2, 2, 2)
     assert spec.resolve_dp(8) == 2

@@ -37,11 +37,11 @@ def attention(rank, world, mode, shape, seed, causal):
 
 
 def save_then_step(rank, world, init, batches, path, opt, spec,
-                   builder=None):
+                   builder=None, kind='lm'):
     """Train on ``batches[:-1]`` from ``init``, save the state to
     ``path`` (rank 0 writes), then one more step: {'tree' (the saved
     leaves, gathered), 'loss', 'params'}."""
-    trainer = cases.make_trainer('lm', opt=opt, spec=spec, builder=builder)
+    trainer = cases.make_trainer(kind, opt=opt, spec=spec, builder=builder)
     state = trainer.init(params=init)
     for b in batches[:-1]:
         state, _ = trainer.step(state, b)
@@ -52,11 +52,12 @@ def save_then_step(rank, world, init, batches, path, opt, spec,
             'params': cases.flat(trainer.get_params(state))}
 
 
-def restore_then_step(rank, world, path, batch, opt, spec, builder=None):
+def restore_then_step(rank, world, path, batch, opt, spec, builder=None,
+                      kind='lm'):
     """Restore the checkpoint at ``path`` into a trainer of ``spec``, then
     one step on ``batch``: {'tree' (the restored leaves, gathered),
     'step', 'loss', 'params'}."""
-    trainer = cases.make_trainer('lm', opt=opt, spec=spec, builder=builder)
+    trainer = cases.make_trainer(kind, opt=opt, spec=spec, builder=builder)
     state = trainer.init(seed=1)   # other params: the restore replaces them
     state, step = trainer.restore_state(CheckpointManager(path), state)
     tree = _flat_tree(trainer._state_tree(state))

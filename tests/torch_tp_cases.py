@@ -117,12 +117,14 @@ def indivisible_vocab(rank, world):
     return {'raised': None, 'message': ''}
 
 
-def grid_layout(rank, world, dp, sp, ep, tp, dcn_dp=1):
+def grid_layout(rank, world, dp, sp, ep, tp, dcn_dp=1, pp=1):
     """This rank's coordinates on a ``RankGrid`` and the global ranks of
-    each of its groups, and its data axis's node groups."""
+    each of its groups, its data axis's node groups, and whether the
+    (data, pipe, seq) and (pipe, seq) groups are the batch and seq
+    groups' objects (one communicator for one set of ranks)."""
     import torch.distributed as dist
     from autodist_tpu_torch.parallel.mesh import RankGrid
-    grid = RankGrid(dp, sp, rank, ep=ep, tp=tp, dcn_dp=dcn_dp)
+    grid = RankGrid(dp, sp, rank, ep=ep, tp=tp, dcn_dp=dcn_dp, pp=pp)
 
     def members(group):
         if group.size == 1:
@@ -132,6 +134,9 @@ def grid_layout(rank, world, dp, sp, ep, tp, dcn_dp=1):
         return dist.get_process_group_ranks(group.group)
     return {'coords': grid.coords(rank),
             'groups': {name: members(getattr(grid, name)) for name in
-                       ('data', 'seq', 'expert', 'model', 'batch')},
+                       ('data', 'pipe', 'seq', 'expert', 'model', 'batch')},
             'expert_model': members(grid.group('expert', 'model')),
-            'shape': grid.shape, 'node_groups': grid.node_groups}
+            'parts': members(grid.group('data', 'pipe', 'seq')),
+            'shape': grid.shape, 'node_groups': grid.node_groups,
+            'shared': (grid.group('data', 'pipe', 'seq') is grid.batch,
+                       grid.group('pipe', 'seq') is grid.seq)}

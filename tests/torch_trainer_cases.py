@@ -75,14 +75,20 @@ MOE_TINY = dict(moe_experts=4, moe_aux_coef=1.0)
 LM_KINDS = {'lm': {}, 'moe': MOE_TINY,
             'moe_remat': dict(MOE_TINY, remat=True),
             'lm_untied': dict(tied_embeddings=False),
-            'lm_chunk': dict(loss_chunk=16)}
+            'lm_chunk': dict(loss_chunk=16),
+            'lm4': dict(n_layers=4),
+            'lm4_untied_chunk_save_attn': dict(
+                n_layers=4, tied_embeddings=False, loss_chunk=16,
+                remat='save_attn')}
 
 
 def lm_config(kind):
     """``TransformerConfig.tiny`` keywords of an LM kind: 'lm', 'moe',
     'moe_remat' (the MoE model under per-block remat), 'lm_untied' (an
-    lm_head of its own) or 'lm_chunk' (the head and NLL in chunks of 16
-    rows)."""
+    lm_head of its own), 'lm_chunk' (the head and NLL in chunks of 16
+    rows), 'lm4' (4 layers, the pipeline tests' depth) or
+    'lm4_untied_chunk_save_attn' (4 layers, an lm_head of its own,
+    chunks of 16 rows, the 'save_attn' remat policy)."""
     return LM_KINDS[kind]
 
 
@@ -127,6 +133,20 @@ def masked_metric(model):
     return metrics_fn
 
 
+def logit_metrics(model):
+    """``metrics_fn`` on ``model.apply``'s logits: the top-1 accuracy (a
+    scalar, the rank's mean) and the token NLL as (sum, count)."""
+    def metrics_fn(params, batch):
+        logits = model.apply(params, batch['tokens'])
+        targets = batch['targets'].long()
+        hit = torch.argmax(logits, -1) == targets
+        nll = torch.nn.functional.cross_entropy(
+            logits.flatten(0, 1), targets.flatten(), reduction='sum')
+        return {'accuracy': hit.float().mean(),
+                'nll': (nll, float(targets.numel()))}
+    return metrics_fn
+
+
 def make_trainer(kind, opt=('adam', 1e-3), spec=None, builder=None,
                  tied=False, momentum=None, loss=None):
     model = make_model(kind, tied)
@@ -141,12 +161,14 @@ def make_trainer(kind, opt=('adam', 1e-3), spec=None, builder=None,
         model, optimizer, getattr(strategy, name)(**bkw), spec=spec)
 
 
-def train(rank, world, kind, init, batches, eval_batches=None, **kw):
+def train(rank, world, kind, init, batches, eval_batches=None,
+          metrics=None, **kw):
     """Steps over the global ``batches`` from the JAX-layout ``init``:
     {'losses', 'params' (flat, JAX paths), 'eval' (when asked; with a
     ``loss`` form, ``evaluate``'s dict with the pair ``masked_nll``
-    metric), 'warned' (the scalar-loss warning was logged), 'sharding'
-    (``Trainer.state_sharding``)}."""
+    metric; with ``metrics='logits'``, its dict with
+    :func:`logit_metrics`), 'warned' (the scalar-loss warning was
+    logged), 'sharding' (``Trainer.state_sharding``)}."""
     trainer = make_trainer(kind, **kw)
     state = trainer.init(params=init)
     losses = [float(trainer.step(state, b)[1]['loss']) for b in batches]
@@ -154,8 +176,10 @@ def train(rank, world, kind, init, batches, eval_batches=None, **kw):
            'warned': trainer._warned_scalar,
            'sharding': trainer.state_sharding()}
     if eval_batches is not None:
-        metrics = None if kw.get('loss') is None else \
-            masked_metric(trainer.model)
+        if metrics == 'logits':
+            metrics = logit_metrics(trainer.model)
+        elif kw.get('loss') is not None:
+            metrics = masked_metric(trainer.model)
         out['eval'] = trainer.evaluate(state, eval_batches,
                                        metrics_fn=metrics)
     return out
