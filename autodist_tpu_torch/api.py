@@ -146,6 +146,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from autodist_tpu_torch import optim
 from autodist_tpu_torch.const import (AXIS_DATA, AXIS_EXPERT, AXIS_MODEL,
                                       AXIS_PIPELINE, AXIS_SEQUENCE)
 from autodist_tpu_torch.models import weights
@@ -425,8 +426,16 @@ class Trainer:
         self._leaves = self._layout()
         opt_of = {id(l.tensor): l.opt for l in self._leaves}
         named = dict(self.model.named_parameters())
-        return TrainState(params=named, opt_state=self.optimizer(
-            [opt_of[id(p)] for p in named.values()]))
+        opt = self.optimizer([opt_of[id(p)] for p in named.values()])
+        if hasattr(opt, 'shard_groups'):
+            # an optimizer that takes whole-leaf norms (LAMB) sums them
+            # over the groups whose ranks hold the leaf's other shards
+            opt.shard_groups.update({
+                l.opt: [self.grid.group(axis) for axis in
+                        ([AXIS_DATA] if l.dim is not None else []) +
+                        [axis for _, axis in l.splits]]
+                for l in self._leaves if l.opt is not None})
+        return TrainState(params=named, opt_state=opt)
 
     def _params(self, grad=True):
         """The params tree the loss sees: held leaves all-gathered over
@@ -807,7 +816,8 @@ class Trainer:
 
     # -- checkpoint/resume of the full training state ----------------------
     def _slot_kind(self, opt):
-        if isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        if isinstance(opt, (torch.optim.Adam, torch.optim.AdamW,
+                            optim.Lamb)):
             return 'adam'
         if isinstance(opt, torch.optim.SGD):
             return 'trace' if opt.param_groups[0]['momentum'] else None

@@ -46,14 +46,17 @@ import json
 import os
 import pickle
 
-#: Shipped key templates -> abstract symbols of the JAX package's
-#: verified protocol model (its ``analysis/epoch_swap_model.py``); kept
-#: equal to the JAX table so the two key schemas cannot drift apart.
+#: Shipped key templates -> abstract symbols of the verified protocol
+#: model (``analysis/epoch_swap_model.py``); the swap-conformance
+#: analyzer pins this mapping against the model source. The JAX table's
+#: four entries plus the ready marker, which the port's model transitions
+#: on because it models the chief's re-key.
 MODEL_SYMBOLS = {
     'swap/<g>/plan': 'swap/stage',
     'swap/<g>/ack/<w>': 'swap/acks',
     'swap/<g>/nack/<w>': 'swap/nacks',
     'swap/<g>/B': 'swap/B',
+    'swap/<g>/ready': 'swap/ready',
 }
 
 PREFIX = 'swap/'

@@ -212,10 +212,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    each on one batch of its own. (a) The chief of a spec of two nodes
    launches the other through ``Coordinator`` over ``ssh`` / ``scp``
    exec shims (the shim log shows the strategy's ``scp`` and ``mv -f``
-   and the worker's identity); p1's pushes are delayed by its median
-   step (0.5 s at least) from its 8th, or later, once the chief's
-   monitor has refit the link constants and holds no verdict for p1; at
-   step 12 (or once that refit holds) the chief calls ``scale_up(1)``:
+   and the worker's identity); p1's pushes are delayed by twice its
+   median step (0.5 s at least) from its 8th, or later, once the chief's
+   monitor has refit the link constants and holds no verdict for p1 (the
+   CPU twin holds them instead, see ``LAUNCH_HOLD_FROM``); at step 12
+   (or once that refit holds and every member published it) the chief
+   calls ``scale_up(1)``:
    from p1's first delayed push on the monitor issues a ``slowdown``
    verdict for p1 on ``push``, and none that accuses p0 or p2 (a
    verdict for p1 before it, the host's, recovered before it), the
@@ -227,13 +229,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the fitted α and β against the analytic, and the span bytes a step.
    (b) ``python -m autodist_tpu_torch.launch`` over the same two nodes:
    rc 0, both records, the launcher's coord service gone;
+10e. ``analysis``: ``python -m autodist_tpu_torch.analysis --all
+   --json`` in a process of its own (exit 0, every analyzer clean), then
+   every worker's flight events of ``loose_elastic`` (all five runs)
+   and ``loose_launch`` replayed through the port's control-plane and
+   epoch-swap conformance checkers: every trace conformant, none empty,
+   the events a trace replayed printed;
+10f. ``examples``: ``examples_torch/bert.py --config bert_large
+   --optimizer lamb`` (seq 512, batch 8, bf16, remat: K1-K3 non-causal
+   at [8, 16, 512, 64], launches read a step and required of the checked
+   kernels), ``lm1b.py`` and ``ncf.py`` at their default widths, a
+   warm-up and 3 steps each (finite, falling losses), and
+   ``sentiment_classifier.py`` and ``linear_regression.py`` at theirs on
+   the card and on the CPU (W and b within 1e-4, the logged losses and
+   the embedding's norm within 1e-4 relative);
 11. the card's line, the ``kernels`` line (K1-K4 of the main paths:
    K1-K3 at head dim 64, at 256 and at 384, at the Ulysses shape (its
    launches: the one-rank local attention's, or with four cards the
-   grid's Ulysses run's) and at the pipeline's microbatch shape (the
+   grid's Ulysses run's), at the pipeline's microbatch shape (the
    stage's launches, or with two or more cards ``pp_grid``'s GPipe
-   run's), each row with the CUDA kernel that ran and its launches in
-   its own phase), and last
+   run's) and at bert_large's non-causal shape (the bert example's
+   launches a step), each row with the CUDA kernel that ran and its
+   launches in its own phase), and last
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time (CUDA events around back-to-back launches
@@ -2299,6 +2316,8 @@ def elastic_worker(args):
                     timeout_s=300.0)
     sess.close()
     ctl.close()
+    # every control-plane event of the run, for the analysis phase's replay
+    rec['flight_events'] = sess._flight.events()
     with open(os.path.join(out, '%s.g%d.json' % (name, rec['generation'])),
               'w') as f:
         json.dump(rec, f, default=lambda o: o.item() if hasattr(o, 'item')
@@ -2371,7 +2390,10 @@ class _ElasticRun:
     def record(self, worker, generation=0):
         with open(os.path.join(self.out, '%s.g%d.json'
                                % (worker, generation))) as f:
-            return json.load(f)
+            rec = json.load(f)
+        FLIGHT_TRACES['loose_elastic/%s/%s.g%d' % (
+            self.run, worker, generation)] = rec['flight_events']
+        return rec
 
     def kill_time(self, tag):
         with open(os.path.join(self.out, '%s.kill.json' % tag)) as f:
@@ -2833,7 +2855,10 @@ def loose_elastic_phase(cfg, steps, device, smi=None, runs=ELASTIC_RUNS,
 # head/bias, one a push) by LAUNCH_DELAY_RATIO times p1's median step
 # before the delay, LAUNCH_DELAY_S at least: a fixed delay on a host whose
 # steps other processes slow falls under the monitor's 1.5 ratio, so the
-# delay follows the step it is held against. At depth 2 a push overlaps
+# delay follows the step it is held against, twice over (at once p1's
+# median step, the verdict read 1.54 and 1.75 on the card: the others'
+# work grows by a third once the delay and the join load the card's
+# host). At depth 2 a push overlaps
 # the next step's compute, so a delay that a loaded host's compute reaches
 # hides in it: the floor is twice the CPU twin's undisturbed step under
 # load (0.25 s hid behind 0.3 s steps). Every delayed push is a link
@@ -2864,15 +2889,38 @@ def loose_elastic_phase(cfg, steps, device, smi=None, runs=ELASTIC_RUNS,
 # starts after the join, so the cohort trains on (LAUNCH_VERDICT_WAIT
 # steps at most) until the chief's monitor has issued a verdict for p1
 # from its first delayed push on (p1 publishes that push, the chief the
-# verdict's step).
+# verdict's step). That is the card's run, timed by clocks. Off the card
+# (the CPU twin, on a host other loads share) no requirement rests on a
+# delay outweighing the host's noise: from p1's LAUNCH_HOLD_FROM-th push
+# (the first the monitor's window keeps) each push is held until the chief
+# has published the verdict, longer at each hold (the push's share grows
+# until the verdict comes), then for the bound the verdict found, so p1 is
+# the cohort's slowest worker by far from the monitor's first window to
+# the run's end and no noise in the others' steps can accuse them; the
+# hold runs outside the push's RPC spans, so it needs no refit first; the
+# chief
+# starts it only while its monitor holds no verdict for p1 and none
+# pending, joins the third worker once its refit holds and every member
+# has published LAUNCH_JOIN_AT (the step the joiner adopts), and the
+# cohort trains on until the verdict and the migration have come.
 LAUNCH_STEPS = 32
 LAUNCH_EXTRA = 16          # steps past LAUNCH_STEPS while a migration lands
 LAUNCH_VERDICT_WAIT = 16   # and while no verdict for p1's delay has come
 LAUNCH_DELAY_FROM = 8
 LAUNCH_DELAY_S = 0.5
-LAUNCH_DELAY_RATIO = 1.0
+LAUNCH_DELAY_RATIO = 2.0
 LAUNCH_JOIN_AT = 12
 LAUNCH_JOIN_WAIT = 32
+# Off the card the run's events gate it, not clocks: p1's k-th held push
+# waits for the chief's published verdict on p1 for at most
+# LAUNCH_HOLD_GROWTH ** (k - 1) (LAUNCH_HOLD_MAX at most) times its first
+# hold; the join and the run's end wait for their events,
+# LAUNCH_EVENT_STEPS steps at most (a bound on a broken run, not a
+# timing).
+LAUNCH_HOLD_FROM = 4       # the first push the monitor's window keeps
+LAUNCH_HOLD_GROWTH = 2.0
+LAUNCH_HOLD_MAX = 4.0
+LAUNCH_EVENT_STEPS = 160
 LAUNCH_CLI_STEPS = 8
 LAUNCH_FALLING = 5
 LAUNCH_ENV = {'AUTODIST_TELEMETRY': '1',
@@ -2936,6 +2984,47 @@ def _push_delay_plan(key, first, last, seconds):
                       for at in range(first, last + 1)], seed=14)
 
 
+def _hold_pushes(sess, fault, address, verdict_key):
+    """Off the card, hold each of the session's pushes in which ``fault``
+    fired (its sleep set to 0) until the chief has published the
+    monitor's verdict on p1 (``verdict_key``), for at most the hold's
+    bound: the first hold's (``holds['first_s']``, set when the delay
+    starts) times LAUNCH_HOLD_GROWTH for each earlier hold,
+    LAUNCH_HOLD_MAX times at most. Once the verdict has come, each later
+    push is held for the bound the verdict found, so p1 stays the
+    cohort's slowest worker by far and no host noise in the others'
+    steps reads as theirs against a baseline that holds p1's. The hold
+    runs in the push's proxy refresh, inside its ``push_deltas`` span and
+    outside every RPC's, so no link sample of the monitor's refit carries
+    it. The wait polls the key over a connection of its own. Returns the
+    holds' record: ``{'first_s', 'after_s', 'waits': [seconds held]}``."""
+    from autodist_tpu_torch.runtime import coord_client as cc
+    holds = {'first_s': None, 'after_s': None, 'waits': [], 'fired': 0}
+    ctl = cc.connect_with_retry(address)
+    refresh = sess._refresh_proxies
+
+    def held(*args, **kw):
+        fired, holds['fired'] = holds['fired'], len(fault.events)
+        if holds['first_s'] is not None and len(fault.events) > fired:
+            t0 = time.perf_counter()
+            if holds['after_s'] is None:
+                bound = holds['first_s'] * min(
+                    LAUNCH_HOLD_GROWTH ** len(holds['waits']),
+                    LAUNCH_HOLD_MAX)
+                while not ctl.incr(verdict_key, 0) and \
+                        time.perf_counter() - t0 < bound:
+                    time.sleep(0.02)
+                if ctl.incr(verdict_key, 0):
+                    holds['after_s'] = bound
+            else:
+                time.sleep(holds['after_s'])
+            holds['waits'].append(time.perf_counter() - t0)
+        return refresh(*args, **kw)
+
+    sess._refresh_proxies = held
+    return holds
+
+
 def launch_worker(args):
     """One process of a ``loose_launch`` run (``chip_smoke.py
     --launch-run JSON``), the same script on every node: the chief when
@@ -2953,13 +3042,24 @@ def launch_worker(args):
             'loose_launch %s: not in loose mode' % run)
     name, coord = sess._worker_name, autodist._coord
     pid = int(name[1:])
+    # on the card clocks time the scenario; elsewhere its events do
+    clocked = torch.device(args['device']).type == 'cuda'
+    delay_from = LAUNCH_DELAY_FROM if clocked else LAUNCH_HOLD_FROM
+    join_wait = LAUNCH_JOIN_WAIT if clocked else LAUNCH_EVENT_STEPS
+    extra = (LAUNCH_EXTRA, LAUNCH_VERDICT_WAIT) if clocked else \
+        (LAUNCH_EVENT_STEPS, LAUNCH_EVENT_STEPS)
+    join_key = sess._key('launch/join_step')
+    delay_key = sess._key('launch/delay_step')
+    delay_from_key = sess._key('launch/delay_from')
+    verdict_key = sess._key('launch/verdict_step')
     fault = None
     if run == 'ssh' and name == 'p1':
         fault = FaultLine(_push_delay_plan(
-            sess._key('var/head/bias'), LAUNCH_DELAY_FROM,
-            LAUNCH_STEPS + LAUNCH_JOIN_WAIT + LAUNCH_EXTRA +
-            LAUNCH_VERDICT_WAIT, LAUNCH_DELAY_S))
+            sess._key('var/head/bias'), delay_from,
+            LAUNCH_STEPS + join_wait + sum(extra), LAUNCH_DELAY_S))
         fault.install()
+        if not clocked:
+            holds = _hold_pushes(sess, fault, coord.address, verdict_key)
     feed = dict(zip(feeds, ncf_batch(cfg, 1000 * (pid + 1))))
     rec = {'worker': name, 'pid': pid, 'started': started,
            'joining': sess._joining, 'start_step': sess.step_count,
@@ -2967,11 +3067,6 @@ def launch_worker(args):
 
     def migrated():
         return any(e.get('migrated') for e in sess._health['replans'])
-
-    join_key = sess._key('launch/join_step')
-    delay_key = sess._key('launch/delay_step')
-    delay_from_key = sess._key('launch/delay_from')
-    verdict_key = sess._key('launch/verdict_step')
 
     def last_step():
         """Run (a) trains as many steps past the join as past one at
@@ -2981,12 +3076,12 @@ def launch_worker(args):
         since its delay started (the chief publishes its step)."""
         if run != 'ssh':
             return args['steps']
-        join = coord.incr(join_key, 0) or LAUNCH_JOIN_AT + LAUNCH_JOIN_WAIT
+        join = coord.incr(join_key, 0) or LAUNCH_JOIN_AT + join_wait
         end = args['steps'] + join - LAUNCH_JOIN_AT
         if not migrated():
-            end += LAUNCH_EXTRA
+            end += extra[0]
         if not coord.incr(verdict_key, 0):
-            end += LAUNCH_VERDICT_WAIT
+            end += extra[1]
         return end
 
     while sess.step_count < args['steps'] or \
@@ -2998,7 +3093,7 @@ def launch_worker(args):
                              'loss': value,
                              'parties': sess._active_workers()})
         if fault is not None and 'delay_s' not in rec and \
-                s >= LAUNCH_DELAY_FROM - 2:
+                s >= delay_from - 2:
             if coord.incr(delay_key, 0):
                 # two steps before the first delayed push: the delay
                 # follows p1's own median step (its first step, the
@@ -3009,19 +3104,29 @@ def launch_worker(args):
                 rec['delay_from'] = fault.plan.faults[0]['at']
                 coord.incr(delay_from_key, rec['delay_from'])
                 for f in fault.plan.faults:
-                    f['seconds'] = rec['delay_s']
+                    # off the card the hold waits instead of the sleep
+                    f['seconds'] = rec['delay_s'] if clocked else 0.0
+                if not clocked:
+                    holds['first_s'] = rec['delay_s']
             else:
                 # not cleared yet: the first delayed push moves a step on
                 for f in fault.plan.faults:
                     f['at'] += 1
+        if run == 'ssh' and sess._is_chief and sess.monitor is not None \
+                and sess.monitor.calibrated_params() is not None:
+            rec.setdefault('refit_at', s)
+        # the card's delay waits for the refit (its delayed frames are
+        # link samples); the hold off the card is in none and need not.
+        # Both wait while the monitor holds a verdict for p1 or one
+        # pending confirmation: the host's noise must not ride into them
         if run == 'ssh' and sess._is_chief and 'delay_cleared_at' not in rec \
                 and sess.monitor is not None and \
-                sess.monitor.calibrated_params() is not None:
-            rec.setdefault('refit_at', s)
-            if not any(v['worker'] == 'p1'
-                       for v in sess.monitor.verdicts()):
-                rec['delay_cleared_at'] = s
-                coord.incr(delay_key, s)
+                ('refit_at' in rec or not clocked) and \
+                not any(v['worker'] == 'p1'
+                        for v in sess.monitor.verdicts()) and \
+                'p1' not in sess.monitor._pending:
+            rec['delay_cleared_at'] = s
+            coord.incr(delay_key, s)
         if run == 'ssh' and sess._is_chief and 'verdict_at' not in rec and \
                 sess.monitor is not None and coord.incr(delay_from_key, 0):
             start = coord.incr(delay_from_key, 0)
@@ -3034,9 +3139,13 @@ def launch_worker(args):
                 1 for e in sess.monitor.events if e['kind'] == 'slowdown')
         if run == 'ssh' and sess._is_chief and 'scaled_up' not in rec and \
                 s >= LAUNCH_JOIN_AT and (
-                    s >= LAUNCH_JOIN_AT + LAUNCH_JOIN_WAIT or (
+                    s >= LAUNCH_JOIN_AT + join_wait or (
                         sess.monitor is not None and
-                        sess.monitor.calibrated_params() is not None)):
+                        sess.monitor.calibrated_params() is not None and
+                        # the joiner adopts the members' least published
+                        # step: every member at the join step or past it
+                        min(sess.peer_step(i) for i in
+                            sess._live_members()) >= LAUNCH_JOIN_AT)):
             rec['scaled_up_at'] = s
             coord.incr(join_key, s)
             t_join = time.time()
@@ -3048,6 +3157,8 @@ def launch_worker(args):
             rec['join_claim_s'] = time.time() - t_join
     # a read lands this worker's last push
     sess.get_variable_value(sorted(sess._graph_item.graph.variables)[0])
+    if fault is not None and not clocked:
+        rec['holds'] = holds
     rec['migrated'] = migrated()
     rec['ps_stats'] = sess.ps_stats
     tag = args['tag']
@@ -3063,6 +3174,7 @@ def launch_worker(args):
             sess._key('telemetry/'))
         rec['trace_path'] = sess.trace_path
     rec['health'] = sess.health_stats
+    rec['flight_events'] = sess._flight.events()
     rec['telemetry_pushed_bytes'] = sess.telemetry_pushed_bytes
     rec['faults_fired'] = len(fault.events) if fault is not None else 0
     if sess._is_chief and autodist._coordinator is not None:
@@ -3137,7 +3249,10 @@ def _launch_record(out, worker, log):
     require(os.path.exists(path), 'loose_launch: %s left no record:\n%s'
             % (worker, log[-4000:]))
     with open(path) as f:
-        return json.load(f)
+        rec = json.load(f)
+    FLIGHT_TRACES['loose_launch/%s/%s' % (os.path.basename(out),
+                                          worker)] = rec['flight_events']
+    return rec
 
 
 def _eps(cfg, steps, lo, hi):
@@ -3289,7 +3404,11 @@ def launch_ssh_run(cfg, device, tmp, smi=None):
         verdict_published_at=p0.get('verdict_at'),
         delay={'from_push': p1['delay_from'], 'seconds': p1['delay_s'],
                'floor_s': LAUNCH_DELAY_S, 'ratio': LAUNCH_DELAY_RATIO,
-               'fired': p1['faults_fired']})
+               'fired': p1['faults_fired'],
+               # off the card: each push's hold (until the verdict came,
+               # then the bound it found)
+               'holds_s': (p1.get('holds') or {}).get('waits'),
+               'hold_after_s': (p1.get('holds') or {}).get('after_s')})
     emit(card=smi, **res)
     return res
 
@@ -3342,6 +3461,180 @@ def loose_launch_phase(cfg, device, smi=None):
     out['seconds'] = time.time() - t0
     emit(phase='loose_launch', seconds=out['seconds'], card=smi)
     return out
+
+
+# -- the analysis subsystem ---------------------------------------------------
+# analysis: the port's analyzers as a user runs them (python -m
+# autodist_tpu_torch.analysis --all --json, a process of its own: the
+# model checkers, the lints over the port's sources), then the flight
+# events the loose phases' workers recorded on the card, each worker's
+# trace replayed through the port's control-plane and epoch-swap
+# conformance checkers. The loose phases fill FLIGHT_TRACES as they read
+# their workers' records.
+ANALYZERS = ('protocol', 'data-plane', 'epoch-swap', 'swap-conformance',
+             'fence', 'env', 'schedule')
+FLIGHT_TRACES = {}
+
+
+def replay_traces(traces):
+    """{trace name: its events' count} after each trace replayed clean
+    through ``conformance.check_events`` and
+    ``swap_conformance.check_swap_events``; an empty trace, or none at
+    all, fails."""
+    from autodist_tpu_torch.analysis import conformance, swap_conformance
+    require(traces, 'analysis: no flight trace to replay')
+    counts = {}
+    for name, events in sorted(traces.items()):
+        require(events, 'analysis: the trace of %s is empty' % name)
+        findings = conformance.check_events(events) + \
+            swap_conformance.check_swap_events(events)
+        require(not findings, 'analysis: the trace of %s does not conform:'
+                ' %s' % (name, findings[:5]))
+        counts[name] = len(events)
+    return counts
+
+
+def analysis_phase(traces, smi=None, analyzers=ANALYZERS):
+    """``analysis`` (see above); ``analyzers`` narrows the CLI's run to
+    those (the CPU twin runs the lints). Returns the record."""
+    flags = ['--all'] if set(analyzers) == set(ANALYZERS) else \
+        ['--' + name for name in analyzers]
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'autodist_tpu_torch.analysis', '--json'] +
+        flags, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.time() - t0
+    require(proc.returncode == 0, 'analysis: python -m '
+            'autodist_tpu_torch.analysis --all exited %d:\n%s\n%s'
+            % (proc.returncode, proc.stdout[-4000:], proc.stderr[-3000:]))
+    report = json.loads(proc.stdout)
+    require(report['clean'] and set(report['analyzers']) == set(analyzers)
+            and not any(r['findings']
+                        for r in report['analyzers'].values()),
+            'analysis: an analyzer has findings: %r' % {
+                k: r['findings'] for k, r in report['analyzers'].items()})
+    t0 = time.time()
+    counts = replay_traces(traces)
+    rec = dict(phase='analysis', cli=flags, cli_s=cli_s,
+               cli_rc=proc.returncode,
+               analyzers={k: {'elapsed_s': r['elapsed_s'],
+                              'states_explored': r.get('states_explored')}
+                          for k, r in report['analyzers'].items()},
+               traces=len(counts), events_replayed=counts,
+               replay_s=time.time() - t0)
+    emit(card=smi, **rec)
+    return rec
+
+
+# -- the last five examples ----------------------------------------------------
+# examples: examples_torch/bert.py (bert_large at seq 512, batch 8, LAMB: the
+# flash kernels, non-causal, at [8, 16, 512, 64]), lm1b.py, ncf.py,
+# sentiment_classifier.py and linear_regression.py at their default widths,
+# each through its run() as its main() calls it; the trainers' examples
+# take a warm-up and EXAMPLE_STEPS steps, each step's loss read. The two
+# DSL examples are seeded from numpy whole: their values on the card are
+# held to the same run on the CPU.
+EXAMPLE_STEPS = 3
+EXAMPLE_TINY = {'bert': ['--config', 'tiny'], 'lm1b': ['--tiny'],
+                'ncf': ['--tiny']}
+EXAMPLE_DSL_TOL = 1e-4
+
+
+def _falls(losses):
+    return len(losses) > 1 and all(math.isfinite(x) for x in losses) and \
+        losses[-1] < losses[0]
+
+
+def examples_phase(device, smi=None, tiny=False):
+    """``examples`` (see above); ``tiny`` runs the trainers' examples at
+    their tiny widths (the CPU twin). Returns the record."""
+    from autodist_tpu_torch import autodist as ad_mod
+    cuda = torch.device(device).type == 'cuda'
+    rec = {'phase': 'examples', 'device': str(device)}
+    for name in ('bert', 'lm1b', 'ncf'):
+        example = _example(name)
+        argv = ['--steps', str(EXAMPLE_STEPS), '--device', str(device)]
+        if name == 'bert':
+            argv += ['--config', 'bert_large', '--optimizer', 'lamb']
+        if tiny:
+            argv += EXAMPLE_TINY[name]
+        args = example.parse(argv)
+        losses = []
+        t0 = time.time()
+        fa.reset_launches()
+        rate = example.run(args, losses)[0]
+        launches, by_kernel = dict(fa.LAUNCHES), dict(fa.KERNEL_LAUNCHES)
+        rec[name] = {'argv': argv, 'losses': losses, 'rate': rate,
+                     'seconds': time.time() - t0}
+        require(_falls(losses), 'examples %s: the losses do not fall: %r'
+                % (name, losses))
+        if name == 'bert':
+            steps = EXAMPLE_STEPS + 1    # the warm-up and the timed steps
+            rec[name].update(seq=args.seq or (
+                512 if args.config == 'bert_large' else 64),
+                batch=args.batch, launches=launches,
+                kernel_launches=by_kernel,
+                launches_a_step={k: n // steps
+                                 for k, n in launches.items()})
+            if cuda and not tiny:
+                require(all(n > 0 and n % steps == 0
+                            for n in launches.values()),
+                        'examples bert: K1-K3 launched %r over %d steps'
+                        % (launches, steps))
+        if cuda:
+            torch.cuda.empty_cache()
+    dsl = {}
+    for name in ('linear_regression', 'sentiment_classifier'):
+        example = _example(name)
+        dsl[name] = {}
+        for dev in (str(device), 'cpu'):
+            ad_mod._DEFAULT_AUTODIST.clear()
+            dsl[name][dev] = example.run(device=dev, log=lambda line: None)
+        if cuda:
+            torch.cuda.empty_cache()
+    lin, senti = dsl['linear_regression'], dsl['sentiment_classifier']
+    ondev, cpu = lin[str(device)], lin['cpu']
+    lin_err = {'W': abs(ondev['W'] - cpu['W']), 'b': abs(ondev['b'] - cpu['b']),
+               'losses_rel': max(abs(a - b) / abs(b) for a, b in zip(
+                   ondev['losses'], cpu['losses']))}
+    ondev, cpu = senti[str(device)], senti['cpu']
+    senti_err = {'losses_rel': max(
+        abs(ondev['losses'][k] - cpu['losses'][k]) / abs(cpu['losses'][k])
+        for k in cpu['losses']),
+        'emb_norm_rel': abs(ondev['emb_norm'] - cpu['emb_norm']) /
+        cpu['emb_norm']}
+    rec['linear_regression'] = dict(lin[str(device)], cpu=lin['cpu'],
+                                    err=lin_err, tol=EXAMPLE_DSL_TOL)
+    rec['sentiment_classifier'] = dict(
+        senti[str(device)], cpu=senti['cpu'], err=senti_err,
+        tol=EXAMPLE_DSL_TOL)
+    emit(card=smi, **rec)
+    require(_falls(lin[str(device)]['losses']) and
+            _falls(list(senti[str(device)]['losses'].values())),
+            'examples: a DSL example\'s losses do not fall')
+    require(max(lin_err.values()) <= EXAMPLE_DSL_TOL,
+            'examples linear_regression on %s differs from the CPU: %r'
+            % (device, lin_err))
+    require(max(senti_err.values()) <= EXAMPLE_DSL_TOL,
+            'examples sentiment_classifier on %s differs from the CPU: %r'
+            % (device, senti_err))
+    return rec
+
+
+def bert_rows(rec, launches, steps=EXAMPLE_STEPS + 1):
+    """K1-K3's rows of the ``kernels`` line at bert_large's non-causal
+    shape: ``rec`` from ``check_kernels(BERT_SHAPE, False, bf16,
+    timed=True)``, ``launches`` the bert example's run's (its warm-up and
+    timed ``steps``), also given a step."""
+    rows = []
+    for name in ('fwd', 'dq', 'dkv'):
+        row = flash_row(name, rec[name], launches[name], BERT_SHAPE,
+                        '_bert_large')
+        row['causal'] = False
+        row['launches_a_step'] = launches[name] // steps
+        row['launches_by_path'] = {'examples_bert': launches[name]}
+        rows.append(row)
+    return rows
 
 
 # -- head dims beside 64 ------------------------------------------------------
@@ -5020,6 +5313,20 @@ def main(argv):
     # cohort telemetry plane (span push, the monitor's verdicts, the
     # re-rank on measured link constants)
     loose_launch_phase(NCF_FULL, 'cuda', smi)
+    # this slice's paths: the analysis subsystem (its CLI, then the loose
+    # phases' traces from the card replayed), and the last five examples,
+    # bert_large at seq 512 through K1-K3 (non-causal)
+    analysis_phase(FLIGHT_TRACES, smi)
+    torch.cuda.empty_cache()
+    examples = examples_phase('cuda', smi)
+    bert_rec = results[(BERT_SHAPE, False, torch.bfloat16)]
+    ran = examples['bert']['kernel_launches']
+    require(all(ran.get(bert_rec[name]['cuda_kernel'], 0) ==
+                examples['bert']['launches'][name]
+                for name in ('fwd', 'dq', 'dkv')),
+            'examples bert: the launches were not all of the checked '
+            'kernels: %r' % ran)
+    torch.cuda.empty_cache()
 
     # K1-K3 at each head dim's main-path shape, with the launches of the
     # phase that gives the kernels that shape
@@ -5051,6 +5358,7 @@ def main(argv):
             kernels.append(row)
     kernels += ulysses_rows(uly_recs, uly_launches, grid, tp)
     kernels += pipeline_rows(pk_recs, pk_launches, pp)
+    kernels += bert_rows(bert_rec, examples['bert']['launches'])
     # K4: launch-weighted means over ResNet-101's main-path shapes
     weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]
 

@@ -16,16 +16,22 @@ def add_device_flag(parser):
                         help="where to run: 'cuda' (default) or 'cpu'")
 
 
-def timed_steps(trainer, state, batch, steps):
+def timed_steps(trainer, state, batch, steps, losses=None):
     """Place the batch once, take one warm-up step, then time ``steps``
     steps. The host read of the loss (``float``) fences each timing.
-    Returns ``(state, last_loss, elapsed_s)``."""
+    With a list as ``losses``, every step's loss (the warm-up's first) is
+    appended to it, a host read each step. Returns ``(state, last_loss,
+    elapsed_s)``."""
     step = trainer.compile_step(state, batch)
     batch = trainer.shard_batch(batch)
     state, metrics = step(state, batch)   # warm-up
-    float(metrics['loss'])
+    first = float(metrics['loss'])
+    if losses is not None:
+        losses.append(first)
     t0 = time.perf_counter()
     for _ in range(steps):
         state, metrics = step(state, batch)
+        if losses is not None:
+            losses.append(float(metrics['loss']))
     loss = float(metrics['loss'])
     return state, loss, time.perf_counter() - t0

@@ -868,7 +868,8 @@ def test_swap_peer_killed_at_each_handshake_stage(service, monkeypatch,
     the serial ground truth (a same-strategy swap moves values, never
     recomputes them), and the chief's own flight trace replays clean
     through the swap-conformance invariants."""
-    from autodist_tpu.analysis import swap_conformance
+    from autodist_tpu.analysis import swap_conformance as jax_swapc
+    from autodist_tpu_torch.analysis import swap_conformance
     from autodist_tpu.runtime import swap_keys
     from autodist_tpu.runtime.coord_client import CoordClient
     from autodist_tpu.utils.faultline import (FaultLine, FaultPlan,
@@ -943,7 +944,8 @@ def test_swap_peer_killed_at_each_handshake_stage(service, monkeypatch,
         assert applies[0]['step'] >= swap['boundary']
         assert not [e for e in swaps if e['kind'] == 'swap_cancel']
         # the chief's live trace conforms to the verified model
-        assert swap_conformance.check_swap_events(events) == []
+        assert swap_conformance.check_swap_events(events) == [] == \
+            jax_swapc.check_swap_events(events)
         # and the wire agrees: one staged generation, still visible
         c = CoordClient(('127.0.0.1', service))
         assert swap_keys.current_gen(c, h.ns) == 1
@@ -958,7 +960,8 @@ def test_swap_nack_cancels_cleanly(service, monkeypatch):
     (plan, acks, armed marker), the audit entry records the per-worker
     reason, no boundary is ever armed, and the cohort trains on under
     the old plan along the unchanged trajectory."""
-    from autodist_tpu.analysis import swap_conformance
+    from autodist_tpu.analysis import swap_conformance as jax_swapc
+    from autodist_tpu_torch.analysis import swap_conformance
     from autodist_tpu_torch.runtime import swap_keys
     from autodist_tpu_torch.runtime.coord_client import CoordClient
     monkeypatch.setenv('AUTODIST_HEARTBEAT_TIMEOUT', '0')
@@ -1026,7 +1029,8 @@ def test_swap_nack_cancels_cleanly(service, monkeypatch):
                  if e['kind'].startswith('swap_')]
         assert 'swap_stage' in kinds and 'swap_cancel' in kinds
         assert 'swap_arm' not in kinds and 'swap_apply' not in kinds
-        assert swap_conformance.check_swap_events(events) == []
+        assert swap_conformance.check_swap_events(events) == [] == \
+            jax_swapc.check_swap_events(events)
         # the old plan still trains, on the unchanged trajectory
         for _ in range(2):
             sess.run(h.train_op, {h.x: h.feed})

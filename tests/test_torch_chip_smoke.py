@@ -523,7 +523,7 @@ def test_chip_smoke_and_examples_import_no_jax():
     import os
     files = [chip_smoke.__file__] + sorted(glob.glob(os.path.join(
         os.path.dirname(chip_smoke.__file__), 'examples_torch', '*.py')))
-    assert len(files) == 5
+    assert len(files) == 10
     for path in files:
         with open(path) as f:
             mods = set(_imports(f.read(), path))
@@ -659,6 +659,12 @@ def test_loose_elastic_phase_at_tiny_width():
     out = chip_smoke.loose_elastic_phase(chip_smoke.NCF_SMALL,
                                          chip_smoke.ELASTIC_STEPS, 'cpu')
     assert list(out) == list(chip_smoke.ELASTIC_RUNS)
+    # every worker's flight events replay clean (the analysis phase's
+    # replay of the card's traces)
+    traces = {k: v for k, v in chip_smoke.FLIGHT_TRACES.items()
+              if k.startswith('loose_elastic/')}
+    assert {k.split('/')[1] for k in traces} == set(chip_smoke.ELASTIC_RUNS)
+    assert all(n > 0 for n in chip_smoke.replay_traces(traces).values())
     grow = out['grow']
     assert grow['replan']['world'] == 3 and grow['replan']['predicted']
     assert [w['start_step'] for w in grow['workers']] == \
@@ -711,7 +717,13 @@ def test_loose_launch_phase_at_tiny_width():
     exits 0 and its coord service is gone. The requirements are the
     card's; the records carry what the card's run prints. The tables are
     20,000 and 5,000 rows (NCF_SMALL's are too small for a pull to
-    weigh against an RPC's latency, and the link fit needs both)."""
+    weigh against an RPC's latency, and the link fit needs both). Off
+    the card the run's events gate it, not clocks: p1's pushes are held
+    until the chief has published the verdict (each hold may last
+    longer than the one before), the join waits for the refit and for
+    every member at the join step, and the run for the verdict and the
+    migration; so no requirement rests on a delay outweighing a loaded
+    host's noise. Every worker's flight events replay clean."""
     out = chip_smoke.loose_launch_phase(NCF_LAUNCH_CPU, 'cpu')
     ssh, cli = out['ssh'], out['cli']
 
@@ -738,6 +750,17 @@ def test_loose_launch_phase_at_tiny_width():
         part(ssh, 'fitted', 'analytic', 'recalibrations')
     assert cli['rc'] == 0 and cli['service_gone'], \
         part(cli, 'rc', 'service_gone', 'seconds', 'losses')
+    # p1's pushes were held until the verdict came, each hold no longer
+    # than its bound, and each after it for the bound the verdict found
+    holds, first = ssh['delay']['holds_s'], ssh['delay']['seconds']
+    assert holds and ssh['delay']['hold_after_s'] and all(
+        w <= first * min(chip_smoke.LAUNCH_HOLD_GROWTH ** i,
+                         chip_smoke.LAUNCH_HOLD_MAX) + 0.5
+        for i, w in enumerate(holds)), part(ssh, 'delay')
+    traces = {k: v for k, v in chip_smoke.FLIGHT_TRACES.items()
+              if k.startswith('loose_launch/')}
+    assert len(traces) == 5, sorted(traces)
+    assert all(n > 0 for n in chip_smoke.replay_traces(traces).values())
 
 
 # -- the ring's blocks, the grid and its report ------------------------------
@@ -988,3 +1011,84 @@ def test_pipeline_rows_carry_the_stage_and_the_grid_launches(name):
         recs, stage, pp)}['flash_attention_%s_pipeline' % name]
     assert row['launches'] == 72
     assert row['launches_by_path']['pp_grid_1f1b_remat'] == 74
+
+
+# -- the analysis subsystem and the last five examples ---------------------
+def test_analysis_and_examples_run_in_main_after_the_loose_launch():
+    calls, card_line = _main_call_lines()
+    assert calls['loose_launch_phase'] < calls['analysis_phase'] < \
+        calls['examples_phase'] < calls['bert_rows'] < card_line
+
+
+def _loose_trace():
+    """The flight events of a loose worker's two steps in this process
+    (from its session's ``run_start`` on)."""
+    from autodist_tpu_torch.telemetry import flight
+    services = chip_smoke.start_services(1)
+    try:
+        chip_smoke.loose_single_run(chip_smoke.NCF_SMALL, 2, 'cpu',
+                                    services[0][0], 2)
+    finally:
+        chip_smoke.stop_services(services)
+    events = flight.recorder().events()
+    start = max(i for i, e in enumerate(events) if e['kind'] == 'run_start')
+    return events[start:]
+
+
+def test_analysis_phase_on_the_cpu():
+    """The CLI runs the lints in a process of its own (exit 0, clean) and
+    a loose worker's trace replays clean; an empty trace and one that
+    does not conform (a publish after the worker's exclusion) fail."""
+    trace = _loose_trace()
+    assert {'run_start', 'step_publish'} <= {e['kind'] for e in trace}
+    lints = ('fence', 'env', 'swap-conformance', 'schedule')
+    rec = chip_smoke.analysis_phase({'loose_single': trace},
+                                    analyzers=lints)
+    assert rec['cli_rc'] == 0 and set(rec['analyzers']) == set(lints)
+    assert rec['events_replayed'] == {'loose_single': len(trace)}
+    with pytest.raises(RuntimeError, match='empty'):
+        chip_smoke.replay_traces({'none': []})
+    seq = trace[-1]['seq']
+    zombie = trace + [
+        {'seq': seq + 1, 'kind': 'fence_bump', 'worker': 'p7'},
+        {'seq': seq + 2, 'kind': 'exclude_claim', 'worker': 'p7'},
+        {'seq': seq + 3, 'kind': 'step_publish', 'worker': 'p7', 'step': 9}]
+    with pytest.raises(RuntimeError, match='fenced-write-commit'):
+        chip_smoke.replay_traces({'zombie': zombie})
+
+
+def test_examples_phase_at_tiny_width():
+    """The bert, lm1b and ncf examples at their tiny widths (3 steps after
+    a warm-up, falling losses) and the two DSL examples at theirs, on
+    the CPU twice (the card's run against the CPU's, here the CPU's
+    against itself): the same record the card's run prints."""
+    rec = chip_smoke.examples_phase('cpu', tiny=True)
+    for name in ('bert', 'lm1b', 'ncf'):
+        losses = rec[name]['losses']
+        assert len(losses) == chip_smoke.EXAMPLE_STEPS + 1, name
+        assert losses[-1] < losses[0], (name, losses)
+    # seq 64: the plain attention, no kernel
+    assert rec['bert']['seq'] == 64 and rec['bert']['launches'] == {
+        'fwd': 0, 'dq': 0, 'dkv': 0}
+    assert rec['linear_regression']['err'] == {'W': 0.0, 'b': 0.0,
+                                               'losses_rel': 0.0}
+    assert rec['sentiment_classifier']['err']['emb_norm_rel'] == 0.0
+    assert rec['sentiment_classifier']['emb_shape'] == (10000, 16)
+
+
+def test_bert_rows_are_the_non_causal_bert_large_kernels():
+    rec = {name: {'max_abs_err': 0.01, 'cuda_kernel': '%s_wgmma_kernel'
+                  '<bf16,64>' % name, 'ms': 0.1, 'plain_ms': 2.0,
+                  'library_ms': 0.1, 'library': 'sdpa', 'bound_ms': 0.05,
+                  'bound_by': 'operations', 'tflops': 300.0,
+                  'bound_share': 0.5} for name in ('fwd', 'dq', 'dkv')}
+    rows = chip_smoke.bert_rows(rec, {'fwd': 192, 'dq': 96, 'dkv': 96})
+    assert [r['name'] for r in rows] == [
+        'flash_attention_%s_bert_large' % n for n in ('fwd', 'dq', 'dkv')]
+    assert [r['launches'] for r in rows] == [192, 96, 96]
+    assert [r['launches_a_step'] for r in rows] == [48, 24, 24]
+    for row in rows:
+        assert row['causal'] is False and row['shape'] == [8, 16, 512, 64]
+        for key in ('route', 'source', 'replaces', 'max_abs_err', 'ms',
+                    'plain_ms', 'bound_ms', 'bound_by', 'library_ms'):
+            assert key in row, key

@@ -11,12 +11,14 @@ and round-trips a staged swap plan (whose pickle names the JAX
 package's classes) through them, and imports the launch
 (``autodist_tpu_torch.launch``, ``runtime.coordinator``) and the
 telemetry plane (``telemetry.aggregate``, ``telemetry.monitor``) and
-round-trips a span batch and a monitor sample through them, and imports
-the sequence-parallel modules (``parallel.ring_attention``,
+round-trips a span batch and a monitor sample through them, imports
+the analysis subsystem (two of its lints run clean) and steps LAMB, and
+imports the sequence-parallel modules (``parallel.ring_attention``,
 ``parallel.ulysses``, ``parallel.mesh.RankGrid``) and runs both
 attentions over a seq group of one, and imports ``parallel.pipeline``
 and runs GPipe and 1F1B over a pipe group of one; an AST scan
-finds no import of any of them in any of the port's files. The
+finds no import of any of them in any of the port's files (its package,
+its examples and ``chip_smoke.py``). The
 scan tells ``autodist_tpu_torch`` from ``autodist_tpu`` by exact module
 name, never by prefix.
 """
@@ -146,6 +148,17 @@ assert w.grad is not None
 assert ParallelSpec(pp=2, microbatches=4, pp_schedule='1f1b').resolve_dp(4) \
     == 2
 assert mesh.RankGrid(1, 1, 0).shape['pipe'] == 1
+# the analysis subsystem and LAMB
+from autodist_tpu_torch.analysis import (conformance, data_plane_model,
+                                         env_lint, epoch_swap_model, explore,
+                                         fence_lint, protocol_model,
+                                         schedule_lint, swap_conformance)
+assert fence_lint.analyze() == [] and swap_conformance.analyze() == []
+p = torch.nn.Parameter(torch.ones(3))
+opt = optim.lamb(1e-2)([p])
+p.grad = torch.ones(3)
+opt.step()
+assert torch.allclose(p.detach(), torch.full((3,), 0.99))
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                 ('jax', 'jaxlib', 'autodist_tpu', 'ml_dtypes') and
                 sys.modules[m])
@@ -163,11 +176,11 @@ def test_port_runs_without_jax():
 
 
 def _port_files():
-    root = os.path.join(REPO, 'autodist_tpu_torch')
     files = [os.path.join(REPO, 'chip_smoke.py')]
-    for dirpath, _, names in os.walk(root):
-        files += [os.path.join(dirpath, n) for n in names
-                  if n.endswith('.py')]
+    for root in ('autodist_tpu_torch', 'examples_torch'):
+        for dirpath, _, names in os.walk(os.path.join(REPO, root)):
+            files += [os.path.join(dirpath, n) for n in names
+                      if n.endswith('.py')]
     return files
 
 

@@ -88,7 +88,10 @@ def test_decoded_plan_takes_this_packages_path():
 
 
 def test_key_layout_is_the_jax_layout():
-    assert T.MODEL_SYMBOLS == J.MODEL_SYMBOLS and T.PREFIX == J.PREFIX
+    # the port's model also transitions on the re-key's ready marker
+    assert T.MODEL_SYMBOLS == dict(J.MODEL_SYMBOLS,
+                                   **{'swap/<g>/ready': 'swap/ready'})
+    assert T.ready_key(7) == J.ready_key(7) and T.PREFIX == J.PREFIX
     assert T.gen_key() == J.gen_key()
     for g in (1, 2, 31):
         assert T.plan_key(g) == J.plan_key(g)
