@@ -154,6 +154,7 @@ from autodist_tpu_torch.models.core import (apply_tree_updates,
                                             assign_state_paths, model_mode)
 from autodist_tpu_torch.parallel.axes import ParallelSpec, spec_for_axes
 from autodist_tpu_torch.parallel.mesh import RankGrid, all_gather
+from autodist_tpu_torch.telemetry import core as _telemetry
 from autodist_tpu_torch.utils import logging
 
 
@@ -619,32 +620,44 @@ class Trainer:
 
     # -- the step ----------------------------------------------------------
     def _step(self, state, batch):
-        opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
-        chunks = self._chunks(batch)
-        global_mask = self._global_mask(batch)
-        counts = self._mask_counts(chunks) if global_mask else None
-        total, updates = None, {}
-        for i, chunk in enumerate(chunks):
-            loss, updates, summed = self._chunk_loss(
-                self._params(), chunk, None if counts is None else counts[i],
-                True)
-            loss.backward()
-            loss = loss.detach()
-            total = loss if total is None else total + loss
-        loss = total / self.accum if self.accum > 1 else total
-        # a global mean sums the ranks' parts; a mean averages the
-        # ranks' means
-        ranks = 1 if summed else self.replicas
-        self._reduce_grads(self.accum * ranks)
-        if self._parts.size > 1:
-            loss = loss.clone()
-            self._all_reduce(loss, ranks, self._parts)
-        opt.step()
-        self._gather_zero2()
-        if self._has_state:
-            apply_tree_updates(self.model.params(), updates)
-        state.step += 1
+        """One step on a placed batch. Its phases are telemetry spans
+        (``trainer/step`` around ``trainer/forward`` and
+        ``trainer/backward`` for each chunk, ``trainer/reduce``,
+        ``trainer/optimizer`` and, under ZeRO 2, ``trainer/gather``):
+        registry records under ``AUTODIST_TELEMETRY``, profiler ranges
+        while a profiler records, nothing else otherwise."""
+        tel = _telemetry.get()
+        with tel.span('trainer/step', step=state.step):
+            opt = state.opt_state
+            opt.zero_grad(set_to_none=True)
+            chunks = self._chunks(batch)
+            global_mask = self._global_mask(batch)
+            counts = self._mask_counts(chunks) if global_mask else None
+            total, updates = None, {}
+            for i, chunk in enumerate(chunks):
+                with tel.span('trainer/forward'):
+                    loss, updates, summed = self._chunk_loss(
+                        self._params(), chunk,
+                        None if counts is None else counts[i], True)
+                with tel.span('trainer/backward'):
+                    loss.backward()
+                loss = loss.detach()
+                total = loss if total is None else total + loss
+            loss = total / self.accum if self.accum > 1 else total
+            # a global mean sums the ranks' parts; a mean averages the
+            # ranks' means
+            ranks = 1 if summed else self.replicas
+            with tel.span('trainer/reduce'):
+                self._reduce_grads(self.accum * ranks)
+                if self._parts.size > 1:
+                    loss = loss.clone()
+                    self._all_reduce(loss, ranks, self._parts)
+            with tel.span('trainer/optimizer'):
+                opt.step()
+            self._gather_zero2(tel)
+            if self._has_state:
+                apply_tree_updates(self.model.params(), updates)
+            state.step += 1
         return state, {'loss': loss}
 
     def _reduce_grads(self, divide):
@@ -686,10 +699,14 @@ class Trainer:
              divide)
 
     @torch.no_grad()
-    def _gather_zero2(self):
-        """A zero-2 leaf's full parameter from the slices just stepped."""
-        for l in self._leaves:
-            if l.dim is not None and not l.held:
+    def _gather_zero2(self, tel):
+        """A zero-2 leaf's full parameter from the slices just stepped,
+        inside a ``trainer/gather`` span where there is such a leaf."""
+        leaves = [l for l in self._leaves if l.dim is not None and not l.held]
+        if not leaves:
+            return
+        with tel.span('trainer/gather'):
+            for l in leaves:
                 l.tensor.copy_(self.grid.data.all_gather(l.opt, l.dim))
 
     def _all_reduce(self, tensors, divide=1, group=None):
@@ -936,10 +953,12 @@ class Trainer:
         ``trace_dir/rank<r>.pt.trace.json``) of ``steps`` training steps
         after one untraced warm-up step, with operator shapes (the
         collectives' sizes, which ``utils/profiling.collective_timeline``
-        reads, ride them). Returns ``trace_dir``. The
-        traced steps' updates are discarded: params, buffers, optimizer
-        state and step are put back as they were (profiling must not
-        perturb training)."""
+        reads, ride them), and the step's phases as the ranges
+        ``autodist.trainer/step``, ``/forward``, ``/backward``,
+        ``/reduce``, ``/optimizer`` and ``/gather`` (:meth:`_step`).
+        Returns ``trace_dir``. The traced steps' updates are discarded:
+        params, buffers, optimizer state and step are put back as they
+        were (profiling must not perturb training)."""
         from torch.profiler import ProfilerActivity, profile
         placed = self.shard_batch(batch)
         opt = state.opt_state

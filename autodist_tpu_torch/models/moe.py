@@ -44,12 +44,12 @@ stays as it is.
 """
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from autodist_tpu_torch.models.core import (Dense, Module, ParamDef,
                                             live_spec, mean_over_batch,
                                             mesh_group)
 from autodist_tpu_torch.parallel.mesh import copy_to, reduce_from
+from autodist_tpu_torch.telemetry import core as _telemetry
 from autodist_tpu_torch.utils.device import resolve_device
 
 
@@ -116,11 +116,12 @@ class MoeMlp(Module):
 
         # choice [b, s, k, n] (dropped choices zeroed) and slot [b, s, k,
         # cap] one-hots; a position past capacity matches no slot, as
-        # jax.nn.one_hot gives a zero row there. The named ranges let a
-        # profile of the forward (and its remat recompute) attribute
-        # device time to the dense dispatch.
+        # jax.nn.one_hot gives a zero row there. The spans let a profile
+        # of the forward (and its remat recompute) attribute device time
+        # to the dense dispatch.
+        tel = _telemetry.get()
         choice_oh = F.one_hot(gate_idx, e)
-        with record_function('moe_dispatch'):
+        with tel.span('moe/dispatch'):
             choice = choice_oh[..., lo:lo + n].to(dt) * \
                 (pos < cap)[..., None].to(dt)
             slot = (pos[..., None] == torch.arange(cap, device=x.device)) \
@@ -129,11 +130,11 @@ class MoeMlp(Module):
             combine = torch.einsum('bske,bskc->bsec',
                                    choice * gate_vals.to(dt)[..., None], slot)
             xe = torch.einsum('bsec,bsd->becd', disp, xin.to(dt))
-        with record_function('moe_experts'):
+        with tel.span('moe/experts'):
             h = F.gelu(torch.einsum('becd,edh->bech', xe,
                                     params['up'].to(dt)), approximate='tanh')
             ye = torch.einsum('bech,ehd->becd', h, params['down'].to(dt))
-        with record_function('moe_combine'):
+        with tel.span('moe/combine'):
             y = reduce_from(group, torch.einsum('bsec,becd->bsd', combine,
                                                 ye))
 

@@ -2,7 +2,12 @@
 
 - :mod:`~autodist_tpu_torch.telemetry.core`: the span/counter registry
   (``AUTODIST_TELEMETRY`` gates it; disabled = zero-cost no-ops), which
-  the execution plan and the loose session record through;
+  the execution plan, the loose session, serving, the MoE block and
+  ``api.Trainer``'s step (``trainer/step``, ``/forward``, ``/backward``,
+  ``/reduce``, ``/optimizer``, ``/gather``) record through; while a
+  ``torch.profiler`` records, every span is also a ``record_function``
+  range ``autodist.<name>`` in its trace, whether or not telemetry is
+  on;
 - :mod:`~autodist_tpu_torch.telemetry.aggregate`: workers batch-push
   span records to a ``telemetry/`` namespace over the PS tensor wire
   (the JAX package's wire bytes); the chief assembles the cohort

@@ -1,8 +1,9 @@
 """Low-overhead span / counter / gauge registry — the process-local
 half of the telemetry plane.
 
-The port's copy of the JAX package's ``telemetry/core.py`` (it imports
-neither jax nor torch); only module paths differ.
+The port's copy of the JAX package's ``telemetry/core.py``. It imports
+no jax; unlike the JAX package's copy it imports torch, because a span
+is also a ``torch.profiler`` range while a profiler records (below).
 
 Every subsystem grew its own ad-hoc stats dict
 (``ps_stats``, ``health_stats``, the bucket/overlap/sparse/health
@@ -16,12 +17,23 @@ worker can snapshot (:meth:`Telemetry.metrics_snapshot`), batch-push
 over the PS plane (:mod:`autodist_tpu.telemetry.aggregate`) and embed
 in BENCH records.
 
+A span has two gates, and is a no-op only when both are off:
+
+- ``AUTODIST_TELEMETRY``: the span is recorded into this registry;
+- a recording ``torch.profiler`` (``torch._C._autograd._profiler_enabled``):
+  the span also opens a ``record_function`` range named
+  ``autodist.<name>``, on the profiler's clock, so the device operations
+  the host launched inside it can be set against it in the trace.
+
 Cost contract (the tentpole's overhead budget):
 
-- **disabled** (``AUTODIST_TELEMETRY`` unset, the default): zero-cost
-  no-ops — ``span()`` returns one shared null context manager (no
-  allocation, no clock read) and every other recording call returns
+- **disabled** (``AUTODIST_TELEMETRY`` unset, the default, and no
+  profiler recording): zero-cost no-ops — ``span()`` returns one shared
+  null context manager after one attribute check and one C call (no
+  allocation, no clock read), and every other recording call returns
   after a single attribute check;
+- **profiler recording**: a ``record_function`` range per span, entered
+  and left (the profiler's own cost, a few us);
 - **enabled**: one ``perf_counter`` pair + one bounded-deque append
   per span (~3 us measured); batch pushes ride the session's
   dedicated background lane, never the step's critical path. ≤ 2%
@@ -42,13 +54,19 @@ import threading
 import time
 from collections import deque
 
+from torch._C._autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
 from autodist_tpu_torch.const import ENV
+
+#: the prefix of a span's ``record_function`` range in a profiler trace
+RANGE_PREFIX = 'autodist.'
 
 
 class _NullSpan:
     """The disabled-path context manager: one shared instance, no
-    state, so ``tel.span(...)`` costs an attribute check and nothing
-    else when telemetry is off."""
+    state, so ``tel.span(...)`` costs an attribute check and a C call
+    and nothing else when telemetry is off and no profiler records."""
 
     __slots__ = ()
 
@@ -63,25 +81,34 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    """One live span: records its duration into the registry on exit."""
+    """One live span: a profiler range while it is open, where a
+    profiler records; its duration recorded into the registry on exit,
+    where telemetry is on."""
 
-    __slots__ = ('_tel', 'name', 'tags', '_t0')
+    __slots__ = ('_tel', 'name', 'tags', '_t0', '_range')
 
-    def __init__(self, tel, name, tags):
-        self._tel = tel
+    def __init__(self, tel, name, tags, profiled):
+        self._tel = tel if tel.enabled else None
         self.name = name
         self.tags = tags
+        self._range = record_function(RANGE_PREFIX + name) \
+            if profiled else None
 
     def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
-    def __exit__(self, exc_type, *exc):
+    def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter()
-        if exc_type is not None:
-            self.tags['error'] = exc_type.__name__
-        self._tel._record_span(self.name, self._t0, t1 - self._t0,
-                               self.tags)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        if self._tel is not None:
+            if exc_type is not None:
+                self.tags['error'] = exc_type.__name__
+            self._tel._record_span(self.name, self._t0, t1 - self._t0,
+                                   self.tags)
         return False
 
 
@@ -120,11 +147,14 @@ class Telemetry:
 
     # -- recording ---------------------------------------------------------
     def span(self, name, **tags):
-        """A timed context manager. Tags ride the record verbatim
-        (keep them small scalars: step=, worker=, cmd=, bytes=)."""
-        if not self.enabled:
+        """A timed context manager, and a ``record_function`` range
+        ``autodist.<name>`` while a profiler records. Tags ride the
+        registry's record verbatim (keep them small scalars: step=,
+        worker=, cmd=, bytes=)."""
+        profiled = _profiler_enabled()
+        if not (self.enabled or profiled):
             return _NULL_SPAN
-        return _Span(self, name, tags)
+        return _Span(self, name, tags, profiled)
 
     def record_span(self, name, t0, dur, **tags):
         """Record an already-measured span (``t0`` a ``perf_counter``

@@ -115,7 +115,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    steps through ``Trainer``: the first loss's cross-entropy near
    ln(vocab) and aux about one a layer, launches 24/12/12 a step on the
    D-64 kernels, tokens/s and peak memory (``--profile``: device ms in
-   the ``moe_dispatch`` / ``moe_experts`` / ``moe_combine`` ranges);
+   the ``autodist.moe/dispatch`` / ``/experts`` / ``/combine`` ranges);
    ``moe_einsums`` times each of its einsums alone at those shapes and
    gives the dense dispatch's share of the step;
 5c. ``transformer_options``: gpt_small dense at the same shapes, 2 steps
@@ -978,7 +978,8 @@ MOE_BATCH, MOE_STEPS = 4, 3
 # experts it favours on average, which raises it (1.89 a layer at
 # gpt_small_moe8's init and batch on one H100 80GB HBM3)
 MOE_AUX_PER_LAYER = (0.9, 3.0)
-MOE_RANGES = ('moe_dispatch', 'moe_experts', 'moe_combine')
+MOE_RANGES = ('autodist.moe/dispatch', 'autodist.moe/experts',
+              'autodist.moe/combine')
 
 
 def moe_phase(cfg, batch, seq, steps, device, smi=None, profiling=False):
