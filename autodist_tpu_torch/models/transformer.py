@@ -3,7 +3,11 @@
 The counterpart of ``autodist_tpu/models/transformer.py``: the same
 ``TransformerConfig`` presets, options and parameter paths, a pre-LN
 ``Block`` (MoE MLP when ``moe_experts`` is set) and ``TransformerLM``
-with f32 logits, a mean-NLL loss and the MoE load-balance loss.
+with f32 logits from ``apply``, a mean-NLL loss and the MoE
+load-balance loss. The loss takes the head's logits in the model's
+dtype: its token NLL is :func:`kernels.cross_entropy.token_nll`, the
+cross-entropy kernels on the card (the plain f32 ``logsumexp - gather``
+elsewhere), so no f32 copy of the logits is made or saved.
 
 - ``scan_layers=True`` keeps the block params stacked on a leading
   ``[n_layers]`` axis under ``blocks/...`` (the JAX layout); the blocks
@@ -67,6 +71,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from autodist_tpu_torch.kernels import cross_entropy
 from autodist_tpu_torch.models.attention import MultiHeadAttention
 from autodist_tpu_torch.models.core import (Dense, Embedding, LayerNorm, Mlp,
                                             Module, checkpoint, live_spec,
@@ -369,13 +374,12 @@ class TransformerLM(Module):
             variant=step_option('pp_variant', 'auto'))
 
     def _chunk_nll(self, params, x, targets):
-        logits = self._head_logits(params, x).float()
+        logits = self._head_logits(params, x)
         axis = live_spec(('vocab',))[0]
         if axis is not None:
-            return vocab_parallel_nll(logits, targets, mesh_group(axis))
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-        return logz - gold
+            return vocab_parallel_nll(logits.float(), targets,
+                                      mesh_group(axis))
+        return cross_entropy.token_nll(logits, targets)
 
     def _ce_chunks(self, s, rows):
         """Number of sequence chunks for chunked CE: the largest chunk

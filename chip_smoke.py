@@ -6,8 +6,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA
    versions), then the build of the kernels from
-   ``autodist_tpu_torch/kernels/csrc`` (flash attention and the fused
-   conv + BatchNorm), one ``nvcc`` each, all at once, for ``sm_90a``,
+   ``autodist_tpu_torch/kernels/csrc`` (flash attention, the fused
+   conv + BatchNorm and the LM head's cross-entropy pair), one ``nvcc``
+   each, all at once, for ``sm_90a``,
    with each kernel's registers and spills (``ptxas``) and the dynamic
    shared memory of the warp-specialised ones;
 2. each flash kernel (fwd, dQ, dK/dV) held against its plain PyTorch
@@ -85,6 +86,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the kernel, its plain version, ``torch.matmul`` of the same operands
    ("product only": no prologue, no stats; never used by the port) and
    the bound, with TFLOP/s and the bound's share of the time;
+3b. ``xent_check``: the cross-entropy pair (``xent_fwd``, ``xent_bwd``)
+   through its custom operators at the LM head shapes the TransformerLM
+   phases give it (``XE_SHAPES``: [16384, 32000], [4096, 32000] and
+   [4096, 30522] bf16) against the plain f32 versions (nll and lse
+   within 1e-5 relative, the gradient within one bf16 ulp), one launch
+   each, a bitwise repeat, and times: the operator, the plain version
+   and the byte bound. Every TransformerLM phase on the card (4, 5, 5a,
+   5b, the options arms, bert_large, the bert example) sets
+   ``cross_entropy.LAUNCHES`` to 0 before its steps and must read one
+   forward and one backward launch a loss (a chunked loss: a forward
+   more a chunk, its recompute) and no plain call;
 4. small models through the kernels on the card against the same models
    on the CPU (the plain versions), as the reference on a small input: a
    Transformer at S = 512 (head dim 64, and one layer at head dim 384,
@@ -250,7 +262,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    stage's launches, or with two or more cards ``pp_grid``'s GPipe
    run's) and at bert_large's non-causal shape (the bert example's
    launches a step), each row with the CUDA kernel that ran and its
-   launches in its own phase), and last
+   launches in its own phase; the cross-entropy pair at each of
+   ``XE_SHAPES`` with the launches of every phase that gives it that
+   shape), and last
    ``{"ok": true, "device": {...}}``.
 
 Kernel times are device time (CUDA events around back-to-back launches
@@ -287,6 +301,7 @@ from autodist_tpu_torch.api import Trainer
 from autodist_tpu_torch.checkpoint.saver import CheckpointManager
 from autodist_tpu_torch.kernels import build
 from autodist_tpu_torch.kernels import conv_bn as cb
+from autodist_tpu_torch.kernels import cross_entropy as xe
 from autodist_tpu_torch.kernels import flash_attention as fa
 from autodist_tpu_torch.kernels.work import attention as attention_work
 from autodist_tpu_torch.kernels.work import conv_bn as conv_bn_work
@@ -310,7 +325,24 @@ PEAK_BYTES = 3.35e12
 SPIN_CYCLES = 50_000_000
 SOURCE = 'autodist_tpu_torch/kernels/csrc/flash_attention.cu'
 CB_SOURCE = 'autodist_tpu_torch/kernels/csrc/conv_bn.cu'
+XE_SOURCE = 'autodist_tpu_torch/kernels/csrc/cross_entropy.cu'
 CB_REPLACES = 'autodist_tpu/kernels/conv_bn.py:70'
+# the JAX model's token NLL (logsumexp - gather, fused by XLA), which the
+# cross-entropy pair computes on the card
+XE_REPLACES = 'autodist_tpu/models/transformer.py:336'
+# the LM head's [rows, vocab] bf16 logits as the TransformerLM phases give
+# them to the cross-entropy pair: gpt_small's 4 x 4096 tokens at vocab
+# 32000 (its arms, auto_strategy, MoE, the options arms), the loss_chunk
+# arm's chunks of 4 x 1024, and bert_large's 32 x 128 (and the bert
+# example's 8 x 512) at vocab 30522
+XE_SHAPES = {'gpt_small': (4 * 4096, 32000),
+             'gpt_small_loss_chunk': (4 * 1024, 32000),
+             'bert_large': (32 * 128, 30522)}
+# the pair against its plain f32 version: nll and lse within 1e-5
+# relative (f32 sums of the same exps in another order); the bf16
+# gradient within one bf16 spacing of the plain one, rounded once from
+# f32 on both sides (an exp's last f32 bit can tip the rounding)
+XE_REL, XE_GRAD_ULPS = 1e-5, 1.0
 REPLACES = {'fwd': 'autodist_tpu/kernels/flash_attention.py:99',
             'dq': 'autodist_tpu/kernels/flash_attention.py:183',
             'dkv': 'autodist_tpu/kernels/flash_attention.py:224'}
@@ -436,7 +468,8 @@ def _cb_name(kernel, args):
 
 def ptxas_summary(log):
     """{kernel<dtype, D>: 'R regs, S B spilled'} from nvcc's -Xptxas -v
-    report (flash attention's kernels and K4's)."""
+    report (flash attention's kernels, K4's and the cross-entropy
+    pair's)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"entry function '\w*?\d+((?:fwd|dq|dkv)"
@@ -445,7 +478,13 @@ def ptxas_summary(log):
         c = re.search(r"entry function '\w*?\d+(cb_\w+?_kernel)"
                       r"(?:I((?:Li\d+E|Lb[01]E|13__nv_bfloat16|f)+)E)?",
                       line)
-        if m:
+        x = re.search(r"entry function '\w*?\d+(xent_(?:fwd|bwd)_kernel)"
+                      r"I(f|13__nv_bfloat16)E", line)
+        if x:
+            name = '%s<%s>' % (x.group(1), 'f32' if x.group(2) == 'f'
+                               else 'bf16')
+            spill = 0
+        elif m:
             name = '%s<%s,%s>' % (m.group(1), 'f32' if m.group(2) == 'f'
                                   else 'bf16', m.group(3))
             spill = 0
@@ -592,6 +631,124 @@ def _times(name, kernel, plain, q, k, v, do, causal, scale):
         rec['library'] = ('torch scaled_dot_product_attention backward '
                           '(dQ, dK, dV in one call)')
     return rec
+
+
+def bf16_ulps(got, want):
+    """Largest |got - want| in bf16 spacings of the larger magnitude."""
+    a, b = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8))
+                 .max())
+
+
+def max_rel(got, want):
+    return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
+def xent_bytes(kernel, rows, vocab):
+    """Bytes a cross-entropy kernel moves at [rows, vocab] bf16 logits:
+    the logits read once ('bwd' also writes the gradient once), the int64
+    targets and two f32 values a row (nll and lse out; lse and g in)."""
+    return (1 if kernel == 'fwd' else 2) * rows * vocab * 2 + \
+        rows * (8 + 4 + 4)
+
+
+def check_cross_entropy(rows, vocab, smi, reps=10):
+    """The cross-entropy pair at one head shape ([rows, vocab] bf16
+    logits at 4 x N(0, 1), a per-row g with zeros): ``xe.xent_fwd`` and
+    ``xe.xent_bwd``, the custom operators the model calls, against the
+    plain f32 versions (``XE_REL``, ``XE_GRAD_ULPS``), one launch each
+    and no plain call, the same bits from a second launch; then each
+    operator's ms and the plain version's against the kernel's byte
+    bound. Returns {'fwd' | 'bwd': record}."""
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    x = (torch.randn((rows, vocab), generator=gen, device='cuda') * 4).to(
+        torch.bfloat16)
+    t = torch.randint(0, vocab, (rows,), generator=gen, device='cuda')
+    g = torch.rand(rows, generator=gen, device='cuda') * (torch.rand(
+        rows, generator=gen, device='cuda') > 0.25) / rows
+    xe.reset_launches()
+    nll, lse = xe.xent_fwd(x, t)
+    dx = xe.xent_bwd(x, t, lse, g)
+    launches = dict(xe.LAUNCHES)
+    want_nll, want_lse = xe._fwd_plain(x, t)
+    errors = {'fwd': {'nll_rel': max_rel(nll, want_nll),
+                      'lse_rel': max_rel(lse, want_lse)},
+              'bwd': {'grad_bf16_ulps': bf16_ulps(
+                  dx, xe._bwd_plain(x, t, want_lse, g))}}
+    del want_nll, want_lse
+    again = xe.xent_fwd(x, t)
+    repeat = {'fwd': torch.equal(nll, again[0]) and
+              torch.equal(lse, again[1]),
+              'bwd': torch.equal(dx, xe.xent_bwd(x, t, lse, g))}
+    del again, dx
+    runs = {'fwd': (lambda: xe.xent_fwd(x, t), lambda: xe._fwd_plain(x, t)),
+            'bwd': (lambda: xe.xent_bwd(x, t, lse, g),
+                    lambda: xe._bwd_plain(x, t, lse, g))}
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        ok = launches == {'fwd': 1, 'bwd': 1, 'plain': 0} and all(
+            v <= (XE_GRAD_ULPS if k == 'grad_bf16_ulps' else XE_REL)
+            for k, v in errors[name].items())
+        rec = {'cuda_kernel': 'xent_%s_kernel<bf16>' % name,
+               'errors': errors[name], 'bitwise_repeat': repeat[name],
+               'ms': cuda_ms(kernel, reps), 'plain_ms': cuda_ms(plain, 3),
+               'bound_ms': 1e3 * xent_bytes(name, rows, vocab) / PEAK_BYTES,
+               'bound_by': 'bytes'}
+        rec['bound_share'] = rec['bound_ms'] / rec['ms']
+        emit(phase='xent_check', kernel=name, shape=[rows, vocab],
+             dtype='bfloat16', ok=ok, launches=launches,
+             tol={'rel': XE_REL, 'grad_bf16_ulps': XE_GRAD_ULPS}, card=smi,
+             **rec)
+        require(ok, 'cross-entropy %s kernel disagrees with its plain '
+                'version at [%d, %d] (%r, launches %r)'
+                % (name, rows, vocab, errors[name], launches))
+        require(repeat[name], 'cross-entropy %s kernel: two launches on '
+                'the same inputs differ at [%d, %d]' % (name, rows, vocab))
+        out[name] = rec
+    return out
+
+
+def xent_want(model, batch, seq, steps, device):
+    """``xe.LAUNCHES`` after ``steps`` training steps of ``model`` (a
+    TransformerLM) at [batch, seq]: a step's loss runs in
+    ``model._ce_chunks`` chunks, each once forward and once backward, and
+    with more than one chunk each forward again in the backward's
+    recompute. On the card the kernels launch; on the CPU the plain
+    versions run, counted together."""
+    n = model._ce_chunks(seq, batch * seq)
+    fwd, bwd = steps * n * (2 if n > 1 else 1), steps * n
+    if torch.device(device).type == 'cuda':
+        return {'fwd': fwd, 'bwd': bwd, 'plain': 0}
+    return {'fwd': 0, 'bwd': 0, 'plain': fwd + bwd}
+
+
+def check_xent_launches(phase, got, want):
+    """``got``, ``xe.LAUNCHES`` of ``phase``'s run (the counts set to 0
+    just before it), must be ``want``."""
+    require(got == want, '%s: cross-entropy launches %s, expected %s'
+            % (phase, got, want))
+
+
+def xent_rows(recs, by_shape):
+    """The cross-entropy pair's rows of the ``kernels`` line: ``recs``
+    {shape name: ``check_cross_entropy``'s records at that shape},
+    ``by_shape`` {shape name: {phase: its xe.LAUNCHES}}."""
+    rows = []
+    for shape_name, paths in by_shape.items():
+        for name in ('fwd', 'bwd'):
+            rec = recs[shape_name][name]
+            by_path = {p: n[name] for p, n in paths.items()}
+            rows.append(dict(
+                {k: rec[k] for k in ('cuda_kernel', 'errors', 'ms',
+                                     'plain_ms', 'bound_ms', 'bound_by',
+                                     'bound_share')},
+                name='cross_entropy_%s_%s' % (name, shape_name),
+                route='cuda', source=XE_SOURCE, replaces=XE_REPLACES,
+                launches=next(iter(by_path.values())),
+                launches_by_path=by_path, shape=list(XE_SHAPES[shape_name]),
+                dtype='bfloat16'))
+    return rows
 
 
 def check_conv_bn(shape, dtype, smi):
@@ -798,13 +955,15 @@ def gpt_small_phase(name, smi, profiling):
     cfg = TransformerConfig.gpt_small(n_heads=n_heads, dtype=torch.bfloat16,
                                       remat=True, max_len=4096)
     d = cfg.dim // n_heads
-    trainer = Trainer(TransformerLM(cfg, seed=0), optim.adamw(1e-4),
-                      spec=ParallelSpec(dp=1))
+    model = TransformerLM(cfg, seed=0)
+    trainer = Trainer(model, optim.adamw(1e-4), spec=ParallelSpec(dp=1))
     data = make_batch(cfg.vocab, batch, 4096)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    xe.reset_launches()
     state, losses, seconds = train_steps(trainer, data, steps)
     launches, by_kernel = dict(fa.LAUNCHES), dict(fa.KERNEL_LAUNCHES)
+    xent = dict(xe.LAUNCHES)
     step_s = float(np.median(seconds[1:]))   # the steps after the first
     rec = dict(phase=name, head_dim=d, n_heads=n_heads, seq=4096,
                batch=batch, steps=steps, losses=losses,
@@ -812,10 +971,12 @@ def gpt_small_phase(name, smi, profiling):
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=launches, kernel_launches=by_kernel,
                launches_per_step={k: n / steps for k, n in launches.items()},
-               card=smi)
+               xent_launches=xent, card=smi)
     emit(**rec)
     require(all(math.isfinite(x) for x in losses), '%s loss not finite'
             % name)
+    check_xent_launches(name, xent, xent_want(model, batch, 4096, steps,
+                                              'cuda'))
     require(abs(losses[0] - math.log(cfg.vocab)) < 0.5,
             '%s initial loss %.4f is not near ln(vocab)' % (name, losses[0]))
     per_step = {'fwd': 2 * cfg.n_layers, 'dq': cfg.n_layers,
@@ -829,7 +990,7 @@ def gpt_small_phase(name, smi, profiling):
             % (name, by_kernel, want))
     if profiling:
         profile_step(name, trainer, state, data, smi)
-    del trainer, state
+    del trainer, state, model
     torch.cuda.empty_cache()
     return rec
 
@@ -878,9 +1039,9 @@ def auto_strategy_phase(cfg, batch, seq, steps, device, kind, smi=None):
     budget = torch.cuda.get_device_properties(0).total_memory if cuda \
         else None
     builder = AutoStrategy(memory_budget_bytes=budget)
-    trainer = trainer_from_strategy(
-        TransformerLM(cfg, device=device, seed=0), optim.adamw(1e-4),
-        builder, resource_spec=spec)
+    model = TransformerLM(cfg, device=device, seed=0)
+    trainer = trainer_from_strategy(model, optim.adamw(1e-4), builder,
+                                    resource_spec=spec)
     rows = ranked_rows(builder)
     feasible = [r['predicted_step_s'] for r in rows if r['feasible']]
     best = builder.last_ranked[0]
@@ -898,8 +1059,10 @@ def auto_strategy_phase(cfg, batch, seq, steps, device, kind, smi=None):
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    xe.reset_launches()
     state, losses, seconds = train_steps(trainer, data, steps)
     launches, by_kernel = dict(fa.LAUNCHES), dict(fa.KERNEL_LAUNCHES)
+    xent = dict(xe.LAUNCHES)
     measured = rl.memory_of(device)
     memory = rl.memory_drift(measured, best.report.memory)
     require(all(math.isfinite(x) for x in losses),
@@ -910,6 +1073,8 @@ def auto_strategy_phase(cfg, batch, seq, steps, device, kind, smi=None):
     require(launches == {k: steps * n for k, n in per_step.items()},
             'auto_strategy launch counts %s, expected %s per step'
             % (launches, per_step))
+    check_xent_launches('auto_strategy', xent,
+                        xent_want(model, batch, seq, steps, device))
     if cuda:
         require(memory['estimated_total_bytes'] <=
                 memory['measured_total_bytes'],
@@ -934,6 +1099,7 @@ def auto_strategy_phase(cfg, batch, seq, steps, device, kind, smi=None):
                batch=batch, steps=steps, losses=losses,
                step_seconds=seconds, tokens_per_s=batch * seq / step_s,
                launches=launches, kernel_launches=by_kernel,
+               xent_launches=xent,
                predicted_step_s=best.predicted_step_time_s,
                predicted_peak_bytes=best.predicted_peak_bytes,
                memory=memory, cost=cost, peaks=[peak_flops, peak_hbm],
@@ -944,7 +1110,7 @@ def auto_strategy_phase(cfg, batch, seq, steps, device, kind, smi=None):
                            'dcn': params.link(cross_node=True)},
                card=smi)
     emit(**rec)
-    del trainer, state
+    del trainer, state, model
     return rec
 
 
@@ -1004,8 +1170,10 @@ def moe_phase(cfg, batch, seq, steps, device, smi=None, profiling=False):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    xe.reset_launches()
     state, losses, seconds = train_steps(trainer, data, steps)
     launches, by_kernel = dict(fa.LAUNCHES), dict(fa.KERNEL_LAUNCHES)
+    xent = dict(xe.LAUNCHES)
     step_s = float(np.median(seconds[1:]))
     d = cfg.dim // cfg.n_heads
     rec = dict(phase='gpt_small_moe8', experts=cfg.moe_experts,
@@ -1016,13 +1184,15 @@ def moe_phase(cfg, batch, seq, steps, device, smi=None, profiling=False):
                aux_coef=cfg.moe_aux_coef, losses=losses,
                step_seconds=seconds, median_step_s=step_s,
                tokens_per_s=batch * seq / step_s, launches=launches,
-               kernel_launches=by_kernel,
+               kernel_launches=by_kernel, xent_launches=xent,
                launches_per_step={k: n / steps for k, n in launches.items()})
     if cuda:
         rec['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
     if smi is not None:
         emit(card=smi, **rec)
     require(all(math.isfinite(x) for x in losses), 'MoE loss not finite')
+    check_xent_launches('gpt_small_moe8', xent,
+                        xent_want(model, batch, seq, steps, device))
     require(abs(ce - math.log(cfg.vocab)) < 0.5,
             'MoE first cross-entropy %.4f is not near ln(vocab)' % ce)
     lo, hi = MOE_AUX_PER_LAYER
@@ -1130,23 +1300,28 @@ def transformer_options_phase(cfg, batch, seq, device, loss_chunk, steps=2,
     arms = {}
     for name, kw in option_arms(loss_chunk).items():
         arm_cfg = dataclasses.replace(cfg, **kw)
-        trainer = Trainer(TransformerLM(arm_cfg, device=device, seed=0),
-                          optim.adamw(1e-4), spec=ParallelSpec(dp=1))
+        model = TransformerLM(arm_cfg, device=device, seed=0)
+        trainer = Trainer(model, optim.adamw(1e-4), spec=ParallelSpec(dp=1))
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
+        xe.reset_launches()
         state, losses, seconds = train_steps(trainer, data, steps)
         step_s = float(np.median(seconds[1:]))
         rec = {'losses': losses, 'step_seconds': seconds,
                'tokens_per_s': batch * seq / step_s,
-               'launches': dict(fa.LAUNCHES), **{
+               'launches': dict(fa.LAUNCHES),
+               'xent_launches': dict(xe.LAUNCHES), **{
                    k: v for k, v in kw.items()}}
         if cuda:
             rec['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
-        del trainer, state
+        want = xent_want(model, batch, seq, steps, device)
+        del trainer, state, model
         require(all(math.isfinite(x) for x in losses),
                 'options arm %s loss not finite' % name)
+        check_xent_launches('options arm ' + name, rec['xent_launches'],
+                            want)
         arms[name] = rec
     ref = arms['remat']['losses'][0]
     for name, rec in arms.items():
@@ -1376,13 +1551,15 @@ def small_reference(dim=128, n_heads=2, n_layers=2, phase='small_reference',
         model = TransformerLM(cfg, device=device, seed=0)
         tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         fa.reset_launches()
+        xe.reset_launches()
         loss = model.loss(model.params(), tb)
         loss.backward()
         out.append((float(loss.detach()), {n: p.grad.float().cpu()
                                            for n, p in
                                            model.named_parameters()},
-                    dict(fa.LAUNCHES)))
-    (l_gpu, g_gpu, launches), (l_cpu, g_cpu, _) = out
+                    dict(fa.LAUNCHES), dict(xe.LAUNCHES),
+                    xent_want(model, 2, 512, 1, device)))
+    (l_gpu, g_gpu, launches, xent, xent_wanted), (l_cpu, g_cpu, *_) = out
     grad_err = max(float((g_gpu[n] - g_cpu[n]).abs().max()) for n in g_cpu)
     # f32 with TF32 off on both sides: sums in other orders through two
     # blocks; 1e-4 on gradients as in the CPU parity tests
@@ -1390,10 +1567,10 @@ def small_reference(dim=128, n_heads=2, n_layers=2, phase='small_reference',
     if torch.device(devices[0]).type != 'cuda':
         want = {k: 0 for k in want}
     ok = abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu) and grad_err <= 1e-4 and \
-        launches == want
+        launches == want and xent == xent_wanted
     emit(phase=phase, head_dim=dim // n_heads, loss_cuda=l_gpu,
-         loss_cpu=l_cpu, max_grad_err=grad_err, launches=launches, ok=ok,
-         devices=list(devices), **cfg_kw)
+         loss_cpu=l_cpu, max_grad_err=grad_err, launches=launches,
+         xent_launches=xent, ok=ok, devices=list(devices), **cfg_kw)
     require(ok, 'the model on the card disagrees with the CPU reference')
     return {'loss': (l_gpu, l_cpu), 'max_grad_err': grad_err}
 
@@ -3563,8 +3740,10 @@ def examples_phase(device, smi=None, tiny=False):
         losses = []
         t0 = time.time()
         fa.reset_launches()
+        xe.reset_launches()
         rate = example.run(args, losses)[0]
         launches, by_kernel = dict(fa.LAUNCHES), dict(fa.KERNEL_LAUNCHES)
+        xent = dict(xe.LAUNCHES)
         rec[name] = {'argv': argv, 'losses': losses, 'rate': rate,
                      'seconds': time.time() - t0}
         require(_falls(losses), 'examples %s: the losses do not fall: %r'
@@ -3574,9 +3753,13 @@ def examples_phase(device, smi=None, tiny=False):
             rec[name].update(seq=args.seq or (
                 512 if args.config == 'bert_large' else 64),
                 batch=args.batch, launches=launches,
-                kernel_launches=by_kernel,
+                kernel_launches=by_kernel, xent_launches=xent,
                 launches_a_step={k: n // steps
                                  for k, n in launches.items()})
+            # one unchunked loss a step (the example sets no loss_chunk)
+            check_xent_launches('examples bert', xent, {
+                'fwd': steps, 'bwd': steps, 'plain': 0} if cuda else {
+                'fwd': 0, 'bwd': 0, 'plain': 2 * steps})
             if cuda and not tiny:
                 require(all(n > 0 and n % steps == 0
                             for n in launches.values()),
@@ -5152,11 +5335,12 @@ def main(argv):
          cuda=torch.version.cuda, allow_tf32=False)
 
     t0 = time.time()
-    build.build_all([fa.SOURCE, cb.SOURCE])
-    emit(phase='build', sources=[SOURCE, CB_SOURCE],
+    build.build_all([fa.SOURCE, cb.SOURCE, xe.SOURCE])
+    emit(phase='build', sources=[SOURCE, CB_SOURCE, XE_SOURCE],
          seconds=time.time() - t0,
          ptxas=dict(ptxas_summary(build.build_log(fa.SOURCE)),
-                    **ptxas_summary(build.build_log(cb.SOURCE))),
+                    **ptxas_summary(build.build_log(cb.SOURCE)),
+                    **ptxas_summary(build.build_log(xe.SOURCE))),
          dynamic_smem_bytes=wgmma_smem(fa.load_library(),
                                        cb.load_library()))
 
@@ -5192,6 +5376,12 @@ def main(argv):
         check_conv_bn(shape, torch.float32, smi)
     torch.cuda.empty_cache()
 
+    # the LM head's cross-entropy pair at the TransformerLM phases' shapes
+    xe_recs = {}
+    for shape_name, (rows, vocab) in XE_SHAPES.items():
+        xe_recs[shape_name] = check_cross_entropy(rows, vocab, smi)
+        torch.cuda.empty_cache()
+
     small_reference()
     small_reference(dim=768, n_heads=2, n_layers=1)   # head dim 384
     small_moe_reference()
@@ -5221,7 +5411,7 @@ def main(argv):
                     profiling)
     moe_einsum_ms(moe_cfg, MOE_BATCH, 4096, moe['median_step_s'], smi)
     torch.cuda.empty_cache()
-    transformer_options_phase(
+    options = transformer_options_phase(
         TransformerConfig.gpt_small(dtype=torch.bfloat16, max_len=4096), 4,
         4096, 'cuda', loss_chunk=4096, smi=smi)
     torch.cuda.empty_cache()
@@ -5232,13 +5422,16 @@ def main(argv):
                                     optim.adamw(1e-4), AllReduce())
     batch = make_batch(cfg.vocab, 32, 128, seed=1)
     fa.reset_launches()
+    xe.reset_launches()
     state, losses, seconds = train_steps(trainer, batch, 2)
-    bert_launches = dict(fa.LAUNCHES)
+    bert_launches, bert_xent = dict(fa.LAUNCHES), dict(xe.LAUNCHES)
     emit(phase='bert_large', seq=128, batch=32, steps=2, losses=losses,
          step_seconds=seconds, tokens_per_s=32 * 128 / seconds[-1],
          strategy_nodes=len(trainer.strategy.node_config),
-         launches=bert_launches, card=smi)
+         launches=bert_launches, xent_launches=bert_xent, card=smi)
     require(all(math.isfinite(x) for x in losses), 'bert_large loss not finite')
+    check_xent_launches('bert_large', bert_xent, xent_want(
+        trainer.model, 32, 128, 2, 'cuda'))
     require(all(n == 0 for n in bert_launches.values()),
             'bert_large at seq 128 launched a flash kernel')
     if profiling:
@@ -5360,6 +5553,19 @@ def main(argv):
     kernels += ulysses_rows(uly_recs, uly_launches, grid, tp)
     kernels += pipeline_rows(pk_recs, pk_launches, pp)
     kernels += bert_rows(bert_rec, examples['bert']['launches'])
+    option_xent = {name: rec['xent_launches']
+                   for name, rec in options.items()}
+    kernels += xent_rows(xe_recs, {
+        'gpt_small': dict(
+            {arm: gpt[arm]['xent_launches'] for arm in GPT_ARMS},
+            auto_strategy=auto['xent_launches'],
+            gpt_small_moe8=moe['xent_launches'],
+            **{'transformer_options_' + name: n
+               for name, n in option_xent.items() if name != 'loss_chunk'}),
+        'gpt_small_loss_chunk': {
+            'transformer_options_loss_chunk': option_xent['loss_chunk']},
+        'bert_large': {'bert_large': bert_xent,
+                       'examples_bert': examples['bert']['xent_launches']}})
     # K4: launch-weighted means over ResNet-101's main-path shapes
     weights = [shape[4] / RESNET_K4_PER_STEP for shape in RESNET_K4]
 

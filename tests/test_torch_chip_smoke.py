@@ -317,6 +317,105 @@ def test_ptxas_summary_reads_the_dkv_wgmma_kernels_from_head_dim_256():
         'dkv_wgmma_cols_kernel<bf16,256>': '168 regs, 0 B spilled'}
 
 
+def test_ptxas_summary_reads_the_cross_entropy_kernels():
+    """The LM head's NLL pair as nvcc 12.8 names it: the source's
+    anonymous namespace carries its first entry's name (``xent_fwd``),
+    which must not make the backward read as the forward."""
+    ns = '_ZN49_GLOBAL__N__0c125aea_16_cross_entropy_cu_xent_fwd'
+    log = '\n'.join(
+        "ptxas info    : Compiling entry function '%s%s' for 'sm_90a'\n"
+        "ptxas info    : Function properties for %s%s\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\nptxas info    : Used %d registers, used 1 barriers"
+        % (ns, name, ns, name, regs) for name, regs in (
+            ('15xent_bwd_kernelIfEEvPKT_xPKxPKfS7_PS1_i', 40),
+            ('15xent_bwd_kernelI13__nv_bfloat16EEvPKT_xPKxPKfS8_PS2_i', 40),
+            ('15xent_fwd_kernelIfEEvPKT_xPKxiPfS6_', 32),
+            ('15xent_fwd_kernelI13__nv_bfloat16EEvPKT_xPKxiPfS7_', 40)))
+    assert chip_smoke.ptxas_summary(log) == {
+        'xent_bwd_kernel<f32>': '40 regs, 0 B spilled',
+        'xent_bwd_kernel<bf16>': '40 regs, 0 B spilled',
+        'xent_fwd_kernel<f32>': '32 regs, 0 B spilled',
+        'xent_fwd_kernel<bf16>': '40 regs, 0 B spilled'}
+
+
+@pytest.mark.parametrize('loss_chunk,want', [
+    (None, {'fwd': 3, 'bwd': 3, 'plain': 0}),
+    (128, {'fwd': 3, 'bwd': 3, 'plain': 0}),    # all 128 rows in one chunk
+    (32, {'fwd': 24, 'bwd': 12, 'plain': 0}),   # 4 chunks, recomputed
+])
+def test_xent_want_counts_chunks_and_their_recompute(loss_chunk, want):
+    from autodist_tpu_torch.models.transformer import (TransformerConfig,
+                                                       TransformerLM)
+    model = TransformerLM(TransformerConfig.tiny(
+        dtype=torch.float32, loss_chunk=loss_chunk), device='cpu', seed=0)
+    assert chip_smoke.xent_want(model, 2, 64, 3, 'cuda') == want
+    assert chip_smoke.xent_want(model, 2, 64, 3, 'cpu') == {
+        'fwd': 0, 'bwd': 0, 'plain': want['fwd'] + want['bwd']}
+
+
+def test_xent_want_is_what_a_training_run_counts_on_the_cpu():
+    """Two steps of the chunked head through ``Trainer``: the plain
+    versions run as often as ``xent_want`` says, and a count that is off
+    fails ``check_xent_launches``."""
+    from autodist_tpu_torch import optim
+    from autodist_tpu_torch.api import Trainer
+    from autodist_tpu_torch.kernels import cross_entropy as xe
+    from autodist_tpu_torch.models.transformer import (TransformerConfig,
+                                                       TransformerLM)
+    from autodist_tpu_torch.parallel.axes import ParallelSpec
+    model = TransformerLM(TransformerConfig.tiny(
+        dtype=torch.float32, loss_chunk=32), device='cpu', seed=0)
+    trainer = Trainer(model, optim.adamw(1e-4), spec=ParallelSpec(dp=1))
+    xe.reset_launches()
+    chip_smoke.train_steps(trainer, chip_smoke.make_batch(256, 2, 64), 2)
+    got = dict(xe.LAUNCHES)
+    assert got == {'fwd': 0, 'bwd': 0, 'plain': 24}
+    chip_smoke.check_xent_launches('tiny', got, chip_smoke.xent_want(
+        model, 2, 64, 2, 'cpu'))
+    with pytest.raises(RuntimeError, match='cross-entropy launches'):
+        chip_smoke.check_xent_launches('tiny', got, chip_smoke.xent_want(
+            model, 2, 64, 3, 'cpu'))
+
+
+def test_bf16_ulps_and_max_rel():
+    a = torch.tensor([1.0, -3.0, 0.0, 1e-3])
+    up = torch.tensor([1.0 + 2 ** -7, -3.0, 0.0, 1e-3])
+    assert chip_smoke.bf16_ulps(up, a) == 1.0
+    assert chip_smoke.bf16_ulps(a, a) == 0.0
+    assert chip_smoke.bf16_ulps(a * 1.1, a) > 1.0
+    assert chip_smoke.max_rel(torch.tensor([2.0, 1.0]),
+                              torch.tensor([2.0, 0.5])) == 1.0
+
+
+def test_xent_bytes_and_rows():
+    """The byte bound of each kernel at gpt_small's head, and the rows of
+    the ``kernels`` line: a row per kernel and shape, its launches those
+    of the first path that gives that shape."""
+    r, v = chip_smoke.XE_SHAPES['gpt_small']
+    assert (r, v) == (16384, 32000)
+    assert chip_smoke.xent_bytes('fwd', r, v) == r * v * 2 + r * 16
+    assert chip_smoke.xent_bytes('bwd', r, v) == 2 * r * v * 2 + r * 16
+    recs = {name: {k: {'cuda_kernel': 'xent_%s_kernel<bf16>' % k,
+                       'errors': {}, 'ms': 1.0, 'plain_ms': 9.0,
+                       'bound_ms': 0.9, 'bound_by': 'bytes',
+                       'bound_share': 0.9} for k in ('fwd', 'bwd')}
+            for name in chip_smoke.XE_SHAPES}
+    rows = chip_smoke.xent_rows(recs, {
+        'gpt_small': {'gpt_small': {'fwd': 3, 'bwd': 3, 'plain': 0},
+                      'auto_strategy': {'fwd': 2, 'bwd': 2, 'plain': 0}},
+        'bert_large': {'bert_large': {'fwd': 2, 'bwd': 2, 'plain': 0}}})
+    assert [(row['name'], row['launches'], row['shape']) for row in rows] \
+        == [('cross_entropy_fwd_gpt_small', 3, [16384, 32000]),
+            ('cross_entropy_bwd_gpt_small', 3, [16384, 32000]),
+            ('cross_entropy_fwd_bert_large', 2, [4096, 30522]),
+            ('cross_entropy_bwd_bert_large', 2, [4096, 30522])]
+    assert rows[0]['launches_by_path'] == {'gpt_small': 3,
+                                           'auto_strategy': 2}
+    assert rows[1]['cuda_kernel'] == 'xent_bwd_kernel<bf16>'
+    assert rows[0]['source'] == chip_smoke.XE_SOURCE
+
+
 class _SmemLib:
     """fa_wgmma_smem / cb_* as the built libraries answer them: bytes by
     (kernel, head dim), 0 where the head dim takes no wgmma kernel."""
